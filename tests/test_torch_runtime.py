@@ -1,0 +1,228 @@
+"""The port's MSMClient lifecycle on the CPU (device="cpu"), against the
+oracle and blaze_tpu's client, and the port's import and device rules.
+
+Covers the three set_data modes, the streaming order (start_process before
+set_data), the task FIFO, precomputed multiples and the error paths; checks
+that blaze_tpu_torch and chip_smoke.py import neither jax nor blaze_tpu, and
+that the entry points default to CUDA and raise without it.
+"""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from blaze_tpu.runtime import MSMClient as RefMSMClient, MSMInit as RefMSMInit
+from blaze_tpu.runtime import MSMInput as RefMSMInput, MSMParams as RefMSMParams
+from blaze_tpu_torch.curves import (
+    CURVES,
+    decode_projective_result,
+    encode_affine_points,
+    encode_scalars,
+)
+from blaze_tpu_torch.fields import words_to_int
+from blaze_tpu_torch.oracle import ECOracle, random_msm_instance
+from blaze_tpu_torch.oracle.gen import points_to_affine_words
+from blaze_tpu_torch.runtime import (
+    DeviceContext,
+    MSMClient,
+    MSMInit,
+    MSMInput,
+    MSMParams,
+)
+from blaze_tpu_torch.utils import DeviceError, InvalidPrimitiveParam, NotReady
+
+# One intra-op thread: the plain versions run many tiny ops, on which
+# torch's OpenMP workers only spin, and the suite runs several
+# processes at once.
+torch.set_num_threads(1)
+
+REPO = Path(__file__).resolve().parent.parent
+N = 32
+CURVE = "bn254"
+
+
+def wire_input(seed=50, n=N):
+    spec = CURVES[CURVE]
+    points, scalars, expected, _ = random_msm_instance(spec, n, seed)
+    return encode_affine_points(points, spec), encode_scalars(scalars, spec), expected
+
+
+def affine(raw: bytes):
+    """z||y||x result bytes -> affine ints (the oracle's normalisation)."""
+    spec = CURVES[CURVE]
+    X, Y, Z = (words_to_int(v) for v in decode_projective_result(raw, spec))
+    p = spec.fq.p
+    zi = pow(Z, -1, p)
+    return (X * zi % p, Y * zi % p)
+
+
+def cpu_client(**kw):
+    return MSMClient(MSMInit(curve=CURVE, **kw), device="cpu")
+
+
+def test_dma_mode_matches_oracle_and_reference_client():
+    praw, sraw, expected = wire_input()
+    client = cpu_client(mem_type="dma")
+    img = client.loaded_binary_parameters()
+    assert img.fields["point_bytes"] == 64 and img.fields["result_bytes"] == 96
+    client.initialize(MSMParams(nof_elements=N))
+    client.set_data(MSMInput(scalars=sraw, points=praw))
+    client.start_process()
+    client.wait_result()
+    res = client.result()
+    assert len(res.result) == 96 and res.label == 0
+    assert affine(res.result) == expected
+
+    ref = RefMSMClient(RefMSMInit(curve="BN254", mem_type="dma"))
+    ref.initialize(RefMSMParams(nof_elements=N))
+    ref.set_data(RefMSMInput(scalars=sraw, points=praw))
+    ref.start_process()
+    assert affine(ref.result().result) == affine(res.result)
+
+
+def test_hbm_point_cache_and_scalar_only_reuse():
+    spec = CURVES[CURVE]
+    points, scalars, expected, dbg = random_msm_instance(spec, N, 50)
+    praw, sraw = encode_affine_points(points, spec), encode_scalars(scalars, spec)
+    sraw2 = encode_scalars(scalars[::-1], spec)   # new scalars, same points
+    expected2 = ECOracle(spec).msm(dbg["points"], dbg["scalars"][::-1])
+    client = cpu_client(mem_type="hbm")
+    params = MSMParams(nof_elements=N, hbm_point_addr="bank0")
+    client.initialize(params)
+    client.set_data(MSMInput(scalars=sraw, points=praw))          # mode 2
+    client.start_process()
+    assert affine(client.result().result) == expected
+    client.set_data(MSMInput(scalars=sraw2))                      # mode 3
+    client.start_process()
+    assert affine(client.result().result) == expected2
+    assert encode_affine_points(client.get_data_from_hbm("bank0"), spec) == praw
+
+
+def test_streaming_order_and_task_fifo():
+    """initialize -> start_process -> set_data chunks -> result, including
+    a streamed scalars-only pass over cached points, then two queued tasks
+    popped in label order."""
+    praw, sraw, expected = wire_input()
+    spec = CURVES[CURVE]
+    pb, sb, half = spec.point_bytes, spec.scalar_bytes, N // 2
+    client = cpu_client()
+    client.initialize(MSMParams(nof_elements=N))
+    client.start_process()
+    assert client.get_api()["streamed_elements"] == 0
+    client.set_data(MSMInput(scalars=sraw[: half * sb], points=praw[: half * pb]))
+    with pytest.raises(NotReady):
+        client.wait_result()                   # half the elements fed
+    client.set_data(MSMInput(scalars=sraw[half * sb:], points=praw[half * pb:]))
+    assert affine(client.result().result) == expected
+
+    client.load_data_to_hbm("k", praw)
+    client.initialize(MSMParams(nof_elements=N, hbm_point_addr="k"))
+    client.start_process()
+    for lo in (0, half):
+        client.set_data(MSMInput(scalars=sraw[lo * sb:(lo + half) * sb]))
+    assert affine(client.result().result) == expected
+
+    client.set_data(MSMInput(scalars=sraw, points=praw))
+    client.start_process()
+    client.start_process()
+    assert client.pending_tasks == 2 and not client.is_msm_engine_ready()
+    labels = [client.result().label, client.result().label]
+    assert labels == [2, 3] and client.result() is None
+
+
+def test_precompute_factor_8_matches_oracle():
+    spec = CURVES[CURVE]
+    oracle = ECOracle(spec)
+    points, scalars, expected, dbg = random_msm_instance(spec, 4, seed=9)
+    shift = 32
+    expanded = []
+    for x, y in dbg["points"]:                 # point-major wire order
+        pt = (x, y)
+        for _ in range(8):
+            expanded.append(pt)
+            pt = oracle.mul(pt, 1 << shift)
+    client = cpu_client(precompute_factor=8)
+    client.initialize(MSMParams(nof_elements=4))
+    client.set_data(MSMInput(scalars=encode_scalars(scalars, spec),
+                             points=encode_affine_points(
+                                 points_to_affine_words(spec, expanded), spec)))
+    client.start_process()
+    assert affine(client.result().result) == expected
+
+
+def test_error_paths():
+    praw, sraw, _ = wire_input()
+    spec = CURVES[CURVE]
+    client = cpu_client()
+    with pytest.raises(NotReady):
+        client.start_process()                 # no params, no data
+    with pytest.raises(NotReady):
+        client.set_data(MSMInput(scalars=sraw))  # no MSMParams yet
+    client.initialize(MSMParams(nof_elements=N))
+    with pytest.raises(InvalidPrimitiveParam):
+        client.set_data(MSMInput(scalars=sraw, points=praw[: -spec.point_bytes]))
+    with pytest.raises(InvalidPrimitiveParam):
+        client.set_data(MSMInput(scalars=sraw[: -spec.scalar_bytes], points=praw))
+    with pytest.raises(NotReady):
+        client.set_data(MSMInput(scalars=sraw))  # scalars-only, nothing cached
+    client.start_process()                     # opens a stream
+    with pytest.raises(NotReady):
+        client.start_process()                 # stream already open
+    client.set_data(MSMInput(scalars=sraw, points=praw))
+    with pytest.raises(InvalidPrimitiveParam):
+        client.set_data(MSMInput(scalars=sraw[: spec.scalar_bytes],
+                                 points=praw[: spec.point_bytes]))  # overflow
+    assert client.result() is not None
+
+
+def test_entry_points_default_to_cuda_and_raise_without_it():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is valid here")
+    with pytest.raises(DeviceError):
+        MSMClient(MSMInit())
+    with pytest.raises(DeviceError):
+        DeviceContext()
+    ctx = DeviceContext(device="cpu")
+    assert ctx.device.type == "cpu" and ctx.health().ok()
+
+
+def _imports(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    files = sorted((REPO / "blaze_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert len(files) > 20
+    bad = [(f.name, m) for f in files for m in _imports(f)
+           if m.split(".")[0] in ("jax", "jaxlib", "blaze_tpu")]
+    assert bad == []
+
+
+def test_cpu_msm_loads_no_jax():
+    code = (
+        "import sys\n"
+        "from blaze_tpu_torch.runtime import MSMClient, MSMInit, MSMInput, MSMParams\n"
+        "from blaze_tpu_torch.curves import CURVES, encode_affine_points, encode_scalars\n"
+        "from blaze_tpu_torch.oracle import random_msm_instance\n"
+        "spec = CURVES['bn254']\n"
+        "p, s, _, _ = random_msm_instance(spec, 8, 1)\n"
+        "c = MSMClient(MSMInit(curve='bn254'), device='cpu')\n"
+        "c.initialize(MSMParams(nof_elements=8))\n"
+        "c.set_data(MSMInput(scalars=encode_scalars(s, spec), points=encode_affine_points(p, spec)))\n"
+        "c.start_process()\n"
+        "assert len(c.result().result) == 96\n"
+        "assert 'jax' not in sys.modules and 'blaze_tpu' not in sys.modules\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
