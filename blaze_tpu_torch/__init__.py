@@ -2,9 +2,10 @@
 
 A port of the JAX package `blaze_tpu`, which stays beside it as the
 reference: multi-limb Montgomery field arithmetic, complete elliptic-curve
-ops and the fused Pippenger MSM behind the reference's five-phase
-`MSMClient` lifecycle (`blaze/src/driver_client/dclient.rs:24-46`).
-Every Pallas kernel of that path is a hand-written CUDA kernel for sm_90a
+ops, the fused Pippenger MSM and the fused NTT (up to 2^27) behind the
+reference's five-phase `MSMClient` and `NTTClient` lifecycles
+(`blaze/src/driver_client/dclient.rs:24-46`).
+Every Pallas kernel of those paths is a hand-written CUDA kernel for sm_90a
 (`csrc/`), built with nvcc at first use (`_build.py`); each has a plain
 PyTorch version beside it that CPU tensors run.  Entry points default to the
 `cuda` device and raise when there is none, unless the caller passes

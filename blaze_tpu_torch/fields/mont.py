@@ -113,6 +113,24 @@ class Field:
         """Batched inverse via Fermat: a^(p-2). inv(0) = 0."""
         return self.pow(a, self.spec.p - 2)
 
+    # ------------------------------------------------------------ power sets
+    def powers(self, base_mont: torch.Tensor, n: int) -> torch.Tensor:
+        """[b^0, b^1, ..., b^(n-1)] as (n, W) Montgomery words on b's device.
+
+        Log-doubling: log2(n) batched products (K1) — the twiddle generator
+        of the NTT plans."""
+        out = self.one((1,), base_mont.device)
+        if n <= 1:
+            return out[:n]
+        cur = base_mont.reshape(1, self.nwords)          # b^(2^k) walker
+        while out.shape[0] < n:
+            k = out.shape[0]
+            take = min(k, n - k)
+            out = torch.cat([out, self.mul(out[:take], cur)])   # b^k .. b^(k+take-1)
+            if out.shape[0] < n:
+                cur = self.mul(cur, cur)
+        return out
+
     # ------------------------------------------------------- host transfers
     def from_int(self, values, mont=True, device="cpu"):
         """Python ints -> (len, W) words on `device` (Montgomery by default)."""

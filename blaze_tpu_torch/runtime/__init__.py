@@ -6,6 +6,9 @@ from .clients import (
     MSMParams,
     MSMInput,
     MSMResult,
+    NTTClient,
+    NTTInit,
+    NTTInput,
 )
 
 __all__ = [
@@ -19,4 +22,7 @@ __all__ = [
     "MSMParams",
     "MSMInput",
     "MSMResult",
+    "NTTClient",
+    "NTTInit",
+    "NTTInput",
 ]

@@ -1,10 +1,10 @@
-"""The MSM client — the ingo_msm module analog.
+"""The MSM and NTT clients — the ingo_msm and ingo_ntt module analogs.
 
 API shape follows the reference's client 1:1 (init struct -> lifecycle
 methods -> wire-format results), with the CUDA stream supplying the
 queue/poll machinery the FPGA exposes as registers.
 
-Both lifecycle orders work.  set_data -> start_process stages the full
+For the MSM both lifecycle orders work.  set_data -> start_process stages the full
 operand set, then runs the MSM.  The reference's own order — initialize ->
 start_process -> set_data (the FPGA consumes the DMA stream after the task
 is queued, msm_api.rs:113-220) — opens a STREAMING task: each set_data chunk
@@ -12,6 +12,7 @@ is transferred and its per-window partials computed at once, so the full
 operand set is never resident at once.
 
 MSM <- blaze/src/ingo_msm/msm_api.rs
+NTT <- blaze/src/ingo_ntt/ntt_api.rs
 """
 from __future__ import annotations
 
@@ -31,6 +32,7 @@ from ..curves import (
     decode_scalars,
     encode_projective_result,
 )
+from ..fields import FIELDS, FieldSpec
 from ..msm import (
     MSM,
     MSMConfig,
@@ -40,10 +42,12 @@ from ..msm import (
     scalars_to_resident,
     split_scalars,
 )
+from ..ntt import make_ntt
 from .device import DeviceContext
 from .primitive import DriverPrimitive, ImageParams, timed
 from ..utils.errors import (
     BlazeError,
+    DataError,
     DeviceError,
     InvalidPrimitiveParam,
     NotReady,
@@ -390,6 +394,196 @@ class MSMClient(DriverPrimitive):
             "streamed_elements": (
                 None if self._stream is None else self._stream["consumed"]
             ),
+            "timings": dataclasses.asdict(self._timings),
+            "health": dataclasses.asdict(self.ctx.health()),
+        }
+
+
+# ============================================================== NTT client
+@dataclasses.dataclass
+class NTTInit:
+    """ntt_api.rs analog; size is configurable here (fixed 2^27 there)."""
+
+    field: object                  # FieldSpec or name in fields.FIELDS
+    logn: int
+
+
+@dataclasses.dataclass
+class NTTInput:
+    """ntt_api.rs:72-87 analog: raw LE bytes + host buffer index."""
+
+    data: object                   # bytes or (n, W) canonical uint32 words
+    buf_host: int = 0              # double-buffer slot (ntt_data.rs:54-56)
+
+
+class NTTClient(DriverPrimitive):
+    """Double-buffered NTT: two device slots, start/wait per slot — the
+    pipelined flow of integration_ntt.rs:103-136.
+
+    No Montgomery conversion pass runs, at any size: canonical bytes in give
+    canonical bytes out.  The twiddles are Montgomery representatives, so the
+    linear map computed in representation space sends representatives to
+    representatives — input words c represent c/R, output words are
+    R*(NTT(c)/R) = NTT(c).  The bytes equal blaze_tpu's client, whose
+    small-size path converts explicitly.
+
+    On the card every slot has a pinned host buffer and the copies run on a
+    side stream: a pageable copy on the compute stream would queue behind
+    the running transform and block the host.  `start_process` makes the
+    compute stream wait for the slot's upload, enqueues the transform and
+    returns; `wait_result(buf)` waits on that slot's event only; `result(buf)`
+    drains through the slot's pinned buffer once that slot is done, while
+    the other slot keeps computing.
+    """
+
+    NOF_BUFFERS = 2
+
+    def __init__(self, init: NTTInit, ctx: Optional[DeviceContext] = None,
+                 inverse: bool = False, device: Optional[str] = None):
+        super().__init__()
+        self.spec: FieldSpec = (
+            init.field if isinstance(init.field, FieldSpec) else FIELDS[init.field]
+        )
+        self.logn = init.logn
+        self.ctx = ctx or DeviceContext(device=device)
+        self.plan = make_ntt(self.spec, init.logn, device=self.ctx.device)
+        self.inverse = inverse
+        self._cuda = self.ctx.device.type == "cuda"
+        self._copy_stream = torch.cuda.Stream(self.ctx.device) if self._cuda else None
+        self._slots = [None] * self.NOF_BUFFERS      # staged: (input, upload event)
+        self._results = [None] * self.NOF_BUFFERS    # in flight: (output, done event)
+        self._pinned = [None] * self.NOF_BUFFERS     # per-slot pinned host buffers
+        self._pinned_busy = [None] * self.NOF_BUFFERS  # last copy through each
+
+    def loaded_binary_parameters(self) -> ImageParams:
+        return ImageParams(
+            "ntt",
+            {
+                "field": self.spec.name,
+                "logn": self.logn,
+                "element_bytes": self.spec.nbytes,
+                "buffers": self.NOF_BUFFERS,
+            },
+        )
+
+    def initialize(self, param=None) -> None:
+        """No-op (the reference writes disabled debug regs, ntt_api.rs:37-56)."""
+
+    def _words(self, data) -> np.ndarray:
+        """Wire bytes (a zero-copy view) or words -> (n, W) int32 words."""
+        n, W = 1 << self.logn, self.spec.nwords
+        if isinstance(data, (bytes, bytearray, memoryview)):
+            raw = np.frombuffer(data, dtype=np.uint8)
+            if raw.size % self.spec.nbytes:
+                raise DataError(
+                    f"{raw.size} B is not a multiple of the "
+                    f"{self.spec.nbytes} B element size"
+                )
+            words = raw.view("<u4").reshape(-1, W)
+        else:
+            words = np.asarray(data, dtype=np.uint32)
+            if words.ndim != 2 or words.shape[1] != W:
+                raise DataError(f"want (n, {W}) words, got {words.shape}")
+        if words.shape[0] != n:
+            raise InvalidPrimitiveParam(f"want {n} elements, got {words.shape[0]}")
+        return words.view(np.int32)
+
+    def _staging(self, buf: int) -> torch.Tensor:
+        """The slot's pinned host buffer, once its last copy has finished."""
+        if self._pinned[buf] is None:
+            self._pinned[buf] = torch.empty(
+                (1 << self.logn, self.spec.nwords), dtype=torch.int32, pin_memory=True
+            )
+        elif self._pinned_busy[buf] is not None:
+            self._pinned_busy[buf].synchronize()
+        return self._pinned[buf]
+
+    def set_data(self, input: NTTInput) -> None:
+        """Stage one input vector in a slot (ntt_api.rs:72-87)."""
+        with timed(self._timings, "set_data_s"):
+            buf = input.buf_host
+            words = self._words(input.data)
+            if not self._cuda:
+                self._slots[buf] = (torch.from_numpy(words.copy()), None)
+                return
+            pinned = self._staging(buf)
+            pinned.numpy()[:] = words
+            with torch.cuda.stream(self._copy_stream):
+                dev = torch.empty(pinned.shape, dtype=torch.int32, device=self.ctx.device)
+                dev.copy_(pinned, non_blocking=True)
+                uploaded = torch.cuda.Event()
+                uploaded.record()
+            self._pinned_busy[buf] = uploaded
+            self._slots[buf] = (dev, uploaded)
+
+    def start_process(self, buf_kernel: int = 0) -> None:
+        """Enqueue the transform on a buffer and return (AP_CTRL start,
+        ntt_api.rs:58-70).  The slot's input is consumed: the client drops
+        it, as blaze_tpu donates it."""
+        slot = self._slots[buf_kernel]
+        if slot is None:
+            raise NotReady(f"buffer {buf_kernel} empty")
+        self._slots[buf_kernel] = None
+        with timed(self._timings, "start_s"):
+            self._push_task()
+            x, uploaded = slot
+            fn = self.plan.intt if self.inverse else self.plan.ntt
+            if not self._cuda:
+                self._results[buf_kernel] = (fn(x), None)
+                return
+            stream = torch.cuda.current_stream(self.ctx.device)
+            stream.wait_event(uploaded)
+            x.record_stream(stream)          # allocated on the copy stream
+            out = fn(x)
+            done = torch.cuda.Event()
+            done.record(stream)
+            self._results[buf_kernel] = (out, done)
+
+    def wait_result(self, buf_kernel: Optional[int] = None) -> None:
+        """ap_done poll analog (ntt_api.rs:89-108).  With a buffer index,
+        waits only for that buffer — the other slot keeps computing, which
+        is the point of the double-buffered overlap
+        (integration_ntt.rs:103-136)."""
+        with timed(self._timings, "wait_s"):
+            targets = (
+                self._results if buf_kernel is None else [self._results[buf_kernel]]
+            )
+            for r in targets:
+                if r is not None and r[1] is not None:
+                    r[1].synchronize()
+
+    def result(self, buf_kernel: int = 0) -> Optional[bytes]:
+        """Drain a buffer back to LE bytes (ntt_api.rs:110-125)."""
+        r = self._results[buf_kernel]
+        if r is None:
+            return None
+        self._results[buf_kernel] = None
+        self._pop_task()
+        out, done = r
+        # int32 words on a little-endian host: their bytes are the wire format
+        if not self._cuda:
+            return out.numpy().tobytes()
+        pinned = self._staging(buf_kernel)
+        with torch.cuda.stream(self._copy_stream):
+            self._copy_stream.wait_event(done)
+            pinned.copy_(out, non_blocking=True)
+            out.record_stream(self._copy_stream)
+            drained = torch.cuda.Event()
+            drained.record()
+        self._pinned_busy[buf_kernel] = drained
+        drained.synchronize()
+        return pinned.numpy().tobytes()
+
+    def get_api(self) -> dict:
+        """Register-dump analog (the NTT HLS control/status surface,
+        ntt_hw_code.rs:6-83)."""
+        return {
+            "buffers": {
+                i: ("busy" if self._results[i] is not None
+                    else "staged" if self._slots[i] is not None else "empty")
+                for i in range(self.NOF_BUFFERS)
+            },
+            "pending_tasks": self.pending_tasks,
             "timings": dataclasses.asdict(self._timings),
             "health": dataclasses.asdict(self.ctx.health()),
         }

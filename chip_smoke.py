@@ -19,9 +19,28 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    Phases 3 and 4 use 256 points of the order-r subgroup tiled and
    distinct scalars drawn uniformly from [0, r); the expected value is the
    oracle MSM of the 256 points with each point's coefficient sum mod r,
-   and the result bytes must match it after z-normalisation.  Launch counts are zeroed just before
-   each and read just after; every kernel of the path must have launched.
-5. the kernels line: launches in phases 3-4, parity error, times, bounds.
+   and the result bytes must match it after z-normalisation.
+5. NTT kernel parity: K7-K9 against their plain versions, exact, on
+   bn254_fr, bls12_377_fr and bls12_381_fr at small shapes (K7 in and out
+   of place, K8 with 2 and 3 operands, K9 with B = 1 and B > 1); then at
+   the 2^27 transform's shapes on bls12_381_fr with times and bounds, each
+   compared with its plain version on a cut of 2^20 elements (the plain
+   versions hold ~2 KB of int64 per element);
+6. main path, NTT client at 2^27 on bls12_381_fr: three random vectors,
+   each transformed serially and then in the reference's double-buffered
+   order (integration_ntt.rs:103-136); each pipelined output must equal
+   the serial one, come back to its input through the inverse client
+   byte for byte, and equal the input polynomial evaluated at W^k at 11
+   indices (Field.powers, K1 products and integer sums on the card, no
+   NTT kernel); a sparse input must match host sums at 64 indices;
+7. NTT client at 2^16 (the K8 twiddle fallback) and 2^20 (K9, both
+   branches) against an independent host NTT in Python ints, with inverse
+   roundtrips, and every committed tests/fixtures/ntt_* golden pair.
+   Launch counts are zeroed just before each client run of phases 3, 4, 6
+   and 7 and read just after; every kernel of the run's path must have
+   launched.
+8. the seconds each phase took, then the kernels line: launches in those
+   runs, parity error, times, bounds.
 
 The last line is {"ok": true, "device": {...}}; the line before it is the
 card's name and power limit as nvidia-smi prints them.  Without a CUDA
@@ -44,7 +63,7 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 IMAD_PER_CLK_PER_SM = 64           # 32-bit integer multiply-add, CC 9.0
 
 # launch-counter name -> (source, the TPU kernel's pallas_call it replaces);
-# in PERF.md's table these are K1-K6 in this order
+# in PERF.md's table these are K1-K9 in this order
 KERNELS = {
     "mont_mul": ("blaze_tpu_torch/csrc/montmul.cu", "blaze_tpu/fields/mxu.py:250"),
     "scan_mixed": ("blaze_tpu_torch/csrc/ec_kernels.cu", "blaze_tpu/curves/kernels.py:248"),
@@ -52,7 +71,11 @@ KERNELS = {
     "reduce_cols": ("blaze_tpu_torch/csrc/ec_kernels.cu", "blaze_tpu/curves/kernels.py:343"),
     "dbl_n": ("blaze_tpu_torch/csrc/ec_kernels.cu", "blaze_tpu/curves/kernels.py:508"),
     "fold_horner": ("blaze_tpu_torch/csrc/ec_kernels.cu", "blaze_tpu/curves/kernels.py:444"),
+    "ntt_base": ("blaze_tpu_torch/csrc/ntt_kernels.cu", "blaze_tpu/ntt/kernels.py:102"),
+    "mul_lm": ("blaze_tpu_torch/csrc/ntt_kernels.cu", "blaze_tpu/ntt/kernels.py:168"),
+    "twiddle_mul": ("blaze_tpu_torch/csrc/ntt_kernels.cu", "blaze_tpu/ntt/kernels.py:252"),
 }
+NTT_FIELDS = ("bn254_fr", "bls12_377_fr", "bls12_381_fr")
 
 
 def emit(obj) -> None:
@@ -255,10 +278,24 @@ def work_bound_ms(name: str, shape: dict, W: int, imad_rate: float):
     (inputs read once, outputs written once) over HBM bandwidth and its
     32-bit multiply-adds over the card's IMAD rate.  A W-word Montgomery
     product needs 2W^2 full 32x32->64 products (2 IMADs each) and W low
-    products (4W^2 + W IMADs); alg 8 has 13 products, alg 7 has 14."""
+    products (4W^2 + W IMADs); alg 8 has 13 products, alg 7 has 14.  K7
+    does (K/2)(log2 K - 1) products per lane (stage 0 has no twiddle), K9
+    two per element, K8 one per operand past the first."""
     per_mul = 4 * W * W + W
     pt = 3 * W * 4                                # bytes of one projective point
-    if name == "mont_mul":
+    el = W * 4                                    # bytes of one field element
+    if name == "ntt_base":
+        K, N = shape["K"], shape["lanes"]
+        muls = (K // 2) * (K.bit_length() - 2) * N
+        nbytes = 2 * K * N * el + K * el
+    elif name == "twiddle_mul":
+        A, J, S, B = shape["A"], shape["J"], shape["S"], shape["B"]
+        muls = 2 * A * J * S * B
+        nbytes = 2 * A * J * S * B * el + A * (J + S) * el
+    elif name == "mul_lm":
+        M, N, k = shape["M"], shape["N"], shape["operands"]
+        muls, nbytes = (k - 1) * M * N, (k + 1) * M * N * el
+    elif name == "mont_mul":
         muls, nbytes = shape["M"], 3 * shape["M"] * W * 4
     elif name == "scan_mixed":
         C, B = shape["C"], shape["B"]
@@ -379,7 +416,8 @@ def phase_main_path(seed: int):
     for phase, run, needs in [
         ("streamed", lambda: run_streamed(1 << 20, 4, seed),
          ("mont_mul", "scan_mixed", "ec_add", "reduce_cols", "dbl_n")),
-        ("single_chunk", lambda: run_single(1 << 19, seed + 1), tuple(KERNELS)),
+        ("single_chunk", lambda: run_single(1 << 19, seed + 1),
+         ("mont_mul", "scan_mixed", "ec_add", "reduce_cols", "dbl_n", "fold_horner")),
     ]:
         _build.reset_launches()
         ok, info = run()
@@ -388,12 +426,400 @@ def phase_main_path(seed: int):
               "launches": counts})
         if not ok:
             raise AssertionError(f"{phase}: result differs from the oracle")
-        missing = [k for k in needs if counts[k] == 0]
-        if missing:
-            raise AssertionError(f"{phase}: kernels never launched: {missing}")
+        check_launches(phase, counts, needs)
         for k, v in counts.items():
             launches[k] = launches.get(k, 0) + v
     return launches
+
+
+# ------------------------------------------------------------ phase 5
+def rand_words(spec, shape, seed: int, device):
+    """int32 words of canonical values below 2^(bits-1) < p, the word axis
+    at dim 1 (kernel layouts (R, W, N) and tables (K, W))."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randint(-(1 << 31), (1 << 31) - 1, shape, generator=g,
+                      dtype=torch.int32, device=device)
+    top = spec.bits - 1 - 32 * (spec.nwords - 1)
+    x.select(1, spec.nwords - 1).bitwise_and_((1 << top) - 1)
+    return x
+
+
+def ntt_kernel_cases(spec, seed: int, device):
+    """(name, kernel call, plain call, shape) for K7-K9 at small shapes,
+    every branch: K7 out of and in place, K8 with 2 and 3 operands, K9 with
+    B = 1 and B > 1 (and in place)."""
+    from blaze_tpu_torch.ntt import NTTKernels
+
+    k = NTTKernels.for_spec(spec)
+    W = spec.nwords
+    cases = []
+    for i, (K, B) in enumerate(((2, 300), (8, 1000), (512, 37))):
+        x, pack = rand_words(spec, (K, W, B), seed + i, device), rand_words(
+            spec, (K, W), seed + 10 + i, device)
+        cases.append(("ntt_base", lambda x=x, pack=pack: k.ntt_base(x, pack),
+                      lambda x=x, pack=pack: k.ntt_base_plain(x, pack), {"K": K, "lanes": B}))
+    x, pack = rand_words(spec, (512, W, 64), seed + 3, device), rand_words(spec, (512, W), seed + 4, device)
+    cases.append(("ntt_base", lambda: (lambda c: k.ntt_base(c, pack, out=c))(x.clone()),
+                  lambda: k.ntt_base_plain(x, pack), {"K": 512, "lanes": 64, "in_place": 1}))
+    a, b, c = (rand_words(spec, (4, W, 1000), seed + 20 + i, device) for i in range(3))
+    cases.append(("mul_lm", lambda: k.mul_lm(a, b), lambda: k.mul_lm_plain(a, b),
+                  {"M": 4, "N": 1000, "operands": 2}))
+    cases.append(("mul_lm", lambda: k.mul_lm(a, b, c), lambda: k.mul_lm_plain(a, b, c),
+                  {"M": 4, "N": 1000, "operands": 3}))
+    for i, (A, J, S, B) in enumerate(((16, 8, 32, 1), (16, 4, 8, 24))):
+        y = rand_words(spec, (A, W, J * S * B), seed + 30 + i, device)
+        t1 = rand_words(spec, (A, W, J), seed + 40 + i, device)
+        t2 = rand_words(spec, (A, W, S), seed + 50 + i, device)
+        shape = {"A": A, "J": J, "S": S, "B": B}
+        cases.append(("twiddle_mul", lambda y=y, t1=t1, t2=t2, B=B: k.twiddle_mul(y, t1, t2, B),
+                      lambda y=y, t1=t1, t2=t2, B=B: k.twiddle_mul_plain(y, t1, t2, B), shape))
+        cases.append(("twiddle_mul",
+                      lambda y=y, t1=t1, t2=t2, B=B: (lambda o: k.twiddle_mul(o, t1, t2, B, out=o))(
+                          y.clone()),
+                      lambda y=y, t1=t1, t2=t2, B=B: k.twiddle_mul_plain(y, t1, t2, B),
+                      {**shape, "in_place": 1}))
+    return cases
+
+
+def ntt_main_timing(imad_rate: float, seed: int, device):
+    """K7-K9 at the shapes of the 2^27 bls12_381_fr transform (K8 at the
+    2^16 plan's twiddle cell, its only main-path use): time, bound, and the
+    kernel's output on a cut of at most 2^20 elements against the plain
+    version on the same cut."""
+    import torch
+
+    from blaze_tpu_torch.fields import FIELDS
+    from blaze_tpu_torch.ntt import FusedNTT
+    from blaze_tpu_torch.ntt.kernels import lane_cols
+
+    spec = FIELDS["bls12_381_fr"]
+    W = spec.nwords
+    plan = FusedNTT(spec, 27, device=device)
+    k = plan.kern
+    timing = {}
+
+    def measure(key, name, shape, kern, plain, cut, plain_shape, reps):
+        ms = cuda_ms(kern, reps)
+        want, plain_ms = once_ms(plain)
+        e = max_abs_err(cut(kern()), want)
+        bound, bound_by = work_bound_ms(name, shape, W, imad_rate)
+        timing[key] = {"shape": shape, "ms": ms, "plain_ms": plain_ms,
+                       "plain_shape": plain_shape, "bound_ms": bound,
+                       "bound_by": bound_by, "max_abs_err": e}
+        torch.cuda.empty_cache()
+
+    lanes, cut = 1 << 18, 1 << 11
+    x = rand_words(spec, (512, W, lanes), seed, device)
+    pack = plan._packs[(9, False)]
+    measure("ntt_base", "ntt_base", {"K": 512, "lanes": lanes}, lambda: k.ntt_base(x, pack),
+            lambda: k.ntt_base_plain(x[:, :, :cut].contiguous(), pack),
+            lambda o: o[:, :, :cut], {"K": 512, "lanes": cut}, 5)
+    del x
+    for key, depth, B in (("twiddle_mul", 0, 1), ("twiddle_mul_b512", 1, 512)):
+        t1, t2 = plan._tabs[(depth, False)]
+        J, S = t1.shape[2], t2.shape[2]
+        y = rand_words(spec, (512, W, J * S * B), seed + 1 + depth, device)
+        rows = 4
+        measure(key, "twiddle_mul", {"A": 512, "J": J, "S": S, "B": B},
+                lambda: k.twiddle_mul(y, t1, t2, B),
+                lambda: k.twiddle_mul_plain(y[:rows].contiguous(), t1[:rows].contiguous(),
+                                            t2[:rows].contiguous(), B),
+                lambda o: o[:rows], {"A": rows, "J": J, "S": S, "B": B}, 5)
+        del y
+    small = FusedNTT(spec, 16, device=device)
+    t1, t2 = small._tabs[(0, False)]
+    J, S = t1.shape[2], t2.shape[2]
+    jo, jl = lane_cols(J, S, 1, device)
+    tw1, tw2 = t1.index_select(2, jo).contiguous(), t2.index_select(2, jl).contiguous()
+    y = rand_words(spec, tw1.shape, seed + 3, device)
+    shape = {"M": tw1.shape[0], "N": tw1.shape[2], "operands": 3}
+    measure("mul_lm", "mul_lm", shape, lambda: k.mul_lm(y, tw1, tw2),
+            lambda: k.mul_lm_plain(y, tw1, tw2), lambda o: o, shape, 20)
+    return timing
+
+
+def phase_ntt_parity(imad_rate: float, seed: int, device):
+    import torch
+
+    from blaze_tpu_torch.fields import FIELDS
+
+    names = ("ntt_base", "mul_lm", "twiddle_mul")
+    errs = dict.fromkeys(names, 0)
+    for field in NTT_FIELDS:
+        checked = []
+        for name, kern, plain, shape in ntt_kernel_cases(FIELDS[field], seed, device):
+            e = max_abs_err(kern(), plain())
+            errs[name] = max(errs[name], e)
+            checked.append({"kernel": name, **shape, "max_abs_err": e})
+        torch.cuda.synchronize()
+        emit({"phase": "ntt_parity", "field": field, "shape": "small", "cases": checked})
+        if any(c["max_abs_err"] for c in checked):
+            raise AssertionError(f"{field}: NTT kernel differs from its plain version")
+    timing = ntt_main_timing(imad_rate, seed, device)
+    emit({"phase": "ntt_parity", "field": "bls12_381_fr", "shape": "main path (2^27)",
+          "kernels": timing})
+    for key, t in timing.items():
+        name = "twiddle_mul" if key.startswith("twiddle_mul") else key
+        errs[name] = max(errs[name], t["max_abs_err"])
+    if any(t["max_abs_err"] for t in timing.values()):
+        raise AssertionError("NTT kernel differs from its plain version at the main shapes")
+    return errs, timing
+
+
+# --------------------------------------------------------- phases 6 and 7
+def host_vector(n: int, seed: int, parts: int = 8):
+    """(n, 8) uint32 words of random values below 2^254 < p (bls12_381_fr):
+    the raw 64-bit output of `parts` numpy generators spawned from the seed,
+    filled in threads (numpy releases the GIL there), the top word masked as
+    bench.py:156-157 does."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    w = np.empty((n, 8), dtype=np.uint32)
+    flat = w.reshape(-1).view(np.uint64)
+    step = -(-flat.size // parts)
+
+    def fill(i, seq):
+        part = flat[i * step:(i + 1) * step]
+        part[:] = np.random.PCG64(seq).random_raw(part.size)
+
+    with ThreadPoolExecutor(parts) as ex:
+        list(ex.map(fill, range(parts), np.random.SeedSequence(seed).spawn(parts)))
+    w[:, 7] &= 0x3FFFFFFF
+    return w
+
+
+def host_ntt(vals, w: int, p: int):
+    """X[k] = sum_i vals[i] w^(ik) by recursive Cooley-Tukey on Python ints
+    (the algorithm of scripts/gen_ntt_vectors.py:43-57, which shares nothing
+    with either package)."""
+    n = len(vals)
+    if n == 1:
+        return vals[:]
+    even = host_ntt(vals[0::2], w * w % p, p)
+    odd = host_ntt(vals[1::2], w * w % p, p)
+    out = [0] * n
+    wk = 1
+    for k in range(n // 2):
+        t = wk * odd[k] % p
+        out[k] = (even[k] + t) % p
+        out[k + n // 2] = (even[k] - t) % p
+        wk = wk * w % p
+    return out
+
+
+def word_ints(words) -> list:
+    """(n, W) uint32 words -> Python ints."""
+    return [int.from_bytes(row.tobytes(), "little") for row in words]
+
+
+def evaluate_on_card(spec, x, root: int, ks, chunk: int = 1 << 22) -> list:
+    """sum_i x[i] root^(ik) mod p for each k, without any NTT kernel: per
+    chunk, Field.powers of root^k (K1) times root^(k c0), times x (K1:
+    canonical x against a Montgomery power gives the canonical product),
+    then the products' 16-bit limbs summed as integers on the card."""
+    import numpy as np
+    import torch
+
+    from blaze_tpu_torch.fields import Field, int_to_words
+    from blaze_tpu_torch.fields.kernel_ops import words_to_limbs16
+
+    f, p, W = Field(spec), spec.p, spec.nwords
+
+    def mont(v):
+        return torch.as_tensor(int_to_words(v * spec.r % p, W).view(np.int32),
+                               device=x.device)
+
+    chunk = min(chunk, x.shape[0])
+    out = []
+    for k in ks:
+        wk = pow(root, k, p)
+        base = f.powers(mont(wk), chunk)
+        acc = 0
+        for c0 in range(0, x.shape[0], chunk):
+            xs = x[c0:c0 + chunk]
+            prod = f.mul(xs, f.mul(base[: xs.shape[0]], mont(pow(wk, c0, p))))
+            cols = words_to_limbs16(prod).sum(dim=0).tolist()
+            acc += sum(c << (16 * i) for i, c in enumerate(cols))
+        out.append(acc % p)
+    return out
+
+
+def run_ntt_client(client, vec, buf: int = 0):
+    """set_data -> start_process -> wait_result -> result on one slot, with a
+    host barrier after set_data so the upload is not counted as transform
+    time.  Returns (bytes, phase seconds)."""
+    import torch
+
+    from blaze_tpu_torch.runtime import NTTInput
+
+    t0 = time.perf_counter()
+    client.set_data(NTTInput(data=vec, buf_host=buf))
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    client.start_process(buf)
+    client.wait_result(buf)
+    t2 = time.perf_counter()
+    out = client.result(buf)
+    t3 = time.perf_counter()
+    return out, {"set_data_s": t1 - t0, "start_to_wait_s": t2 - t1, "result_s": t3 - t2}
+
+
+def check_launches(phase: str, counts: dict, needs) -> None:
+    missing = [k for k in needs if counts[k] == 0]
+    if missing:
+        raise AssertionError(f"{phase}: kernels never launched: {missing}")
+
+
+def phase_ntt_2e27(seed: int, logn: int = 27) -> dict:
+    """Phase 6; returns the launch counts of the client run."""
+    import numpy as np
+    import torch
+
+    from blaze_tpu_torch import _build
+    from blaze_tpu_torch.fields import FIELDS, int_to_words
+    from blaze_tpu_torch.runtime import NTTClient, NTTInit, NTTInput
+
+    spec = FIELDS["bls12_381_fr"]
+    n, p = 1 << logn, spec.p
+    root = spec.root_of_unity(logn)
+    t0 = time.perf_counter()
+    vecs = [host_vector(n, seed + i) for i in range(3)]
+    gen_s = time.perf_counter() - t0
+
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    fwd = NTTClient(NTTInit(field="bls12_381_fr", logn=logn))
+    plan_s = time.perf_counter() - t0
+    serial, digests = [], []
+    for v in vecs:
+        out, secs = run_ntt_client(fwd, v)
+        serial.append(secs)
+        digests.append(np.frombuffer(out, "<u8").sum(dtype=np.uint64))
+        del out
+    # the reference's double-buffered order (integration_ntt.rs:103-136):
+    # start the kernel on one slot, drain and refill the other, then wait
+    outs = [None] * 3
+    t0 = time.perf_counter()
+    for i in range(3 + 2):
+        host, kern = i % 2, 1 - i % 2
+        if 1 <= i <= 3:
+            fwd.start_process(kern)
+        if i >= 2:
+            outs[i - 2] = fwd.result(host)
+        if i <= 2:
+            fwd.set_data(NTTInput(data=vecs[i], buf_host=host))
+            vecs[i] = None
+        if 1 <= i <= 3:
+            fwd.wait_result(kern)
+    pipelined_s = time.perf_counter() - t0
+    counts = dict(_build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    check_launches(f"ntt_2^{logn}", counts, ("ntt_base", "twiddle_mul"))
+    best = min(s["start_to_wait_s"] for s in serial)
+    serial_sum = sum(sum(s.values()) for s in serial)
+    emit({"phase": f"ntt_2^{logn}", "field": spec.name, "n": n, "input_gen_s": gen_s,
+          "plan_s": plan_s, "serial": serial,
+          "elements_per_s_one_transform": n / best,
+          "pipelined_3_s": pipelined_s, "serial_3_sum_s": serial_sum,
+          "overlapped": pipelined_s < serial_sum,
+          "max_memory_allocated_gib": peak / 2**30, "launches": counts})
+
+    # checks on each pipelined output: equal to the serial one, inverse
+    # roundtrip to the input bytes, and evaluations at sampled indices
+    rng = np.random.default_rng(seed)
+    ks = [0, 1, n - 1] + [int(v) for v in rng.integers(2, n - 1, size=8)]
+    inv = NTTClient(NTTInit(field="bls12_381_fr", logn=logn), inverse=True)
+    checks = []
+    for i in range(3):
+        o, outs[i] = outs[i], None
+        same = np.frombuffer(o, "<u8").sum(dtype=np.uint64) == digests[i]
+        got = word_ints(np.frombuffer(o, "<u4").reshape(n, 8)[ks])
+        inv.set_data(NTTInput(data=o, buf_host=0))
+        del o
+        inv.start_process(0)
+        v = host_vector(n, seed + i)
+        inv.wait_result(0)
+        back = inv.result(0)
+        roundtrip = np.array_equal(np.frombuffer(back, "<u4"), v.reshape(-1))
+        del back
+        xdev = torch.from_numpy(v.view(np.int32)).to(fwd.ctx.device)
+        del v
+        want = evaluate_on_card(spec, xdev, root, ks)
+        del xdev
+        checks.append({"vector": i, "equals_serial": bool(same), "roundtrip": roundtrip,
+                       "evaluations_match": got == want})
+    # a sparse input against host sums
+    rnd = random.Random(seed)
+    pos = rnd.sample(range(n), 16)
+    coef = [rnd.randrange(p) for _ in range(16)]
+    sp = np.zeros((n, 8), dtype=np.uint32)
+    for i, c in zip(pos, coef):
+        sp[i] = int_to_words(c, 8)
+    out, _ = run_ntt_client(fwd, sp)
+    del sp
+    kk = [0, 1, n - 1] + rnd.sample(range(2, n - 1), 61)
+    got = word_ints(np.frombuffer(out, "<u4").reshape(n, 8)[kk])
+    del out
+    want = [sum(c * pow(root, i * k, p) for i, c in zip(pos, coef)) % p for k in kk]
+    emit({"phase": f"ntt_2^{logn}_checks", "outputs": checks, "sparse_64_match": got == want,
+          "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30})
+    bad = [c for c in checks if not (c["equals_serial"] and c["roundtrip"]
+                                     and c["evaluations_match"])]
+    if bad or got != want:
+        raise AssertionError(f"ntt_2^{logn}: output check failed: {bad} sparse={got == want}")
+    return counts
+
+
+def phase_ntt_small(seed: int) -> dict:
+    """Phase 7; returns the launch counts of its client runs."""
+    import glob
+    import re
+
+    import numpy as np
+
+    from blaze_tpu_torch import _build
+    from blaze_tpu_torch.fields import FIELDS
+    from blaze_tpu_torch.runtime import NTTClient, NTTInit
+
+    spec = FIELDS["bls12_381_fr"]
+    total = {}
+    for logn, needs in ((16, ("ntt_base", "mul_lm")), (20, ("ntt_base", "twiddle_mul"))):
+        n = 1 << logn
+        v = host_vector(n, seed + logn)
+        _build.reset_launches()
+        fwd = NTTClient(NTTInit(field=spec.name, logn=logn))
+        out, secs = run_ntt_client(fwd, v)
+        counts = dict(_build.LAUNCHES)
+        check_launches(f"ntt_2^{logn}", counts, needs)
+        t0 = time.perf_counter()
+        want = host_ntt(word_ints(v), spec.root_of_unity(logn), spec.p)
+        host_s = time.perf_counter() - t0
+        ok = out == b"".join(x.to_bytes(spec.nbytes, "little") for x in want)
+        back, _ = run_ntt_client(NTTClient(NTTInit(field=spec.name, logn=logn), inverse=True), out)
+        rt = back == v.tobytes()
+        emit({"phase": f"ntt_2^{logn}", "n": n, **secs, "host_ntt_s": host_s,
+              "host_ntt": "match" if ok else "MISMATCH", "roundtrip": rt, "launches": counts})
+        if not (ok and rt):
+            raise AssertionError(f"ntt_2^{logn}: differs from the host NTT or roundtrip")
+        for k, c in counts.items():
+            total[k] = total.get(k, 0) + c
+    goldens = {}
+    for inf in sorted(glob.glob(str(ROOT / "tests" / "fixtures" / "ntt_*_2e*.in"))):
+        m = re.match(r"ntt_(.+)_2e(\d+)\.in$", Path(inf).name)
+        raw, want = Path(inf).read_bytes(), Path(inf[:-3] + ".out").read_bytes()
+        init = NTTInit(field=m.group(1), logn=int(m.group(2)))
+        out, _ = run_ntt_client(NTTClient(init), raw)
+        back, _ = run_ntt_client(NTTClient(init, inverse=True), want)
+        goldens[Path(inf).stem] = out == want and back == raw
+    emit({"phase": "ntt_goldens", "pairs": goldens})
+    if not goldens or not all(goldens.values()):
+        raise AssertionError(f"ntt goldens: {goldens}")
+    return total
 
 
 def main() -> int:
@@ -412,9 +838,26 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(ROOT))
 
-    card, imad_rate = phase_device()
-    errs, timing = phase_parity(imad_rate, torch.device("cuda"))
-    launches = phase_main_path(args.seed)
+    dev = torch.device("cuda")
+    seconds = {}
+
+    def timed_phase(name, fn, *a):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        seconds[name] = time.perf_counter() - t0
+        return out
+
+    card, imad_rate = timed_phase("device_and_build", phase_device)
+    errs, timing = timed_phase("msm_parity", phase_parity, imad_rate, dev)
+    launches = timed_phase("msm_clients", phase_main_path, args.seed)
+    ntt_errs, ntt_timing = timed_phase("ntt_parity", phase_ntt_parity, imad_rate, args.seed, dev)
+    errs.update(ntt_errs)
+    timing.update(ntt_timing)
+    for counts in (timed_phase("ntt_2^27", phase_ntt_2e27, args.seed),
+                   timed_phase("ntt_2^16_2^20_goldens", phase_ntt_small, args.seed)):
+        for k, v in counts.items():
+            launches[k] += v
+    emit({"phase_seconds": seconds})
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], "max_abs_err": errs[name],

@@ -3,11 +3,16 @@
     python -m pytest -m cuda tests/test_torch_cuda.py
 
 K1-K6 against their plain PyTorch versions on the same device inputs,
-exact, on all three curves; and the MSM client on the card against the
-oracle with distinct scalars.  chip_smoke.py runs the same checks at the
-main path's sizes.
+exact, on all three curves, and K7-K9 on the three scalar fields; the MSM
+client on the card against the oracle with distinct scalars; the NTT client
+on the card against every committed golden pair, and at 2^16 (the K8
+twiddle fallback) against a host NTT in Python ints with an inverse
+roundtrip.  chip_smoke.py runs the same checks at the main path's sizes.
 """
 import random
+from pathlib import Path
+
+import numpy as np
 
 import pytest
 import torch
@@ -20,11 +25,21 @@ from blaze_tpu_torch.curves import (
     encode_scalars,
 )
 from blaze_tpu_torch.curves.kernels import ECKernels
-from blaze_tpu_torch.fields import words_to_int
+from blaze_tpu_torch import _build
+from blaze_tpu_torch.fields import FIELDS, words_to_int
 from blaze_tpu_torch.fields.montmul import mont_mul, mont_mul_plain
 from blaze_tpu_torch.oracle import ECOracle, class_sum_expected
 from blaze_tpu_torch.oracle.gen import points_to_affine_words, scalars_to_limbs
-from blaze_tpu_torch.runtime import MSMClient, MSMInit, MSMInput, MSMParams
+from blaze_tpu_torch.ntt import NTTKernels
+from blaze_tpu_torch.runtime import (
+    MSMClient,
+    MSMInit,
+    MSMInput,
+    MSMParams,
+    NTTClient,
+    NTTInit,
+    NTTInput,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -83,3 +98,73 @@ def test_client_on_card_matches_oracle(dev):
     p = spec.fq.p
     zi = pow(Z, -1, p)
     assert (X * zi % p, Y * zi % p) == class_sum_expected(spec, upoints, scalars)
+
+
+def canonical(spec, shape, seed, dev):
+    """int32 words, word axis 1, of random values below 2^(bits-1) < p."""
+    w = np.random.default_rng(seed).integers(0, 1 << 32, size=shape, dtype=np.uint32)
+    w[:, -1] &= (1 << (spec.bits - 1 - 32 * (spec.nwords - 1))) - 1
+    return torch.from_numpy(w.view(np.int32)).to(dev)
+
+
+@pytest.mark.parametrize("field", ["bn254_fr", "bls12_377_fr", "bls12_381_fr"])
+def test_ntt_kernels_match_plain_versions(dev, field):
+    spec = FIELDS[field]
+    k, W = NTTKernels.for_spec(spec), spec.nwords
+    for K, B in ((2, 100), (512, 37)):
+        x, pack = canonical(spec, (K, W, B), K, dev), canonical(spec, (K, W), K + 1, dev)
+        want = k.ntt_base_plain(x, pack)
+        assert torch.equal(k.ntt_base(x, pack), want)
+        assert torch.equal(k.ntt_base(x, pack, out=x), want)         # in place
+    a, b, c = (canonical(spec, (4, W, 300), 10 + i, dev) for i in range(3))
+    assert torch.equal(k.mul_lm(a, b), k.mul_lm_plain(a, b))
+    assert torch.equal(k.mul_lm(a, b, c), k.mul_lm_plain(a, b, c))
+    for A, J, S, B in ((8, 4, 32, 1), (8, 4, 8, 24)):
+        y = canonical(spec, (A, W, J * S * B), 20, dev)
+        t1, t2 = canonical(spec, (A, W, J), 21, dev), canonical(spec, (A, W, S), 22, dev)
+        assert torch.equal(k.twiddle_mul(y, t1, t2, B), k.twiddle_mul_plain(y, t1, t2, B))
+
+
+def _host_ntt(vals, w, p):
+    """Recursive Cooley-Tukey on Python ints (scripts/gen_ntt_vectors.py)."""
+    n = len(vals)
+    if n == 1:
+        return vals[:]
+    even, odd = _host_ntt(vals[0::2], w * w % p, p), _host_ntt(vals[1::2], w * w % p, p)
+    out, wk = [0] * n, 1
+    for i in range(n // 2):
+        t = wk * odd[i] % p
+        out[i], out[i + n // 2] = (even[i] + t) % p, (even[i] - t) % p
+        wk = wk * w % p
+    return out
+
+
+def _run(client, data):
+    client.set_data(NTTInput(data=data))
+    client.start_process()
+    client.wait_result()
+    return client.result()
+
+
+def test_ntt_client_on_card_matches_goldens_and_host_ntt(dev):
+    fixtures = sorted((Path(__file__).parent / "fixtures").glob("ntt_*_2e*.in"))
+    assert fixtures
+    for inf in fixtures:
+        field, logn = inf.stem[4:].rsplit("_2e", 1)
+        init = NTTInit(field=field, logn=int(logn))
+        raw, want = inf.read_bytes(), inf.with_suffix(".out").read_bytes()
+        assert _run(NTTClient(init), raw) == want
+        assert _run(NTTClient(init, inverse=True), want) == raw
+
+    spec, logn = FIELDS["bls12_381_fr"], 16
+    rng = random.Random(4)
+    vals = [rng.randrange(spec.p) for _ in range(1 << logn)]
+    raw = b"".join(v.to_bytes(32, "little") for v in vals)
+    _build.reset_launches()
+    client = NTTClient(NTTInit(field=spec.name, logn=logn))
+    assert client.ctx.device.type == "cuda"
+    out = _run(client, raw)
+    assert _build.LAUNCHES["ntt_base"] == 2 and _build.LAUNCHES["mul_lm"] == 1
+    want = _host_ntt(vals, spec.root_of_unity(logn), spec.p)
+    assert out == b"".join(v.to_bytes(32, "little") for v in want)
+    assert _run(NTTClient(NTTInit(field=spec.name, logn=logn), inverse=True), out) == raw
