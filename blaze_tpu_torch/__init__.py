@@ -2,8 +2,9 @@
 
 A port of the JAX package `blaze_tpu`, which stays beside it as the
 reference: multi-limb Montgomery field arithmetic, complete elliptic-curve
-ops, the fused Pippenger MSM and the fused NTT (up to 2^27) behind the
-reference's five-phase `MSMClient` and `NTTClient` lifecycles
+ops, the fused Pippenger MSM, the fused NTT (up to 2^27) and the Poseidon
+8-ary Merkle tree behind the reference's five-phase `MSMClient`,
+`NTTClient` and `PoseidonClient` lifecycles
 (`blaze/src/driver_client/dclient.rs:24-46`).
 Every Pallas kernel of those paths is a hand-written CUDA kernel for sm_90a
 (`csrc/`), built with nvcc at first use (`_build.py`); each has a plain

@@ -23,7 +23,7 @@ from .utils.errors import DeviceError, LoadFailed
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "build" / "blaze_tpu_torch"
-SOURCES = ("montmul", "ec_kernels", "ntt_kernels")
+SOURCES = ("montmul", "ec_kernels", "ntt_kernels", "poseidon_kernels")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -34,7 +34,7 @@ NVCC_FLAGS = [
 # went through.
 LAUNCHES = dict.fromkeys(
     ("mont_mul", "scan_mixed", "ec_add", "reduce_cols", "dbl_n", "fold_horner",
-     "ntt_base", "mul_lm", "twiddle_mul"), 0
+     "ntt_base", "mul_lm", "twiddle_mul", "poseidon_perm"), 0
 )
 
 _LIBS: dict[str, ctypes.CDLL] = {}

@@ -25,7 +25,13 @@
 // The rules match kernel_ops.py:_add_f/_sub_f/_redc exactly (the lazy add
 // ignores the carry out, the sub adds the modulus back on borrow modulo R),
 // so the EC kernels' lazy outputs equal the JAX kernels' limb for limb.
-// The multi-p REDC of kernel_ops.py (subs > 1, Poseidon's MDS) is not here.
+//
+// Multi-p REDC (kernel_ops.py _redc with subs > 1, Poseidon's MDS rows):
+// mul_acc sums up to t unreduced W x W products into a 2W+1-word
+// accumulator, redc_sum reduces that sum once (the reduction half of the
+// CIOS) and brings the result, below (subs + 1) p, under p by conditional
+// subtractions of 2^b p.  The output is canonical, hence unique, so it
+// equals the JAX package's quotient-estimate form bit for bit.
 #pragma once
 
 #include <cstdint>
@@ -160,6 +166,73 @@ BLZ_DEVICE void fsub(uint32_t* r, const uint32_t* a, const uint32_t* b,
   const uint32_t borrow = sub_words<W>(d, a, b);
   add_words<W>(e, d, kLazy ? fc.p2 : fc.p);
   select_words<W>(r, borrow != 0, e, d);
+}
+
+// acc += a * b: the full 2W-word product (W^2 wide multiply-adds, no
+// reduction) added into the 2W+1-word accumulator.  The caller keeps the
+// sum below 2^(32(2W+1)).
+template <int W>
+BLZ_DEVICE void mul_acc(uint32_t* acc, const uint32_t* a, const uint32_t* b) {
+  uint32_t t[2 * W];
+#pragma unroll
+  for (int j = 0; j < 2 * W; ++j) t[j] = 0;
+#pragma unroll
+  for (int i = 0; i < W; ++i) {
+    const uint32_t bi = b[i];
+    uint64_t c = 0;
+#pragma unroll
+    for (int j = 0; j < W; ++j) {
+      c += (uint64_t)a[j] * bi + t[i + j];
+      t[i + j] = (uint32_t)c;
+      c >>= 32;
+    }
+    t[i + W] = (uint32_t)c;
+  }
+  uint64_t c = 0;
+#pragma unroll
+  for (int j = 0; j < 2 * W; ++j) {
+    c += (uint64_t)acc[j] + t[j];
+    acc[j] = (uint32_t)c;
+    c >>= 32;
+  }
+  acc[2 * W] += (uint32_t)c;
+}
+
+// r = (T + m p) / R mod p, canonical, for the 2W+1-word sum T in acc of up
+// to t products of canonical values (T < t p^2; acc is overwritten).  The
+// word-serial m digits form m = T (-p^-1) mod R, so the reduced value is
+// exactly (T + m p) / R < (subs + 1) p, subs = t p / R + 1; `mults` holds
+// the nm multiples 2^b p, b from high to low, W+1 words each, whose
+// conditional subtraction brings it below p (fields/kernel_ops.py
+// reduce_multiples).
+template <int W>
+BLZ_DEVICE void redc_sum(uint32_t* r, uint32_t* acc, const FieldConsts<W>& fc,
+                         const uint32_t* mults, int nm) {
+#pragma unroll
+  for (int i = 0; i < W; ++i) {
+    const uint32_t m = acc[i] * fc.n0;
+    uint64_t c = 0;
+#pragma unroll
+    for (int j = 0; j < W; ++j) {
+      c += (uint64_t)m * fc.p[j] + acc[i + j];
+      acc[i + j] = (uint32_t)c;
+      c >>= 32;
+    }
+#pragma unroll
+    for (int j = i + W; j <= 2 * W; ++j) {
+      c += acc[j];
+      acc[j] = (uint32_t)c;
+      c >>= 32;
+    }
+  }
+  uint32_t* u = acc + W;                 // W+1 words
+  for (int k = 0; k < nm; ++k) {
+    uint32_t d[W + 1];
+    const uint32_t borrow = sub_words<W + 1>(d, u, mults + k * (W + 1));
+    select_words<W + 1>(u, borrow == 0, d, u);
+  }
+#pragma unroll
+  for (int j = 0; j < W; ++j) r[j] = u[j];
 }
 
 }  // namespace blz

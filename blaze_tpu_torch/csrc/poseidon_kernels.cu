@@ -1,0 +1,120 @@
+// K10: the whole Poseidon permutation of (t, W, B) lanes-major states.
+//
+// Replaces blaze_tpu/hash/kernels.py PoseidonKernels._perm_fn (the
+// pallas_call at :207) behind permute_lm: r_f/2 full rounds, r_p partial
+// rounds, r_f/2 full rounds of ARK, x^5 S-box and MDS mix, with the
+// optional canonical -> Montgomery conversion of the input (convert_in).
+// Every value stays canonical (< p).  The TPU kernel's byte-plane int8
+// matmul for the MDS and its 128-lane padding are TPU workarounds left out:
+// here an MDS row is t unreduced products summed in 2W+1 words and one
+// multi-p REDC (field.cuh mul_acc / redc_sum), which is the TPU kernel's
+// structure and half the work of t^2 full Montgomery products.
+//
+// Bound on the H100: 32-bit integer multiply-adds.  Per state: 3 full
+// products per S-box (4W^2 + W IMADs each), 2W^2 per unreduced MDS product,
+// about 2W^2 + W per row REDC — about 1.49 M IMADs for t = 12 (r_p 60) and
+// 0.93 M for t = 9 (r_p 63) at W = 8, against 768 B (t = 12) read and
+// written: the bytes are ~0.3% of the time.
+//
+// Design: one thread per state, 64 states per block.  A state is t*W words
+// (96 at t = 12) and the MDS needs the old state while it writes the new
+// one, so both live in shared memory, one column per thread
+// ([(e * W + w) * 64 + thread]: neighbouring threads on neighbouring banks),
+// 2 t W 4 * 64 B per block (48 KB at t = 12).  Loads and stores of the state
+// in device memory are coalesced ((e, w, b) at (e * W + w) * B + b).  Each
+// thread reads its whole state before it writes any of it, so the kernel
+// may run in place (o == x).  Rounds, elements and rows stay rolled
+// (poseidon.cuh).  The constants come by pointer, so back-to-back launches
+// of different instances never share a constant symbol.
+#include <cuda_runtime.h>
+
+#include "poseidon.cuh"
+
+namespace {
+
+constexpr int kThreads = 64;
+
+template <int W>
+__global__ void __launch_bounds__(kThreads)
+poseidon_perm_kernel(const uint32_t* x, uint32_t* o, int64_t B, int convert_in,
+                     const uint32_t* __restrict__ pc, blz::PoseidonShape sh,
+                     blz::FieldConsts<W> fc) {
+  extern __shared__ uint32_t sm[];
+  const int64_t b = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  if (b >= B) return;                    // no barrier below: threads are independent
+  const int words = sh.t * W;
+  uint32_t* cur = sm + threadIdx.x;
+  uint32_t* nxt = cur + words * kThreads;
+  for (int i = 0; i < words; ++i) cur[i * kThreads] = x[(int64_t)i * B + b];
+  const uint32_t* res =
+      blz::poseidon_permute<W>(cur, nxt, kThreads, convert_in != 0, pc, sh, fc);
+  for (int i = 0; i < words; ++i) o[(int64_t)i * B + b] = res[i * kThreads];
+}
+
+template <int W>
+int launch(const uint32_t* consts, const void* pc, blz::PoseidonShape sh,
+           const void* x, void* o, int64_t B, int convert_in, cudaStream_t stream) {
+  const size_t smem = (size_t)2 * sh.t * W * kThreads * sizeof(uint32_t);
+  cudaError_t err = cudaFuncSetAttribute(
+      poseidon_perm_kernel<W>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int64_t blocks = (B + kThreads - 1) / kThreads;
+  poseidon_perm_kernel<W><<<(unsigned)blocks, kThreads, smem, stream>>>(
+      (const uint32_t*)x, (uint32_t*)o, B, convert_in, (const uint32_t*)pc, sh,
+      blz::load_consts<W>(consts));
+  return (int)cudaGetLastError();
+}
+
+// The multi-p REDC on its own, for checks: o[:, b] = (sum_j a[j, :, b] *
+// c[j, :, b]) / R mod p for t pairs of canonical (t, W, B) inputs — one MDS
+// row's work (field.cuh mul_acc + redc_sum).
+template <int W>
+__global__ void __launch_bounds__(256)
+sum_products_kernel(const uint32_t* __restrict__ a, const uint32_t* __restrict__ c,
+                    uint32_t* __restrict__ o, int t, int64_t B,
+                    const uint32_t* __restrict__ mults, int nm, blz::FieldConsts<W> fc) {
+  const int64_t b = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+  uint32_t acc[2 * W + 1], x[W], y[W];
+#pragma unroll
+  for (int j = 0; j < 2 * W + 1; ++j) acc[j] = 0;
+  for (int j = 0; j < t; ++j) {
+#pragma unroll
+    for (int w = 0; w < W; ++w) {
+      x[w] = a[((int64_t)j * W + w) * B + b];
+      y[w] = c[((int64_t)j * W + w) * B + b];
+    }
+    blz::mul_acc<W>(acc, x, y);
+  }
+  blz::redc_sum<W>(x, acc, fc, mults, nm);
+#pragma unroll
+  for (int w = 0; w < W; ++w) o[(int64_t)w * B + b] = x[w];
+}
+
+}  // namespace
+
+// consts: the host FieldConsts block; pc: the instance's device constant
+// block (poseidon.cuh).  Only 8-word fields are instantiated (every scalar
+// field the clients hash over); any other W is refused.
+extern "C" int blz_poseidon_perm(int W, const uint32_t* consts, const void* pc, int t,
+                                 int r_f, int r_p, int nm, const void* x, void* o,
+                                 int64_t B, int convert_in, void* stream) {
+  if (B <= 0) return 0;
+  if (W != 8 || t < 2 || t > 16 || nm < 1 || r_f < 0 || r_p < 0)
+    return (int)cudaErrorInvalidValue;
+  const blz::PoseidonShape sh{t, r_f, r_p, nm};
+  return launch<8>(consts, pc, sh, x, o, B, convert_in, (cudaStream_t)stream);
+}
+
+// mults: device pointer to the nm multiples 2^b p (W+1 words each).
+extern "C" int blz_sum_products(int W, const uint32_t* consts, const void* a, const void* c,
+                                void* o, int t, int64_t B, const void* mults, int nm,
+                                void* stream) {
+  if (B <= 0) return 0;
+  if (W != 8 || t < 1 || nm < 1) return (int)cudaErrorInvalidValue;
+  const int64_t blocks = (B + 255) / 256;
+  sum_products_kernel<8><<<(unsigned)blocks, 256, 0, (cudaStream_t)stream>>>(
+      (const uint32_t*)a, (const uint32_t*)c, (uint32_t*)o, t, B, (const uint32_t*)mults,
+      nm, blz::load_consts<8>(consts));
+  return (int)cudaGetLastError();
+}

@@ -1,11 +1,13 @@
 """Plain PyTorch twin of the CUDA field library (csrc/field.cuh, K0).
 
 `PlainFieldOps` computes exactly what field.cuh's device functions compute
-— the Montgomery product, add and sub in either reduction discipline — on
+— the Montgomery product, add and sub in either reduction discipline, and
+the multi-p reduction of a sum of products (`redc_sum`) — on
 int64 tensors of 16-bit limbs (torch on the CPU has no uint32 shifts or
 adds, and a 16x16-bit product is exact in int64).  It is what the plain
-versions of the kernels (fields/montmul.py, curves/kernels.py) run, so the
-CPU tests hold the kernels' arithmetic against the JAX package.
+versions of the kernels (fields/montmul.py, curves/kernels.py,
+ntt/kernels.py, hash/kernels.py) run, so the CPU tests hold the kernels'
+arithmetic against the JAX package.
 
 The carry helpers here (`normalize`, `sub_limbs`, `cond_sub`) take the limb
 width as an argument: 16 for these limbs, 32 for the Field's word-level
@@ -55,8 +57,7 @@ def limbs16_to_words(x: torch.Tensor) -> torch.Tensor:
 # --------------------------------------------------------- carry helpers
 def _shift_up(v: torch.Tensor, d: int) -> torch.Tensor:
     """v moved up by d positions along the last axis (zero fill)."""
-    z = torch.zeros((*v.shape[:-1], d), dtype=v.dtype, device=v.device)
-    return torch.cat([z, v[..., :-d]], dim=-1)
+    return torch.nn.functional.pad(v[..., :-d], (d, 0))
 
 
 def _kogge_stone(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
@@ -101,24 +102,52 @@ def cond_sub(limbs: torch.Tensor, top: torch.Tensor, m: torch.Tensor, bits: int)
     return torch.where(((top > 0) | (borrow == 0))[..., None], sub, limbs)
 
 
+_SELECTORS: dict = {}
+
+
+def _diag_selector(La: int, Lb: int, width: int, device) -> torch.Tensor:
+    """(Lb*La, width) float64 0/1 matrix sending product (j, i) to column
+    i + j (dropped at or past `width`)."""
+    key = (La, Lb, width, str(device))
+    sel = _SELECTORS.get(key)
+    if sel is None:
+        j, i = torch.meshgrid(torch.arange(Lb), torch.arange(La), indexing="ij")
+        col = (i + j).reshape(-1)
+        sel = torch.zeros(Lb * La, width, dtype=torch.float64)
+        keep = col < width
+        sel[torch.arange(Lb * La)[keep], col[keep]] = 1.0
+        sel = _SELECTORS[key] = sel.to(device)
+    return sel
+
+
 def conv_cols(a: torch.Tensor, b: torch.Tensor, width: int) -> torch.Tensor:
     """Lazy-carry column sums of the integer product of limb vectors a, b
-    (16-bit int64 limbs), each product split into lo/hi 16-bit halves so
-    every column stays below 2^23.  Shear-reshape form of
-    blaze_tpu fields/mont.py:_conv_cols."""
+    (16-bit int64 limbs), the first `width` columns, each below 2^17.
+
+    Each column is one exact float64 sum of at most min(La, Lb) products
+    below 2^32 (below 2^53 for any limb count used here), gathered by a
+    0/1 selector matrix; two carry folds bring the columns below 2^17
+    without changing the value mod 2^(16 width) (blaze_tpu
+    fields/mont.py:_conv_cols computes the same value)."""
     La, Lb = a.shape[-1], b.shape[-1]
     prod = a[..., None, :] * b[..., :, None]            # (*batch, Lb, La)
     batch = prod.shape[:-2]
-    lo = prod & _M16
-    hi = prod >> 16
-    rows = torch.nn.functional.pad(lo, (0, 1)) + torch.nn.functional.pad(hi, (1, 0))
-    W = max(width, La + Lb + 1)
-    rows = torch.nn.functional.pad(rows, (0, W + 1 - (La + 1)))
-    flat = rows.reshape(*batch, Lb * (W + 1))[..., : Lb * W]
-    return flat.reshape(*batch, Lb, W).sum(dim=-2)[..., :width]
+    cols = (prod.reshape(*batch, Lb * La).double()
+            @ _diag_selector(La, Lb, width, prod.device)).long()
+    for _ in range(2):
+        cols = (cols & _M16) + _shift_up(cols >> 16, 1)
+    return cols
 
 
 # --------------------------------------------------------------- constants
+def reduce_multiples(spec: FieldSpec, terms: int) -> list:
+    """The multiples 2^b p, b from high to low, whose conditional
+    subtraction brings a reduced sum of `terms` products (below
+    (subs + 1) p, subs = terms*p // R + 1) below p."""
+    subs = terms * spec.p // spec.r + 1
+    return [spec.p << b for b in reversed(range(subs.bit_length()))]
+
+
 def consts_host(spec: FieldSpec, b3_mont: int = 0) -> np.ndarray:
     """The constant block every kernel takes (csrc/field.cuh FieldConsts):
     p, 2p, R mod p, 3b*R mod p as W words each, then -p^-1 mod 2^32."""
@@ -172,6 +201,41 @@ class PlainFieldOps:
         if self.lazy:
             return limbs
         return cond_sub(limbs, top + t[..., 2 * L] + q[..., 2 * L], p, 16)
+
+    def redc_sum(self, t: torch.Tensor, terms: int) -> torch.Tensor:
+        """Multi-p Montgomery reduction (field.cuh redc_sum): t holds the
+        (..., 2L+1) lazy column sums of up to `terms` products of canonical
+        values, T < terms * p^2.  Returns the canonical (T + m p)/R mod p,
+        m = T(-p^-1) mod R.  The reduced value is below (subs + 1) p with
+        subs = terms*p // R + 1 (blaze_tpu hash/kernels.py:92); conditional
+        subtractions of 2^b p, b from high to low (`reduce_multiples`),
+        bring it below p.  Canonical only."""
+        if self.lazy:
+            raise ValueError("redc_sum gives canonical values only")
+        spec, L = self.spec, self.L
+        dev = t.device
+        p = self.const(spec.p, dev)
+        t_lo, c_lo = normalize(t[..., :L], 16)
+        m, _ = normalize(conv_cols(t_lo, self.const(spec.nprime, dev), L), 16)
+        q = conv_cols(m, p, 2 * L + 1)
+        _, c1 = normalize(t_lo + q[..., :L], 16)
+        limbs, top = normalize(t[..., L : 2 * L] + q[..., L : 2 * L], 16,
+                               carry_in=c1 + c_lo)
+        x = torch.cat([limbs, (top + t[..., 2 * L] + q[..., 2 * L])[..., None]], dim=-1)
+        for mult in reduce_multiples(spec, terms):
+            sub, borrow = sub_limbs(x, self._wide(mult, dev), 16)
+            x = torch.where((borrow == 0)[..., None], sub, x)
+        return x[..., :L]
+
+    def _wide(self, value: int, device) -> torch.Tensor:
+        """(L+1,) int64 limbs of a constant below 2^(16(L+1))."""
+        key = ("wide", value, str(device))
+        t = self._consts.get(key)
+        if t is None:
+            t = self._consts[key] = torch.as_tensor(
+                int_to_limbs(value, self.L + 1).astype(np.int64), device=device
+            )
+        return t
 
     def _modulus(self, device) -> torch.Tensor:
         return self.const((2 if self.lazy else 1) * self.spec.p, device)

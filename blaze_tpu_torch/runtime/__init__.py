@@ -9,6 +9,9 @@ from .clients import (
     NTTClient,
     NTTInit,
     NTTInput,
+    PoseidonClient,
+    PoseidonInitializeParameters,
+    PoseidonResult,
 )
 
 __all__ = [
@@ -25,4 +28,7 @@ __all__ = [
     "NTTClient",
     "NTTInit",
     "NTTInput",
+    "PoseidonClient",
+    "PoseidonInitializeParameters",
+    "PoseidonResult",
 ]

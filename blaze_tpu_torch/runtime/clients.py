@@ -1,4 +1,5 @@
-"""The MSM and NTT clients — the ingo_msm and ingo_ntt module analogs.
+"""The MSM, NTT and Poseidon clients — the ingo_msm, ingo_ntt and ingo_hash
+module analogs.
 
 API shape follows the reference's client 1:1 (init struct -> lifecycle
 methods -> wire-format results), with the CUDA stream supplying the
@@ -13,12 +14,16 @@ operand set is never resident at once.
 
 MSM <- blaze/src/ingo_msm/msm_api.rs
 NTT <- blaze/src/ingo_ntt/ntt_api.rs
+Poseidon <- blaze/src/ingo_hash/poseidon_api.rs
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
 import logging
+import threading
+import time
+import warnings
 from typing import Optional
 
 import numpy as np
@@ -33,6 +38,15 @@ from ..curves import (
     encode_projective_result,
 )
 from ..fields import FIELDS, FieldSpec
+from ..hash import (
+    ARITY,
+    LEAF_ARITY,
+    MerkleTreeBuilder,
+    TreeMode,
+    TreeResult,
+    base_layer_size,
+    params_from_csv,
+)
 from ..msm import (
     MSM,
     MSMConfig,
@@ -158,6 +172,10 @@ class MSMClient(DriverPrimitive):
         # consumed as they arrive, per-window partials accumulate on
         # device, the fold runs at wait_result.
         self._stream: Optional[dict] = None
+        # set_data, start_process, wait_result and result read-modify-write
+        # _stream and the queues: a feeder thread and a drainer thread may
+        # share the client, as the reference's DMA thread does
+        self._lock = threading.RLock()
 
     def loaded_binary_parameters(self) -> ImageParams:
         spec = self.curve.spec
@@ -196,14 +214,17 @@ class MSMClient(DriverPrimitive):
             st, bits = split_scalars(st, k, spec.fr.bits)
         return n, _device_put(scalars_to_resident(st), self.ctx), bits
 
-    def _stage_points(self, points, n: int) -> torch.Tensor:
-        """Wire bytes or words for n bases -> resident device points."""
+    def _stage_points(self, points, n: Optional[int] = None) -> torch.Tensor:
+        """Wire bytes or words for n bases (k*n points; any multiple of k
+        when n is None) -> resident device points, multiple-major."""
         spec = self.curve.spec
         k = self.init.precompute_factor
         if isinstance(points, (bytes, bytearray, memoryview)):
             pts = decode_affine_points(points, spec)
         else:
             pts = np.asarray(points, dtype=np.uint32)
+        if n is None:
+            n = pts.shape[0] // k
         if pts.shape[0] != k * n:
             raise InvalidPrimitiveParam(
                 f"want {k * n} points (precompute_factor={k}), got {pts.shape[0]}"
@@ -215,6 +236,22 @@ class MSMClient(DriverPrimitive):
             pts = pts.reshape(n, k, 2, -1).transpose(1, 0, 2, 3).reshape(k * n, 2, -1)
         return points_to_resident(self.curve, _device_put(_as_i32(pts), self.ctx))
 
+    def _cached_points(self, key, n: int) -> torch.Tensor:
+        """The resident points cached under `key`, checked to hold the k*n
+        multiple-major columns a task over n bases reads."""
+        if key is None or key not in self._hbm_cache:
+            raise NotReady(
+                f"scalars-only set_data needs points cached under hbm_point_addr (key={key!r})"
+            )
+        cache = self._hbm_cache[key]
+        k = self.init.precompute_factor
+        if cache.shape[1] != k * n:
+            raise InvalidPrimitiveParam(
+                f"cache {key!r} holds {cache.shape[1]} points, the task needs "
+                f"{k * n} (nof_elements={n}, precompute_factor={k})"
+            )
+        return cache
+
     def set_data(self, input: MSMInput) -> None:
         """Three modes (msm_api.rs:122-220):
         1. points + scalars (DMA);
@@ -225,8 +262,12 @@ class MSMClient(DriverPrimitive):
         reference's order, msm_api.rs:156-217) each call stages one chunk
         and computes its per-window partials at once, so the full operand
         set never has to be resident."""
-        if self._stream is not None:
-            return self._set_data_stream(input)
+        with self._lock:
+            if self._stream is not None:
+                return self._set_data_stream(input)
+            return self._set_data_staged(input)
+
+    def _set_data_staged(self, input: MSMInput) -> None:
         with timed(self._timings, "set_data_s"):
             params = input.params or self._params
             if params is None:
@@ -247,15 +288,17 @@ class MSMClient(DriverPrimitive):
                     self._hbm_cache[key] = dev      # mode 2: load-to-HBM
                 self._points = dev
             else:
-                if key is None or key not in self._hbm_cache:
-                    raise NotReady(
-                        "scalars-only set_data needs points cached under "
-                        f"hbm_point_addr (key={key!r})"
-                    )
-                self._points = self._hbm_cache[key]  # mode 3: reuse
+                self._points = self._cached_points(key, n)  # mode 3: reuse
 
     def _set_data_stream(self, input: MSMInput) -> None:
-        """One streamed chunk: stage + compute its window partials."""
+        """One streamed chunk: stage it, then compute and accumulate the
+        window partials of each 2^chunk_log2 slice of it, as MSM.__call__
+        slices a large input.  Caller holds the lock."""
+        if input.params is not None:
+            raise InvalidPrimitiveParam(
+                "a streamed chunk cannot carry params: the open task's were "
+                "fixed by initialize()"
+            )
         with timed(self._timings, "set_data_s"):
             st = self._stream
             params = self._params
@@ -268,13 +311,7 @@ class MSMClient(DriverPrimitive):
             if input.points is not None:
                 pdev = self._stage_points(input.points, nchunk)
             else:
-                key = params.hbm_point_addr
-                if key is None or key not in self._hbm_cache:
-                    raise NotReady(
-                        "streamed scalars-only chunks need points cached "
-                        f"under hbm_point_addr (key={key!r})"
-                    )
-                cache = self._hbm_cache[key]
+                cache = self._cached_points(params.hbm_point_addr, params.nof_elements)
                 lo, hi = st["consumed"], st["consumed"] + nchunk
                 k = self.init.precompute_factor
                 if k > 1:
@@ -288,8 +325,11 @@ class MSMClient(DriverPrimitive):
                 else:
                     pdev = cache[:, lo:hi]
 
-            part = self.engine.msm_partial(pdev, sdev, st["c"], scalar_bits)
-            st["wsums"] = self.engine.accumulate(st["wsums"], part)
+            step = 1 << self.engine.config.chunk_log2
+            for a in range(0, pdev.shape[1], step):
+                part = self.engine.msm_partial(pdev[:, a:a + step], sdev[:, a:a + step],
+                                               st["c"], scalar_bits)
+                st["wsums"] = self.engine.accumulate(st["wsums"], part)
             st["consumed"] += nchunk
 
     # ------------------------------------------------------------ lifecycle
@@ -301,6 +341,10 @@ class MSMClient(DriverPrimitive):
         Called BEFORE set_data (with a task size from initialize()), it
         opens a streaming task — the reference's own order (initialize ->
         start_process -> set_data, msm_api.rs:113-217)."""
+        with self._lock:
+            self._start_process()
+
+    def _start_process(self) -> None:
         if self._stream is not None:
             raise NotReady(
                 f"streaming task open ({self._stream['consumed']} of "
@@ -331,6 +375,10 @@ class MSMClient(DriverPrimitive):
         analog, msm_api.rs:222-238).  An open streaming task is closed
         here: all declared elements must have been fed, the accumulated
         window partials are folded, and the device is synchronized."""
+        with self._lock:
+            self._wait_result()
+
+    def _wait_result(self) -> None:
         if self._stream is not None:
             st = self._stream
             n = self._params.nof_elements
@@ -349,17 +397,18 @@ class MSMClient(DriverPrimitive):
 
     def result(self, param=None) -> Optional[MSMResult]:
         """Pop the oldest completed task (POP_RESULT, msm_api.rs:240-274)."""
-        if self._stream is not None:
-            self.wait_result()      # close the streaming task (fold + sync)
-        if not self._inflight:
-            return None
-        self.wait_result()
-        label, out = self._inflight.popleft()
+        with self._lock:
+            if self._stream is not None:
+                self._wait_result()     # close the streaming task (fold + sync)
+            if not self._inflight:
+                return None
+            self._wait_result()
+            label, out = self._inflight.popleft()
+            popped = self._pop_task()
         proj = self.curve.fq.from_mont(out)            # (3, W) canonical
         raw = encode_projective_result(
             proj.cpu().numpy().view(np.uint32), self.curve.spec
         )
-        popped = self._pop_task()
         if popped is not None and popped != label:
             # FIFO divergence between the task-label queue and the
             # in-flight result queue is a framework bug, not a user error.
@@ -371,12 +420,10 @@ class MSMClient(DriverPrimitive):
 
     # -------------------------------------------------------- HBM helpers
     def load_data_to_hbm(self, key: str, points) -> None:
-        """Explicit point residency (msm_api.rs:299-311)."""
-        spec = self.curve.spec
-        if isinstance(points, (bytes, bytearray, memoryview)):
-            points = decode_affine_points(points, spec)
-        dev = _device_put(_as_i32(np.asarray(points, np.uint32)), self.ctx)
-        self._hbm_cache[key] = points_to_resident(self.curve, dev)
+        """Explicit point residency (msm_api.rs:299-311): wire order, each
+        base followed by its precompute_factor - 1 multiples, stored in the
+        engine's multiple-major layout as the set_data path stores it."""
+        self._hbm_cache[key] = self._stage_points(points)
 
     def get_data_from_hbm(self, key: str) -> np.ndarray:
         """Read back cached points, canonical words (msm_api.rs:313-322)."""
@@ -583,6 +630,348 @@ class NTTClient(DriverPrimitive):
                     else "staged" if self._slots[i] is not None else "empty")
                 for i in range(self.NOF_BUFFERS)
             },
+            "pending_tasks": self.pending_tasks,
+            "timings": dataclasses.asdict(self._timings),
+            "health": dataclasses.asdict(self.ctx.health()),
+        }
+
+
+# ========================================================== Poseidon client
+@dataclasses.dataclass
+class PoseidonInitializeParameters:
+    """poseidon_api.rs:20-24 analog.
+
+    The reference loads one opaque CSV instruction stream
+    (poseidon_api.rs:205-243); here the leaf (t=12) and node (t=9)
+    instances are separate oracle-checkable constant sets, each loadable
+    from its own CSV.
+
+    `stream_leaves` > 0 enables the reference's feed-while-hashing
+    behavior (integration_poseidon.rs:81-119): every time that many
+    complete leaf columns have been fed, their leaf hashes are launched
+    at once instead of waiting for start_process — results become
+    drainable (drain_stream) before the last element arrives.  TREE_C
+    only."""
+
+    tree_height: int
+    tree_mode: TreeMode = TreeMode.TREE_C
+    instruction_path: Optional[str] = None       # leaf constants CSV
+    node_instruction_path: Optional[str] = None  # node constants CSV
+    stream_leaves: int = 0                       # leaves per streamed block
+
+
+@dataclasses.dataclass
+class PoseidonResult:
+    """poseidon_api.rs:36-71 analog: 32 B hash + ids."""
+
+    hash: bytes
+    hash_id: int
+    layer_id: int
+
+
+class PoseidonClient(DriverPrimitive):
+    """The 8-ary Poseidon tree client (ingo_hash analog).
+
+    Elements arrive as wire bytes (32 B little-endian each) or as (k, L)
+    16-bit limb arrays, any count per call, and are kept as (k, W) word
+    arrays.  For a TREE_C build the columns go to the card once as they lie,
+    (nleaves*11, W) words, and are permuted there to the lanes-major
+    (11, W, nleaves) layout the leaf sponge reads; repeated start_process
+    calls reuse them.  Result records are 64 B: the 32 B hash, then
+    hash_id in the low 30 bits and layer_id above (poseidon_api.rs:42-71).
+    """
+
+    def __init__(self, field="bls12_381_fr", ctx: Optional[DeviceContext] = None,
+                 device: Optional[str] = None):
+        super().__init__()
+        self.spec: FieldSpec = field if isinstance(field, FieldSpec) else FIELDS[field]
+        self.ctx = ctx or DeviceContext(device=device)
+        self._param: Optional[PoseidonInitializeParameters] = None
+        self._builder: Optional[MerkleTreeBuilder] = None
+        # Elements accumulate as whole (k, W) word arrays, not one Python
+        # object per element (the reference streams 32 B records by DMA,
+        # poseidon_api.rs:117-122).
+        self._chunks: list = []
+        self._count: int = 0
+        self._staged = None          # device-side lanes-major leaf columns
+        self._stage_s = 0.0          # seconds of the last staging (copy + permute)
+        self._tree: Optional[TreeResult] = None
+        # streaming build state (stream_leaves > 0): leaf-hash blocks
+        # launched as elements arrive; guarded by a lock so a feeder
+        # thread and a drainer thread can share the client the way the
+        # reference's rayon pair shares its Arc<Mutex<PoseidonClient>>
+        self._lock = threading.RLock()
+        self._stream_parts: list = []   # (W, n) Montgomery leaf hashes per block
+        self._stream_hashed = 0         # leaves hashed so far
+        self._stream_drained = 0        # stream_parts already drained
+        self._stream_off = 0            # elements consumed from _chunks[0]
+
+    def loaded_binary_parameters(self) -> ImageParams:
+        return ImageParams(
+            "poseidon",
+            {
+                "field": self.spec.name,
+                "element_bytes": self.spec.nbytes,
+                "leaf_arity": LEAF_ARITY,
+                "tree_arity": ARITY,
+            },
+        )
+
+    def initialize(self, param: PoseidonInitializeParameters) -> None:
+        """Reset + constants load + tree params (poseidon_api.rs:96-111)."""
+        leaf_params = node_params = None
+        if param.instruction_path:
+            leaf_params = params_from_csv(self.spec, param.instruction_path, LEAF_ARITY + 1)
+        if param.node_instruction_path:
+            node_params = params_from_csv(self.spec, param.node_instruction_path, ARITY + 1)
+        builder = MerkleTreeBuilder(self.spec, leaf_params=leaf_params,
+                                    node_params=node_params, device=self.ctx.device)
+        with self._lock:
+            self._param = param
+            self._builder = builder
+            self._chunks.clear()
+            self._count = 0
+            self._staged = None
+            self._tree = None
+            self._stream_parts.clear()
+            self._stream_hashed = 0
+            self._stream_drained = 0
+            self._stream_off = 0
+
+    def set_data(self, data) -> None:
+        """Stream elements (poseidon_api.rs:117-122); the reference feeds
+        11 elements per leaf (integration_poseidon.rs:151-155).  Accepts
+        one element or ANY number of elements per call — wire bytes (kept
+        as a zero-copy view) or a (k, L) 16-bit limb array."""
+        with timed(self._timings, "set_data_s"):
+            if isinstance(data, (bytes, bytearray, memoryview)):
+                raw = np.frombuffer(data, dtype=np.uint8)
+                if raw.size % self.spec.nbytes:
+                    raise DataError(f"{raw.size} B is not a multiple of the "
+                                    f"{self.spec.nbytes} B element size")
+                words = raw.view("<u4").reshape(-1, self.spec.nwords)
+            else:
+                limbs = np.asarray(data)
+                if limbs.shape[-1] != self.spec.nlimbs:
+                    raise DataError(f"want (k, {self.spec.nlimbs}) limbs, got {limbs.shape}")
+                words = np.ascontiguousarray(limbs, dtype="<u2").view("<u4").reshape(
+                    -1, self.spec.nwords)
+            with self._lock:
+                self._chunks.append(words)
+                self._count += words.shape[0]
+                self._staged = None  # new data invalidates the residency
+                self._maybe_stream()
+
+    def _to_device(self, words: np.ndarray) -> torch.Tensor:
+        """(k, W) uint32 host words -> int32 device tensor (the host array,
+        possibly a read-only view of the caller's bytes, is never written)."""
+        with warnings.catch_warnings():
+            warnings.filterwarnings("ignore", message="The given NumPy array is not writable")
+            host = torch.from_numpy(np.ascontiguousarray(words).view(np.int32))
+        return _device_put(host, self.ctx)
+
+    def _columns_lm(self, words: np.ndarray, nleaf: int) -> torch.Tensor:
+        """(nleaf*11, W) host words -> (11, W, nleaf) lanes-major columns on
+        the device: one contiguous copy, then a permute there."""
+        dev = self._to_device(words)
+        return dev.reshape(nleaf, LEAF_ARITY, -1).permute(1, 2, 0).contiguous()
+
+    # ------------------------------------------- streaming (feed-while-hash)
+    def _take_elems(self, count: int) -> np.ndarray:
+        """Consume `count` elements from the front of the chunk queue."""
+        out, need = [], count
+        while need:
+            head = self._chunks[0]
+            avail = head.shape[0] - self._stream_off
+            take = min(avail, need)
+            out.append(head[self._stream_off : self._stream_off + take])
+            self._stream_off += take
+            need -= take
+            if self._stream_off == head.shape[0]:
+                self._chunks.pop(0)
+                self._stream_off = 0
+        return out[0] if len(out) == 1 else np.concatenate(out, axis=0)
+
+    def _dispatch_leaf_block(self, nleaf: int) -> None:
+        """Launch the leaf sponge of the next `nleaf` complete columns."""
+        cols = self._columns_lm(self._take_elems(nleaf * LEAF_ARITY), nleaf)
+        self._stream_parts.append((self._builder.hash_leaves_staged(cols), nleaf))
+        self._stream_hashed += nleaf
+
+    def _maybe_stream(self) -> None:
+        """Launch leaf hashing for every complete streamed block.  Caller
+        holds the lock."""
+        p = self._param
+        if (p is None or p.stream_leaves <= 0
+                or p.tree_mode != TreeMode.TREE_C or self._builder is None):
+            return
+        nleaves = base_layer_size(p.tree_height)
+        while True:
+            pending = self._count - self._stream_hashed * LEAF_ARITY
+            take = min(p.stream_leaves, nleaves - self._stream_hashed)
+            if take <= 0 or pending < take * LEAF_ARITY:
+                return
+            self._dispatch_leaf_block(take)
+
+    def drain_stream(self) -> list:
+        """Drain leaf records hashed so far — BEFORE start_process, like
+        the reference's concurrent result loop (poseidon_api.rs:128-145,
+        driven from a second thread in integration_poseidon.rs:81-119).
+        Returns new PoseidonResult records since the last drain."""
+        with self._lock:
+            parts = self._stream_parts[self._stream_drained:]
+            if not parts:
+                return []
+            self._stream_drained = len(self._stream_parts)
+            offset = self._stream_hashed - sum(n for _, n in parts)
+            field = self._builder.field
+        recs = []
+        for part, _ in parts:
+            canon = field.from_mont(part.t().contiguous()).cpu().numpy().view(np.uint32)
+            for h in canon:
+                recs.append(PoseidonResult(hash=h.tobytes(), hash_id=offset, layer_id=0))
+                offset += 1
+        return recs
+
+    def get_last_element_sent_to_ring(self) -> int:
+        """Element counter (sanity-test contract,
+        integration_poseidon.rs:52-56)."""
+        return self._count
+
+    def _elements(self, want: int) -> np.ndarray:
+        """The first `want` fed elements as one (want, W) array."""
+        arr = self._chunks[0] if len(self._chunks) == 1 else np.concatenate(self._chunks)
+        return arr[:want]
+
+    def start_process(self, param=None) -> None:
+        with self._lock:
+            if self._param is None or self._builder is None:
+                raise NotReady("initialize() first")
+            h, mode = self._param.tree_height, self._param.tree_mode
+            nleaves = base_layer_size(h)
+            want = nleaves * (LEAF_ARITY if mode == TreeMode.TREE_C else 1)
+            if self._count < want:
+                raise NotReady(f"need {want} elements for height {h}, have {self._count}")
+            with timed(self._timings, "start_s"):
+                self._push_task()
+                if self._param.stream_leaves > 0 and mode == TreeMode.TREE_C:
+                    # streaming build: leaves were hashed as they arrived;
+                    # hash the tail block and close the tree over the
+                    # assembled leaf layer
+                    remaining = nleaves - self._stream_hashed
+                    if remaining:
+                        self._dispatch_leaf_block(remaining)
+                    parts = [part for part, _ in self._stream_parts]
+                    leaf = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+                    self._tree = self._builder.close_staged(leaf, h)
+                elif mode == TreeMode.TREE_C:
+                    # device residency: stage the lanes-major column layout
+                    # ONCE (HBM-points analog, msm_api.rs:144-153) — repeated
+                    # start_process calls re-run the engine without re-upload
+                    if self._staged is None:
+                        t0 = time.perf_counter()
+                        self._staged = self._columns_lm(self._elements(want), nleaves)
+                        self._sync()
+                        self._stage_s = time.perf_counter() - t0
+                    self._tree = self._builder.build_staged(self._staged, h)
+                else:
+                    leaves = self._to_device(self._elements(want))
+                    self._tree = self._builder.build(leaves, h, TreeMode.TREE_D)
+
+    def _sync(self) -> None:
+        if self.ctx.device.type == "cuda":
+            torch.cuda.synchronize(self.ctx.device)
+
+    def wait_result(self) -> None:
+        """Block until the tree build completes (result-drain poll analog,
+        poseidon_api.rs:128-145: the launches are in flight on the CUDA
+        stream)."""
+        with timed(self._timings, "wait_s"):
+            if self._tree is not None:
+                self._tree.block_until_ready()
+
+    def _drain(self):
+        """[(layer_id, (count, W) uint32 canonical words)], leaf layer
+        first, and pops the task; None before a build."""
+        if self._tree is None:
+            return None
+        out = list(enumerate(self._tree.host_layers()))
+        self._pop_task()
+        return out
+
+    def result_arrays(self):
+        """Array-speed drain: [(layer_id, (count, L) uint32 canonical
+        16-bit limbs)] per tree layer, leaf layer first — the reference's
+        streaming drain (poseidon_api.rs:128-145) at client scale, no
+        per-node Python objects."""
+        layers = self._drain()
+        if layers is None:
+            return None
+        return [(lid, w.view("<u2").astype(np.uint32)) for lid, w in layers]
+
+    def result_raw(self) -> Optional[bytes]:
+        """Wire-format drain: the reference's 64 B record stream — 32 B
+        LE hash + packed meta with hash_id in the low 30 bits and
+        layer_id above (PoseidonResult::parse_poseidon_hash_results,
+        poseidon_api.rs:42-71) — built with array ops."""
+        layers = self._drain()
+        if layers is None:
+            return None
+        nbytes = self.spec.nbytes
+        parts = []
+        for lid, arr in layers:
+            n = arr.shape[0]
+            rec = np.zeros((n, 64), np.uint8)
+            rec[:, :nbytes] = arr.view(np.uint8).reshape(n, nbytes)
+            meta = ((np.arange(n, dtype=np.uint64) & np.uint64(0x3FFFFFFF))
+                    | (np.uint64(lid) << np.uint64(30)))
+            rec[:, 32:40] = meta.astype("<u8")[:, None].view(np.uint8)
+            parts.append(rec.tobytes())
+        return b"".join(parts)
+
+    def result(self, expected_count: Optional[int] = None):
+        """Drain records (poseidon_api.rs:128-145)."""
+        layers = self._drain()
+        if layers is None:
+            return None
+        recs = [PoseidonResult(hash=h.tobytes(), hash_id=hid, layer_id=lid)
+                for lid, arr in layers for hid, h in enumerate(arr)]
+        if expected_count is not None and len(recs) != expected_count:
+            raise NotReady(f"expected {expected_count} nodes, got {len(recs)}")
+        return recs
+
+    @property
+    def root(self):
+        """The root's canonical (W,) uint32 words, or None before a build."""
+        return None if self._tree is None else self._tree.root
+
+    # ---------------------------------------------- status getters (parity)
+    def get_num_of_pending_results(self) -> int:
+        """Undrained node count (poseidon_api.rs:156 analog).  During a
+        streaming build (before start_process) this counts leaf hashes
+        launched but not yet drained by drain_stream."""
+        if self._tree is None:
+            with self._lock:
+                return sum(n for _, n in self._stream_parts[self._stream_drained:])
+        return len(self._tree)
+
+    def get_last_node_id_in_ring(self) -> int:
+        """Ring last-id analog (poseidon_api.rs:149-203): nodes produced
+        by the engine so far — streamed leaf hashes count as soon as
+        their block is launched."""
+        if self._tree is None:
+            return self._stream_hashed
+        return len(self._tree)
+
+    def get_api(self) -> dict:
+        """Register-dump analog (log_api_values,
+        poseidon_api.rs:245-253 + hash_hw_code.rs:7-26)."""
+        return {
+            "elements_staged": self._count,
+            "pending_results": self.get_num_of_pending_results(),
+            "device_residency": self._staged is not None,
+            "stage_s": self._stage_s,
+            "streamed_leaves": self._stream_hashed,
             "pending_tasks": self.pending_tasks,
             "timings": dataclasses.asdict(self._timings),
             "health": dataclasses.asdict(self.ctx.health()),

@@ -36,11 +36,32 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 7. NTT client at 2^16 (the K8 twiddle fallback) and 2^20 (K9, both
    branches) against an independent host NTT in Python ints, with inverse
    roundtrips, and every committed tests/fixtures/ntt_* golden pair.
-   Launch counts are zeroed just before each client run of phases 3, 4, 6
-   and 7 and read just after; every kernel of the run's path must have
-   launched.
-8. the seconds each phase took, then the kernels line: launches in those
-   runs, parity error, times, bounds.
+8. Poseidon kernel parity: K10 against its plain version, exact, on the
+   three scalar fields (t = 9 and 12, with and without convert_in, B = 1
+   and 1000, inputs near p), the multi-p REDC twin against the plain
+   redc_sum on edge inputs (T = t (p-1)^2 ...), then at the height-9
+   tree's shapes on bls12_381_fr (t = 12 at 2^24 states with convert_in,
+   t = 9 at 2^21) with times and bounds, each held against its plain
+   version on a cut of 2^10 states;
+9. PoseidonClient("bls12_381_fr") at height 4, the reference's contract
+   (512 leaves, 5,632 wire elements, 585 nodes): initialize -> set_data ->
+   start_process -> wait_result -> result(expected_count=585) and
+   result_raw, every node against the oracle; then TREE_D at height 4;
+10. the full-size tree, height 9: 2^24 leaves of 11 elements (5.5 GiB of
+   wire bytes from --seed), set_data once, two builds (the second on the
+   resident columns) with result_raw, the record count and ids, 256
+   sampled leaves and 64 sampled nodes per upper layer (all of smaller
+   layers, the root included) against the oracle, the second build equal
+   to the first, peak device memory;
+11. streaming at height 7 (2^18 leaves, stream_leaves 2^14): a feeder
+   thread calls set_data while a drainer thread calls drain_stream; leaf
+   records must arrive before the last feed and the closed tree must
+   equal a staged build of the same elements.
+   Launch counts are zeroed just before each client run of phases 3, 4, 6,
+   7, 9, 10 and 11 and read just after; every kernel of the run's path
+   must have launched (K10 nine times per height-9 build).
+12. the seconds each phase took, then the kernels line (K1-K10): launches
+   in those runs, parity error, times, bounds.
 
 The last line is {"ok": true, "device": {...}}; the line before it is the
 card's name and power limit as nvidia-smi prints them.  Without a CUDA
@@ -63,7 +84,7 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 IMAD_PER_CLK_PER_SM = 64           # 32-bit integer multiply-add, CC 9.0
 
 # launch-counter name -> (source, the TPU kernel's pallas_call it replaces);
-# in PERF.md's table these are K1-K9 in this order
+# in PERF.md's table these are K1-K10 in this order
 KERNELS = {
     "mont_mul": ("blaze_tpu_torch/csrc/montmul.cu", "blaze_tpu/fields/mxu.py:250"),
     "scan_mixed": ("blaze_tpu_torch/csrc/ec_kernels.cu", "blaze_tpu/curves/kernels.py:248"),
@@ -74,6 +95,8 @@ KERNELS = {
     "ntt_base": ("blaze_tpu_torch/csrc/ntt_kernels.cu", "blaze_tpu/ntt/kernels.py:102"),
     "mul_lm": ("blaze_tpu_torch/csrc/ntt_kernels.cu", "blaze_tpu/ntt/kernels.py:168"),
     "twiddle_mul": ("blaze_tpu_torch/csrc/ntt_kernels.cu", "blaze_tpu/ntt/kernels.py:252"),
+    "poseidon_perm": ("blaze_tpu_torch/csrc/poseidon_kernels.cu",
+                      "blaze_tpu/hash/kernels.py:207"),
 }
 NTT_FIELDS = ("bn254_fr", "bls12_377_fr", "bls12_381_fr")
 
@@ -284,7 +307,17 @@ def work_bound_ms(name: str, shape: dict, W: int, imad_rate: float):
     per_mul = 4 * W * W + W
     pt = 3 * W * 4                                # bytes of one projective point
     el = W * 4                                    # bytes of one field element
-    if name == "ntt_base":
+    if name == "poseidon_perm":
+        # per state: 3 full products per S-box (r_f t + r_p of them), t more
+        # with convert_in; per round t^2 unreduced products (2W^2 IMADs) and
+        # t row REDCs (2W^2 + W); counted here in full-product units
+        t, B = shape["t"], shape["B"]
+        rounds = shape["r_f"] + shape["r_p"]
+        full = 3 * (shape["r_f"] * t + shape["r_p"]) + t * shape["convert_in"]
+        imads = full * per_mul + rounds * t * t * 2 * W * W + rounds * t * (2 * W * W + W)
+        muls = B * imads / per_mul
+        nbytes = 2 * t * B * el
+    elif name == "ntt_base":
         K, N = shape["K"], shape["lanes"]
         muls = (K // 2) * (K.bit_length() - 2) * N
         nbytes = 2 * K * N * el + K * el
@@ -822,6 +855,369 @@ def phase_ntt_small(seed: int) -> dict:
     return total
 
 
+# ------------------------------------------------------- Poseidon phases
+POSEIDON_FIELD = "bls12_381_fr"
+
+
+def near_p_states(spec, t: int, B: int, seed: int, device):
+    """(t, W, B) canonical words: random values below 2^(bits-1), and every
+    7th state's elements p-1-k (k < 5): canonical inputs near p, which
+    convert_in must not find reduced by accident."""
+    import numpy as np
+    import torch
+
+    from blaze_tpu_torch.fields import int_to_words
+
+    W = spec.nwords
+    x = rand_words(spec, (t, W, B), seed, device)
+    near = torch.from_numpy(np.stack([int_to_words(spec.p - 1 - k, W) for k in range(5)])
+                            .view(np.int32)).to(device)
+    lanes = torch.arange(0, B, 7, device=device)
+    x[:, :, lanes] = near[torch.arange(lanes.numel(), device=device) % 5].t()[None]
+    return x
+
+
+def redc_edge_inputs(spec, t: int, seed: int, device):
+    """(t, W, B) pairs for sum_products: T = t (p-1)^2 (the largest sum of
+    canonical products), 0, t, t (p-1), near-p mixes, then random lanes."""
+    import numpy as np
+    import torch
+
+    from blaze_tpu_torch.fields import int_to_words
+
+    p, W = spec.p, spec.nwords
+    rng = random.Random(seed)
+    pairs = [(p - 1, p - 1), (0, p - 1), (1, 1), (p - 1, 1), (p - 2, p - 1), (p - 1, p - 3)]
+    pairs += [(rng.randrange(p), rng.randrange(p)) for _ in range(58)]
+
+    def lm(vals):
+        w = np.stack([int_to_words(v, W) for v in vals])             # (B, W)
+        return torch.from_numpy(np.ascontiguousarray(
+            np.broadcast_to(w.T[None], (t, W, len(vals)))).view(np.int32)).to(device)
+
+    return lm([a for a, _ in pairs]), lm([c for _, c in pairs])
+
+
+def poseidon_main_timing(imad_rate: float, seed: int, device):
+    """K10 at the height-9 tree's shapes on bls12_381_fr — the leaf sponge
+    (t = 12, B = 2^24, convert_in) and the first node level (t = 9,
+    B = 2^21): one warm call whose first 2^10 states are held against the
+    plain version on the same cut, then one timed call (CUDA events)."""
+    import torch
+
+    from blaze_tpu_torch.fields import FIELDS
+    from blaze_tpu_torch.hash import PoseidonKernels, generate_params
+
+    spec = FIELDS[POSEIDON_FIELD]
+    W, cut = spec.nwords, 1 << 10
+    timing = {}
+    for key, t, B, conv in (("poseidon_perm", 12, 1 << 24, True),
+                            ("poseidon_perm_t9", 9, 1 << 21, False)):
+        params = generate_params(spec, t)
+        k = PoseidonKernels.for_params(params)
+        x = rand_words(spec, (t, W, B), seed + t, device)
+        e = max_abs_err(k.permute_lm(x, convert_in=conv)[:, :, :cut],
+                        k.permute_lm_plain(x[:, :, :cut].contiguous(), conv))
+        ms = cuda_ms(lambda: k.permute_lm(x, convert_in=conv), 1 if B > 1 << 22 else 3)
+        _, plain_ms = once_ms(lambda: k.permute_lm_plain(x[:, :, :cut].contiguous(), conv))
+        shape = {"t": t, "B": B, "r_f": params.r_f, "r_p": params.r_p, "convert_in": int(conv)}
+        bound, bound_by = work_bound_ms("poseidon_perm", shape, W, imad_rate)
+        timing[key] = {"shape": shape, "ms": ms, "plain_ms": plain_ms,
+                       "plain_shape": {**shape, "B": cut}, "bound_ms": bound,
+                       "bound_by": bound_by, "max_abs_err": e}
+        del x
+        torch.cuda.empty_cache()
+    return timing
+
+
+def phase_poseidon_parity(imad_rate: float, seed: int, device):
+    """K10 against its plain version, exact, on the three scalar fields (t =
+    9 and 12, with and without convert_in, B = 1 and 1000), the multi-p REDC
+    twin against the plain redc_sum on edge inputs, then the main shapes."""
+    import torch
+
+    from blaze_tpu_torch.fields import FIELDS
+    from blaze_tpu_torch.hash import PoseidonKernels, generate_params
+    from blaze_tpu_torch.hash.kernels import sum_products, sum_products_plain
+
+    err = 0
+    for field in NTT_FIELDS:
+        spec = FIELDS[field]
+        checked = []
+        for t in (9, 12):
+            k = PoseidonKernels.for_params(generate_params(spec, t))
+            for B in (1, 1000):
+                x = near_p_states(spec, t, B, seed + t + B, device)
+                for conv in (False, True):
+                    e = max_abs_err(k.permute_lm(x, convert_in=conv),
+                                    k.permute_lm_plain(x, convert_in=conv))
+                    checked.append({"kernel": "poseidon_perm", "t": t, "B": B,
+                                    "convert_in": conv, "max_abs_err": e})
+            a, c = redc_edge_inputs(spec, t, seed + t, device)
+            e = max_abs_err(sum_products(spec, a, c), sum_products_plain(spec, a, c))
+            checked.append({"kernel": "redc_sum", "t": t, "B": a.shape[2], "max_abs_err": e})
+        torch.cuda.synchronize()
+        emit({"phase": "poseidon_parity", "field": field, "shape": "small", "cases": checked})
+        if any(c["max_abs_err"] for c in checked):
+            raise AssertionError(f"{field}: K10 or the REDC twin differs from its plain version")
+        err = max([err] + [c["max_abs_err"] for c in checked if c["kernel"] == "poseidon_perm"])
+    timing = poseidon_main_timing(imad_rate, seed, device)
+    emit({"phase": "poseidon_parity", "field": POSEIDON_FIELD,
+          "shape": "main path (height 9)", "kernels": timing})
+    if any(t["max_abs_err"] for t in timing.values()):
+        raise AssertionError("K10 differs from its plain version at the main shapes")
+    return {"poseidon_perm": max([err] + [t["max_abs_err"] for t in timing.values()])}, timing
+
+
+def parse_records(raw: bytes):
+    """64 B result records -> (hashes (n, 32) uint8, layer ids, hash ids)."""
+    import numpy as np
+
+    rec = np.frombuffer(raw, dtype=np.uint8).reshape(-1, 64)
+    meta = np.ascontiguousarray(rec[:, 32:40]).view("<u8")[:, 0]
+    return rec[:, :32], meta >> np.uint64(30), meta & np.uint64(0x3FFFFFFF)
+
+
+def tree_ids(height: int):
+    """The (layer id, hash id) arrays a height's record stream must carry."""
+    import numpy as np
+
+    sizes = [8 ** (height - 1 - l) for l in range(height)]
+    return (np.repeat(np.arange(height, dtype=np.uint64), sizes),
+            np.concatenate([np.arange(n, dtype=np.uint64) for n in sizes]))
+
+
+def phase_poseidon_h4(seed: int) -> dict:
+    """The reference's own contract (integration_poseidon.rs:23,151-155):
+    height 4, 512 leaves of 11 wire elements, 585 nodes, every node against
+    the oracle; then TREE_D at height 4.  Returns the launch counts."""
+    import numpy as np
+
+    from blaze_tpu_torch import _build
+    from blaze_tpu_torch.fields import FIELDS
+    from blaze_tpu_torch.hash import LEAF_ARITY, TreeMode, generate_params, num_tree_nodes
+    from blaze_tpu_torch.oracle.poseidon_ref import merkle_tree_ref, poseidon_hash_ref
+    from blaze_tpu_torch.runtime import PoseidonClient, PoseidonInitializeParameters
+
+    spec = FIELDS[POSEIDON_FIELD]
+    h, n, nodes = 4, 512, num_tree_nodes(4)
+    leaf_p, node_p = generate_params(spec, LEAF_ARITY + 1), generate_params(spec, 9)
+    rng = random.Random(seed)
+    total = {}
+    for mode in (TreeMode.TREE_C, TreeMode.TREE_D):
+        if mode == TreeMode.TREE_C:
+            cols = [[rng.randrange(spec.p) for _ in range(LEAF_ARITY)] for _ in range(n)]
+            elems = [v for c in cols for v in c]
+            t0 = time.perf_counter()
+            layers = merkle_tree_ref(leaf_p, node_p, cols, h)
+        else:
+            leaves = [rng.randrange(spec.p) for _ in range(n)]
+            elems = leaves
+            t0 = time.perf_counter()
+            layers = [leaves]
+            while len(layers[-1]) > 1:
+                prev = layers[-1]
+                layers.append([poseidon_hash_ref(node_p, prev[i:i + 8])
+                               for i in range(0, len(prev), 8)])
+        oracle_s = time.perf_counter() - t0
+        raw = b"".join(v.to_bytes(spec.nbytes, "little") for v in elems)
+        _build.reset_launches()
+        cl = PoseidonClient(POSEIDON_FIELD)
+        cl.initialize(PoseidonInitializeParameters(tree_height=h, tree_mode=mode))
+        cl.set_data(raw)
+        t0 = time.perf_counter()
+        cl.start_process()
+        cl.wait_result()
+        build_s = time.perf_counter() - t0
+        recs = cl.result(expected_count=nodes)
+        rawres = cl.result_raw()
+        counts = dict(_build.LAUNCHES)
+        want = [(v, lid, hid) for lid, l in enumerate(layers) for hid, v in enumerate(l)]
+        got = [(int.from_bytes(r.hash, "little"), r.layer_id, r.hash_id) for r in recs]
+        hashes, lids, hids = parse_records(rawres)
+        parsed = [(int.from_bytes(hb.tobytes(), "little"), int(l), int(i))
+                  for hb, l, i in zip(hashes, lids, hids)]
+        info = {"records": len(recs), "oracle": "match" if got == want else "MISMATCH",
+                "raw_parses_back": parsed == got, "build_s": build_s,
+                "oracle_s": oracle_s, "launches": counts}
+        emit({"phase": f"poseidon_h4_{mode.name.lower()}", **info})
+        if got != want or parsed != got:
+            raise AssertionError(f"poseidon height 4 {mode.name}: differs from the oracle")
+        check_launches(f"poseidon_h4_{mode.name}", counts, ("poseidon_perm", "mont_mul"))
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+def phase_poseidon_h9(seed: int, height: int = 9) -> dict:
+    """The full-size tree: height 9 on bls12_381_fr, 8^8 = 2^24 leaves of 11
+    elements (5.5 GiB of wire bytes from seeded numpy).  set_data once, two
+    builds (the second on the resident columns), result_raw timed; sampled
+    oracle checks.  Returns the launch counts."""
+    import numpy as np
+    import torch
+
+    from blaze_tpu_torch import _build
+    from blaze_tpu_torch.fields import FIELDS
+    from blaze_tpu_torch.hash import LEAF_ARITY, generate_params, num_tree_nodes
+    from blaze_tpu_torch.oracle.poseidon_ref import poseidon_hash_ref
+    from blaze_tpu_torch.runtime import PoseidonClient, PoseidonInitializeParameters
+
+    spec = FIELDS[POSEIDON_FIELD]
+    h = height
+    n = 8 ** (h - 1)
+    t0 = time.perf_counter()
+    elems = host_vector(LEAF_ARITY * n, seed)          # canonical, < 2^254 < p
+    gen_s = time.perf_counter() - t0
+    wire = memoryview(elems).cast("B")
+
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    cl = PoseidonClient(POSEIDON_FIELD)
+    cl.initialize(PoseidonInitializeParameters(tree_height=h))
+    t0 = time.perf_counter()
+    cl.set_data(wire)
+    set_s = time.perf_counter() - t0
+    builds = []
+    raws = []
+    for i in range(2):
+        t0 = time.perf_counter()
+        cl.start_process()
+        cl.wait_result()
+        t1 = time.perf_counter()
+        raws.append(cl.result_raw())
+        t2 = time.perf_counter()
+        builds.append({"start_to_wait_s": t1 - t0, "leaves_per_s": n / (t1 - t0),
+                       "stage_s": cl.get_api()["stage_s"] if i == 0 else 0.0,
+                       "result_raw_s": t2 - t1})
+    counts = dict(_build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    check_launches("poseidon_h9", counts, ("poseidon_perm", "mont_mul"))
+
+    raw = raws[0]
+    nodes = num_tree_nodes(h)
+    hashes, lids, hids = parse_records(raw)
+    want_l, want_h = tree_ids(h)
+    ids_ok = bool(np.array_equal(lids, want_l) and np.array_equal(hids, want_h))
+    same = raws[0] == raws[1]
+    raws = None
+    leaf_p, node_p = generate_params(spec, LEAF_ARITY + 1), generate_params(spec, 9)
+    starts = np.concatenate([[0], np.cumsum([8 ** (h - 1 - l) for l in range(h)])])
+    rng = np.random.default_rng(seed)
+    t0 = time.perf_counter()
+    bad = []
+    idx = rng.choice(n, min(n, 256), replace=False)
+    for i in idx:
+        col = word_ints(elems[LEAF_ARITY * i: LEAF_ARITY * (i + 1)])
+        if poseidon_hash_ref(leaf_p, col) != int.from_bytes(hashes[i].tobytes(), "little"):
+            bad.append((0, int(i)))
+    checked = {0: len(idx)}
+    root_ok = False
+    for l in range(1, h):
+        size = 8 ** (h - 1 - l)
+        sample = range(size) if size <= 64 else rng.choice(size, 64, replace=False)
+        for j in sample:
+            kids = [int.from_bytes(hashes[starts[l - 1] + 8 * j + c].tobytes(), "little")
+                    for c in range(8)]
+            ok = poseidon_hash_ref(node_p, kids) == int.from_bytes(
+                hashes[starts[l] + j].tobytes(), "little")
+            if not ok:
+                bad.append((l, int(j)))
+            if l == h - 1:
+                root_ok = ok
+        checked[l] = len(sample)
+    oracle_s = time.perf_counter() - t0
+    info = {"height": h, "leaves": n, "elements": LEAF_ARITY * n,
+            "wire_gib": LEAF_ARITY * n * spec.nbytes / 2**30, "input_gen_s": gen_s,
+            "set_data_s": set_s, "builds": builds, "records": len(hashes),
+            "record_count_ok": len(hashes) == nodes, "ids_ok": ids_ok,
+            "second_build_equal": same, "sampled_per_layer": checked,
+            "sampled_mismatches": bad, "root_ok": root_ok, "oracle_s": oracle_s,
+            "max_memory_allocated_gib": peak / 2**30, "launches": counts}
+    emit({"phase": "poseidon_h9", **info})
+    if bad or not (info["record_count_ok"] and ids_ok and same and root_ok):
+        raise AssertionError("poseidon height 9: a check failed")
+    if counts["poseidon_perm"] != 2 * h:
+        raise AssertionError(f"poseidon height 9: {counts['poseidon_perm']} K10 launches "
+                             f"for two builds, want {2 * h}")
+    return counts
+
+
+def phase_poseidon_stream(seed: int, height: int = 7, stream_leaves: int = 1 << 14) -> dict:
+    """Feed-while-hashing (integration_poseidon.rs:81-119): a feeder thread
+    calls set_data in chunks while a drainer thread calls drain_stream; leaf
+    records must arrive before the last feed, and the closed tree must equal
+    a staged build of the same elements.  Returns the launch counts."""
+    import threading
+
+    import numpy as np
+
+    from blaze_tpu_torch import _build
+    from blaze_tpu_torch.hash import LEAF_ARITY, num_tree_nodes
+    from blaze_tpu_torch.runtime import PoseidonClient, PoseidonInitializeParameters
+
+    n = 8 ** (height - 1)
+    elems = host_vector(LEAF_ARITY * n, seed + 1)
+    _build.reset_launches()
+    cl = PoseidonClient(POSEIDON_FIELD)
+    cl.initialize(PoseidonInitializeParameters(tree_height=height,
+                                               stream_leaves=stream_leaves))
+    drained, early = [], [0]
+    feed_done = threading.Event()
+    step = LEAF_ARITY * max(1, stream_leaves // 4)         # 4 feeds per streamed block
+
+    def feeder():
+        for i in range(0, elems.shape[0], step):
+            cl.set_data(elems[i:i + step].tobytes())
+            time.sleep(0.005)
+        feed_done.set()
+
+    def drainer():
+        while not feed_done.is_set():
+            got = cl.drain_stream()
+            if not feed_done.is_set():
+                early[0] += len(got)
+            drained.extend(got)
+            time.sleep(0.002)
+        drained.extend(cl.drain_stream())
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=feeder), threading.Thread(target=drainer)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=600)
+    if any(th.is_alive() for th in threads):
+        raise AssertionError("poseidon stream: feeder or drainer did not finish")
+    cl.start_process()
+    cl.wait_result()
+    stream_s = time.perf_counter() - t0
+    raw = cl.result_raw()
+    counts = dict(_build.LAUNCHES)
+    check_launches("poseidon_stream", counts, ("poseidon_perm", "mont_mul"))
+
+    ref = PoseidonClient(POSEIDON_FIELD)
+    ref.initialize(PoseidonInitializeParameters(tree_height=height))
+    ref.set_data(elems.tobytes())
+    ref.start_process()
+    ref.wait_result()
+    want = ref.result_raw()
+    hashes, _, _ = parse_records(want)
+    leaf_ok = (len(drained) == n
+               and [r.hash_id for r in drained] == list(range(n))
+               and b"".join(r.hash for r in drained) == hashes[:n].tobytes())
+    info = {"height": height, "leaves": n, "stream_leaves": stream_leaves,
+            "feed_calls": -(-elems.shape[0] // step), "drained": len(drained),
+            "drained_before_last_feed": early[0], "drained_equal_staged_leaves": leaf_ok,
+            "records": len(raw) // 64, "equal_staged": raw == want,
+            "feed_to_wait_s": stream_s, "launches": counts}
+    emit({"phase": "poseidon_stream", **info})
+    if not (leaf_ok and raw == want and early[0] > 0
+            and len(raw) // 64 == num_tree_nodes(height)):
+        raise AssertionError("poseidon stream: a check failed")
+    return counts
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -855,6 +1251,15 @@ def main() -> int:
     timing.update(ntt_timing)
     for counts in (timed_phase("ntt_2^27", phase_ntt_2e27, args.seed),
                    timed_phase("ntt_2^16_2^20_goldens", phase_ntt_small, args.seed)):
+        for k, v in counts.items():
+            launches[k] += v
+    pos_errs, pos_timing = timed_phase("poseidon_parity", phase_poseidon_parity, imad_rate,
+                                       args.seed, dev)
+    errs.update(pos_errs)
+    timing.update(pos_timing)
+    for counts in (timed_phase("poseidon_h4", phase_poseidon_h4, args.seed),
+                   timed_phase("poseidon_h9", phase_poseidon_h9, args.seed),
+                   timed_phase("poseidon_stream", phase_poseidon_stream, args.seed)):
         for k, v in counts.items():
             launches[k] += v
     emit({"phase_seconds": seconds})

@@ -3,11 +3,13 @@
     python -m pytest -m cuda tests/test_torch_cuda.py
 
 K1-K6 against their plain PyTorch versions on the same device inputs,
-exact, on all three curves, and K7-K9 on the three scalar fields; the MSM
-client on the card against the oracle with distinct scalars; the NTT client
-on the card against every committed golden pair, and at 2^16 (the K8
-twiddle fallback) against a host NTT in Python ints with an inverse
-roundtrip.  chip_smoke.py runs the same checks at the main path's sizes.
+exact, on all three curves, and K7-K10 (with the multi-p REDC twin) on the
+three scalar fields; the MSM client on the card against the oracle with
+distinct scalars; the NTT client on the card against every committed golden
+pair, and at 2^16 (the K8 twiddle fallback) against a host NTT in Python
+ints with an inverse roundtrip; the Poseidon client at height 3, staged,
+streamed and TREE_D, against the oracle.  chip_smoke.py runs the same
+checks at the main path's sizes.
 """
 import random
 from pathlib import Path
@@ -26,11 +28,14 @@ from blaze_tpu_torch.curves import (
 )
 from blaze_tpu_torch.curves.kernels import ECKernels
 from blaze_tpu_torch import _build
-from blaze_tpu_torch.fields import FIELDS, words_to_int
+from blaze_tpu_torch.fields import FIELDS, int_to_words, words_to_int
 from blaze_tpu_torch.fields.montmul import mont_mul, mont_mul_plain
 from blaze_tpu_torch.oracle import ECOracle, class_sum_expected
 from blaze_tpu_torch.oracle.gen import points_to_affine_words, scalars_to_limbs
+from blaze_tpu_torch.hash import PoseidonKernels, TreeMode, generate_params, num_tree_nodes
+from blaze_tpu_torch.hash.kernels import sum_products, sum_products_plain
 from blaze_tpu_torch.ntt import NTTKernels
+from blaze_tpu_torch.oracle.poseidon_ref import merkle_tree_ref, poseidon_hash_ref
 from blaze_tpu_torch.runtime import (
     MSMClient,
     MSMInit,
@@ -39,6 +44,8 @@ from blaze_tpu_torch.runtime import (
     NTTClient,
     NTTInit,
     NTTInput,
+    PoseidonClient,
+    PoseidonInitializeParameters,
 )
 
 pytestmark = pytest.mark.cuda
@@ -168,3 +175,51 @@ def test_ntt_client_on_card_matches_goldens_and_host_ntt(dev):
     want = _host_ntt(vals, spec.root_of_unity(logn), spec.p)
     assert out == b"".join(v.to_bytes(32, "little") for v in want)
     assert _run(NTTClient(NTTInit(field=spec.name, logn=logn), inverse=True), out) == raw
+
+
+@pytest.mark.parametrize("field", ["bn254_fr", "bls12_377_fr", "bls12_381_fr"])
+def test_poseidon_kernel_matches_plain_version(dev, field):
+    spec = FIELDS[field]
+    W = spec.nwords
+    for t in (9, 12):
+        k = PoseidonKernels.for_params(generate_params(spec, t))
+        pm1 = torch.from_numpy(int_to_words(spec.p - 1, W).view(np.int32)).to(dev)
+        x = canonical(spec, (t, W, 300), t, dev)
+        x[:, :, 0] = pm1                                 # a canonical state near p
+        for conv in (False, True):
+            want = k.permute_lm_plain(x, conv)
+            assert torch.equal(k.permute_lm(x, convert_in=conv), want)
+            y = x.clone()
+            k.permute_lm(y, convert_in=conv, out=y)      # in place
+            assert torch.equal(y, want)
+        a, c = canonical(spec, (t, W, 64), 2 * t, dev), canonical(spec, (t, W, 64), 3 * t, dev)
+        a[:, :, 0] = c[:, :, 0] = pm1                    # T = t (p-1)^2
+        assert torch.equal(sum_products(spec, a, c), sum_products_plain(spec, a, c))
+
+
+def test_poseidon_client_on_card_matches_oracle(dev):
+    spec, height = FIELDS["bls12_381_fr"], 3
+    leaf_p, node_p = generate_params(spec, 12), generate_params(spec, 9)
+    rng = random.Random(5)
+    cols = [[rng.randrange(spec.p) for _ in range(11)] for _ in range(64)]
+    raw = b"".join(v.to_bytes(32, "little") for c in cols for v in c)
+    want = [v for layer in merkle_tree_ref(leaf_p, node_p, cols, height) for v in layer]
+    for stream_leaves in (0, 16):
+        _build.reset_launches()
+        client = PoseidonClient("bls12_381_fr")
+        assert client.ctx.device.type == "cuda"
+        client.initialize(PoseidonInitializeParameters(tree_height=height,
+                                                       stream_leaves=stream_leaves))
+        client.set_data(raw)
+        client.start_process()
+        client.wait_result()
+        got = [int.from_bytes(r.hash, "little") for r in client.result(num_tree_nodes(height))]
+        assert got == want
+        assert _build.LAUNCHES["poseidon_perm"] > 0 and _build.LAUNCHES["mont_mul"] > 0
+    leaves = [rng.randrange(spec.p) for _ in range(8)]
+    client = PoseidonClient("bls12_381_fr")
+    client.initialize(PoseidonInitializeParameters(tree_height=2, tree_mode=TreeMode.TREE_D))
+    client.set_data(b"".join(v.to_bytes(32, "little") for v in leaves))
+    client.start_process()
+    client.wait_result()
+    assert words_to_int(client.root) == poseidon_hash_ref(node_p, leaves)

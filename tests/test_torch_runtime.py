@@ -2,7 +2,10 @@
 oracle and blaze_tpu's client, and the port's import and device rules.
 
 Covers the three set_data modes, the streaming order (start_process before
-set_data), the task FIFO, precomputed multiples and the error paths; checks
+set_data), the task FIFO, precomputed multiples and the error paths, and the
+four repairs over blaze_tpu's client (a streamed chunk split by chunk_log2,
+the precompute layout of load_data_to_hbm, the lock, params on a streamed
+chunk); checks
 that blaze_tpu_torch and chip_smoke.py import neither jax nor blaze_tpu, and
 that the entry points default to CUDA and raise without it.
 """
@@ -10,6 +13,8 @@ import ast
 import os
 import subprocess
 import sys
+import threading
+import time
 from pathlib import Path
 
 import pytest
@@ -24,6 +29,7 @@ from blaze_tpu_torch.curves import (
     encode_scalars,
 )
 from blaze_tpu_torch.fields import words_to_int
+from blaze_tpu_torch.msm import MSMConfig
 from blaze_tpu_torch.oracle import ECOracle, random_msm_instance
 from blaze_tpu_torch.oracle.gen import points_to_affine_words
 from blaze_tpu_torch.runtime import (
@@ -176,6 +182,137 @@ def test_error_paths():
     with pytest.raises(InvalidPrimitiveParam):
         client.set_data(MSMInput(scalars=sraw[: spec.scalar_bytes],
                                  points=praw[: spec.point_bytes]))  # overflow
+    assert client.result() is not None
+
+
+def test_streamed_chunk_is_split_by_chunk_log2():
+    """A streamed chunk larger than 2^chunk_log2 points runs as one partial
+    per 2^chunk_log2 slice, as MSM.__call__ slices a large input: the bytes
+    equal those of the same points fed slice by slice and of the staged
+    (non-streamed) client."""
+    praw, sraw, expected = wire_input()
+    spec = CURVES[CURVE]
+    pb, sb, step = spec.point_bytes, spec.scalar_bytes, 8
+    results = []
+    for chunks in (N, step):
+        client = MSMClient(MSMInit(curve=CURVE), config=MSMConfig(chunk_log2=3), device="cpu")
+        calls = []
+        partial = client.engine.msm_partial
+        client.engine.msm_partial = lambda *a, **k: calls.append(a[0].shape[1]) or partial(*a, **k)
+        client.initialize(MSMParams(nof_elements=N))
+        client.start_process()
+        for lo in range(0, N, chunks):
+            client.set_data(MSMInput(scalars=sraw[lo * sb:(lo + chunks) * sb],
+                                     points=praw[lo * pb:(lo + chunks) * pb]))
+        results.append(client.result().result)
+        assert calls == [step] * (N // step)
+    staged = MSMClient(MSMInit(curve=CURVE), config=MSMConfig(chunk_log2=3), device="cpu")
+    staged.initialize(MSMParams(nof_elements=N))
+    staged.set_data(MSMInput(scalars=sraw, points=praw))
+    staged.start_process()
+    assert results[0] == results[1] == staged.result().result
+    assert affine(results[0]) == expected
+
+
+def test_precompute_cache_from_load_data_to_hbm_matches_oracle():
+    """load_data_to_hbm takes wire order (each base, then its multiples) and
+    stores the engine's multiple-major layout: a scalars-only task over that
+    cache, staged or streamed, gives the oracle MSM.  A cache that does not
+    hold factor * nof_elements points is refused."""
+    spec = CURVES[CURVE]
+    oracle = ECOracle(spec)
+    points, scalars, expected, dbg = random_msm_instance(spec, 4, seed=11)
+    expanded = []
+    for x, y in dbg["points"]:                 # point-major wire order
+        pt = (x, y)
+        for _ in range(8):
+            expanded.append(pt)
+            pt = oracle.mul(pt, 1 << 32)
+    praw = encode_affine_points(points_to_affine_words(spec, expanded), spec)
+    sraw = encode_scalars(scalars, spec)
+    for streamed in (False, True):
+        client = cpu_client(precompute_factor=8)
+        client.load_data_to_hbm("bank", praw)
+        client.initialize(MSMParams(nof_elements=4, hbm_point_addr="bank"))
+        if streamed:                                                # streamed mode 3
+            client.start_process()
+            for lo in (0, 2):
+                client.set_data(MSMInput(
+                    scalars=sraw[lo * spec.scalar_bytes:(lo + 2) * spec.scalar_bytes]))
+        else:                                                       # staged mode 3
+            client.set_data(MSMInput(scalars=sraw))
+            client.start_process()
+        assert affine(client.result().result) == expected
+    client.load_data_to_hbm("short", praw[: 8 * spec.point_bytes])  # one base only
+    client.initialize(MSMParams(nof_elements=4, hbm_point_addr="short"))
+    with pytest.raises(InvalidPrimitiveParam):
+        client.set_data(MSMInput(scalars=sraw))
+    with pytest.raises(InvalidPrimitiveParam):
+        client.load_data_to_hbm("ragged", praw[: 7 * spec.point_bytes])
+
+
+def test_concurrent_set_data_and_result_give_the_oracle_result():
+    """Two feeder threads stream chunks into one open task while a third
+    polls result(): the lock keeps every partial (no lost update).  A slow
+    accumulation (as on a busy device) widens the read-modify-write window,
+    and a barrier starts both feeders together."""
+    praw, sraw, expected = wire_input()
+    spec = CURVES[CURVE]
+    pb, sb, step = spec.point_bytes, spec.scalar_bytes, 4
+    client = cpu_client()
+    client.initialize(MSMParams(nof_elements=N))
+    client.start_process()
+    accumulate = client.engine.accumulate
+
+    def slow_accumulate(wsums, part):
+        time.sleep(0.05)
+        return accumulate(wsums, part)
+
+    client.engine.accumulate = slow_accumulate
+    got = []
+    start = threading.Barrier(2)
+
+    def feed(starts):
+        start.wait(timeout=60)
+        for lo in starts:
+            client.set_data(MSMInput(scalars=sraw[lo * sb:(lo + step) * sb],
+                                     points=praw[lo * pb:(lo + step) * pb]))
+
+    def poll():
+        deadline = time.monotonic() + 120
+        while not got and time.monotonic() < deadline:
+            try:
+                res = client.result()
+            except NotReady:
+                time.sleep(0.001)
+                continue
+            if res is not None:
+                got.append(res)
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=feed, args=(range(0, N, 2 * step),)),
+                   threading.Thread(target=feed, args=(range(step, N, 2 * step),)),
+                   threading.Thread(target=poll)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=180)
+    finally:
+        sys.setswitchinterval(old)
+    assert not any(th.is_alive() for th in threads)
+    assert len(got) == 1 and affine(got[0].result) == expected
+
+
+def test_params_on_a_streamed_chunk_raise():
+    praw, sraw, _ = wire_input()
+    client = cpu_client()
+    client.initialize(MSMParams(nof_elements=N))
+    client.start_process()
+    with pytest.raises(InvalidPrimitiveParam):
+        client.set_data(MSMInput(scalars=sraw, points=praw, params=MSMParams(nof_elements=N)))
+    client.set_data(MSMInput(scalars=sraw, points=praw))
     assert client.result() is not None
 
 
