@@ -1,22 +1,36 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (blaze_tpu_torch) end to end on one GPU.
 
-    python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py [--seed N] [--parent DIR] [--profile]
 
 Phases, one JSON line each; any failure raises and exits non-zero:
 
 1. device: the card (nvidia-smi name and power limit, CUDA, capability),
-   then the kernels built from csrc/ with nvcc (seconds, registers, spills);
+   then the kernels built from csrc/ with nvcc (seconds, registers, stack,
+   spills) and the local-memory loads and stores (LDL, STL) in the EC
+   kernels' SASS (cuobjdump);
 2. kernel parity: K1-K6 against their plain PyTorch versions on the card,
    exact, on BN254, BLS12-377 and BLS12-381 at small shapes (K2 signed and
-   unsigned), then at the main path's shapes for BLS12-381 with each
-   kernel's time (CUDA events), its plain version's time and its bound;
+   unsigned) and, for K2 and K4 under every team size (threads per lane),
+   at ragged lane counts B = 1, 33, 1000 (C = 1; K4 also over rows that
+   hold identities); then at the main path's shapes for BLS12-381 with
+   each kernel's time (CUDA events), its plain version's time and its
+   bound: K2 at a 2^19 chunk (C 512, B 16384) and a streamed 2^18 chunk
+   (B 8192), K4's five rounds at a 2^19 chunk, K2 and K4 timed under each
+   team size;
 3. main path, streamed client: MSMClient(MSMInit("bls12_381")) over 2^20
    points in the reference's order initialize -> start_process -> four
    set_data chunks of wire bytes -> result();
 4. main path, single-chunk client: 2^19 points, set_data -> start_process
-   -> wait_result -> result() (the chunk's fold runs on K6).
-   Phases 3 and 4 use 256 points of the order-r subgroup tiled and
+   -> wait_result -> result() (the chunk's fold runs on K6);
+4b. the headline shape (bench.py:10): 2^24 points resident, set_data once
+   -> start_process -> wait_result -> result(), 32 chunks of 2^19 and the
+   window fold on the Field (its seconds printed).  With --parent DIR the
+   same phase also runs, before and after this tree's, from another tree
+   of the package (the parent commit unpacked under build/), in a child
+   process on the same card.  With --profile, one warm 2^19 single-chunk
+   MSM runs under torch.profiler (device busy time, idle share).
+   Phases 3, 4 and 4b use 256 points of the order-r subgroup tiled and
    distinct scalars drawn uniformly from [0, r); the expected value is the
    oracle MSM of the 256 points with each point's coefficient sum mod r,
    and the result bytes must match it after z-normalisation.
@@ -57,11 +71,12 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    thread calls set_data while a drainer thread calls drain_stream; leaf
    records must arrive before the last feed and the closed tree must
    equal a staged build of the same elements.
-   Launch counts are zeroed just before each client run of phases 3, 4, 6,
-   7, 9, 10 and 11 and read just after; every kernel of the run's path
-   must have launched (K10 nine times per height-9 build).
+   Launch counts are zeroed just before each client run of phases 3, 4,
+   4b, 6, 7, 9, 10 and 11 and read just after; every kernel of the run's
+   path must have launched (K10 nine times per height-9 build; K2 once and
+   K4 five times per 2^19 chunk at 2^24).
 12. the seconds each phase took, then the kernels line (K1-K10): launches
-   in those runs, parity error, times, bounds.
+   in those runs, parity error, times, bounds, threads per lane.
 
 The last line is {"ok": true, "device": {...}}; the line before it is the
 card's name and power limit as nvidia-smi prints them.  Without a CUDA
@@ -71,8 +86,10 @@ prints no result.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import random
+import re
 import subprocess
 import sys
 import time
@@ -99,6 +116,17 @@ KERNELS = {
                       "blaze_tpu/hash/kernels.py:207"),
 }
 NTT_FIELDS = ("bn254_fr", "bls12_377_fr", "bls12_381_fr")
+TEAM_KERNELS = ("scan_mixed", "reduce_cols")     # K2, K4: a team of threads per lane
+
+
+def threads_per_lane(name: str) -> int:
+    """Threads that compute one lane (K6: the one thread of its launch; K7:
+    a 512-point NTT per lane, 128 threads over 2 lanes per block)."""
+    if name in TEAM_KERNELS:
+        from blaze_tpu_torch.curves.kernels import team_size
+
+        return team_size(name)
+    return 64 if name == "ntt_base" else 1
 
 
 def emit(obj) -> None:
@@ -131,18 +159,22 @@ def random_scalars(spec, n: int, seed: int):
         first = nw - 1 - np.argmax(diff, axis=1)
         lt = diff.any(axis=1) & (w[np.arange(n), first] < r_words[first])
         out = np.concatenate([out, w[lt]])[:n]
-    if np.unique(out, axis=0).shape[0] != n:
+    # distinct: the top 64 bits already are, but for a chance of ~n^2 2^-64
+    top = np.ascontiguousarray(out[:, -2:]).view(np.uint64)[:, 0]
+    if np.unique(top).shape[0] != n and np.unique(out, axis=0).shape[0] != n:
         raise AssertionError("scalars not distinct")
     return np.ascontiguousarray(out).view("<u2").astype(np.uint32).reshape(n, -1)
 
 
-def tiled_instance(spec, n: int, seed: int):
-    """Wire bytes of n points (256 oracle points tiled) and n distinct
-    random scalars, and the expected affine MSM."""
+def tiled_instance(spec, n: int, seed: int, expected: bool = True):
+    """Wire bytes of n points (256 oracle points of the order-r subgroup
+    tiled, n a multiple of 256) and n distinct random scalars, and the
+    expected affine MSM: the oracle MSM of the 256 points with each one's
+    coefficient sum mod r (summed per 16-bit limb in numpy)."""
     import numpy as np
 
     from blaze_tpu_torch.curves import encode_affine_points, encode_scalars
-    from blaze_tpu_torch.oracle import ECOracle, class_sum_expected
+    from blaze_tpu_torch.oracle import ECOracle
     from blaze_tpu_torch.oracle.gen import points_to_affine_words
 
     rng = random.Random(seed)
@@ -150,9 +182,13 @@ def tiled_instance(spec, n: int, seed: int):
     upoints = [oracle.random_subgroup_point(rng) for _ in range(256)]
     pts = points_to_affine_words(spec, upoints)[np.arange(n) % 256]
     scal = random_scalars(spec, n, seed)
-    ints = [int.from_bytes(row.astype("<u2").tobytes(), "little") for row in scal]
-    expected = class_sum_expected(spec, upoints, ints)
-    return encode_affine_points(pts, spec), encode_scalars(scal, spec), expected
+    want = None
+    if expected:
+        sums = scal.reshape(n // 256, 256, -1).sum(axis=0, dtype=np.int64)   # (256, Ls)
+        coeffs = [sum(int(v) << (16 * i) for i, v in enumerate(row)) % spec.fr.p
+                  for row in sums]
+        want = oracle.msm(upoints, coeffs)
+    return encode_affine_points(pts, spec), encode_scalars(scal, spec), want
 
 
 def affine_of(raw: bytes, spec):
@@ -200,17 +236,27 @@ def max_abs_err(a, b) -> int:
 
 
 # ------------------------------------------------------------ phase 1
-def ptxas_summary(logs: dict) -> dict:
-    """'kernel<W>[signed]' -> [registers, stack bytes, spill-store bytes]
-    from nvcc's -Xptxas -v output (device functions: registers None)."""
-    import re
+KERNEL_NAME = re.compile(r"([a-z_]+_kernel|ec_add_[a-z]+)ILi(\d+)E(?:Li(\d+)E)?(?:Lb(\d))?")
 
+
+def kernel_key(mangled: str):
+    """'scan_mixed_kernel<12,T3>s' for a mangled kernel name (s: signed), or
+    None for other functions."""
+    m = KERNEL_NAME.search(mangled)
+    if not m:
+        return None
+    team = f",T{m.group(3)}" if m.group(3) else ""
+    return f"{m.group(1)}<{m.group(2)}{team}>" + ("s" if m.group(4) == "1" else "")
+
+
+def ptxas_summary(logs: dict) -> dict:
+    """'kernel<W[,T]>[s]' -> [registers, stack bytes, spill-store bytes]
+    from nvcc's -Xptxas -v output (device functions: registers None)."""
     out, name = {}, None
     for log in logs.values():
         for line in log.splitlines():
             if "Function properties for" in line:
-                m = re.search(r"([a-z_]+_kernel|ec_add_[a-z]+)ILi(\d+)E(?:Lb(\d))?", line)
-                name = m and f"{m.group(1)}<{m.group(2)}>" + ("s" if m.group(3) == "1" else "")
+                name = kernel_key(line)
                 if name:
                     out[name] = [None, 0, 0]
             elif name and "stack frame" in line:
@@ -219,6 +265,38 @@ def ptxas_summary(logs: dict) -> dict:
             elif name and "Used" in line and "registers" in line:
                 out[name][0] = int(line.split("Used")[1].split()[0])
     return out
+
+
+def sass_summary(lib: Path, mix_of=("scan_mixed_kernel<12,T6>", "reduce_cols_kernel<12,T6>")):
+    """From cuobjdump -sass of the built library: 'kernel<W[,T]>[s]' ->
+    [LDL, STL], the local-memory loads and stores in its code, and for the
+    kernels in `mix_of` the static count of each opcode (the most frequent
+    12).  None without cuobjdump."""
+    import collections
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        return None
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
+                          check=True).stdout
+    local, mix, name = {}, {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = kernel_key(line)
+            if name:
+                local[name] = [0, 0]
+                if name in mix_of:
+                    mix[name] = collections.Counter()
+        elif name:
+            local[name][0] += " LDL" in line
+            local[name][1] += " STL" in line
+            m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", line)
+            if m and name in mix:
+                mix[name][m.group(1)] += 1
+    return {"ldl_stl": local,
+            "opcodes": {k: dict(v.most_common(12)) | {"total": sum(v.values())}
+                        for k, v in mix.items()}}
 
 
 def phase_device():
@@ -233,7 +311,8 @@ def phase_device():
     emit({"phase": "device", "card": card, "torch": torch.__version__,
           "cuda": torch.version.cuda, "capability": list(torch.cuda.get_device_capability(0)),
           "sms": props.multi_processor_count, "max_sm_clock_mhz": clock_mhz,
-          "build_s": build_s, "ptxas": ptxas_summary(_build.BUILD_LOG)})
+          "build_s": build_s, "ptxas": ptxas_summary(_build.BUILD_LOG),
+          "sass": sass_summary(_build._lib_path("ec_kernels"))})
     return card, props.multi_processor_count * IMAD_PER_CLK_PER_SM * clock_mhz * 1e6
 
 
@@ -260,7 +339,9 @@ def curve_inputs(spec, C: int, B: int, seed: int, device):
 
 
 def kernel_cases(spec, C: int, B: int, seed: int, device, main: bool):
-    """(name, kernel call, plain call, shape) for K1-K6 on one curve's inputs."""
+    """(key, kernel, kernel call, plain call, shape) for K1-K6 on one curve's
+    inputs; at the main shapes also K2 at the streamed chunk's lanes and
+    K4's later rounds (keys scan_mixed_streamed, reduce_cols_r2..r5)."""
     import torch
 
     from blaze_tpu_torch.curves.kernels import ECKernels
@@ -290,10 +371,72 @@ def kernel_cases(spec, C: int, B: int, seed: int, device, main: bool):
         ("fold_horner", lambda: k.fold_horner(ws, 16), lambda: k.fold_horner_plain(ws, 16),
          {"Wn": 16, "c": 16}),
     ]
+    cases = [(c[0], *c) for c in cases]
     if not main:
-        cases.append(("scan_mixed", lambda: k.scan_mixed(rows_s),
+        cases.append(("scan_mixed", "scan_mixed", lambda: k.scan_mixed(rows_s),
                       lambda: k.scan_mixed_plain(rows_s), {"C": C, "B": B, "signed": 1}))
+        return cases
+    # a streamed 2^18 chunk scans the same C rows over half the lanes; the
+    # bucket sum's later reduce_cols rounds at a 2^19 chunk (G = 16 windows)
+    half = rows[:, :, : B // 2].contiguous()
+    cases.append(("scan_mixed_streamed", "scan_mixed", lambda: k.scan_mixed(half),
+                  lambda: k.scan_mixed_plain(half), {"C": C, "B": B // 2}))
+    for r, (Cr, Br) in enumerate(((16, 512), (4, 128), (2, 64), (4, 16)), start=2):
+        rr = emitted[:Cr, :, :Br].contiguous()
+        cases.append((f"reduce_cols_r{r}", "reduce_cols", lambda rr=rr: k.reduce_cols(rr),
+                      lambda rr=rr: k.reduce_cols_plain(rr), {"C": Cr, "B": Br}))
     return cases
+
+
+def ragged_cases(spec, seed: int, device):
+    """(key, kernel, kernel call, plain call, shape) for K2 (unsigned and
+    signed) and K4 at ragged lane counts B = 1, 33, 1000: one row (C = 1),
+    and for K4 also four rows that hold identities, as the bucket sum's
+    padding does."""
+    from blaze_tpu_torch.curves import Curve
+    from blaze_tpu_torch.curves.kernels import ECKernels
+
+    k = ECKernels.for_curve(spec)
+    ident = Curve(spec).identity(device=device).reshape(-1, 1)
+    cases = []
+    for B in (1, 33, 1000):
+        _, _, rows, rows_s = curve_inputs(spec, 4, B, seed + B, device)
+        emitted, _ = k.scan_mixed(rows)
+        emitted[1, :, ::3] = ident
+        emitted[:, :, -1:] = ident[None]
+        for C in (1, 4):
+            r1, r1s, e = (x[:C].contiguous() for x in (rows, rows_s, emitted))
+            if C == 1:
+                cases += [
+                    ("scan_mixed", "scan_mixed", lambda r=r1: k.scan_mixed(r),
+                     lambda r=r1: k.scan_mixed_plain(r), {"C": C, "B": B}),
+                    ("scan_mixed", "scan_mixed", lambda r=r1s: k.scan_mixed(r),
+                     lambda r=r1s: k.scan_mixed_plain(r), {"C": C, "B": B, "signed": 1}),
+                ]
+            cases.append(("reduce_cols", "reduce_cols", lambda e=e: k.reduce_cols(e),
+                          lambda e=e: k.reduce_cols_plain(e),
+                          {"C": C, "B": B, "identities": int(C > 1)}))
+    return cases
+
+
+def as_tuple(x):
+    return x if isinstance(x, tuple) else (x,)
+
+
+def output_err(got, want) -> int:
+    return max(max_abs_err(g, w) for g, w in zip(as_tuple(got), as_tuple(want)))
+
+
+def team_errs(name: str, kern, want) -> dict:
+    """K2 or K4: the kernel's error against `want` under each team size
+    (the size in use is restored)."""
+    from blaze_tpu_torch.curves.kernels import TEAM_SIZES, team_size
+
+    default = team_size(name)
+    try:
+        return {T: (team_size(name, T), output_err(kern(), want))[1] for T in TEAM_SIZES}
+    finally:
+        team_size(name, default)
 
 
 def work_bound_ms(name: str, shape: dict, W: int, imad_rate: float):
@@ -353,43 +496,62 @@ def phase_parity(imad_rate: float, device):
     import torch
 
     from blaze_tpu_torch.curves import CURVES
+    from blaze_tpu_torch.curves.kernels import TEAM_SIZES, team_size
 
     errs = {name: 0 for name in KERNELS}
     for curve in ("bn254", "bls12_377", "bls12_381"):
         spec = CURVES[curve]
-        checked = {}
-        for name, kern, plain, shape in kernel_cases(spec, 8, 1024, 1, device, main=False):
-            got, want = kern(), plain()
-            got = got if isinstance(got, tuple) else (got,)
-            want = want if isinstance(want, tuple) else (want,)
-            e = max(max_abs_err(g, w) for g, w in zip(got, want))
+        checked, ragged = {}, []
+        small = kernel_cases(spec, 8, 1024, 1, device, main=False)
+        for i, (key, name, kern, plain, shape) in enumerate(
+                small + ragged_cases(spec, 1, device)):
+            want = plain()
+            e = (max(team_errs(name, kern, want).values()) if name in TEAM_KERNELS
+                 else output_err(kern(), want))
             errs[name] = max(errs[name], e)
-            checked[name + ("_signed" if shape.get("signed") else "")] = e
+            if i < len(small):
+                checked[key + ("_signed" if shape.get("signed") else "")] = e
+            else:
+                ragged.append({"kernel": name, **shape, "max_abs_err": e})
         torch.cuda.synchronize()
         emit({"phase": "parity", "curve": curve, "shape": "small (C=8, B=1024)",
-              "max_abs_err": checked})
-        if any(checked.values()):
-            raise AssertionError(f"{curve}: kernel differs from its plain version: {checked}")
+              "max_abs_err": checked, "ragged (every team size)": ragged})
+        if any(checked.values()) or any(c["max_abs_err"] for c in ragged):
+            raise AssertionError(f"{curve}: kernel differs from its plain version")
 
     # the main path's shapes: BLS12-381 at a 2^19 chunk (16 windows of
     # c = 16, R = 1024 lanes, C = 512 rows; the bucket sum's first
-    # reduce_cols pass is C = 256 rows of G * R2 = 8192 lanes)
+    # reduce_cols pass is C = 256 rows of G * R2 = 8192 lanes); K2 and K4
+    # timed under each team size, at every shape
     spec = CURVES["bls12_381"]
     W = spec.fq.nwords
     timing = {}
-    for name, kern, plain, shape in kernel_cases(spec, 512, 16384, 2, device, main=True):
-        reps = 3 if name in ("scan_mixed", "reduce_cols") else 20
-        ms = cuda_ms(kern, reps)
+    for key, name, kern, plain, shape in kernel_cases(spec, 512, 16384, 2, device, main=True):
+        reps = 3 if shape.get("C", 0) >= 256 else 20
         want, plain_ms = once_ms(plain)
-        got = kern()
-        got = got if isinstance(got, tuple) else (got,)
-        want = want if isinstance(want, tuple) else (want,)
-        e = max(max_abs_err(g, w) for g, w in zip(got, want))
+        entry = {"shape": shape}
+        if name in TEAM_KERNELS:
+            default = team_size(name)
+            sweep = {}
+            try:
+                for T in TEAM_SIZES:
+                    team_size(name, T)
+                    sweep[T] = {"ms": cuda_ms(kern, reps),
+                                "max_abs_err": output_err(kern(), want)}
+            finally:
+                team_size(name, default)
+            e = max(t["max_abs_err"] for t in sweep.values())
+            entry.update(ms=sweep[default]["ms"], team_sweep=sweep)
+        else:
+            entry["ms"] = cuda_ms(kern, reps)
+            e = output_err(kern(), want)
+        if name in TEAM_KERNELS:
+            entry["threads_per_lane"] = team_size(name)
         errs[name] = max(errs[name], e)
         bound, bound_by = work_bound_ms(name, shape, W, imad_rate)
-        timing[name] = {"shape": shape, "ms": ms, "plain_ms": plain_ms,
-                        "bound_ms": bound, "bound_by": bound_by, "max_abs_err": e}
-        del want, got
+        timing[key] = {**entry, "plain_ms": plain_ms, "bound_ms": bound,
+                       "bound_by": bound_by, "max_abs_err": e}
+        del want
         torch.cuda.empty_cache()
     emit({"phase": "parity", "curve": "bls12_381", "shape": "main path", "kernels": timing})
     if any(t["max_abs_err"] for t in timing.values()):
@@ -463,6 +625,142 @@ def phase_main_path(seed: int):
         for k, v in counts.items():
             launches[k] = launches.get(k, 0) + v
     return launches
+
+
+def run_resident(n: int, seed: int, device=None):
+    """The headline shape (bench.py:10, bls12_381_msm_2^24): set_data once
+    with every point and scalar, start_process -> wait_result -> result(),
+    n / 2^19 chunks on the card and the window fold on the Field.  Returns
+    (ok, info)."""
+    import torch
+
+    from blaze_tpu_torch.curves import CURVES
+    from blaze_tpu_torch.runtime import MSMClient, MSMInit, MSMInput, MSMParams
+
+    spec = CURVES["bls12_381"]
+    t0 = time.perf_counter()
+    praw, sraw, expected = tiled_instance(spec, n, seed)
+    gen_s = time.perf_counter() - t0
+    client = MSMClient(MSMInit(curve="bls12_381"), device=device)
+    client.initialize(MSMParams(nof_elements=n))
+    fold = {}
+    engine_finalize = client.engine.finalize
+
+    def finalize(wsums, c):
+        fold["enqueued"] = time.perf_counter()       # the host has queued every chunk
+        torch.cuda.synchronize()
+        t = fold["done"] = time.perf_counter()       # and the card has run them
+        out = engine_finalize(wsums, c)
+        torch.cuda.synchronize()
+        fold["s"] = time.perf_counter() - t
+        return out
+
+    client.engine.finalize = finalize
+    t0 = time.perf_counter()
+    client.set_data(MSMInput(scalars=sraw, points=praw))
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    client.start_process()
+    client.wait_result()
+    t2 = time.perf_counter()
+    raw = client.result().result
+    ok = affine_of(raw, spec) == expected
+    return ok, {"n": n, "chunks": -(-n // (1 << client.engine.config.chunk_log2)),
+                "input_gen_s": gen_s, "set_data_s": t1 - t0, "start_to_wait_s": t2 - t1,
+                "points_per_s": n / (t2 - t1), "field_fold_s": fold.get("s"),
+                "chunks_queued_s": fold["enqueued"] - t1, "chunks_done_s": fold["done"] - t1,
+                "result_sha256": hashlib.sha256(raw).hexdigest()}
+
+
+def profile_single_chunk(seed: int, n: int = 1 << 19) -> dict:
+    """One warm single-chunk MSM (start_process -> wait_result) under
+    torch.profiler: the wall time, the device's busy time (the sum of the
+    device events' times: kernels and copies on one stream) and idle share,
+    their count, and the ones that took the most device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from blaze_tpu_torch.curves import CURVES
+    from blaze_tpu_torch.runtime import MSMClient, MSMInit, MSMInput, MSMParams
+
+    spec = CURVES["bls12_381"]
+    praw, sraw, _ = tiled_instance(spec, n, seed, expected=False)
+    client = MSMClient(MSMInit(curve="bls12_381"))
+    client.initialize(MSMParams(nof_elements=n))
+    client.set_data(MSMInput(scalars=sraw, points=praw))
+    client.start_process()
+    client.wait_result()
+    client.result()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        client.start_process()
+        client.wait_result()
+        wall = time.perf_counter() - t0
+    client.result()
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+    # the device's own events (kernels, copies): the aten ops above them
+    # report the same time again as theirs
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA and dev_us(e) > 0]
+    busy_ms = sum(dev_us(e) for e in kernels) / 1e3
+    top = sorted(kernels, key=dev_us, reverse=True)[:12]
+    info = {"n": n, "wall_ms": wall * 1e3, "device_busy_ms": busy_ms or None,
+            "idle_share": (1 - busy_ms / (wall * 1e3)) if busy_ms else None,
+            "device_ops": sum(e.count for e in kernels),
+            "top": [{"name": e.key[:60], "count": e.count, "ms": dev_us(e) / 1e3} for e in top]}
+    emit({"phase": "msm_2^19_profile", **info})
+    return info
+
+
+MSM_2E24_NEEDS = ("mont_mul", "scan_mixed", "ec_add", "reduce_cols", "dbl_n")
+
+
+def phase_msm_2e24(seed: int, n: int = 1 << 24) -> dict:
+    """MSM 2^24 resident through MSMClient against the oracle; returns the
+    launch counts (every chunk runs K2 once and K4 five times)."""
+    from blaze_tpu_torch import _build
+
+    _build.reset_launches()
+    ok, info = run_resident(n, seed + 2)
+    counts = dict(_build.LAUNCHES)
+    emit({"phase": "msm_2^24_resident", "oracle": "match" if ok else "MISMATCH", **info,
+          "launches": counts})
+    if not ok:
+        raise AssertionError("msm 2^24: result differs from the oracle")
+    check_launches("msm_2^24", counts, MSM_2E24_NEEDS)
+    chunks = info["chunks"]
+    if counts["scan_mixed"] != chunks or counts["reduce_cols"] != 5 * chunks:
+        raise AssertionError(f"msm 2^24: {counts['scan_mixed']} K2 and "
+                             f"{counts['reduce_cols']} K4 launches for {chunks} chunks")
+    return counts
+
+
+def phase_msm_2e24_parent(tree: Path, seed: int, n: int = 1 << 24) -> dict:
+    """The same phase on another tree of the package (the parent commit,
+    unpacked beside this one): this script's phase function in a child
+    process that imports that tree's blaze_tpu_torch (its kernels are built
+    there first).  Prints the child's phase line; returns it."""
+    code = (
+        "import importlib.util, json, sys\n"
+        f"sys.path.insert(0, {str(tree.resolve())!r})\n"
+        "from blaze_tpu_torch import _build\n"
+        "b = _build.build_all(('montmul', 'ec_kernels'))\n"
+        f"spec = importlib.util.spec_from_file_location('smoke', {str(ROOT / 'chip_smoke.py')!r})\n"
+        "cs = importlib.util.module_from_spec(spec); spec.loader.exec_module(cs)\n"
+        f"ok, info = cs.run_resident({n}, {seed + 2})\n"
+        "print(json.dumps({'tree': _build.__file__, 'build_s': b, 'oracle': ok, **info}))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=900)
+    if out.returncode != 0:
+        raise AssertionError(f"parent tree's msm 2^24 failed:\n{out.stderr[-4000:]}")
+    line = json.loads(out.stdout.strip().splitlines()[-1])
+    emit({"phase": "msm_2^24_resident_parent", **line})
+    return line
 
 
 # ------------------------------------------------------------ phase 5
@@ -1221,6 +1519,12 @@ def phase_poseidon_stream(seed: int, height: int = 7, stream_leaves: int = 1 << 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--parent", type=Path, default=None,
+                    help="another tree of the package (e.g. the parent commit unpacked "
+                         "under build/): also run the MSM 2^24 phase from it, before "
+                         "and after this tree's, for the end-to-end comparison")
+    ap.add_argument("--profile", action="store_true",
+                    help="also profile one 2^19 single-chunk MSM (torch.profiler)")
     args = ap.parse_args()
 
     import torch
@@ -1246,6 +1550,14 @@ def main() -> int:
     card, imad_rate = timed_phase("device_and_build", phase_device)
     errs, timing = timed_phase("msm_parity", phase_parity, imad_rate, dev)
     launches = timed_phase("msm_clients", phase_main_path, args.seed)
+    if args.profile:
+        timed_phase("msm_2^19_profile", profile_single_chunk, args.seed)
+    if args.parent:
+        timed_phase("msm_2^24_parent_before", phase_msm_2e24_parent, args.parent, args.seed)
+    for k, v in timed_phase("msm_2^24", phase_msm_2e24, args.seed).items():
+        launches[k] += v
+    if args.parent:
+        timed_phase("msm_2^24_parent_after", phase_msm_2e24_parent, args.parent, args.seed)
     ntt_errs, ntt_timing = timed_phase("ntt_parity", phase_ntt_parity, imad_rate, args.seed, dev)
     errs.update(ntt_errs)
     timing.update(ntt_timing)
@@ -1268,7 +1580,7 @@ def main() -> int:
          "launches": launches[name], "max_abs_err": errs[name],
          "ms": timing[name]["ms"], "plain_ms": timing[name]["plain_ms"],
          "bound_ms": timing[name]["bound_ms"], "bound_by": timing[name]["bound_by"],
-         "library_ms": None}
+         "library_ms": None, "threads_per_lane": threads_per_lane(name)}
         for name, (src, rep) in KERNELS.items()
     ]})
     print(card, flush=True)

@@ -3,7 +3,8 @@
     python -m pytest -m cuda tests/test_torch_cuda.py
 
 K1-K6 against their plain PyTorch versions on the same device inputs,
-exact, on all three curves, and K7-K10 (with the multi-p REDC twin) on the
+exact, on all three curves (K2 and K4 also at ragged lane counts under
+every team size), and K7-K10 (with the multi-p REDC twin) on the
 three scalar fields; the MSM client on the card against the oracle with
 distinct scalars; the NTT client on the card against every committed golden
 pair, and at 2^16 (the K8 twiddle fallback) against a host NTT in Python
@@ -26,7 +27,7 @@ from blaze_tpu_torch.curves import (
     encode_affine_points,
     encode_scalars,
 )
-from blaze_tpu_torch.curves.kernels import ECKernels
+from blaze_tpu_torch.curves.kernels import TEAM_SIZES, ECKernels, team_size
 from blaze_tpu_torch import _build
 from blaze_tpu_torch.fields import FIELDS, int_to_words, words_to_int
 from blaze_tpu_torch.fields.montmul import mont_mul, mont_mul_plain
@@ -84,6 +85,44 @@ def test_kernels_match_plain_versions(dev, name):
     assert torch.equal(k.dbl_n(p, 5), k.dbl_n_plain(p, 5))
     ws = p[:, :6].contiguous()
     assert torch.equal(k.fold_horner(ws, 5), k.fold_horner_plain(ws, 5))
+
+
+@pytest.mark.parametrize("B", [1, 33, 1000])
+@pytest.mark.parametrize("name", sorted(CURVES))
+def test_team_kernels_match_plain_at_ragged_shapes(dev, name, B):
+    """K2 (unsigned and signed, C = 1 and 4) and K4 (C = 1, and 4 rows that
+    hold identities) under every team size, exact."""
+    spec = CURVES[name]
+    cv, k = Curve(spec), ECKernels.for_curve(spec)
+    oracle = ECOracle(spec)
+    rng = random.Random(B)
+    pts = [oracle.random_point(rng) for _ in range(4 * B)]
+    aff = torch.stack([cv.fq.from_int([x for x, _ in pts], device=dev),
+                       cv.fq.from_int([y for _, y in pts], device=dev)], dim=1)
+    rows = aff.reshape(4, B, -1).permute(0, 2, 1).contiguous()
+    sgn = torch.randint(0, 2, (4, 1, B), dtype=torch.int32,
+                        generator=torch.Generator().manual_seed(B)).to(dev)
+    rows_s = torch.cat([rows, sgn], dim=1).contiguous()
+    em = k.scan_mixed_plain(rows)[0]
+    ident = cv.identity(device=dev).reshape(-1, 1)
+    em[1, :, ::3] = ident
+    em[:, :, -1:] = ident[None]
+    cases = [("scan_mixed", k.scan_mixed, k.scan_mixed_plain, r[:C].contiguous())
+             for r in (rows, rows_s) for C in (1, 4)]
+    cases += [("reduce_cols", k.reduce_cols, k.reduce_cols_plain, em[:C].contiguous())
+              for C in (1, 4)]
+    for kernel, run, plain, x in cases:
+        want = plain(x)
+        want = want if isinstance(want, tuple) else (want,)
+        before = team_size(kernel)
+        try:
+            for T in TEAM_SIZES:
+                team_size(kernel, T)
+                got = run(x)
+                got = got if isinstance(got, tuple) else (got,)
+                assert all(torch.equal(g, w) for g, w in zip(got, want)), (kernel, T, x.shape)
+        finally:
+            team_size(kernel, before)
 
 
 def test_client_on_card_matches_oracle(dev):
