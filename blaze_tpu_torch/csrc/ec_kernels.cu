@@ -19,27 +19,25 @@
 //
 // K3, K5 and K6: one thread per lane, the group ops of ec.cuh.
 //
-// K2 and K4: a team of T threads per lane (ec_team.cuh).  With one thread
-// per lane they were latency-bound: the MSM gives them few lanes (K2 16384
-// at a 2^19 chunk, 8192 at a streamed 2^18 chunk; K4's first pass 8192),
-// about one warp per scheduler, and each thread's chain of 13-14 dependent
-// products was the critical path (23.6 and 14.1 ms against bounds of 3.8
-// and 1.0 ms on an H100).  The team splits each group op's independent
-// products over its members (critical path 7, 5 or 3 products for T = 2,
-// 3, 6), so the card holds T times the warps, and the product runs its
-// carries through PTX carry chains with no call frame or local memory.  A
-// block is one warp per member over 32 lanes (member-major threads), so
-// every global load and store of a warp stays one 128-byte line; the
-// team's working set lives in shared memory, 21 field elements per lane
-// (32 KB per block at W = 12), with a barrier between steps.  T = 6 is the
-// default for both (blz_ec_team sets it): on the H100 K2 takes 9.5 ms at
-// B 16384 and 4.6 at B 8192, K4 2.4 ms at its first pass, 41-44% of the
-// IMAD bound.  The card is then full (at T = 6 the time halves with the
-// lanes; T = 2 is as fast at B 16384); each multiply-add issues as a
-// multiply and a carry add, and the carry chains, the barriers and the
-// members idle in the smaller steps take the rest.  Each lane
-// keeps its order of group ops and each group op its order of field ops,
-// so the outputs do not depend on T.
+// K2 and K4: a team of kTeam = 6 threads per lane (ec_team.cuh).  With one
+// thread per lane they were latency-bound: the MSM gives them few lanes (K2
+// 16384 at a 2^19 chunk, 8192 at a streamed 2^18 chunk; K4's first pass
+// 8192), about one warp per scheduler, and each thread's chain of 13-14
+// dependent products was the critical path (23.6 and 14.1 ms against
+// bounds of 3.8 and 1.0 ms on an H100).  The team splits each group op's
+// independent products over its members (critical path 3 products), so
+// the card holds 6 times the warps, and the product runs its carries
+// through PTX carry chains with no call frame or local memory.  A block is
+// one warp per member over 32 lanes (member-major threads), so every
+// global load and store of a warp stays one 128-byte line; the team's
+// working set lives in shared memory, 21 field elements per lane (32 KB
+// per block at W = 12), with a barrier between steps.  On the H100 K2
+// takes 9.3 ms at B 16384 and 4.6 at B 8192, K4 2.4 ms at its first pass,
+// 41-44% of the IMAD bound.  The card is then full (the time halves with
+// the lanes); each multiply-add issues as a multiply and a carry add, and
+// the carry chains, the barriers and the members idle in the smaller steps
+// take the rest.  Each lane keeps its order of group ops and each group op
+// its order of field ops, so the outputs equal the one-thread kernels'.
 #include <cuda_runtime.h>
 
 #include "ec.cuh"
@@ -72,8 +70,7 @@ __device__ __forceinline__ void store_point(uint32_t* dst, const blz::Point<W>& 
 }
 
 constexpr int kTeamLanes = 32;       // lanes per team block: one warp per member
-constexpr int kTeamSizes[] = {2, 3, 6};
-int g_team[2] = {6, 6};               // T of K2 and K4 (blz_ec_team)
+using blz::team::kTeam;
 
 template <int W>
 constexpr int team_smem_bytes() {
@@ -81,17 +78,17 @@ constexpr int team_smem_bytes() {
 }
 
 // The running point's coordinates go out by the member that computed them
-// in step 4 (coordinate k by member k % T: its own writes, no barrier).
-template <int W, int T>
+// in step 4 (coordinate k by member k: its own writes, no barrier).
+template <int W>
 __device__ __forceinline__ void store_coords(uint32_t* dst, int member,
                                              const blz::team::Slots<W, kTeamLanes>& sl,
                                              bool live, int64_t B) {
-  for (int k = member; k < 3; k += T) {
+  if (member < 3) {
     uint32_t v[W];
-    sl.load(v, blz::team::X1 + k);
+    sl.load(v, blz::team::X1 + member);
     if (live) {
 #pragma unroll
-      for (int w = 0; w < W; ++w) dst[(int64_t)(k * W + w) * B] = v[w];
+      for (int w = 0; w < W; ++w) dst[(int64_t)(member * W + w) * B] = v[w];
     }
   }
 }
@@ -115,8 +112,8 @@ __device__ __forceinline__ void team_init(int member,
 // inclusive prefixes, tot (3W, B) the last prefix.  Member 0 fetches X,
 // member 1 Y and the sign, one row ahead (the loads of row c + 1 are in
 // flight during row c's last products).
-template <int W, int T, bool kSigned>
-__global__ void __launch_bounds__(kTeamLanes * T)
+template <int W, bool kSigned>
+__global__ void __launch_bounds__(kTeamLanes * kTeam)
 scan_mixed_kernel(const uint32_t* __restrict__ rows, uint32_t* __restrict__ emitted,
                   uint32_t* __restrict__ tot, int C, int64_t B, blz::FieldConsts<W> fc) {
   namespace tm = blz::team;
@@ -153,19 +150,19 @@ scan_mixed_kernel(const uint32_t* __restrict__ rows, uint32_t* __restrict__ emit
   put();
   __syncthreads();
   for (int c = 0; c < C; ++c) {
-    tm::run_step<tm::MIXED_1, W, T>(member, sl, fc);
+    tm::run_step<tm::MIXED_1, W>(member, sl, fc);
     __syncthreads();
     fetch(c + 1);
-    tm::run_step<tm::MIXED_2, W, T>(member, sl, fc);
+    tm::run_step<tm::MIXED_2, W>(member, sl, fc);
     __syncthreads();
-    tm::run_step<tm::OUT_3, W, T>(member, sl, fc);
-    if (T != 3) __syncthreads();
-    tm::run_step<tm::OUT_4, W, T>(member, sl, fc);
-    store_coords<W, T>(emitted + (int64_t)c * 3 * W * B + lane, member, sl, live, B);
+    tm::run_step<tm::OUT_3, W>(member, sl, fc);
+    __syncthreads();
+    tm::run_step<tm::OUT_4, W>(member, sl, fc);
+    store_coords<W>(emitted + (int64_t)c * 3 * W * B + lane, member, sl, live, B);
     if (c + 1 < C) put();
     __syncthreads();
   }
-  store_coords<W, T>(tot + lane, member, sl, live, B);
+  store_coords<W>(tot + lane, member, sl, live, B);
 }
 
 template <int W>
@@ -182,42 +179,31 @@ ec_add_kernel(const uint32_t* __restrict__ p, const uint32_t* __restrict__ q,
 }
 
 // rows (C, 3W, B) -> tot (3W, B): identity + row 0 + ... + row C-1.
-// Coordinate k of each row is fetched by member k % T, one row ahead.
-template <int W, int T>
-__global__ void __launch_bounds__(kTeamLanes * T)
+// Coordinate k of each row is fetched by member k, one row ahead.
+template <int W>
+__global__ void __launch_bounds__(kTeamLanes * kTeam)
 reduce_cols_kernel(const uint32_t* __restrict__ rows, uint32_t* __restrict__ tot,
                    int C, int64_t B, blz::FieldConsts<W> fc) {
   namespace tm = blz::team;
   extern __shared__ uint4 team_smem[];
-  constexpr int kFetch = (3 + T - 1) / T;       // coordinates per member
   const int member = threadIdx.x / kTeamLanes;
   const int l = threadIdx.x % kTeamLanes;
   const int64_t lane = (int64_t)blockIdx.x * kTeamLanes + l;
   const bool live = lane < B;
   const tm::Slots<W, kTeamLanes> sl{team_smem + l};
-  uint32_t pf[kFetch][W];
+  uint32_t pf[W];
 #pragma unroll
-  for (int i = 0; i < kFetch; ++i)
-#pragma unroll
-    for (int w = 0; w < W; ++w) pf[i][w] = 0;
+  for (int w = 0; w < W; ++w) pf[w] = 0;
 
   auto fetch = [&](int c) {
+    if (member < 3 && live && c < C) {
+      const uint32_t* src = rows + ((int64_t)c * 3 * W + member * W) * B + lane;
 #pragma unroll
-    for (int i = 0; i < kFetch; ++i) {
-      const int k = member + i * T;
-      if (k < 3 && live && c < C) {
-        const uint32_t* src = rows + ((int64_t)c * 3 * W + k * W) * B + lane;
-#pragma unroll
-        for (int w = 0; w < W; ++w) pf[i][w] = src[(int64_t)w * B];
-      }
+      for (int w = 0; w < W; ++w) pf[w] = src[(int64_t)w * B];
     }
   };
   auto put = [&]() {
-#pragma unroll
-    for (int i = 0; i < kFetch; ++i) {
-      const int k = member + i * T;
-      if (k < 3) sl.store(tm::X2 + k, pf[i]);
-    }
+    if (member < 3) sl.store(tm::X2 + member, pf);
   };
 
   team_init<W>(member, sl, fc);
@@ -225,18 +211,18 @@ reduce_cols_kernel(const uint32_t* __restrict__ rows, uint32_t* __restrict__ tot
   put();
   __syncthreads();
   for (int c = 0; c < C; ++c) {
-    tm::run_step<tm::FULL_1, W, T>(member, sl, fc);
+    tm::run_step<tm::FULL_1, W>(member, sl, fc);
     __syncthreads();
     fetch(c + 1);
-    tm::run_step<tm::FULL_2, W, T>(member, sl, fc);
+    tm::run_step<tm::FULL_2, W>(member, sl, fc);
     __syncthreads();
-    tm::run_step<tm::OUT_3, W, T>(member, sl, fc);
-    if (T != 3) __syncthreads();
-    tm::run_step<tm::OUT_4, W, T>(member, sl, fc);
+    tm::run_step<tm::OUT_3, W>(member, sl, fc);
+    __syncthreads();
+    tm::run_step<tm::OUT_4, W>(member, sl, fc);
     if (c + 1 < C) put();
     __syncthreads();
   }
-  store_coords<W, T>(tot + lane, member, sl, live, B);
+  store_coords<W>(tot + lane, member, sl, live, B);
 }
 
 // (3W, B) -> (3W, B): k doublings, each the complete add of a point with itself.
@@ -281,31 +267,21 @@ unsigned blocks_for(int64_t B) { return (unsigned)((B + kThreads - 1) / kThreads
 
 unsigned team_blocks(int64_t B) { return (unsigned)((B + kTeamLanes - 1) / kTeamLanes); }
 
-template <int W, int T>
-int scan_team(int is_signed, const blz::FieldConsts<W>& fc, const void* rows, void* emitted,
-              void* tot, int C, int64_t B, cudaStream_t s) {
-  const auto r = (const uint32_t*)rows;
-  const auto e = (uint32_t*)emitted;
-  const auto t = (uint32_t*)tot;
-  if (is_signed) {
-    scan_mixed_kernel<W, T, true><<<team_blocks(B), kTeamLanes * T, team_smem_bytes<W>(), s>>>(
-        r, e, t, C, B, fc);
-  } else {
-    scan_mixed_kernel<W, T, false><<<team_blocks(B), kTeamLanes * T, team_smem_bytes<W>(), s>>>(
-        r, e, t, C, B, fc);
-  }
-  return (int)cudaGetLastError();
-}
-
 template <int W>
 int scan(int is_signed, const uint32_t* consts, const void* rows, void* emitted,
          void* tot, int C, int64_t B, cudaStream_t s) {
   const auto fc = blz::load_consts<W>(consts);
-  switch (g_team[0]) {
-    case 2: return scan_team<W, 2>(is_signed, fc, rows, emitted, tot, C, B, s);
-    case 3: return scan_team<W, 3>(is_signed, fc, rows, emitted, tot, C, B, s);
-    default: return scan_team<W, 6>(is_signed, fc, rows, emitted, tot, C, B, s);
+  const auto r = (const uint32_t*)rows;
+  const auto e = (uint32_t*)emitted;
+  const auto t = (uint32_t*)tot;
+  if (is_signed) {
+    scan_mixed_kernel<W, true><<<team_blocks(B), kTeamLanes * kTeam, team_smem_bytes<W>(), s>>>(
+        r, e, t, C, B, fc);
+  } else {
+    scan_mixed_kernel<W, false><<<team_blocks(B), kTeamLanes * kTeam, team_smem_bytes<W>(), s>>>(
+        r, e, t, C, B, fc);
   }
+  return (int)cudaGetLastError();
 }
 
 template <int W>
@@ -317,23 +293,12 @@ int add(const uint32_t* consts, const void* p, const void* q, void* o, int64_t B
   return (int)cudaGetLastError();
 }
 
-template <int W, int T>
-int reduce_team(const blz::FieldConsts<W>& fc, const void* rows, void* tot, int C, int64_t B,
-                cudaStream_t s) {
-  reduce_cols_kernel<W, T><<<team_blocks(B), kTeamLanes * T, team_smem_bytes<W>(), s>>>(
-      (const uint32_t*)rows, (uint32_t*)tot, C, B, fc);
-  return (int)cudaGetLastError();
-}
-
 template <int W>
 int reduce(const uint32_t* consts, const void* rows, void* tot, int C, int64_t B,
            cudaStream_t s) {
-  const auto fc = blz::load_consts<W>(consts);
-  switch (g_team[1]) {
-    case 2: return reduce_team<W, 2>(fc, rows, tot, C, B, s);
-    case 3: return reduce_team<W, 3>(fc, rows, tot, C, B, s);
-    default: return reduce_team<W, 6>(fc, rows, tot, C, B, s);
-  }
+  reduce_cols_kernel<W><<<team_blocks(B), kTeamLanes * kTeam, team_smem_bytes<W>(), s>>>(
+      (const uint32_t*)rows, (uint32_t*)tot, C, B, blz::load_consts<W>(consts));
+  return (int)cudaGetLastError();
 }
 
 template <int W>
@@ -411,18 +376,5 @@ extern "C" int blz_fold_horner(int W, const uint32_t* consts, const void* ws,
   }
 }
 
-// The team size T of K2 (kernel 0) or K4 (kernel 1): sets it when T is one
-// of 2, 3, 6, reads it when T is 0; returns the size before the call, or
-// -1 for an unknown kernel or size.
-extern "C" int blz_ec_team(int kernel, int T) {
-  if (kernel < 0 || kernel > 1) return -1;
-  const int before = g_team[kernel];
-  if (T == 0) return before;
-  for (int t : kTeamSizes) {
-    if (t == T) {
-      g_team[kernel] = T;
-      return before;
-    }
-  }
-  return -1;
-}
+// Threads per lane of K2 and K4.
+extern "C" int blz_ec_team() { return kTeam; }

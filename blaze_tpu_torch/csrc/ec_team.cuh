@@ -1,5 +1,5 @@
 // Team group operations for K2 (scan_mixed) and K4 (reduce_cols): the
-// products of one group operation split across a team of T threads.
+// products of one group operation split across a team of kTeam threads.
 //
 // The formulas and every field operation are those of ec.cuh (RCB 2016
 // alg 8 and alg 7, lazy < 2p); only which thread computes which product
@@ -13,11 +13,11 @@
 //   step 3  the 6 output products r0..r5
 //   step 4  X3 = r0 - r1, Y3 = r2 + r3, Z3 = r4 + r5
 // A step is a list of tasks (a short sequence of ops); team member j runs
-// tasks j, j + T, ...  Values pass between members through per-lane slots
-// in shared memory; the kernel puts a barrier between steps (none between
-// steps 3 and 4 when T = 3: member j then computes both terms of output
-// coordinate j).  A group op's critical path is 7, 5 or 3 products for
-// T = 2, 3, 6, instead of 13-14.
+// tasks j, j + kTeam, ...  Values pass between members through per-lane
+// slots in shared memory; the kernel puts a barrier between steps.  With
+// kTeam = 6 a group op's critical path is 3 products instead of 13-14
+// (on an H100, T = 6 beat T = 2 and 3 at every shape the MSM runs, or
+// tied T = 2; see PERF.md).
 //
 // An op is out = A (kind) B with A = slot a0 (+ slot a1) and B = slot b0
 // (+ slot b1): the pre-adds are the formulas' own fadds, done in registers.
@@ -46,6 +46,8 @@ struct uint4 {
 
 namespace blz {
 namespace team {
+
+constexpr int kTeam = 6;     // threads per lane of K2 and K4
 
 // ------------------------------------------------------------ carry chains
 // cf is the carry (borrow for sub) flag of the host emulation; on the
@@ -217,7 +219,7 @@ BLZ_DEVICE void sub_lazy(uint32_t* r, const uint32_t* a, const uint32_t* b,
 // ------------------------------------------------------------------ slots
 // Per-lane field elements of a team.  X1..Z1 hold the running point, X2..Z2
 // the point added (alg 8 reads X2, Y2), B3 the constant 3b R.  M0..M5 hold
-// step 1's products and then step 3's (r0, r2, r4, r1, r3, r5).
+// step 1's products and then step 3's (r0..r5).
 enum Slot : uint8_t {
   X1, Y1, Z1, X2, Y2, Z2, B3,
   M0, M1, M2, M3, M4, M5,
@@ -273,18 +275,17 @@ BLZ_TEAM_TABLE Op kProgram[kSteps][kTasks][kTaskOps] = {
      {BLZ_OP(SUB, T3, M3, NONE, M0, M1),                         // t3 = m3 - [m0+m1]
       BLZ_OP(SUB, T4, M4, NONE, M1, M2),                         // t4 = m4 - [m1+m2]
       BLZ_OP(ADD, T0, M0, M0, M0, NONE)}},                       // t0 = [m0+m0] + m0
-    // OUT_3: r0, r2, r4, r1, r3, r5, so that with T = 3 member j holds
-    // both terms of output coordinate j
+    // OUT_3: the output products r0..r5
     {{BLZ_OP(MUL, M0, T3, NONE, T1, NONE), BLZ_NOP, BLZ_NOP},    // r0 = t3 t1
-     {BLZ_OP(MUL, M1, T1, NONE, Z3, NONE), BLZ_NOP, BLZ_NOP},    // r2 = t1 z3
-     {BLZ_OP(MUL, M2, Z3, NONE, T4, NONE), BLZ_NOP, BLZ_NOP},    // r4 = z3 t4
-     {BLZ_OP(MUL, M3, T4, NONE, W1, NONE), BLZ_NOP, BLZ_NOP},    // r1 = t4 w1
-     {BLZ_OP(MUL, M4, T0, NONE, W1, NONE), BLZ_NOP, BLZ_NOP},    // r3 = t0 w1
+     {BLZ_OP(MUL, M1, T4, NONE, W1, NONE), BLZ_NOP, BLZ_NOP},    // r1 = t4 w1
+     {BLZ_OP(MUL, M2, T1, NONE, Z3, NONE), BLZ_NOP, BLZ_NOP},    // r2 = t1 z3
+     {BLZ_OP(MUL, M3, T0, NONE, W1, NONE), BLZ_NOP, BLZ_NOP},    // r3 = t0 w1
+     {BLZ_OP(MUL, M4, Z3, NONE, T4, NONE), BLZ_NOP, BLZ_NOP},    // r4 = z3 t4
      {BLZ_OP(MUL, M5, T0, NONE, T3, NONE), BLZ_NOP, BLZ_NOP}},   // r5 = t0 t3
     // OUT_4: task k writes coordinate k of the sum
-    {{BLZ_OP(SUB, X1, M0, NONE, M3, NONE), BLZ_NOP, BLZ_NOP},    // X3 = r0 - r1
-     {BLZ_OP(ADD, Y1, M1, NONE, M4, NONE), BLZ_NOP, BLZ_NOP},    // Y3 = r2 + r3
-     {BLZ_OP(ADD, Z1, M2, NONE, M5, NONE), BLZ_NOP, BLZ_NOP}},   // Z3 = r4 + r5
+    {{BLZ_OP(SUB, X1, M0, NONE, M1, NONE), BLZ_NOP, BLZ_NOP},    // X3 = r0 - r1
+     {BLZ_OP(ADD, Y1, M2, NONE, M3, NONE), BLZ_NOP, BLZ_NOP},    // Y3 = r2 + r3
+     {BLZ_OP(ADD, Z1, M4, NONE, M5, NONE), BLZ_NOP, BLZ_NOP}},   // Z3 = r4 + r5
 };
 #undef BLZ_OP
 #undef BLZ_NOP
@@ -326,13 +327,13 @@ BLZ_DEVICE void operand(uint32_t* v, const Slots<W, kStride>& sl, uint8_t s0, ui
   }
 }
 
-// Member `member` of a team of T runs its tasks of step kStep: member,
-// member + T, ...  Every branch depends on (step, member) alone, so it is
+// Team member `member` runs its tasks of step kStep: member, member +
+// kTeam, ...  Every branch depends on (step, member) alone, so it is
 // uniform over a warp whose 32 threads are one member of 32 teams.
-template <int kStep, int W, int T, int kStride>
+template <int kStep, int W, int kStride>
 BLZ_DEVICE void run_step(int member, const Slots<W, kStride>& sl, const FieldConsts<W>& fc) {
   constexpr int kN = (kStep == MIXED_2 || kStep == FULL_2 || kStep == OUT_4) ? 3 : kTasks;
-  for (int t = member; t < kN; t += T) {
+  for (int t = member; t < kN; t += kTeam) {
 #pragma unroll 1
     for (int o = 0; o < kTaskOps; ++o) {
       const Op op = kProgram[kStep][t][o];

@@ -12,7 +12,7 @@ the same function on 16-bit int64 limbs with the lazy twin of field.cuh
 (fields/kernel_ops.py) and the shared RCB formulas (curves/ops.py), so the
 CPU tests hold them limb for limb against the JAX kernels in interpret mode.
 Bounds and design: see csrc/ec_kernels.cu; K2 and K4 split each group op
-over a team of threads per lane (csrc/ec_team.cuh, `team_size`).
+over a team of threads per lane (csrc/ec_team.cuh).
 """
 from __future__ import annotations
 
@@ -42,9 +42,8 @@ _ARGTYPES = {
                   _c.c_int64, _c.c_void_p],
     "blz_fold_horner": [_c.c_int, _c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_int,
                         _c.c_int, _c.c_void_p],
-    "blz_ec_team": [_c.c_int, _c.c_int],
+    "blz_ec_team": [],
 }
-TEAM_SIZES = (2, 3, 6)
 
 
 def _entry(name: str):
@@ -55,13 +54,9 @@ def _entry(name: str):
     return fn
 
 
-def team_size(kernel: str, T: int = 0) -> int:
-    """Threads per lane of K2 ("scan_mixed") or K4 ("reduce_cols") on the
-    card (csrc/ec_team.cuh): sets it to T, one of TEAM_SIZES, unless T is 0.
-    Returns the size before the call.  The outputs do not depend on it."""
-    if T and T not in TEAM_SIZES:
-        raise ValueError(f"team size {T}: want one of {TEAM_SIZES}")
-    return _entry("blz_ec_team")(("scan_mixed", "reduce_cols").index(kernel), T)
+def team_size() -> int:
+    """Threads per lane of K2 and K4 on the card (csrc/ec_team.cuh kTeam)."""
+    return _entry("blz_ec_team")()
 
 
 class ECKernels:

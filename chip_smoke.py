@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (blaze_tpu_torch) end to end on one GPU.
 
-    python3 chip_smoke.py [--seed N] [--parent DIR] [--profile]
+    python3 chip_smoke.py [--seed N] [--parent DIR]
 
 Phases, one JSON line each; any failure raises and exits non-zero:
 
@@ -11,13 +11,11 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    kernels' SASS (cuobjdump);
 2. kernel parity: K1-K6 against their plain PyTorch versions on the card,
    exact, on BN254, BLS12-377 and BLS12-381 at small shapes (K2 signed and
-   unsigned) and, for K2 and K4 under every team size (threads per lane),
-   at ragged lane counts B = 1, 33, 1000 (C = 1; K4 also over rows that
-   hold identities); then at the main path's shapes for BLS12-381 with
-   each kernel's time (CUDA events), its plain version's time and its
-   bound: K2 at a 2^19 chunk (C 512, B 16384) and a streamed 2^18 chunk
-   (B 8192), K4's five rounds at a 2^19 chunk, K2 and K4 timed under each
-   team size;
+   unsigned) and, for K2 and K4, at ragged lane counts B = 1, 33, 1000
+   (C = 1; K4 also over rows that hold identities); then at the main
+   path's shapes for BLS12-381 with each kernel's time (CUDA events), its
+   plain version's time and its bound: K2 at a 2^19 chunk (C 512, B 16384)
+   and a streamed 2^18 chunk (B 8192), K4's five rounds at a 2^19 chunk;
 3. main path, streamed client: MSMClient(MSMInit("bls12_381")) over 2^20
    points in the reference's order initialize -> start_process -> four
    set_data chunks of wire bytes -> result();
@@ -28,8 +26,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    window fold on the Field (its seconds printed).  With --parent DIR the
    same phase also runs, before and after this tree's, from another tree
    of the package (the parent commit unpacked under build/), in a child
-   process on the same card.  With --profile, one warm 2^19 single-chunk
-   MSM runs under torch.profiler (device busy time, idle share).
+   process on the same card.  Before it, one warm 2^19 single-chunk MSM
+   runs under torch.profiler (device busy time, idle share).
    Phases 3, 4 and 4b use 256 points of the order-r subgroup tiled and
    distinct scalars drawn uniformly from [0, r); the expected value is the
    oracle MSM of the 256 points with each point's coefficient sum mod r,
@@ -116,16 +114,15 @@ KERNELS = {
                       "blaze_tpu/hash/kernels.py:207"),
 }
 NTT_FIELDS = ("bn254_fr", "bls12_377_fr", "bls12_381_fr")
-TEAM_KERNELS = ("scan_mixed", "reduce_cols")     # K2, K4: a team of threads per lane
 
 
 def threads_per_lane(name: str) -> int:
     """Threads that compute one lane (K6: the one thread of its launch; K7:
     a 512-point NTT per lane, 128 threads over 2 lanes per block)."""
-    if name in TEAM_KERNELS:
+    if name in ("scan_mixed", "reduce_cols"):
         from blaze_tpu_torch.curves.kernels import team_size
 
-        return team_size(name)
+        return team_size()
     return 64 if name == "ntt_base" else 1
 
 
@@ -267,7 +264,7 @@ def ptxas_summary(logs: dict) -> dict:
     return out
 
 
-def sass_summary(lib: Path, mix_of=("scan_mixed_kernel<12,T6>", "reduce_cols_kernel<12,T6>")):
+def sass_summary(lib: Path, mix_of=("scan_mixed_kernel<12>", "reduce_cols_kernel<12>")):
     """From cuobjdump -sass of the built library: 'kernel<W[,T]>[s]' ->
     [LDL, STL], the local-memory loads and stores in its code, and for the
     kernels in `mix_of` the static count of each opcode (the most frequent
@@ -427,18 +424,6 @@ def output_err(got, want) -> int:
     return max(max_abs_err(g, w) for g, w in zip(as_tuple(got), as_tuple(want)))
 
 
-def team_errs(name: str, kern, want) -> dict:
-    """K2 or K4: the kernel's error against `want` under each team size
-    (the size in use is restored)."""
-    from blaze_tpu_torch.curves.kernels import TEAM_SIZES, team_size
-
-    default = team_size(name)
-    try:
-        return {T: (team_size(name, T), output_err(kern(), want))[1] for T in TEAM_SIZES}
-    finally:
-        team_size(name, default)
-
-
 def work_bound_ms(name: str, shape: dict, W: int, imad_rate: float):
     """Least time for the same work: the larger of the bytes it must move
     (inputs read once, outputs written once) over HBM bandwidth and its
@@ -496,7 +481,6 @@ def phase_parity(imad_rate: float, device):
     import torch
 
     from blaze_tpu_torch.curves import CURVES
-    from blaze_tpu_torch.curves.kernels import TEAM_SIZES, team_size
 
     errs = {name: 0 for name in KERNELS}
     for curve in ("bn254", "bls12_377", "bls12_381"):
@@ -505,9 +489,7 @@ def phase_parity(imad_rate: float, device):
         small = kernel_cases(spec, 8, 1024, 1, device, main=False)
         for i, (key, name, kern, plain, shape) in enumerate(
                 small + ragged_cases(spec, 1, device)):
-            want = plain()
-            e = (max(team_errs(name, kern, want).values()) if name in TEAM_KERNELS
-                 else output_err(kern(), want))
+            e = output_err(kern(), plain())
             errs[name] = max(errs[name], e)
             if i < len(small):
                 checked[key + ("_signed" if shape.get("signed") else "")] = e
@@ -515,42 +497,26 @@ def phase_parity(imad_rate: float, device):
                 ragged.append({"kernel": name, **shape, "max_abs_err": e})
         torch.cuda.synchronize()
         emit({"phase": "parity", "curve": curve, "shape": "small (C=8, B=1024)",
-              "max_abs_err": checked, "ragged (every team size)": ragged})
+              "max_abs_err": checked, "ragged": ragged})
         if any(checked.values()) or any(c["max_abs_err"] for c in ragged):
             raise AssertionError(f"{curve}: kernel differs from its plain version")
 
     # the main path's shapes: BLS12-381 at a 2^19 chunk (16 windows of
     # c = 16, R = 1024 lanes, C = 512 rows; the bucket sum's first
-    # reduce_cols pass is C = 256 rows of G * R2 = 8192 lanes); K2 and K4
-    # timed under each team size, at every shape
+    # reduce_cols pass is C = 256 rows of G * R2 = 8192 lanes)
     spec = CURVES["bls12_381"]
     W = spec.fq.nwords
     timing = {}
     for key, name, kern, plain, shape in kernel_cases(spec, 512, 16384, 2, device, main=True):
         reps = 3 if shape.get("C", 0) >= 256 else 20
+        ms = cuda_ms(kern, reps)
         want, plain_ms = once_ms(plain)
-        entry = {"shape": shape}
-        if name in TEAM_KERNELS:
-            default = team_size(name)
-            sweep = {}
-            try:
-                for T in TEAM_SIZES:
-                    team_size(name, T)
-                    sweep[T] = {"ms": cuda_ms(kern, reps),
-                                "max_abs_err": output_err(kern(), want)}
-            finally:
-                team_size(name, default)
-            e = max(t["max_abs_err"] for t in sweep.values())
-            entry.update(ms=sweep[default]["ms"], team_sweep=sweep)
-        else:
-            entry["ms"] = cuda_ms(kern, reps)
-            e = output_err(kern(), want)
-        if name in TEAM_KERNELS:
-            entry["threads_per_lane"] = team_size(name)
+        e = output_err(kern(), want)
         errs[name] = max(errs[name], e)
         bound, bound_by = work_bound_ms(name, shape, W, imad_rate)
-        timing[key] = {**entry, "plain_ms": plain_ms, "bound_ms": bound,
-                       "bound_by": bound_by, "max_abs_err": e}
+        timing[key] = {"shape": shape, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                       "bound_by": bound_by, "max_abs_err": e,
+                       "threads_per_lane": threads_per_lane(name)}
         del want
         torch.cuda.empty_cache()
     emit({"phase": "parity", "curve": "bls12_381", "shape": "main path", "kernels": timing})
@@ -1523,8 +1489,6 @@ def main() -> int:
                     help="another tree of the package (e.g. the parent commit unpacked "
                          "under build/): also run the MSM 2^24 phase from it, before "
                          "and after this tree's, for the end-to-end comparison")
-    ap.add_argument("--profile", action="store_true",
-                    help="also profile one 2^19 single-chunk MSM (torch.profiler)")
     args = ap.parse_args()
 
     import torch
@@ -1550,8 +1514,7 @@ def main() -> int:
     card, imad_rate = timed_phase("device_and_build", phase_device)
     errs, timing = timed_phase("msm_parity", phase_parity, imad_rate, dev)
     launches = timed_phase("msm_clients", phase_main_path, args.seed)
-    if args.profile:
-        timed_phase("msm_2^19_profile", profile_single_chunk, args.seed)
+    timed_phase("msm_2^19_profile", profile_single_chunk, args.seed)
     if args.parent:
         timed_phase("msm_2^24_parent_before", phase_msm_2e24_parent, args.parent, args.seed)
     for k, v in timed_phase("msm_2^24", phase_msm_2e24, args.seed).items():

@@ -3,8 +3,7 @@
     python -m pytest -m cuda tests/test_torch_cuda.py
 
 K1-K6 against their plain PyTorch versions on the same device inputs,
-exact, on all three curves (K2 and K4 also at ragged lane counts under
-every team size), and K7-K10 (with the multi-p REDC twin) on the
+exact, on all three curves (K2 and K4 also at ragged lane counts), and K7-K10 (with the multi-p REDC twin) on the
 three scalar fields; the MSM client on the card against the oracle with
 distinct scalars; the NTT client on the card against every committed golden
 pair, and at 2^16 (the K8 twiddle fallback) against a host NTT in Python
@@ -27,7 +26,7 @@ from blaze_tpu_torch.curves import (
     encode_affine_points,
     encode_scalars,
 )
-from blaze_tpu_torch.curves.kernels import TEAM_SIZES, ECKernels, team_size
+from blaze_tpu_torch.curves.kernels import ECKernels
 from blaze_tpu_torch import _build
 from blaze_tpu_torch.fields import FIELDS, int_to_words, words_to_int
 from blaze_tpu_torch.fields.montmul import mont_mul, mont_mul_plain
@@ -91,7 +90,7 @@ def test_kernels_match_plain_versions(dev, name):
 @pytest.mark.parametrize("name", sorted(CURVES))
 def test_team_kernels_match_plain_at_ragged_shapes(dev, name, B):
     """K2 (unsigned and signed, C = 1 and 4) and K4 (C = 1, and 4 rows that
-    hold identities) under every team size, exact."""
+    hold identities) at ragged lane counts, exact."""
     spec = CURVES[name]
     cv, k = Curve(spec), ECKernels.for_curve(spec)
     oracle = ECOracle(spec)
@@ -103,26 +102,18 @@ def test_team_kernels_match_plain_at_ragged_shapes(dev, name, B):
     sgn = torch.randint(0, 2, (4, 1, B), dtype=torch.int32,
                         generator=torch.Generator().manual_seed(B)).to(dev)
     rows_s = torch.cat([rows, sgn], dim=1).contiguous()
+    for r in (rows, rows_s):
+        for C in (1, 4):
+            x = r[:C].contiguous()
+            got, want = k.scan_mixed(x), k.scan_mixed_plain(x)
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), (C, r.shape)
     em = k.scan_mixed_plain(rows)[0]
     ident = cv.identity(device=dev).reshape(-1, 1)
     em[1, :, ::3] = ident
     em[:, :, -1:] = ident[None]
-    cases = [("scan_mixed", k.scan_mixed, k.scan_mixed_plain, r[:C].contiguous())
-             for r in (rows, rows_s) for C in (1, 4)]
-    cases += [("reduce_cols", k.reduce_cols, k.reduce_cols_plain, em[:C].contiguous())
-              for C in (1, 4)]
-    for kernel, run, plain, x in cases:
-        want = plain(x)
-        want = want if isinstance(want, tuple) else (want,)
-        before = team_size(kernel)
-        try:
-            for T in TEAM_SIZES:
-                team_size(kernel, T)
-                got = run(x)
-                got = got if isinstance(got, tuple) else (got,)
-                assert all(torch.equal(g, w) for g, w in zip(got, want)), (kernel, T, x.shape)
-        finally:
-            team_size(kernel, before)
+    for C in (1, 4):
+        x = em[:C].contiguous()
+        assert torch.equal(k.reduce_cols(x), k.reduce_cols_plain(x)), C
 
 
 def test_client_on_card_matches_oracle(dev):

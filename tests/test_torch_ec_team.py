@@ -1,11 +1,12 @@
 """The team schedule of K2 and K4 (blaze_tpu_torch/csrc/ec_team.cuh) run on
 the host: the header built with g++, where each PTX carry instruction is
-emulated, and each team member's tasks run role by role in the kernels'
-order (T = 3 without the barrier between steps 3 and 4, as on the card).
-Its outputs must equal the plain versions of K2 and K4 (held limb for limb
-against blaze_tpu's Pallas kernels in tests/test_torch_curves.py) and its
-product, add and sub the plain lazy field ops, on the three curves and for
-each team size the kernels take.  Skipped without g++.
+emulated, and each team member's tasks of each step run role by role, the
+steps in the kernels' order and the members first to last and last to
+first (a task that read another member's output of the same step, a race
+on the card, gives a different result in one of the two).  Its outputs must equal the plain versions of K2 and
+K4 (held limb for limb against blaze_tpu's Pallas kernels in
+tests/test_torch_curves.py) and its product, add and sub the plain lazy
+field ops, on the three curves.  Skipped without g++.
 """
 import ctypes
 import random
@@ -25,7 +26,6 @@ from blaze_tpu_torch.oracle import ECOracle
 torch.set_num_threads(1)
 
 CSRC = Path(__file__).resolve().parent.parent / "blaze_tpu_torch" / "csrc"
-TEAMS = (2, 3, 6)
 
 HOST_DRIVER = r"""
 #define BLZ_DEVICE inline
@@ -35,20 +35,20 @@ HOST_DRIVER = r"""
 
 namespace tm = blz::team;
 
-// One group op of one lane: every member's tasks of a step, role by role.
-template <int S1, int S2, int W, int T>
-void group_op(const tm::Slots<W, 1>& sl, const blz::FieldConsts<W>& fc) {
-  for (int m = 0; m < T; ++m) tm::run_step<S1, W, T>(m, sl, fc);
-  for (int m = 0; m < T; ++m) tm::run_step<S2, W, T>(m, sl, fc);
-  if (T == 3) {   // no barrier: each member reads only its own products
-    for (int m = 0; m < T; ++m) {
-      tm::run_step<tm::OUT_3, W, T>(m, sl, fc);
-      tm::run_step<tm::OUT_4, W, T>(m, sl, fc);
-    }
-  } else {
-    for (int m = 0; m < T; ++m) tm::run_step<tm::OUT_3, W, T>(m, sl, fc);
-    for (int m = 0; m < T; ++m) tm::run_step<tm::OUT_4, W, T>(m, sl, fc);
-  }
+// One step of one lane: every member's tasks, role by role, the members
+// in order or in reverse.
+template <int S, int W>
+void step(const tm::Slots<W, 1>& sl, const blz::FieldConsts<W>& fc, int rev) {
+  for (int i = 0; i < tm::kTeam; ++i) tm::run_step<S, W>(rev ? tm::kTeam - 1 - i : i, sl, fc);
+}
+
+// One group op: the steps in order (the kernels' barriers).
+template <int S1, int S2, int W>
+void group_op(const tm::Slots<W, 1>& sl, const blz::FieldConsts<W>& fc, int rev) {
+  step<S1, W>(sl, fc, rev);
+  step<S2, W>(sl, fc, rev);
+  step<tm::OUT_3, W>(sl, fc, rev);
+  step<tm::OUT_4, W>(sl, fc, rev);
 }
 
 template <int W>
@@ -69,9 +69,9 @@ void put(uint32_t* dst, const tm::Slots<W, 1>& sl, int64_t B) {
   }
 }
 
-template <int W, int T>
+template <int W>
 void scan(const uint32_t* consts, int is_signed, const uint32_t* rows, uint32_t* emitted,
-          uint32_t* tot, int C, int64_t B) {
+          uint32_t* tot, int C, int64_t B, int rev) {
   const auto fc = blz::load_consts<W>(consts);
   const int nrows = 2 * W + is_signed;
   uint4 mem[tm::kSlots * W / 4];
@@ -88,15 +88,16 @@ void scan(const uint32_t* consts, int is_signed, const uint32_t* rows, uint32_t*
       if (is_signed && row[2 * W * B] != 0) tm::sub_lazy<W>(y, fc.p2, y, fc);
       sl.store(tm::X2, x);
       sl.store(tm::Y2, y);
-      group_op<tm::MIXED_1, tm::MIXED_2, W, T>(sl, fc);
+      group_op<tm::MIXED_1, tm::MIXED_2, W>(sl, fc, rev);
       put<W>(emitted + (int64_t)c * 3 * W * B + b, sl, B);
     }
     put<W>(tot + b, sl, B);
   }
 }
 
-template <int W, int T>
-void reduce(const uint32_t* consts, const uint32_t* rows, uint32_t* tot, int C, int64_t B) {
+template <int W>
+void reduce(const uint32_t* consts, const uint32_t* rows, uint32_t* tot, int C, int64_t B,
+            int rev) {
   const auto fc = blz::load_consts<W>(consts);
   uint4 mem[tm::kSlots * W / 4];
   const tm::Slots<W, 1> sl{mem};
@@ -108,7 +109,7 @@ void reduce(const uint32_t* consts, const uint32_t* rows, uint32_t* tot, int C, 
         for (int w = 0; w < W; ++w) v[w] = rows[((int64_t)c * 3 * W + k * W + w) * B + b];
         sl.store(tm::X2 + k, v);
       }
-      group_op<tm::FULL_1, tm::FULL_2, W, T>(sl, fc);
+      group_op<tm::FULL_1, tm::FULL_2, W>(sl, fc, rev);
     }
     put<W>(tot + b, sl, B);
   }
@@ -127,35 +128,16 @@ void field(const uint32_t* consts, int op, const uint32_t* a, const uint32_t* b,
   }
 }
 
-template <int W>
-int scan_w(int T, const uint32_t* k, int s, const uint32_t* rows, uint32_t* e, uint32_t* t,
-           int C, int64_t B) {
-  switch (T) {
-    case 2: scan<W, 2>(k, s, rows, e, t, C, B); return 0;
-    case 3: scan<W, 3>(k, s, rows, e, t, C, B); return 0;
-    case 6: scan<W, 6>(k, s, rows, e, t, C, B); return 0;
-  }
-  return 1;
+extern "C" void team_scan(int W, const uint32_t* k, int s, const uint32_t* rows,
+                          uint32_t* e, uint32_t* t, int C, int64_t B, int rev) {
+  if (W == 8) scan<8>(k, s, rows, e, t, C, B, rev);
+  else scan<12>(k, s, rows, e, t, C, B, rev);
 }
 
-template <int W>
-int reduce_w(int T, const uint32_t* k, const uint32_t* rows, uint32_t* t, int C, int64_t B) {
-  switch (T) {
-    case 2: reduce<W, 2>(k, rows, t, C, B); return 0;
-    case 3: reduce<W, 3>(k, rows, t, C, B); return 0;
-    case 6: reduce<W, 6>(k, rows, t, C, B); return 0;
-  }
-  return 1;
-}
-
-extern "C" int team_scan(int W, int T, const uint32_t* k, int s, const uint32_t* rows,
-                         uint32_t* e, uint32_t* t, int C, int64_t B) {
-  return W == 8 ? scan_w<8>(T, k, s, rows, e, t, C, B) : scan_w<12>(T, k, s, rows, e, t, C, B);
-}
-
-extern "C" int team_reduce(int W, int T, const uint32_t* k, const uint32_t* rows, uint32_t* t,
-                           int C, int64_t B) {
-  return W == 8 ? reduce_w<8>(T, k, rows, t, C, B) : reduce_w<12>(T, k, rows, t, C, B);
+extern "C" void team_reduce(int W, const uint32_t* k, const uint32_t* rows, uint32_t* t,
+                            int C, int64_t B, int rev) {
+  if (W == 8) reduce<8>(k, rows, t, C, B, rev);
+  else reduce<12>(k, rows, t, C, B, rev);
 }
 
 extern "C" void team_field(int W, const uint32_t* k, int op, const uint32_t* a,
@@ -178,8 +160,8 @@ def lib(tmp_path_factory):
                     "-o", str(so), str(d / "driver.cpp")], check=True)
     lib = ctypes.CDLL(str(so))
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.team_scan.argtypes = [i, i, p, i, p, p, p, i, ctypes.c_int64]
-    lib.team_reduce.argtypes = [i, i, p, p, p, i, ctypes.c_int64]
+    lib.team_scan.argtypes = [i, p, i, p, p, p, i, ctypes.c_int64, i]
+    lib.team_reduce.argtypes = [i, p, p, p, i, ctypes.c_int64, i]
     lib.team_field.argtypes = [i, p, i, p, p, p, ctypes.c_int64]
     return lib
 
@@ -205,37 +187,37 @@ def affine_rows(name: str, C: int, B: int, seed: int):
     return rows, sgn
 
 
+@pytest.mark.parametrize("rev", [0, 1])
 @pytest.mark.parametrize("signed", [False, True])
-@pytest.mark.parametrize("T", TEAMS)
 @pytest.mark.parametrize("name", sorted(CURVES))
-def test_team_scan_matches_plain(lib, name, T, signed):
+def test_team_scan_matches_plain(lib, name, signed, rev):
     k = ECKernels.for_curve(CURVES[name])
-    rows, sgn = affine_rows(name, 3, 5, seed=T)
+    rows, sgn = affine_rows(name, 3, 5, seed=3)
     if signed:
         rows = torch.cat([rows, sgn], dim=1).contiguous()
     C, _, B = rows.shape
     emitted = torch.empty((C, 3 * k.W, B), dtype=torch.int32)
     tot = torch.empty((3 * k.W, B), dtype=torch.int32)
-    assert lib.team_scan(k.W, T, ptr(k._consts), int(signed), ptr(rows), ptr(emitted),
-                         ptr(tot), C, B) == 0
+    lib.team_scan(k.W, ptr(k._consts), int(signed), ptr(rows), ptr(emitted), ptr(tot), C, B,
+                  rev)
     want_e, want_t = k.scan_mixed_plain(rows)
     assert torch.equal(emitted, want_e)
     assert torch.equal(tot, want_t)
 
 
-@pytest.mark.parametrize("T", TEAMS)
+@pytest.mark.parametrize("rev", [0, 1])
 @pytest.mark.parametrize("name", sorted(CURVES))
-def test_team_reduce_matches_plain(lib, name, T):
+def test_team_reduce_matches_plain(lib, name, rev):
     """Lazy prefixes (values in [p, 2p) too) with identities among the rows,
     as the bucket sum pads them."""
     k = ECKernels.for_curve(CURVES[name])
-    rows, _ = affine_rows(name, 4, 3, seed=10 + T)
+    rows, _ = affine_rows(name, 4, 3, seed=13)
     pts = k.scan_mixed_plain(rows)[0].clone()                 # (4, 3W, 3)
     ident = Curve(CURVES[name]).identity().reshape(-1)
     pts[1, :, 0] = ident
     pts[:, :, 2] = ident[None]
     tot = torch.empty((3 * k.W, 3), dtype=torch.int32)
-    assert lib.team_reduce(k.W, T, ptr(k._consts), ptr(pts), ptr(tot), 4, 3) == 0
+    lib.team_reduce(k.W, ptr(k._consts), ptr(pts), ptr(tot), 4, 3, rev)
     assert torch.equal(tot, k.reduce_cols_plain(pts))
 
 
