@@ -110,6 +110,17 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
+def threads_per_lane(source: str, kernel: str) -> int:
+    """Threads that compute one lane of `kernel` (a LAUNCHES key) as the
+    library of csrc/<source>.cu launches it (its blz_threads_per_lane)."""
+    fn = load(source).blz_threads_per_lane
+    fn.argtypes, fn.restype = [ctypes.c_char_p], ctypes.c_int
+    n = fn(kernel.encode())
+    if n < 1:
+        raise LoadFailed(f"{source}.cu has no kernel {kernel!r}")
+    return n
+
+
 def check(rc: int, what: str) -> None:
     """Raise when a C entry reports a CUDA error (its cudaGetLastError())."""
     if rc != 0:

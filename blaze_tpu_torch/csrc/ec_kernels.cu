@@ -40,6 +40,8 @@
 // its order of field ops, so the outputs equal the one-thread kernels'.
 #include <cuda_runtime.h>
 
+#include <cstring>
+
 #include "ec.cuh"
 #include "ec_team.cuh"
 
@@ -376,5 +378,11 @@ extern "C" int blz_fold_horner(int W, const uint32_t* consts, const void* ws,
   }
 }
 
-// Threads per lane of K2 and K4.
-extern "C" int blz_ec_team() { return kTeam; }
+// Threads that compute one lane of the named kernel as launched above (K6:
+// the one thread of its launch), -1 for a name not in this library.
+extern "C" int blz_threads_per_lane(const char* kernel) {
+  if (!strcmp(kernel, "scan_mixed") || !strcmp(kernel, "reduce_cols")) return kTeam;
+  if (!strcmp(kernel, "ec_add") || !strcmp(kernel, "dbl_n") || !strcmp(kernel, "fold_horner"))
+    return 1;
+  return -1;
+}

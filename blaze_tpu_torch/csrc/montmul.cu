@@ -10,6 +10,8 @@
 // rows of W contiguous words, so a warp reads 32 * 4W contiguous bytes.
 #include <cuda_runtime.h>
 
+#include <cstring>
+
 #include "field.cuh"
 
 namespace {
@@ -56,4 +58,10 @@ extern "C" int blz_mont_mul(int W, const uint32_t* consts, const void* a,
     default:
       return (int)cudaErrorInvalidValue;
   }
+}
+
+// Threads that compute one lane (one product) of the named kernel, -1 for a
+// name not in this library.
+extern "C" int blz_threads_per_lane(const char* kernel) {
+  return strcmp(kernel, "mont_mul") ? -1 : 1;
 }

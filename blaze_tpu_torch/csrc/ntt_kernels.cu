@@ -29,6 +29,8 @@
 // iota+where column pick.  K9 is elementwise and may run in place.
 #include <cuda_runtime.h>
 
+#include <cstring>
+
 #include "field.cuh"
 
 namespace {
@@ -239,4 +241,13 @@ extern "C" int blz_twiddle_mul(int W, const uint32_t* consts, const void* y,
   if (A <= 0 || J <= 0 || S <= 0 || B <= 0) return 0;
   if (W != 8 || A > 65535) return (int)cudaErrorInvalidValue;
   return launch_twiddle_mul<8>(consts, y, t1, t2, o, A, J, S, B, (cudaStream_t)stream);
+}
+
+// Threads that compute one lane of the named kernel as launched above (K7:
+// a block of kNttThreads threads over kLanes lanes; K8, K9: one thread per
+// element), -1 for a name not in this library.
+extern "C" int blz_threads_per_lane(const char* kernel) {
+  if (!strcmp(kernel, "ntt_base")) return kNttThreads / kLanes;
+  if (!strcmp(kernel, "mul_lm") || !strcmp(kernel, "twiddle_mul")) return 1;
+  return -1;
 }

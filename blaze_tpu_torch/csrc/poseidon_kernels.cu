@@ -28,6 +28,8 @@
 // of different instances never share a constant symbol.
 #include <cuda_runtime.h>
 
+#include <cstring>
+
 #include "poseidon.cuh"
 
 namespace {
@@ -117,4 +119,10 @@ extern "C" int blz_sum_products(int W, const uint32_t* consts, const void* a, co
       (const uint32_t*)a, (const uint32_t*)c, (uint32_t*)o, t, B, (const uint32_t*)mults,
       nm, blz::load_consts<8>(consts));
   return (int)cudaGetLastError();
+}
+
+// Threads that compute one lane (one state) of the named kernel, -1 for a
+// name not in this library.
+extern "C" int blz_threads_per_lane(const char* kernel) {
+  return strcmp(kernel, "poseidon_perm") ? -1 : 1;
 }

@@ -42,7 +42,6 @@ _ARGTYPES = {
                   _c.c_int64, _c.c_void_p],
     "blz_fold_horner": [_c.c_int, _c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_int,
                         _c.c_int, _c.c_void_p],
-    "blz_ec_team": [],
 }
 
 
@@ -52,11 +51,6 @@ def _entry(name: str):
         fn.argtypes = _ARGTYPES[name]
         fn.restype = ctypes.c_int
     return fn
-
-
-def team_size() -> int:
-    """Threads per lane of K2 and K4 on the card (csrc/ec_team.cuh kTeam)."""
-    return _entry("blz_ec_team")()
 
 
 class ECKernels:

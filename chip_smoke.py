@@ -24,10 +24,12 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 4b. the headline shape (bench.py:10): 2^24 points resident, set_data once
    -> start_process -> wait_result -> result(), 32 chunks of 2^19 and the
    window fold on the Field (its seconds printed).  With --parent DIR the
-   same phase also runs, before and after this tree's, from another tree
-   of the package (the parent commit unpacked under build/), in a child
-   process on the same card.  Before it, one warm 2^19 single-chunk MSM
-   runs under torch.profiler (device busy time, idle share).
+   same instance then runs in five pairs of fresh child processes on the
+   same card, one from another tree of the package (the parent commit
+   unpacked under build/) and one from this tree, the side that goes
+   first alternating; all must give the same result bytes.  After it, one warm
+   2^19 single-chunk MSM runs under torch.profiler (device busy time,
+   idle share).
    Phases 3, 4 and 4b use 256 points of the order-r subgroup tiled and
    distinct scalars drawn uniformly from [0, r); the expected value is the
    oracle MSM of the 256 points with each point's coefficient sum mod r,
@@ -117,13 +119,11 @@ NTT_FIELDS = ("bn254_fr", "bls12_377_fr", "bls12_381_fr")
 
 
 def threads_per_lane(name: str) -> int:
-    """Threads that compute one lane (K6: the one thread of its launch; K7:
-    a 512-point NTT per lane, 128 threads over 2 lanes per block)."""
-    if name in ("scan_mixed", "reduce_cols"):
-        from blaze_tpu_torch.curves.kernels import team_size
+    """Threads that compute one lane of a kernel, as its built library
+    reports it (blz_threads_per_lane of the kernel's source)."""
+    from blaze_tpu_torch import _build
 
-        return team_size()
-    return 64 if name == "ntt_base" else 1
+    return _build.threads_per_lane(Path(KERNELS[name][0]).stem, name)
 
 
 def emit(obj) -> None:
@@ -233,21 +233,20 @@ def max_abs_err(a, b) -> int:
 
 
 # ------------------------------------------------------------ phase 1
-KERNEL_NAME = re.compile(r"([a-z_]+_kernel|ec_add_[a-z]+)ILi(\d+)E(?:Li(\d+)E)?(?:Lb(\d))?")
+KERNEL_NAME = re.compile(r"([a-z_]+_kernel|ec_add_[a-z]+)ILi(\d+)E(?:Lb(\d))?")
 
 
 def kernel_key(mangled: str):
-    """'scan_mixed_kernel<12,T3>s' for a mangled kernel name (s: signed), or
+    """'scan_mixed_kernel<12>s' for a mangled kernel name (s: signed), or
     None for other functions."""
     m = KERNEL_NAME.search(mangled)
     if not m:
         return None
-    team = f",T{m.group(3)}" if m.group(3) else ""
-    return f"{m.group(1)}<{m.group(2)}{team}>" + ("s" if m.group(4) == "1" else "")
+    return f"{m.group(1)}<{m.group(2)}>" + ("s" if m.group(3) == "1" else "")
 
 
 def ptxas_summary(logs: dict) -> dict:
-    """'kernel<W[,T]>[s]' -> [registers, stack bytes, spill-store bytes]
+    """'kernel<W>[s]' -> [registers, stack bytes, spill-store bytes]
     from nvcc's -Xptxas -v output (device functions: registers None)."""
     out, name = {}, None
     for log in logs.values():
@@ -265,7 +264,7 @@ def ptxas_summary(logs: dict) -> dict:
 
 
 def sass_summary(lib: Path, mix_of=("scan_mixed_kernel<12>", "reduce_cols_kernel<12>")):
-    """From cuobjdump -sass of the built library: 'kernel<W[,T]>[s]' ->
+    """From cuobjdump -sass of the built library: 'kernel<W>[s]' ->
     [LDL, STL], the local-memory loads and stores in its code, and for the
     kernels in `mix_of` the static count of each opcode (the most frequent
     12).  None without cuobjdump."""
@@ -593,11 +592,12 @@ def phase_main_path(seed: int):
     return launches
 
 
-def run_resident(n: int, seed: int, device=None):
+def run_resident(n: int, seed: int, device=None, inputs: Path | None = None):
     """The headline shape (bench.py:10, bls12_381_msm_2^24): set_data once
     with every point and scalar, start_process -> wait_result -> result(),
-    n / 2^19 chunks on the card and the window fold on the Field.  Returns
-    (ok, info)."""
+    n / 2^19 chunks on the card and the window fold on the Field.  The
+    instance is tiled_instance(n, seed), or the one save_instance wrote to
+    `inputs`.  Returns (ok, info)."""
     import torch
 
     from blaze_tpu_torch.curves import CURVES
@@ -605,7 +605,11 @@ def run_resident(n: int, seed: int, device=None):
 
     spec = CURVES["bls12_381"]
     t0 = time.perf_counter()
-    praw, sraw, expected = tiled_instance(spec, n, seed)
+    if inputs is None:
+        praw, sraw, expected = tiled_instance(spec, n, seed)
+    else:
+        praw, sraw = ((inputs / f).read_bytes() for f in ("points.bin", "scalars.bin"))
+        expected = tuple(json.loads((inputs / "expected.json").read_text()))
     gen_s = time.perf_counter() - t0
     client = MSMClient(MSMInit(curve="bls12_381"), device=device)
     client.initialize(MSMParams(nof_elements=n))
@@ -705,28 +709,86 @@ def phase_msm_2e24(seed: int, n: int = 1 << 24) -> dict:
     return counts
 
 
-def phase_msm_2e24_parent(tree: Path, seed: int, n: int = 1 << 24) -> dict:
-    """The same phase on another tree of the package (the parent commit,
-    unpacked beside this one): this script's phase function in a child
-    process that imports that tree's blaze_tpu_torch (its kernels are built
-    there first).  Prints the child's phase line; returns it."""
+def save_instance(d: Path, n: int, seed: int) -> Path:
+    """tiled_instance(n, seed) on BLS12-381 as files under `d`, for
+    run_resident(inputs=d)."""
+    from blaze_tpu_torch.curves import CURVES
+
+    praw, sraw, expected = tiled_instance(CURVES["bls12_381"], n, seed)
+    d.mkdir(parents=True, exist_ok=True)
+    (d / "points.bin").write_bytes(praw)
+    (d / "scalars.bin").write_bytes(sraw)
+    (d / "expected.json").write_text(json.dumps(list(expected)))
+    return d
+
+
+def resident_in_child(tree: Path, n: int, inputs: Path) -> dict:
+    """run_resident on the instance in `inputs`, in a fresh child process
+    that imports the blaze_tpu_torch of `tree` (this checkout, or another
+    tree of the package such as the parent commit unpacked under build/; its
+    kernels are built there first).  Raises unless the child's package came
+    from `tree` and its result matched the oracle; returns the child's line
+    (with its launch counts)."""
+    tree = tree.resolve()
     code = (
         "import importlib.util, json, sys\n"
-        f"sys.path.insert(0, {str(tree.resolve())!r})\n"
+        "from pathlib import Path\n"
+        f"sys.path.insert(0, {str(tree)!r})\n"
         "from blaze_tpu_torch import _build\n"
+        f"if Path(_build.__file__).resolve().parents[1] != Path({str(tree)!r}):\n"
+        "    raise SystemExit(f'imported {_build.__file__}, not the tree asked for')\n"
         "b = _build.build_all(('montmul', 'ec_kernels'))\n"
         f"spec = importlib.util.spec_from_file_location('smoke', {str(ROOT / 'chip_smoke.py')!r})\n"
         "cs = importlib.util.module_from_spec(spec); spec.loader.exec_module(cs)\n"
-        f"ok, info = cs.run_resident({n}, {seed + 2})\n"
-        "print(json.dumps({'tree': _build.__file__, 'build_s': b, 'oracle': ok, **info}))\n"
+        "_build.reset_launches()\n"
+        f"ok, info = cs.run_resident({n}, 0, inputs=Path({str(inputs.resolve())!r}))\n"
+        "print(json.dumps({'tree': str(Path(_build.__file__).resolve().parents[1]),\n"
+        "                  'build_s': b, 'oracle': ok, **info,\n"
+        "                  'launches': dict(_build.LAUNCHES)}))\n"
     )
-    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
-                         timeout=900)
+    # -P: no working directory on the child's path, so only `tree` provides
+    # the package
+    out = subprocess.run([sys.executable, "-P", "-c", code], cwd=tree, capture_output=True,
+                         text=True, timeout=600)
     if out.returncode != 0:
-        raise AssertionError(f"parent tree's msm 2^24 failed:\n{out.stderr[-4000:]}")
+        raise AssertionError(f"msm 2^24 from {tree} failed:\n{out.stderr[-4000:]}")
     line = json.loads(out.stdout.strip().splitlines()[-1])
-    emit({"phase": "msm_2^24_resident_parent", **line})
+    if Path(line["tree"]) != tree or not line["oracle"]:
+        raise AssertionError(f"msm 2^24 from {tree}: tree {line['tree']}, "
+                             f"oracle {line['oracle']}")
     return line
+
+
+COMPARE_PAIRS = 5
+
+
+def phase_msm_2e24_compare(parent: Path, seed: int, n: int = 1 << 24) -> dict:
+    """The end-to-end comparison at the headline shape: the 2^24 phase's
+    instance, made once, run from the parent's tree and from this one, each
+    run in a fresh child process on the same card, COMPARE_PAIRS pairs with
+    the side that goes first alternating (parent, change, change, parent,
+    ...).  Every run must match the oracle and give the same result bytes.
+    Prints one line per run and one with both sides' lists."""
+    import shutil
+
+    inputs = save_instance(ROOT / "build" / "msm_2e24_instance", n, seed + 2)
+    runs = []
+    try:
+        for i in range(2 * COMPARE_PAIRS):
+            side = "parent" if (i % 4) in (0, 3) else "change"
+            line = resident_in_child(parent if side == "parent" else ROOT, n, inputs)
+            emit({"phase": "msm_2^24_compare", "run": i, "side": side, **line})
+            runs.append((side, line))
+    finally:
+        shutil.rmtree(inputs, ignore_errors=True)
+    if len({line["result_sha256"] for _, line in runs}) != 1:
+        raise AssertionError("msm 2^24: parent and change give different result bytes")
+    summary = {side: {key: [line[key] for s, line in runs if s == side]
+                      for key in ("points_per_s", "start_to_wait_s", "set_data_s",
+                                  "chunks_done_s", "field_fold_s")}
+               for side in ("parent", "change")}
+    emit({"phase": "msm_2^24_compare_summary", "order": [s for s, _ in runs], **summary})
+    return summary
 
 
 # ------------------------------------------------------------ phase 5
@@ -1487,8 +1549,9 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--parent", type=Path, default=None,
                     help="another tree of the package (e.g. the parent commit unpacked "
-                         "under build/): also run the MSM 2^24 phase from it, before "
-                         "and after this tree's, for the end-to-end comparison")
+                         "under build/): also run the MSM 2^24 phase from it and from "
+                         "this tree, each run in a fresh process, in alternating pairs, "
+                         "for the end-to-end comparison")
     args = ap.parse_args()
 
     import torch
@@ -1514,13 +1577,11 @@ def main() -> int:
     card, imad_rate = timed_phase("device_and_build", phase_device)
     errs, timing = timed_phase("msm_parity", phase_parity, imad_rate, dev)
     launches = timed_phase("msm_clients", phase_main_path, args.seed)
-    timed_phase("msm_2^19_profile", profile_single_chunk, args.seed)
-    if args.parent:
-        timed_phase("msm_2^24_parent_before", phase_msm_2e24_parent, args.parent, args.seed)
     for k, v in timed_phase("msm_2^24", phase_msm_2e24, args.seed).items():
         launches[k] += v
     if args.parent:
-        timed_phase("msm_2^24_parent_after", phase_msm_2e24_parent, args.parent, args.seed)
+        timed_phase("msm_2^24_compare", phase_msm_2e24_compare, args.parent, args.seed)
+    timed_phase("msm_2^19_profile", profile_single_chunk, args.seed)
     ntt_errs, ntt_timing = timed_phase("ntt_parity", phase_ntt_parity, imad_rate, args.seed, dev)
     errs.update(ntt_errs)
     timing.update(ntt_timing)
