@@ -24,16 +24,14 @@
 // The tables are data, so each step's code holds one product, one add and
 // one sub, all inlined (no call frame, no local memory).
 //
-// The product is the CIOS of field.cuh mont_mul<W, true> with its carries
-// in PTX carry-chain instructions (mad.lo.cc / madc.hi.cc / addc) in place
-// of 64-bit shifts; it computes the same (T + m p) / R, m = T (-p^-1) mod R.
-//
-// Without __CUDA_ARCH__ (a host build with g++) every carry instruction is
-// emulated with an explicit carry flag, so the same schedule can be run
-// role by role on the host against the plain versions.
+// The product is carry.cuh's mont_mul_cc<W, true>, the CIOS of field.cuh
+// mont_mul<W, true> in PTX carry chains.  Without __CUDA_ARCH__ (a host
+// build with g++) every carry instruction is emulated (carry.cuh), so the
+// same schedule can be run role by role on the host against the plain
+// versions.
 #pragma once
 
-#include "field.cuh"
+#include "carry.cuh"
 
 #ifndef __CUDACC__
 struct uint4 {
@@ -48,140 +46,6 @@ namespace blz {
 namespace team {
 
 constexpr int kTeam = 6;     // threads per lane of K2 and K4
-
-// ------------------------------------------------------------ carry chains
-// cf is the carry (borrow for sub) flag of the host emulation; on the
-// device it is the hardware CC.CF and the argument is unused.
-#ifdef __CUDA_ARCH__
-#define BLZ_CC(ins, d, a, b) \
-  asm volatile(ins " %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b))
-#define BLZ_MAD(ins, d, a, b) \
-  asm volatile(ins " %0, %1, %2, %0;" : "+r"(d) : "r"(a), "r"(b))
-#endif
-
-BLZ_DEVICE void add_cc(uint32_t& d, uint32_t a, uint32_t b, uint32_t& cf) {
-#ifdef __CUDA_ARCH__
-  BLZ_CC("add.cc.u32", d, a, b);
-#else
-  const uint64_t s = (uint64_t)a + b;
-  d = (uint32_t)s;
-  cf = (uint32_t)(s >> 32);
-#endif
-}
-
-BLZ_DEVICE void addc_cc(uint32_t& d, uint32_t a, uint32_t b, uint32_t& cf) {
-#ifdef __CUDA_ARCH__
-  BLZ_CC("addc.cc.u32", d, a, b);
-#else
-  const uint64_t s = (uint64_t)a + b + cf;
-  d = (uint32_t)s;
-  cf = (uint32_t)(s >> 32);
-#endif
-}
-
-BLZ_DEVICE void addc(uint32_t& d, uint32_t a, uint32_t b, uint32_t& cf) {
-#ifdef __CUDA_ARCH__
-  BLZ_CC("addc.u32", d, a, b);
-#else
-  d = a + b + cf;
-#endif
-}
-
-BLZ_DEVICE void sub_cc(uint32_t& d, uint32_t a, uint32_t b, uint32_t& cf) {
-#ifdef __CUDA_ARCH__
-  BLZ_CC("sub.cc.u32", d, a, b);
-#else
-  d = a - b;
-  cf = a < b;
-#endif
-}
-
-BLZ_DEVICE void subc_cc(uint32_t& d, uint32_t a, uint32_t b, uint32_t& cf) {
-#ifdef __CUDA_ARCH__
-  BLZ_CC("subc.cc.u32", d, a, b);
-#else
-  const uint64_t s = (uint64_t)a - b - cf;
-  d = (uint32_t)s;
-  cf = (uint32_t)(s >> 63);
-#endif
-}
-
-BLZ_DEVICE void subc(uint32_t& d, uint32_t a, uint32_t b, uint32_t& cf) {
-#ifdef __CUDA_ARCH__
-  BLZ_CC("subc.u32", d, a, b);
-#else
-  d = a - b - cf;
-#endif
-}
-
-// d += lo(a b) / hi(a b), with (madc) and without (mad) carry in; sets CF.
-BLZ_DEVICE void mad_lo_cc(uint32_t& d, uint32_t a, uint32_t b, uint32_t& cf) {
-#ifdef __CUDA_ARCH__
-  BLZ_MAD("mad.lo.cc.u32", d, a, b);
-#else
-  add_cc(d, a * b, d, cf);
-#endif
-}
-
-BLZ_DEVICE void madc_lo_cc(uint32_t& d, uint32_t a, uint32_t b, uint32_t& cf) {
-#ifdef __CUDA_ARCH__
-  BLZ_MAD("madc.lo.cc.u32", d, a, b);
-#else
-  addc_cc(d, a * b, d, cf);
-#endif
-}
-
-BLZ_DEVICE void mad_hi_cc(uint32_t& d, uint32_t a, uint32_t b, uint32_t& cf) {
-#ifdef __CUDA_ARCH__
-  BLZ_MAD("mad.hi.cc.u32", d, a, b);
-#else
-  add_cc(d, (uint32_t)(((uint64_t)a * b) >> 32), d, cf);
-#endif
-}
-
-BLZ_DEVICE void madc_hi_cc(uint32_t& d, uint32_t a, uint32_t b, uint32_t& cf) {
-#ifdef __CUDA_ARCH__
-  BLZ_MAD("madc.hi.cc.u32", d, a, b);
-#else
-  addc_cc(d, (uint32_t)(((uint64_t)a * b) >> 32), d, cf);
-#endif
-}
-
-// t[0..W+1] += x * y (x = a, one word y): the low halves at words 0..W-1,
-// the high halves at words 1..W, carries into t[W] and t[W+1].
-template <int W>
-BLZ_DEVICE void mul_word_acc(uint32_t* t, const uint32_t* x, uint32_t y, uint32_t& cf) {
-  mad_lo_cc(t[0], x[0], y, cf);
-#pragma unroll
-  for (int j = 1; j < W; ++j) madc_lo_cc(t[j], x[j], y, cf);
-  addc_cc(t[W], t[W], 0, cf);
-  addc(t[W + 1], t[W + 1], 0, cf);
-  mad_hi_cc(t[1], x[0], y, cf);
-#pragma unroll
-  for (int j = 1; j < W; ++j) madc_hi_cc(t[j + 1], x[j], y, cf);
-  addc(t[W + 1], t[W + 1], 0, cf);
-}
-
-// Montgomery product a * b / R, lazy (< 2p for a, b < 2p; R > 4p): the
-// word-serial CIOS of field.cuh mont_mul<W, true>.  r may alias a or b.
-template <int W>
-BLZ_DEVICE void mont_mul_cc(uint32_t* r, const uint32_t* a, const uint32_t* b,
-                            const FieldConsts<W>& fc) {
-  uint32_t t[W + 2], cf = 0;
-#pragma unroll
-  for (int j = 0; j < W + 2; ++j) t[j] = 0;
-#pragma unroll
-  for (int i = 0; i < W; ++i) {
-    mul_word_acc<W>(t, a, b[i], cf);
-    const uint32_t m = t[0] * fc.n0;
-    mul_word_acc<W>(t, fc.p, m, cf);        // t[0] becomes 0
-#pragma unroll
-    for (int j = 0; j <= W; ++j) t[j] = t[j + 1];
-    t[W + 1] = 0;
-  }
-#pragma unroll
-  for (int j = 0; j < W; ++j) r[j] = t[j];
-}
 
 // Lazy add and sub, the rules of field.cuh fadd/fsub<W, true>: the add
 // ignores its carry out and subtracts 2p unless that borrows; the sub adds
@@ -342,7 +206,7 @@ BLZ_DEVICE void run_step(int member, const Slots<W, kStride>& sl, const FieldCon
       operand<W>(a, sl, op.a0, op.a1, fc);
       operand<W>(b, sl, op.b0, op.b1, fc);
       if (op.kind == MUL) {
-        mont_mul_cc<W>(r, a, b, fc);
+        mont_mul_cc<W, true>(r, a, b, fc);
       } else if (op.kind == ADD) {
         add_lazy<W>(r, a, b, fc);
       } else {

@@ -4,28 +4,30 @@
 // pallas_call at :207) behind permute_lm: r_f/2 full rounds, r_p partial
 // rounds, r_f/2 full rounds of ARK, x^5 S-box and MDS mix, with the
 // optional canonical -> Montgomery conversion of the input (convert_in).
-// Every value stays canonical (< p).  The TPU kernel's byte-plane int8
-// matmul for the MDS and its 128-lane padding are TPU workarounds left out:
-// here an MDS row is t unreduced products summed in 2W+1 words and one
-// multi-p REDC (field.cuh mul_acc / redc_sum), which is the TPU kernel's
-// structure and half the work of t^2 full Montgomery products.
+// Every value stays canonical (< p), so the output words equal the TPU
+// kernel's (and the dense plain version's) whatever the schedule.  The TPU
+// kernel's byte-plane int8 matmul for the MDS and its 128-lane padding are
+// TPU workarounds left out.
 //
-// Bound on the H100: 32-bit integer multiply-adds.  Per state: 3 full
-// products per S-box (4W^2 + W IMADs each), 2W^2 per unreduced MDS product,
-// about 2W^2 + W per row REDC — about 1.49 M IMADs for t = 12 (r_p 60) and
-// 0.93 M for t = 9 (r_p 63) at W = 8, against 768 B (t = 12) read and
-// written: the bytes are ~0.3% of the time.
+// Bound on the H100: 32-bit integer multiply-adds (the bytes, 768 B per
+// t = 12 state read and written, are ~0.1% of the time).  The work is cut
+// first: the partial rounds run sparse (poseidon.cuh, hash/params.py
+// SparseForm), a mix of t + (t - 1) products where the TPU kernel's is t^2,
+// about 0.56 M IMADs per t = 12 state (r_p 60) and 0.41 M per t = 9 state
+// (r_p 63) at W = 8, from 1.49 M and 0.93 M.  Every product is a PTX carry
+// chain (carry.cuh).
 //
-// Design: one thread per state, 64 states per block.  A state is t*W words
-// (96 at t = 12) and the MDS needs the old state while it writes the new
-// one, so both live in shared memory, one column per thread
-// ([(e * W + w) * 64 + thread]: neighbouring threads on neighbouring banks),
-// 2 t W 4 * 64 B per block (48 KB at t = 12).  Loads and stores of the state
-// in device memory are coalesced ((e, w, b) at (e * W + w) * B + b).  Each
-// thread reads its whole state before it writes any of it, so the kernel
-// may run in place (o == x).  Rounds, elements and rows stay rolled
-// (poseidon.cuh).  The constants come by pointer, so back-to-back launches
-// of different instances never share a constant symbol.
+// Design: one thread per state, 128 states per block.  At t = 9 and 12
+// (the tree's widths) the state is in registers through the partial rounds
+// and each dense mix (permute_reg), and in one shared column per thread
+// between them ([(e * W + w) * 128 + thread]: neighbouring threads on
+// neighbouring banks), t W 4 * 128 B per block (48 KB at t = 12).  Any
+// other t runs permute_smem: 64 states per block, two shared columns each,
+// everything rolled.  Loads and stores of the state in device memory are
+// coalesced ((e, w, b) at (e * W + w) * B + b).  Each thread reads its
+// whole state before it writes any of it, so the kernel may run in place
+// (o == x).  The constants come by pointer, so back-to-back launches of
+// different instances never share a constant symbol.
 #include <cuda_runtime.h>
 
 #include <cstring>
@@ -34,37 +36,90 @@
 
 namespace {
 
-constexpr int kThreads = 64;
+constexpr int kRegThreads = 128;
+constexpr int kSmemThreads = 64;
 
-template <int W>
-__global__ void __launch_bounds__(kThreads)
-poseidon_perm_kernel(const uint32_t* x, uint32_t* o, int64_t B, int convert_in,
-                     const uint32_t* __restrict__ pc, blz::PoseidonShape sh,
-                     blz::FieldConsts<W> fc) {
+__device__ __forceinline__ void load_column(uint32_t* s, const uint32_t* x, int words,
+                                            int64_t B, int64_t b, int stride) {
+  for (int i = 0; i < words; ++i) s[i * stride] = x[(int64_t)i * B + b];
+}
+
+__device__ __forceinline__ void store_column(uint32_t* o, const uint32_t* s, int words,
+                                             int64_t B, int64_t b, int stride) {
+  for (int i = 0; i < words; ++i) o[(int64_t)i * B + b] = s[i * stride];
+}
+
+template <int T, int W>
+__global__ void __launch_bounds__(kRegThreads)
+poseidon_perm_reg_kernel(const uint32_t* x, uint32_t* o, int64_t B, int convert_in,
+                         const uint32_t* __restrict__ pc, blz::PoseidonShape sh,
+                         blz::FieldConsts<W> fc) {
   extern __shared__ uint32_t sm[];
-  const int64_t b = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  const int64_t b = (int64_t)blockIdx.x * kRegThreads + threadIdx.x;
   if (b >= B) return;                    // no barrier below: threads are independent
-  const int words = sh.t * W;
-  uint32_t* cur = sm + threadIdx.x;
-  uint32_t* nxt = cur + words * kThreads;
-  for (int i = 0; i < words; ++i) cur[i * kThreads] = x[(int64_t)i * B + b];
-  const uint32_t* res =
-      blz::poseidon_permute<W>(cur, nxt, kThreads, convert_in != 0, pc, sh, fc);
-  for (int i = 0; i < words; ++i) o[(int64_t)i * B + b] = res[i * kThreads];
+  uint32_t* s = sm + threadIdx.x;
+  load_column(s, x, T * W, B, b, kRegThreads);
+  blz::permute_reg<T, W>(s, kRegThreads, convert_in != 0, pc, sh, fc);
+  store_column(o, s, T * W, B, b, kRegThreads);
 }
 
 template <int W>
-int launch(const uint32_t* consts, const void* pc, blz::PoseidonShape sh,
-           const void* x, void* o, int64_t B, int convert_in, cudaStream_t stream) {
-  const size_t smem = (size_t)2 * sh.t * W * kThreads * sizeof(uint32_t);
-  cudaError_t err = cudaFuncSetAttribute(
-      poseidon_perm_kernel<W>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+__global__ void __launch_bounds__(kSmemThreads)
+poseidon_perm_smem_kernel(const uint32_t* x, uint32_t* o, int64_t B, int convert_in,
+                          const uint32_t* __restrict__ pc, blz::PoseidonShape sh,
+                          blz::FieldConsts<W> fc) {
+  extern __shared__ uint32_t sm[];
+  const int64_t b = (int64_t)blockIdx.x * kSmemThreads + threadIdx.x;
+  if (b >= B) return;
+  const int words = sh.t * W;
+  uint32_t* cur = sm + threadIdx.x;
+  load_column(cur, x, words, B, b, kSmemThreads);
+  const uint32_t* res = blz::permute_smem<W>(cur, cur + words * kSmemThreads, kSmemThreads,
+                                             convert_in != 0, pc, sh, fc);
+  store_column(o, res, words, B, b, kSmemThreads);
+}
+
+template <typename K>
+int launch_with(K kernel, int threads, size_t smem, int64_t B, cudaStream_t stream,
+                const uint32_t* x, uint32_t* o, int convert_in, const uint32_t* pc,
+                const blz::PoseidonShape& sh, const blz::FieldConsts<8>& fc) {
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const int64_t blocks = (B + kThreads - 1) / kThreads;
-  poseidon_perm_kernel<W><<<(unsigned)blocks, kThreads, smem, stream>>>(
-      (const uint32_t*)x, (uint32_t*)o, B, convert_in, (const uint32_t*)pc, sh,
-      blz::load_consts<W>(consts));
+  const int64_t blocks = (B + threads - 1) / threads;
+  kernel<<<(unsigned)blocks, threads, smem, stream>>>(x, o, B, convert_in, pc, sh, fc);
   return (int)cudaGetLastError();
+}
+
+// generic != 0 takes permute_smem at every t (for the layout comparison).
+int launch(const uint32_t* consts, const void* pc, const blz::PoseidonShape& sh,
+           const void* x, void* o, int64_t B, int convert_in, int generic,
+           cudaStream_t stream) {
+  constexpr int W = 8;
+  const auto fc = blz::load_consts<W>(consts);
+  const auto* xi = (const uint32_t*)x;
+  auto* oi = (uint32_t*)o;
+  const auto* pci = (const uint32_t*)pc;
+  const size_t col = (size_t)sh.t * W * sizeof(uint32_t);
+  if (!generic && sh.t == 12)
+    return launch_with(poseidon_perm_reg_kernel<12, W>, kRegThreads, col * kRegThreads, B,
+                       stream, xi, oi, convert_in, pci, sh, fc);
+  if (!generic && sh.t == 9)
+    return launch_with(poseidon_perm_reg_kernel<9, W>, kRegThreads, col * kRegThreads, B,
+                       stream, xi, oi, convert_in, pci, sh, fc);
+  return launch_with(poseidon_perm_smem_kernel<W>, kSmemThreads, 2 * col * kSmemThreads, B,
+                     stream, xi, oi, convert_in, pci, sh, fc);
+}
+
+int perm_entry(int W, const uint32_t* consts, const void* pc, int t, int r_f, int r_p, int nm,
+               int sparse, const void* x, void* o, int64_t B, int convert_in, int generic,
+               void* stream) {
+  if (B <= 0) return 0;
+  if (W != 8 || t < 2 || t > 16 || nm < 1 || r_f < 0 || r_p < 0 ||
+      (sparse && (r_f < 2 || r_p < 1)))
+    return (int)cudaErrorInvalidValue;
+  const blz::PoseidonShape sh{t, r_f, r_p, nm, sparse != 0};
+  return launch(consts, pc, sh, x, o, B, convert_in, generic, (cudaStream_t)stream);
 }
 
 // The multi-p REDC on its own, for checks: o[:, b] = (sum_j a[j, :, b] *
@@ -86,7 +141,7 @@ sum_products_kernel(const uint32_t* __restrict__ a, const uint32_t* __restrict__
       x[w] = a[((int64_t)j * W + w) * B + b];
       y[w] = c[((int64_t)j * W + w) * B + b];
     }
-    blz::mul_acc<W>(acc, x, y);
+    blz::mul_acc_cc<W>(acc, x, y);
   }
   blz::redc_sum<W>(x, acc, fc, mults, nm);
 #pragma unroll
@@ -96,16 +151,21 @@ sum_products_kernel(const uint32_t* __restrict__ a, const uint32_t* __restrict__
 }  // namespace
 
 // consts: the host FieldConsts block; pc: the instance's device constant
-// block (poseidon.cuh).  Only 8-word fields are instantiated (every scalar
-// field the clients hash over); any other W is refused.
+// block (poseidon.cuh), laid out for the sparse schedule when sparse != 0.
+// Only 8-word fields are instantiated (every scalar field the clients hash
+// over); any other W is refused.
 extern "C" int blz_poseidon_perm(int W, const uint32_t* consts, const void* pc, int t,
-                                 int r_f, int r_p, int nm, const void* x, void* o,
+                                 int r_f, int r_p, int nm, int sparse, const void* x, void* o,
                                  int64_t B, int convert_in, void* stream) {
-  if (B <= 0) return 0;
-  if (W != 8 || t < 2 || t > 16 || nm < 1 || r_f < 0 || r_p < 0)
-    return (int)cudaErrorInvalidValue;
-  const blz::PoseidonShape sh{t, r_f, r_p, nm};
-  return launch<8>(consts, pc, sh, x, o, B, convert_in, (cudaStream_t)stream);
+  return perm_entry(W, consts, pc, t, r_f, r_p, nm, sparse, x, o, B, convert_in, 0, stream);
+}
+
+// The same permutation through permute_smem whatever t (the layout the
+// tree's widths do not take), for checks and for the layout comparison.
+extern "C" int blz_poseidon_perm_smem(int W, const uint32_t* consts, const void* pc, int t,
+                                      int r_f, int r_p, int nm, int sparse, const void* x,
+                                      void* o, int64_t B, int convert_in, void* stream) {
+  return perm_entry(W, consts, pc, t, r_f, r_p, nm, sparse, x, o, B, convert_in, 1, stream);
 }
 
 // mults: device pointer to the nm multiples 2^b p (W+1 words each).

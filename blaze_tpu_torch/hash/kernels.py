@@ -12,7 +12,10 @@ canonical (< p).
 `permute_lm` launches the kernel for CUDA tensors and runs
 `permute_lm_plain` — the same function on 16-bit int64 limbs with the
 canonical twin of field.cuh, MDS rows as summed unreduced products reduced
-by `PlainFieldOps.redc_sum` — only for CPU tensors.  Its MDS column sums
+by `PlainFieldOps.redc_sum` — only for CPU tensors.  The kernel runs the
+partial rounds sparse (`PoseidonParams.sparse`) where the instance allows
+it; the plain version keeps the dense rounds of the TPU kernel, so holding
+one against the other also holds the factorization.  Its MDS column sums
 come from one exact float64 band product per round.  Bound and design: see
 csrc/poseidon_kernels.cu.
 """
@@ -35,13 +38,14 @@ from ..fields.kernel_ops import (
     words_to_limbs16,
 )
 from ..fields.spec import FieldSpec, int_to_words
-from .params import PoseidonParams
+from .params import PoseidonParams, mont_words
 
 __all__ = ["PoseidonKernels", "sum_products", "sum_products_plain"]
 
 _c = ctypes
 _ARGTYPES = [_c.c_int, _c.c_void_p, _c.c_void_p, _c.c_int, _c.c_int, _c.c_int, _c.c_int,
-             _c.c_void_p, _c.c_void_p, _c.c_int64, _c.c_int, _c.c_void_p]
+             _c.c_int, _c.c_void_p, _c.c_void_p, _c.c_int64, _c.c_int, _c.c_void_p]
+_PERM_ENTRIES = ("blz_poseidon_perm", "blz_poseidon_perm_smem")
 _SUM_ARGTYPES = [_c.c_int, _c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_int,
                  _c.c_int64, _c.c_void_p, _c.c_int, _c.c_void_p]
 
@@ -49,7 +53,7 @@ _SUM_ARGTYPES = [_c.c_int, _c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_void_p, _
 def _entry(name: str = "blz_poseidon_perm"):
     fn = getattr(_build.load("poseidon_kernels"), name)
     if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES if name == "blz_poseidon_perm" else _SUM_ARGTYPES
+        fn.argtypes = _ARGTYPES if name in _PERM_ENTRIES else _SUM_ARGTYPES
         fn.restype = ctypes.c_int
     return fn
 
@@ -124,12 +128,21 @@ class PoseidonKernels:
         self._consts = consts_host(spec)
         mults = reduce_multiples(spec, params.t)
         self._nm = len(mults)
-        # the kernel's constant block (csrc/poseidon.cuh): rc, mds, R^2 mod p,
-        # then the multiples 2^b p of the MDS rows' REDC (W+1 words each)
+        # the kernel's constant block (csrc/poseidon.cuh), Montgomery forms:
+        # sparse: the full rounds' and partial rounds' constants, mds, pre,
+        # the sparse rows and columns; dense (an M whose lower-right block is
+        # singular): rc and mds; then R^2 mod p and the multiples 2^b p of
+        # the mixes' REDC (W+1 words each)
+        sf = params.sparse
+        self.sparse = sf is not None
+        if self.sparse:
+            tables = [mont_words(spec, v) for v in (sf.rc_full, sf.rc_partial, params.mds,
+                                                    sf.pre, sf.rows, sf.cols)]
+        else:
+            tables = [params.rc_mont, params.mds_mont]
         self._block = np.concatenate(
-            [params.rc_mont.reshape(-1).view(np.uint32),
-             params.mds_mont.reshape(-1).view(np.uint32),
-             int_to_words(spec.r2, self.W)]
+            [a.reshape(-1).view(np.uint32) for a in tables]
+            + [int_to_words(spec.r2, self.W)]
             + [int_to_words(m, self.W + 1) for m in mults]
         ).view(np.int32)
         self._dev_cache: dict = {}
@@ -203,6 +216,16 @@ class PoseidonKernels:
         CANONICAL and converted inside the kernel (one extra product per
         element, x * R^2 / R = xR).  `out` may be `state` itself (in place).
         """
+        return self._permute(state, convert_in, out, "blz_poseidon_perm")
+
+    def permute_lm_smem(self, state: torch.Tensor, convert_in: bool = False,
+                        out: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """`permute_lm` through the kernel's any-width layout (two shared
+        columns per state) at every t, for checks and layout timings; the
+        tree's widths (t = 9, 12) otherwise keep the state in registers."""
+        return self._permute(state, convert_in, out, "blz_poseidon_perm_smem")
+
+    def _permute(self, state, convert_in, out, entry):
         t, W = self.params.t, self.W
         if state.dtype != torch.int32 or state.dim() != 3 or state.shape[:2] != (t, W):
             raise ValueError(
@@ -224,11 +247,11 @@ class PoseidonKernels:
             p = self.params
             with torch.cuda.device(state.device):
                 stream = torch.cuda.current_stream(state.device).cuda_stream
-                rc = _entry()(W, self._consts.ctypes.data,
-                              self._block_on(state.device).data_ptr(), t, p.r_f, p.r_p,
-                              self._nm, state.data_ptr(), o.data_ptr(), B,
-                              int(convert_in), stream)
-            _build.check(rc, "blz_poseidon_perm")
+                rc = _entry(entry)(W, self._consts.ctypes.data,
+                                   self._block_on(state.device).data_ptr(), t, p.r_f, p.r_p,
+                                   self._nm, int(self.sparse), state.data_ptr(), o.data_ptr(),
+                                   B, int(convert_in), stream)
+            _build.check(rc, entry)
             _build.LAUNCHES["poseidon_perm"] += 1
         return o
 

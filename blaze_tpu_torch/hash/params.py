@@ -9,7 +9,9 @@ implementation (generate_parameters_grain.sage), so the instance is fully
 specified, reproducible, and oracle-checkable.
 
 The device tables (`rc_mont`, `mds_mont`) are Montgomery forms as int32
-words, the port's element layout.  `params_from_reference` carries an
+words, the port's element layout.  `sparse_form` derives the same
+permutation with sparse partial rounds (Grassi et al., "Poseidon",
+USENIX Security 2021, eprint 2019/458, appendix B), exactly in ints mod p.  `params_from_reference` carries an
 instance's constants — the Poseidon "weights" — across from another
 package's fields given as plain ints or numpy arrays.
 """
@@ -104,9 +106,113 @@ class PoseidonParams:
     @functools.cached_property
     def mds_mont(self) -> np.ndarray:
         """(t, t, W) int32 words, Montgomery form."""
-        p, r, W = self.spec.p, self.spec.r, self.spec.nwords
-        vals = [int_to_words(v * r % p, W) for row in self.mds for v in row]
-        return np.stack(vals).view(np.int32).reshape(self.t, self.t, W)
+        return mont_words(self.spec, self.mds)
+
+    @functools.cached_property
+    def sparse(self) -> "SparseForm | None":
+        """The permutation with sparse partial rounds, or None where it
+        does not exist (see `sparse_form`)."""
+        return sparse_form(self)
+
+
+def mont_words(spec: FieldSpec, vals) -> np.ndarray:
+    """Nested sequences of canonical ints -> int32 words of their Montgomery
+    forms, shape (*shape, W)."""
+    arr = np.asarray(vals, dtype=object)
+    W = spec.nwords
+    flat = [int_to_words(int(v) * spec.r % spec.p, W) for v in arr.reshape(-1)]
+    return np.stack(flat).view(np.int32).reshape(*arr.shape, W)
+
+
+def _matmul(a, b, p: int):
+    return [[sum(x * y for x, y in zip(row, col)) % p for col in zip(*b)] for row in a]
+
+
+def _inverse(m, p: int):
+    """Inverse of the square matrix m mod p (Gauss-Jordan), or None when
+    m is singular."""
+    n = len(m)
+    a = [list(row) + [int(i == j) for j in range(n)] for i, row in enumerate(m)]
+    for c in range(n):
+        piv = next((r for r in range(c, n) if a[r][c] % p), None)
+        if piv is None:
+            return None
+        a[c], a[piv] = a[piv], a[c]
+        inv = pow(a[c][c], -1, p)
+        a[c] = [v * inv % p for v in a[c]]
+        for r in range(n):
+            if r != c and a[r][c]:
+                f = a[r][c]
+                a[r] = [(v - f * w) % p for v, w in zip(a[r], a[c])]
+    return [row[n:] for row in a]
+
+
+@dataclasses.dataclass(frozen=True)
+class SparseForm:
+    """A Poseidon permutation rewritten with sparse partial rounds.
+
+    Full round r (r < r_f/2, or the r_f/2 after the partial rounds, in
+    order): s += rc_full[r]; x^5 on every element; s = M s, except that the
+    last full round before the partial rounds mixes by `pre` in place of M.
+    Partial round k: s_0 += rc_partial[k]; s_0 = s_0^5; then the sparse
+    matrix [[rows[k]], [cols[k] | I]]: s_0' = sum_j rows[k][j] s_j and
+    s_i' = s_i + cols[k][i-1] s_0 for i >= 1.  All canonical ints.
+    """
+
+    rc_full: tuple     # (r_f, t)
+    rc_partial: tuple  # (r_p,)
+    pre: tuple         # (t, t)
+    rows: tuple        # (r_p, t)
+    cols: tuple        # (r_p, t - 1)
+
+
+def sparse_form(params: PoseidonParams) -> "SparseForm | None":
+    """The sparse-partial-round form of `params`, exactly in ints mod p.
+
+    Constants move forward: in a partial round only s_0 meets the S-box, so
+    the constants of s_1.. pass through it and, multiplied by M, join the
+    next round's constants; each partial round keeps one scalar, and the
+    last one's remainder joins the first full round after them.
+
+    Matrices move backward: a dense N = [[n00, n^T], [w, N']] factors as
+    A diag(1, N') with A = [[n00, n^T N'^-1], [w, I]] sparse; diag(1, N')
+    commutes with the partial round's S-box and scalar constant, so it
+    joins the round before as diag(1, N') M.  From the last partial round
+    back, N' is a power of M's lower-right (t-1) x (t-1) block, and what is
+    left after the first partial round mixes the last full round before
+    them (`pre`).
+
+    None when that block is singular (the partial rounds then stay dense),
+    or when there is no partial round or no full round before them.
+    """
+    p, t, half, r_p = params.spec.p, params.t, params.r_f // 2, params.r_p
+    if r_p < 1 or half < 1:
+        return None
+    mds = [list(row) for row in params.mds]
+    if _inverse([row[1:] for row in mds[1:]], p) is None:
+        return None
+    rc = [list(params.round_constants[r * t:(r + 1) * t])
+          for r in range(params.r_f + r_p)]
+    scalars = []
+    for r in range(half, half + r_p):
+        scalars.append(rc[r][0])
+        moved = [sum(m * c for m, c in zip(row[1:], rc[r][1:])) for row in mds]
+        rc[r + 1] = [(a + b) % p for a, b in zip(rc[r + 1], moved)]
+    rows, cols = [], []
+    n = mds
+    for _ in range(r_p):
+        lower = [row[1:] for row in n[1:]]
+        first = _matmul([n[0][1:]], _inverse(lower, p), p)[0]
+        rows.append(tuple([n[0][0]] + first))
+        cols.append(tuple(row[0] for row in n[1:]))
+        n = _matmul([[1] + [0] * (t - 1)] + [[0] + row for row in lower], mds, p)
+    return SparseForm(
+        rc_full=tuple(tuple(v) for v in rc[:half] + rc[half + r_p:]),
+        rc_partial=tuple(scalars),
+        pre=tuple(tuple(row) for row in n),
+        rows=tuple(reversed(rows)),
+        cols=tuple(reversed(cols)),
+    )
 
 
 def generate_params(

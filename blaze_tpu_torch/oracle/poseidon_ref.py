@@ -31,6 +31,32 @@ def poseidon_permutation_ref(params: PoseidonParams, state):
     return s
 
 
+def poseidon_permutation_sparse_ref(params: PoseidonParams, state):
+    """The same permutation through `params.sparse` (hash/params.py
+    SparseForm): dense full rounds, sparse partial rounds.  state: t
+    canonical ints."""
+    sf, p, t = params.sparse, params.spec.p, params.t
+    if sf is None:
+        raise ValueError("this instance has no sparse form")
+    half = params.r_f // 2
+    s = [x % p for x in state]
+
+    def full(s, c, m):
+        s = [pow((x + k) % p, params.alpha, p) for x, k in zip(s, c)]
+        return [sum(a * x for a, x in zip(row, s)) % p for row in m]
+
+    for r in range(half):
+        s = full(s, sf.rc_full[r], sf.pre if r == half - 1 else params.mds)
+    for k in range(params.r_p):
+        x0 = pow((s[0] + sf.rc_partial[k]) % p, params.alpha, p)
+        s = [x0] + s[1:]
+        s = ([sum(a * x for a, x in zip(sf.rows[k], s)) % p]
+             + [(x + w * x0) % p for x, w in zip(s[1:], sf.cols[k])])
+    for r in range(half, params.r_f):
+        s = full(s, sf.rc_full[r], params.mds)
+    return s
+
+
 def poseidon_hash_ref(params: PoseidonParams, inputs, domain_tag: int = 0):
     """Sponge convention matching Poseidon.hash: state = [tag, inputs...],
     output = state[1] after one permutation."""

@@ -7,8 +7,9 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 
 1. device: the card (nvidia-smi name and power limit, CUDA, capability),
    then the kernels built from csrc/ with nvcc (seconds, registers, stack,
-   spills) and the local-memory loads and stores (LDL, STL) in the EC
-   kernels' SASS (cuobjdump);
+   spills) and the local-memory loads and stores (LDL, STL) in the EC and
+   Poseidon kernels' SASS, with the opcode mix of K2, K4 and K10
+   (cuobjdump);
 2. kernel parity: K1-K6 against their plain PyTorch versions on the card,
    exact, on BN254, BLS12-377 and BLS12-381 at small shapes (K2 signed and
    unsigned) and, for K2 and K4, at ragged lane counts B = 1, 33, 1000
@@ -50,13 +51,16 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 7. NTT client at 2^16 (the K8 twiddle fallback) and 2^20 (K9, both
    branches) against an independent host NTT in Python ints, with inverse
    roundtrips, and every committed tests/fixtures/ntt_* golden pair.
-8. Poseidon kernel parity: K10 against its plain version, exact, on the
-   three scalar fields (t = 9 and 12, with and without convert_in, B = 1
-   and 1000, inputs near p), the multi-p REDC twin against the plain
-   redc_sum on edge inputs (T = t (p-1)^2 ...), then at the height-9
+8. Poseidon kernel parity: K10 against its (dense) plain version, exact,
+   on the three scalar fields (t = 9 and 12, with and without convert_in,
+   B = 1 and 1000, inputs near p, both of the kernel's layouts; the sparse
+   schedule, and on bls12_381_fr the dense rounds of an instance whose MDS
+   has a singular lower-right block), the multi-p REDC twin against the
+   plain redc_sum on edge inputs (T = t (p-1)^2 ...), then at the height-9
    tree's shapes on bls12_381_fr (t = 12 at 2^24 states with convert_in,
-   t = 9 at 2^21) with times and bounds, each held against its plain
-   version on a cut of 2^10 states;
+   t = 9 at 2^21) with times of both layouts in turns, the bounds of the
+   sparse and the dense work, each held against its plain version on a
+   cut of 2^10 states;
 9. PoseidonClient("bls12_381_fr") at height 4, the reference's contract
    (512 leaves, 5,632 wire elements, 585 nodes): initialize -> set_data ->
    start_process -> wait_result -> result(expected_count=585) and
@@ -263,8 +267,12 @@ def ptxas_summary(logs: dict) -> dict:
     return out
 
 
-def sass_summary(lib: Path, mix_of=("scan_mixed_kernel<12>", "reduce_cols_kernel<12>")):
-    """From cuobjdump -sass of the built library: 'kernel<W>[s]' ->
+MIX_OF = ("scan_mixed_kernel<12>", "reduce_cols_kernel<12>", "poseidon_perm_reg_kernel<12>",
+          "poseidon_perm_reg_kernel<9>", "poseidon_perm_smem_kernel<8>")
+
+
+def sass_summary(libs, mix_of=MIX_OF):
+    """From cuobjdump -sass of the built libraries: 'kernel<W>[s]' ->
     [LDL, STL], the local-memory loads and stores in its code, and for the
     kernels in `mix_of` the static count of each opcode (the most frequent
     12).  None without cuobjdump."""
@@ -274,8 +282,8 @@ def sass_summary(lib: Path, mix_of=("scan_mixed_kernel<12>", "reduce_cols_kernel
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not Path(tool).exists():
         return None
-    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
-                          check=True).stdout
+    sass = "\n".join(subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                                    text=True, check=True).stdout for lib in libs)
     local, mix, name = {}, {}, None
     for line in sass.splitlines():
         if "Function :" in line:
@@ -308,7 +316,8 @@ def phase_device():
           "cuda": torch.version.cuda, "capability": list(torch.cuda.get_device_capability(0)),
           "sms": props.multi_processor_count, "max_sm_clock_mhz": clock_mhz,
           "build_s": build_s, "ptxas": ptxas_summary(_build.BUILD_LOG),
-          "sass": sass_summary(_build._lib_path("ec_kernels"))})
+          "sass": sass_summary([_build._lib_path(n) for n in ("ec_kernels",
+                                                              "poseidon_kernels")])})
     return card, props.multi_processor_count * IMAD_PER_CLK_PER_SM * clock_mhz * 1e6
 
 
@@ -423,6 +432,21 @@ def output_err(got, want) -> int:
     return max(max_abs_err(g, w) for g, w in zip(as_tuple(got), as_tuple(want)))
 
 
+def poseidon_imads(shape: dict, W: int, sparse: bool) -> int:
+    """32-bit multiply-adds of one Poseidon state: 3 full products per
+    S-box (r_f t + r_p of them) and t more with convert_in; a dense mix is
+    t^2 unreduced products (2W^2 each) and t row REDCs (2W^2 + W); a sparse
+    partial round's mix is t unreduced products, one REDC and t - 1 full
+    products."""
+    t, r_f, r_p = shape["t"], shape["r_f"], shape["r_p"]
+    full, unreduced, redc = 4 * W * W + W, 2 * W * W, 2 * W * W + W
+    n = (3 * (r_f * t + r_p) + t * shape["convert_in"]) * full
+    n += r_f * t * (t * unreduced + redc)
+    if sparse:
+        return n + r_p * (t * unreduced + redc + (t - 1) * full)
+    return n + r_p * t * (t * unreduced + redc)
+
+
 def work_bound_ms(name: str, shape: dict, W: int, imad_rate: float):
     """Least time for the same work: the larger of the bytes it must move
     (inputs read once, outputs written once) over HBM bandwidth and its
@@ -435,15 +459,8 @@ def work_bound_ms(name: str, shape: dict, W: int, imad_rate: float):
     pt = 3 * W * 4                                # bytes of one projective point
     el = W * 4                                    # bytes of one field element
     if name == "poseidon_perm":
-        # per state: 3 full products per S-box (r_f t + r_p of them), t more
-        # with convert_in; per round t^2 unreduced products (2W^2 IMADs) and
-        # t row REDCs (2W^2 + W); counted here in full-product units
-        t, B = shape["t"], shape["B"]
-        rounds = shape["r_f"] + shape["r_p"]
-        full = 3 * (shape["r_f"] * t + shape["r_p"]) + t * shape["convert_in"]
-        imads = full * per_mul + rounds * t * t * 2 * W * W + rounds * t * (2 * W * W + W)
-        muls = B * imads / per_mul
-        nbytes = 2 * t * B * el
+        muls = shape["B"] * poseidon_imads(shape, W, shape["sparse"]) / per_mul
+        nbytes = 2 * shape["t"] * shape["B"] * el
     elif name == "ntt_base":
         K, N = shape["K"], shape["lanes"]
         muls = (K // 2) * (K.bit_length() - 2) * N
@@ -1224,11 +1241,26 @@ def redc_edge_inputs(spec, t: int, seed: int, device):
     return lm([a for a, _ in pairs]), lm([c for _, c in pairs])
 
 
+def singular_block(params):
+    """`params` with row 2 of the MDS copied from row 1 past column 0: its
+    lower-right (t-1) x (t-1) block is singular, so the instance has no
+    sparse form and K10 runs its dense rounds."""
+    from blaze_tpu_torch.hash import params_from_reference
+
+    mds = [list(row) for row in params.mds]
+    mds[2][1:] = mds[1][1:]
+    return params_from_reference(params.spec, params.t, params.alpha, params.r_f, params.r_p,
+                                 params.round_constants, mds)
+
+
 def poseidon_main_timing(imad_rate: float, seed: int, device):
     """K10 at the height-9 tree's shapes on bls12_381_fr — the leaf sponge
     (t = 12, B = 2^24, convert_in) and the first node level (t = 9,
     B = 2^21): one warm call whose first 2^10 states are held against the
-    plain version on the same cut, then one timed call (CUDA events)."""
+    plain version on the same cut, then timed calls (CUDA events) of the
+    kernel's two layouts in turns (registers, any-width, any-width,
+    registers), whose outputs must be equal.  The bound counts the sparse
+    schedule's work; dense_bound_ms the dense rounds' (the TPU kernel's)."""
     import torch
 
     from blaze_tpu_torch.fields import FIELDS
@@ -1242,15 +1274,25 @@ def poseidon_main_timing(imad_rate: float, seed: int, device):
         params = generate_params(spec, t)
         k = PoseidonKernels.for_params(params)
         x = rand_words(spec, (t, W, B), seed + t, device)
-        e = max_abs_err(k.permute_lm(x, convert_in=conv)[:, :, :cut],
+        got = k.permute_lm(x, convert_in=conv)
+        e = max_abs_err(got[:, :, :cut],
                         k.permute_lm_plain(x[:, :, :cut].contiguous(), conv))
-        ms = cuda_ms(lambda: k.permute_lm(x, convert_in=conv), 1 if B > 1 << 22 else 3)
+        e = max(e, max_abs_err(k.permute_lm_smem(x, convert_in=conv), got))
+        del got
+        reps = 1 if B > 1 << 22 else 3
+        reg, smem = (lambda: k.permute_lm(x, convert_in=conv)), \
+            (lambda: k.permute_lm_smem(x, convert_in=conv))
+        order = [cuda_ms(f, reps) for f in (reg, smem, smem, reg)]
         _, plain_ms = once_ms(lambda: k.permute_lm_plain(x[:, :, :cut].contiguous(), conv))
-        shape = {"t": t, "B": B, "r_f": params.r_f, "r_p": params.r_p, "convert_in": int(conv)}
+        shape = {"t": t, "B": B, "r_f": params.r_f, "r_p": params.r_p, "convert_in": int(conv),
+                 "sparse": int(k.sparse)}
         bound, bound_by = work_bound_ms("poseidon_perm", shape, W, imad_rate)
-        timing[key] = {"shape": shape, "ms": ms, "plain_ms": plain_ms,
-                       "plain_shape": {**shape, "B": cut}, "bound_ms": bound,
-                       "bound_by": bound_by, "max_abs_err": e}
+        dense, _ = work_bound_ms("poseidon_perm", {**shape, "sparse": 0}, W, imad_rate)
+        timing[key] = {"shape": shape, "ms": (order[0] + order[3]) / 2,
+                       "smem_ms": (order[1] + order[2]) / 2, "ms_in_turns": order,
+                       "plain_ms": plain_ms, "plain_shape": {**shape, "B": cut},
+                       "bound_ms": bound, "bound_by": bound_by, "dense_bound_ms": dense,
+                       "max_abs_err": e}
         del x
         torch.cuda.empty_cache()
     return timing
@@ -1258,7 +1300,9 @@ def poseidon_main_timing(imad_rate: float, seed: int, device):
 
 def phase_poseidon_parity(imad_rate: float, seed: int, device):
     """K10 against its plain version, exact, on the three scalar fields (t =
-    9 and 12, with and without convert_in, B = 1 and 1000), the multi-p REDC
+    9 and 12, with and without convert_in, B = 1 and 1000; both layouts; the
+    sparse schedule, and on bls12_381_fr also the dense rounds of an
+    instance whose MDS has a singular lower-right block), the multi-p REDC
     twin against the plain redc_sum on edge inputs, then the main shapes."""
     import torch
 
@@ -1271,14 +1315,21 @@ def phase_poseidon_parity(imad_rate: float, seed: int, device):
         spec = FIELDS[field]
         checked = []
         for t in (9, 12):
-            k = PoseidonKernels.for_params(generate_params(spec, t))
-            for B in (1, 1000):
-                x = near_p_states(spec, t, B, seed + t + B, device)
-                for conv in (False, True):
-                    e = max_abs_err(k.permute_lm(x, convert_in=conv),
-                                    k.permute_lm_plain(x, convert_in=conv))
-                    checked.append({"kernel": "poseidon_perm", "t": t, "B": B,
-                                    "convert_in": conv, "max_abs_err": e})
+            instances = [generate_params(spec, t)]
+            if field == POSEIDON_FIELD:
+                instances.append(singular_block(instances[0]))
+            for params in instances:
+                k = PoseidonKernels.for_params(params)
+                for B in (1, 1000):
+                    x = near_p_states(spec, t, B, seed + t + B, device)
+                    for conv in (False, True):
+                        want = k.permute_lm_plain(x, convert_in=conv)
+                        for layout, fn in (("registers", k.permute_lm),
+                                           ("any_width", k.permute_lm_smem)):
+                            checked.append({"kernel": "poseidon_perm", "t": t, "B": B,
+                                            "convert_in": conv, "sparse": k.sparse,
+                                            "layout": layout,
+                                            "max_abs_err": max_abs_err(fn(x, conv), want)})
             a, c = redc_edge_inputs(spec, t, seed + t, device)
             e = max_abs_err(sum_products(spec, a, c), sum_products_plain(spec, a, c))
             checked.append({"kernel": "redc_sum", "t": t, "B": a.shape[2], "max_abs_err": e})
@@ -1286,6 +1337,8 @@ def phase_poseidon_parity(imad_rate: float, seed: int, device):
         emit({"phase": "poseidon_parity", "field": field, "shape": "small", "cases": checked})
         if any(c["max_abs_err"] for c in checked):
             raise AssertionError(f"{field}: K10 or the REDC twin differs from its plain version")
+        if not any(c.get("sparse") for c in checked):
+            raise AssertionError(f"{field}: no instance took the sparse schedule")
         err = max([err] + [c["max_abs_err"] for c in checked if c["kernel"] == "poseidon_perm"])
     timing = poseidon_main_timing(imad_rate, seed, device)
     emit({"phase": "poseidon_parity", "field": POSEIDON_FIELD,

@@ -32,7 +32,13 @@ from blaze_tpu_torch.fields import FIELDS, int_to_words, words_to_int
 from blaze_tpu_torch.fields.montmul import mont_mul, mont_mul_plain
 from blaze_tpu_torch.oracle import ECOracle, class_sum_expected
 from blaze_tpu_torch.oracle.gen import points_to_affine_words, scalars_to_limbs
-from blaze_tpu_torch.hash import PoseidonKernels, TreeMode, generate_params, num_tree_nodes
+from blaze_tpu_torch.hash import (
+    PoseidonKernels,
+    TreeMode,
+    generate_params,
+    num_tree_nodes,
+    params_from_reference,
+)
 from blaze_tpu_torch.hash.kernels import sum_products, sum_products_plain
 from blaze_tpu_torch.ntt import NTTKernels
 from blaze_tpu_torch.oracle.poseidon_ref import merkle_tree_ref, poseidon_hash_ref
@@ -207,21 +213,37 @@ def test_ntt_client_on_card_matches_goldens_and_host_ntt(dev):
     assert _run(NTTClient(NTTInit(field=spec.name, logn=logn), inverse=True), out) == raw
 
 
+def singular_block(params):
+    """`params` with row 2 of the MDS copied from row 1 past column 0: the
+    lower-right block is singular, so K10 keeps the dense rounds."""
+    mds = [list(row) for row in params.mds]
+    mds[2][1:] = mds[1][1:]
+    return params_from_reference(params.spec, params.t, params.alpha, params.r_f, params.r_p,
+                                 params.round_constants, mds)
+
+
 @pytest.mark.parametrize("field", ["bn254_fr", "bls12_377_fr", "bls12_381_fr"])
 def test_poseidon_kernel_matches_plain_version(dev, field):
+    """Both layouts, the sparse schedule and (the singular-block instance)
+    the dense rounds, t = 3 on the any-width layout alone."""
     spec = FIELDS[field]
     W = spec.nwords
-    for t in (9, 12):
-        k = PoseidonKernels.for_params(generate_params(spec, t))
-        pm1 = torch.from_numpy(int_to_words(spec.p - 1, W).view(np.int32)).to(dev)
-        x = canonical(spec, (t, W, 300), t, dev)
-        x[:, :, 0] = pm1                                 # a canonical state near p
-        for conv in (False, True):
-            want = k.permute_lm_plain(x, conv)
-            assert torch.equal(k.permute_lm(x, convert_in=conv), want)
-            y = x.clone()
-            k.permute_lm(y, convert_in=conv, out=y)      # in place
-            assert torch.equal(y, want)
+    pm1 = torch.from_numpy(int_to_words(spec.p - 1, W).view(np.int32)).to(dev)
+    for t in (3, 9, 12):
+        params = generate_params(spec, t)
+        for k in (PoseidonKernels.for_params(params),
+                  PoseidonKernels.for_params(singular_block(params))):
+            x = canonical(spec, (t, W, 300), t, dev)
+            x[:, :, 0] = pm1                             # a canonical state near p
+            for conv in (False, True):
+                want = k.permute_lm_plain(x, conv)
+                assert torch.equal(k.permute_lm(x, convert_in=conv), want)
+                assert torch.equal(k.permute_lm_smem(x, convert_in=conv), want)
+                y = x.clone()
+                k.permute_lm(y, convert_in=conv, out=y)  # in place
+                assert torch.equal(y, want)
+        if t == 3:
+            continue
         a, c = canonical(spec, (t, W, 64), 2 * t, dev), canonical(spec, (t, W, 64), 3 * t, dev)
         a[:, :, 0] = c[:, :, 0] = pm1                    # T = t (p-1)^2
         assert torch.equal(sum_products(spec, a, c), sum_products_plain(spec, a, c))

@@ -122,7 +122,7 @@ void field(const uint32_t* consts, int op, const uint32_t* a, const uint32_t* b,
            uint32_t* r, int64_t n) {
   const auto fc = blz::load_consts<W>(consts);
   for (int64_t i = 0; i < n; ++i) {
-    if (op == 0) tm::mont_mul_cc<W>(r + i * W, a + i * W, b + i * W, fc);
+    if (op == 0) blz::mont_mul_cc<W, true>(r + i * W, a + i * W, b + i * W, fc);
     else if (op == 1) tm::add_lazy<W>(r + i * W, a + i * W, b + i * W, fc);
     else tm::sub_lazy<W>(r + i * W, a + i * W, b + i * W, fc);
   }
