@@ -2,25 +2,25 @@
 // carry-chain products of carry.cuh.
 //
 // Used by K10 (poseidon_kernels.cu), one thread per state.  The state's t
-// elements live in a per-thread column of shared memory (element e, word w
-// at [(e * W + w) * stride]).  Two schedules compute the same permutation:
+// elements live in a per-thread column (element e, word w at
+// [(e * W + w) * stride]).  Two schedules compute the same permutation:
 //
 //   sparse (sh.sparse = 1): hash/params.py SparseForm — full rounds mix by
 //     the dense M (the last one before the partial rounds by `pre`); a
 //     partial round adds one scalar to element 0, takes its x^5, and mixes
-//     by a sparse matrix: s0' = sum_j row_j s_j (t unreduced products, one
-//     multi-p REDC) and s_i' = s_i + col_i s0 (one product each).
+//     by a sparse matrix in place: s0' = sum_j row_j s_j (t unreduced
+//     products, one multi-p REDC) and s_i' = s_i + col_i s0 (one product
+//     each).
 //   dense (sh.sparse = 0): every round adds a t-vector and mixes by M, as
 //     the TPU kernel does; for instances whose M has a singular lower-right
 //     (t-1) x (t-1) block, where the sparse form does not exist.
 //
 // A dense mix is one sum of t unreduced products and one multi-p REDC per
 // row (carry.cuh mul_acc_cc, field.cuh redc_sum).  It reads every old
-// element while it writes the new ones, so the old state sits in registers
-// (`permute_reg`, T = t a compile-time width: one shared buffer) or in a
-// second buffer (`permute_smem`, any t: rounds, elements and rows rolled).
-// `permute_reg` also keeps the state in registers through the partial
-// rounds, which run unrolled over the elements.
+// element while it writes the new ones, so it writes into a second column
+// `tmp` (any stride, any memory) and copies back.  Rounds, elements and
+// rows stay rolled loops, so the code holds a few inlined products and no
+// unrolled round body; W-word loops are unrolled.
 //
 // Every thread reads the same constant at the same time, from one constant
 // block in device memory (BLZ_LDG, the read-only path), all Montgomery
@@ -86,14 +86,14 @@ struct PoseidonBlock {
   }
 };
 
-template <int W>
-BLZ_DEVICE void load_el(uint32_t* x, const uint32_t* s, int e, int stride) {
+template <int W, typename S>
+BLZ_DEVICE void load_el(uint32_t* x, const uint32_t* s, int e, S stride) {
 #pragma unroll
   for (int w = 0; w < W; ++w) x[w] = s[(e * W + w) * stride];
 }
 
-template <int W>
-BLZ_DEVICE void store_el(uint32_t* s, const uint32_t* x, int e, int stride) {
+template <int W, typename S>
+BLZ_DEVICE void store_el(uint32_t* s, const uint32_t* x, int e, S stride) {
 #pragma unroll
   for (int w = 0; w < W; ++w) s[(e * W + w) * stride] = x[w];
 }
@@ -146,12 +146,12 @@ BLZ_DEVICE void convert(uint32_t* s, int stride, int t, const uint32_t* r2,
   }
 }
 
-// ------------------------------------------------- any t: two buffers
-// nxt = m cur, row by row.
-template <int W>
-BLZ_DEVICE void mix_smem(uint32_t* nxt, const uint32_t* cur, int stride, int t,
-                         const uint32_t* m, const PoseidonShape& sh, const PoseidonBlock& pb,
-                         const FieldConsts<W>& fc) {
+// ----------------------------------------------------------- the rounds
+// tmp = m s, row by row (tmp: a column of t elements with stride ts).
+template <int W, typename S>
+BLZ_DEVICE void mix(uint32_t* tmp, S ts, const uint32_t* s, int stride, int t,
+                    const uint32_t* m, const PoseidonShape& sh, const PoseidonBlock& pb,
+                    const FieldConsts<W>& fc) {
   uint32_t x[W], k[W];
 #pragma unroll 1
   for (int i = 0; i < t; ++i) {
@@ -160,22 +160,21 @@ BLZ_DEVICE void mix_smem(uint32_t* nxt, const uint32_t* cur, int stride, int t,
     for (int j = 0; j < 2 * W + 1; ++j) acc[j] = 0;
 #pragma unroll 1
     for (int j = 0; j < t; ++j) {
-      load_el<W>(x, cur, j, stride);
+      load_el<W>(x, s, j, stride);
       load_const<W>(k, m + (i * t + j) * W);
       mul_acc_cc<W>(acc, k, x);
     }
     redc_sum<W>(x, acc, fc, pb.mults, sh.nm);
-    store_el<W>(nxt, x, i, stride);
+    store_el<W>(tmp, x, i, ts);
   }
 }
 
 // One sparse partial round in place: s0 += k, s0 = s0^5, then the sparse
 // matrix (row, col).  Row 0's sum reads each old s_i before it is updated.
 template <int W>
-BLZ_DEVICE void sparse_round_smem(uint32_t* s, int stride, int t, const uint32_t* k,
-                                  const uint32_t* row, const uint32_t* col,
-                                  const PoseidonShape& sh, const PoseidonBlock& pb,
-                                  const FieldConsts<W>& fc) {
+BLZ_DEVICE void sparse_round(uint32_t* s, int stride, int t, const uint32_t* k,
+                             const uint32_t* row, const uint32_t* col, const PoseidonShape& sh,
+                             const PoseidonBlock& pb, const FieldConsts<W>& fc) {
   uint32_t x0[W], x[W], c[W], acc[2 * W + 1];
 #pragma unroll
   for (int j = 0; j < 2 * W + 1; ++j) acc[j] = 0;
@@ -199,117 +198,33 @@ BLZ_DEVICE void sparse_round_smem(uint32_t* s, int stride, int t, const uint32_t
   store_el<W>(s, x, 0, stride);
 }
 
-// Permutes the state in `cur` (Montgomery form in and out; canonical in
-// when convert_in); `nxt` is a second column of the same shape.  Returns
-// the buffer (cur or nxt) that holds the result.
-template <int W>
-BLZ_DEVICE uint32_t* permute_smem(uint32_t* cur, uint32_t* nxt, int stride, bool convert_in,
-                                  const uint32_t* pc, const PoseidonShape& sh,
-                                  const FieldConsts<W>& fc) {
+// Permutes the state in the column s in place (Montgomery form in and out;
+// canonical in when convert_in).  Each dense mix writes its rows to the
+// column tmp (stride ts) and copies them back.
+template <int W, typename S>
+BLZ_DEVICE void poseidon_permute(uint32_t* s, int stride, uint32_t* tmp, S ts, bool convert_in,
+                                 const uint32_t* pc, const PoseidonShape& sh,
+                                 const FieldConsts<W>& fc) {
   const PoseidonBlock pb = PoseidonBlock::at<W>(pc, sh);
   const int t = sh.t, half = sh.r_f / 2, rounds = sh.r_f + sh.r_p;
-  if (convert_in) convert<W>(cur, stride, t, pb.r2, fc);
+  if (convert_in) convert<W>(s, stride, t, pb.r2, fc);
 #pragma unroll 1
   for (int r = 0; r < rounds; ++r) {
     const bool partial = r >= half && r < half + sh.r_p;
     if (partial && sh.sparse) {
       const int k = r - half;
-      sparse_round_smem<W>(cur, stride, t, pb.rc_partial + k * W, pb.rows + k * t * W,
-                           pb.cols + k * (t - 1) * W, sh, pb, fc);
+      sparse_round<W>(s, stride, t, pb.rc_partial + k * W, pb.rows + k * t * W,
+                      pb.cols + k * (t - 1) * W, sh, pb, fc);
       continue;
     }
-    ark_sbox<W>(cur, stride, t, pb.rc<W>(r, sh), partial ? 1 : t, fc);
-    mix_smem<W>(nxt, cur, stride, t, pb.mix(r, sh), sh, pb, fc);
-    uint32_t* tmp = cur;
-    cur = nxt;
-    nxt = tmp;
-  }
-  return cur;
-}
-
-// ------------------------------------------- t = T: registers, one buffer
-template <int T, int W>
-BLZ_DEVICE void load_state(uint32_t (&x)[T][W], const uint32_t* s, int stride) {
-#pragma unroll
-  for (int e = 0; e < T; ++e) load_el<W>(x[e], s, e, stride);
-}
-
-template <int T, int W>
-BLZ_DEVICE void store_state(uint32_t* s, const uint32_t (&x)[T][W], int stride) {
-#pragma unroll
-  for (int e = 0; e < T; ++e) store_el<W>(s, x[e], e, stride);
-}
-
-// s = m s: the old state in registers, each new row stored as it is made.
-template <int T, int W>
-BLZ_DEVICE void mix_reg(uint32_t* s, int stride, const uint32_t* m, const PoseidonShape& sh,
-                        const PoseidonBlock& pb, const FieldConsts<W>& fc) {
-  uint32_t x[T][W];
-  load_state<T, W>(x, s, stride);
+    ark_sbox<W>(s, stride, t, pb.rc<W>(r, sh), partial ? 1 : t, fc);
+    mix<W>(tmp, ts, s, stride, t, pb.mix(r, sh), sh, pb, fc);
+    uint32_t x[W];
 #pragma unroll 1
-  for (int i = 0; i < T; ++i) {
-    uint32_t acc[2 * W + 1], k[W];
-#pragma unroll
-    for (int j = 0; j < 2 * W + 1; ++j) acc[j] = 0;
-#pragma unroll
-    for (int j = 0; j < T; ++j) {
-      load_const<W>(k, m + (i * T + j) * W);
-      mul_acc_cc<W>(acc, k, x[j]);
+    for (int e = 0; e < t; ++e) {
+      load_el<W>(x, tmp, e, ts);
+      store_el<W>(s, x, e, stride);
     }
-    redc_sum<W>(k, acc, fc, pb.mults, sh.nm);
-    store_el<W>(s, k, i, stride);
-  }
-}
-
-// The r_p sparse partial rounds with the state in registers.
-template <int T, int W>
-BLZ_DEVICE void sparse_rounds_reg(uint32_t* s, int stride, const PoseidonShape& sh,
-                                  const PoseidonBlock& pb, const FieldConsts<W>& fc) {
-  uint32_t x[T][W];
-  load_state<T, W>(x, s, stride);
-#pragma unroll 1
-  for (int k = 0; k < sh.r_p; ++k) {
-    const uint32_t* row = pb.rows + k * T * W;
-    const uint32_t* col = pb.cols + k * (T - 1) * W;
-    uint32_t c[W], acc[2 * W + 1];
-    load_const<W>(c, pb.rc_partial + k * W);
-    fadd<W, false>(x[0], x[0], c, fc);
-    sbox<W>(x[0], fc);
-#pragma unroll
-    for (int j = 0; j < 2 * W + 1; ++j) acc[j] = 0;
-#pragma unroll
-    for (int i = 0; i < T; ++i) {
-      load_const<W>(c, row + i * W);
-      mul_acc_cc<W>(acc, c, x[i]);
-    }
-#pragma unroll
-    for (int i = 1; i < T; ++i) {
-      load_const<W>(c, col + (i - 1) * W);
-      mont_mul_cc<W, false>(c, c, x[0], fc);
-      fadd<W, false>(x[i], x[i], c, fc);
-    }
-    redc_sum<W>(x[0], acc, fc, pb.mults, sh.nm);
-  }
-  store_state<T, W>(s, x, stride);
-}
-
-// Permutes the state in the column s in place (as permute_smem), t = T.
-template <int T, int W>
-BLZ_DEVICE void permute_reg(uint32_t* s, int stride, bool convert_in, const uint32_t* pc,
-                            const PoseidonShape& sh, const FieldConsts<W>& fc) {
-  const PoseidonBlock pb = PoseidonBlock::at<W>(pc, sh);
-  const int half = sh.r_f / 2, rounds = sh.r_f + sh.r_p;
-  if (convert_in) convert<W>(s, stride, T, pb.r2, fc);
-#pragma unroll 1
-  for (int r = 0; r < rounds; ++r) {
-    const bool partial = r >= half && r < half + sh.r_p;
-    if (partial && sh.sparse) {
-      sparse_rounds_reg<T, W>(s, stride, sh, pb, fc);
-      r += sh.r_p - 1;
-      continue;
-    }
-    ark_sbox<W>(s, stride, T, pb.rc<W>(r, sh), partial ? 1 : T, fc);
-    mix_reg<T, W>(s, stride, pb.mix(r, sh), sh, pb, fc);
   }
 }
 

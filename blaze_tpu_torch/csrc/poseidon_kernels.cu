@@ -17,15 +17,16 @@
 // (r_p 63) at W = 8, from 1.49 M and 0.93 M.  Every product is a PTX carry
 // chain (carry.cuh).
 //
-// Design: one thread per state, 128 states per block.  At t = 9 and 12
-// (the tree's widths) the state is in registers through the partial rounds
-// and each dense mix (permute_reg), and in one shared column per thread
-// between them ([(e * W + w) * 128 + thread]: neighbouring threads on
-// neighbouring banks), t W 4 * 128 B per block (48 KB at t = 12).  Any
-// other t runs permute_smem: 64 states per block, two shared columns each,
-// everything rolled.  Loads and stores of the state in device memory are
-// coalesced ((e, w, b) at (e * W + w) * B + b).  Each thread reads its
-// whole state before it writes any of it, so the kernel may run in place
+// Design: one thread per state, 64 states per block, the state in one
+// shared column per thread ([(e * W + w) * 64 + thread]: neighbouring
+// threads on neighbouring banks), t W 4 * 64 B per block (24 KB at t = 12).
+// The 8 dense mixes of the full rounds (and each round of a dense-schedule
+// instance) need a second column: it is the thread's own column of the
+// output in device memory ((e, w, b) at (e * W + w) * B + b, coalesced,
+// resident in L2), so shared memory holds one column and an SM keeps 18
+// warps at t = 12 where two shared columns allowed 8.  Loads and stores of
+// the state are coalesced the same way.  Each thread reads its whole state
+// before it writes any of the output, so the kernel may run in place
 // (o == x).  The constants come by pointer, so back-to-back launches of
 // different instances never share a constant symbol.
 #include <cuda_runtime.h>
@@ -36,90 +37,56 @@
 
 namespace {
 
-constexpr int kRegThreads = 128;
-constexpr int kSmemThreads = 64;
+constexpr int kThreads = 64;
 
-__device__ __forceinline__ void load_column(uint32_t* s, const uint32_t* x, int words,
-                                            int64_t B, int64_t b, int stride) {
-  for (int i = 0; i < words; ++i) s[i * stride] = x[(int64_t)i * B + b];
-}
-
-__device__ __forceinline__ void store_column(uint32_t* o, const uint32_t* s, int words,
-                                             int64_t B, int64_t b, int stride) {
-  for (int i = 0; i < words; ++i) o[(int64_t)i * B + b] = s[i * stride];
-}
-
-template <int T, int W>
-__global__ void __launch_bounds__(kRegThreads)
-poseidon_perm_reg_kernel(const uint32_t* x, uint32_t* o, int64_t B, int convert_in,
-                         const uint32_t* __restrict__ pc, blz::PoseidonShape sh,
-                         blz::FieldConsts<W> fc) {
+// two_columns != 0: the second column in shared memory too (the layout
+// this kernel replaced), kept for the layout comparison.
+template <int W, bool kTwoColumns>
+__global__ void __launch_bounds__(kThreads)
+poseidon_perm_kernel(const uint32_t* x, uint32_t* o, int64_t B, int convert_in,
+                     const uint32_t* __restrict__ pc, blz::PoseidonShape sh,
+                     blz::FieldConsts<W> fc) {
   extern __shared__ uint32_t sm[];
-  const int64_t b = (int64_t)blockIdx.x * kRegThreads + threadIdx.x;
+  const int64_t b = (int64_t)blockIdx.x * kThreads + threadIdx.x;
   if (b >= B) return;                    // no barrier below: threads are independent
-  uint32_t* s = sm + threadIdx.x;
-  load_column(s, x, T * W, B, b, kRegThreads);
-  blz::permute_reg<T, W>(s, kRegThreads, convert_in != 0, pc, sh, fc);
-  store_column(o, s, T * W, B, b, kRegThreads);
-}
-
-template <int W>
-__global__ void __launch_bounds__(kSmemThreads)
-poseidon_perm_smem_kernel(const uint32_t* x, uint32_t* o, int64_t B, int convert_in,
-                          const uint32_t* __restrict__ pc, blz::PoseidonShape sh,
-                          blz::FieldConsts<W> fc) {
-  extern __shared__ uint32_t sm[];
-  const int64_t b = (int64_t)blockIdx.x * kSmemThreads + threadIdx.x;
-  if (b >= B) return;
   const int words = sh.t * W;
-  uint32_t* cur = sm + threadIdx.x;
-  load_column(cur, x, words, B, b, kSmemThreads);
-  const uint32_t* res = blz::permute_smem<W>(cur, cur + words * kSmemThreads, kSmemThreads,
-                                             convert_in != 0, pc, sh, fc);
-  store_column(o, res, words, B, b, kSmemThreads);
+  uint32_t* s = sm + threadIdx.x;
+  for (int i = 0; i < words; ++i) s[i * kThreads] = x[(int64_t)i * B + b];
+  if (kTwoColumns)
+    blz::poseidon_permute<W>(s, kThreads, s + words * kThreads, kThreads, convert_in != 0, pc,
+                             sh, fc);
+  else
+    blz::poseidon_permute<W>(s, kThreads, o + b, B, convert_in != 0, pc, sh, fc);
+  for (int i = 0; i < words; ++i) o[(int64_t)i * B + b] = s[i * kThreads];
 }
 
-template <typename K>
-int launch_with(K kernel, int threads, size_t smem, int64_t B, cudaStream_t stream,
-                const uint32_t* x, uint32_t* o, int convert_in, const uint32_t* pc,
-                const blz::PoseidonShape& sh, const blz::FieldConsts<8>& fc) {
+template <bool kTwoColumns>
+int launch(const uint32_t* consts, const void* pc, const blz::PoseidonShape& sh,
+           const void* x, void* o, int64_t B, int convert_in, cudaStream_t stream) {
+  constexpr int W = 8;
+  const auto kernel = poseidon_perm_kernel<W, kTwoColumns>;
+  const size_t smem = (kTwoColumns ? 2 : 1) * (size_t)sh.t * W * kThreads * sizeof(uint32_t);
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const int64_t blocks = (B + threads - 1) / threads;
-  kernel<<<(unsigned)blocks, threads, smem, stream>>>(x, o, B, convert_in, pc, sh, fc);
+  const int64_t blocks = (B + kThreads - 1) / kThreads;
+  kernel<<<(unsigned)blocks, kThreads, smem, stream>>>(
+      (const uint32_t*)x, (uint32_t*)o, B, convert_in, (const uint32_t*)pc, sh,
+      blz::load_consts<W>(consts));
   return (int)cudaGetLastError();
 }
 
-// generic != 0 takes permute_smem at every t (for the layout comparison).
-int launch(const uint32_t* consts, const void* pc, const blz::PoseidonShape& sh,
-           const void* x, void* o, int64_t B, int convert_in, int generic,
-           cudaStream_t stream) {
-  constexpr int W = 8;
-  const auto fc = blz::load_consts<W>(consts);
-  const auto* xi = (const uint32_t*)x;
-  auto* oi = (uint32_t*)o;
-  const auto* pci = (const uint32_t*)pc;
-  const size_t col = (size_t)sh.t * W * sizeof(uint32_t);
-  if (!generic && sh.t == 12)
-    return launch_with(poseidon_perm_reg_kernel<12, W>, kRegThreads, col * kRegThreads, B,
-                       stream, xi, oi, convert_in, pci, sh, fc);
-  if (!generic && sh.t == 9)
-    return launch_with(poseidon_perm_reg_kernel<9, W>, kRegThreads, col * kRegThreads, B,
-                       stream, xi, oi, convert_in, pci, sh, fc);
-  return launch_with(poseidon_perm_smem_kernel<W>, kSmemThreads, 2 * col * kSmemThreads, B,
-                     stream, xi, oi, convert_in, pci, sh, fc);
-}
-
 int perm_entry(int W, const uint32_t* consts, const void* pc, int t, int r_f, int r_p, int nm,
-               int sparse, const void* x, void* o, int64_t B, int convert_in, int generic,
-               void* stream) {
+               int sparse, const void* x, void* o, int64_t B, int convert_in,
+               int two_columns, void* stream) {
   if (B <= 0) return 0;
   if (W != 8 || t < 2 || t > 16 || nm < 1 || r_f < 0 || r_p < 0 ||
       (sparse && (r_f < 2 || r_p < 1)))
     return (int)cudaErrorInvalidValue;
   const blz::PoseidonShape sh{t, r_f, r_p, nm, sparse != 0};
-  return launch(consts, pc, sh, x, o, B, convert_in, generic, (cudaStream_t)stream);
+  return two_columns
+             ? launch<true>(consts, pc, sh, x, o, B, convert_in, (cudaStream_t)stream)
+             : launch<false>(consts, pc, sh, x, o, B, convert_in, (cudaStream_t)stream);
 }
 
 // The multi-p REDC on its own, for checks: o[:, b] = (sum_j a[j, :, b] *
@@ -160,9 +127,9 @@ extern "C" int blz_poseidon_perm(int W, const uint32_t* consts, const void* pc, 
   return perm_entry(W, consts, pc, t, r_f, r_p, nm, sparse, x, o, B, convert_in, 0, stream);
 }
 
-// The same permutation through permute_smem whatever t (the layout the
-// tree's widths do not take), for checks and for the layout comparison.
-extern "C" int blz_poseidon_perm_smem(int W, const uint32_t* consts, const void* pc, int t,
+// The same permutation with both columns in shared memory, for the layout
+// comparison.
+extern "C" int blz_poseidon_perm_two_columns(int W, const uint32_t* consts, const void* pc, int t,
                                       int r_f, int r_p, int nm, int sparse, const void* x,
                                       void* o, int64_t B, int convert_in, void* stream) {
   return perm_entry(W, consts, pc, t, r_f, r_p, nm, sparse, x, o, B, convert_in, 1, stream);

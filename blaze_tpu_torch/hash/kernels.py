@@ -45,7 +45,7 @@ __all__ = ["PoseidonKernels", "sum_products", "sum_products_plain"]
 _c = ctypes
 _ARGTYPES = [_c.c_int, _c.c_void_p, _c.c_void_p, _c.c_int, _c.c_int, _c.c_int, _c.c_int,
              _c.c_int, _c.c_void_p, _c.c_void_p, _c.c_int64, _c.c_int, _c.c_void_p]
-_PERM_ENTRIES = ("blz_poseidon_perm", "blz_poseidon_perm_smem")
+_PERM_ENTRIES = ("blz_poseidon_perm", "blz_poseidon_perm_two_columns")
 _SUM_ARGTYPES = [_c.c_int, _c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_int,
                  _c.c_int64, _c.c_void_p, _c.c_int, _c.c_void_p]
 
@@ -218,12 +218,11 @@ class PoseidonKernels:
         """
         return self._permute(state, convert_in, out, "blz_poseidon_perm")
 
-    def permute_lm_smem(self, state: torch.Tensor, convert_in: bool = False,
-                        out: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """`permute_lm` through the kernel's any-width layout (two shared
-        columns per state) at every t, for checks and layout timings; the
-        tree's widths (t = 9, 12) otherwise keep the state in registers."""
-        return self._permute(state, convert_in, out, "blz_poseidon_perm_smem")
+    def permute_lm_two_columns(self, state: torch.Tensor, convert_in: bool = False,
+                               out: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """`permute_lm` with the dense mixes' second column in shared memory
+        too (csrc/poseidon_kernels.cu), for the layout comparison."""
+        return self._permute(state, convert_in, out, "blz_poseidon_perm_two_columns")
 
     def _permute(self, state, convert_in, out, entry):
         t, W = self.params.t, self.W

@@ -267,8 +267,7 @@ def ptxas_summary(logs: dict) -> dict:
     return out
 
 
-MIX_OF = ("scan_mixed_kernel<12>", "reduce_cols_kernel<12>", "poseidon_perm_reg_kernel<12>",
-          "poseidon_perm_reg_kernel<9>", "poseidon_perm_smem_kernel<8>")
+MIX_OF = ("scan_mixed_kernel<12>", "reduce_cols_kernel<12>", "poseidon_perm_kernel<8>")
 
 
 def sass_summary(libs, mix_of=MIX_OF):
@@ -1258,8 +1257,8 @@ def poseidon_main_timing(imad_rate: float, seed: int, device):
     (t = 12, B = 2^24, convert_in) and the first node level (t = 9,
     B = 2^21): one warm call whose first 2^10 states are held against the
     plain version on the same cut, then timed calls (CUDA events) of the
-    kernel's two layouts in turns (registers, any-width, any-width,
-    registers), whose outputs must be equal.  The bound counts the sparse
+    kernel's two layouts in turns (one shared column, two, two, one), whose
+    outputs must be equal.  The bound counts the sparse
     schedule's work; dense_bound_ms the dense rounds' (the TPU kernel's)."""
     import torch
 
@@ -1277,19 +1276,19 @@ def poseidon_main_timing(imad_rate: float, seed: int, device):
         got = k.permute_lm(x, convert_in=conv)
         e = max_abs_err(got[:, :, :cut],
                         k.permute_lm_plain(x[:, :, :cut].contiguous(), conv))
-        e = max(e, max_abs_err(k.permute_lm_smem(x, convert_in=conv), got))
+        e = max(e, max_abs_err(k.permute_lm_two_columns(x, convert_in=conv), got))
         del got
         reps = 1 if B > 1 << 22 else 3
-        reg, smem = (lambda: k.permute_lm(x, convert_in=conv)), \
-            (lambda: k.permute_lm_smem(x, convert_in=conv))
-        order = [cuda_ms(f, reps) for f in (reg, smem, smem, reg)]
+        one, two = (lambda: k.permute_lm(x, convert_in=conv)), \
+            (lambda: k.permute_lm_two_columns(x, convert_in=conv))
+        order = [cuda_ms(f, reps) for f in (one, two, two, one)]
         _, plain_ms = once_ms(lambda: k.permute_lm_plain(x[:, :, :cut].contiguous(), conv))
         shape = {"t": t, "B": B, "r_f": params.r_f, "r_p": params.r_p, "convert_in": int(conv),
                  "sparse": int(k.sparse)}
         bound, bound_by = work_bound_ms("poseidon_perm", shape, W, imad_rate)
         dense, _ = work_bound_ms("poseidon_perm", {**shape, "sparse": 0}, W, imad_rate)
         timing[key] = {"shape": shape, "ms": (order[0] + order[3]) / 2,
-                       "smem_ms": (order[1] + order[2]) / 2, "ms_in_turns": order,
+                       "two_columns_ms": (order[1] + order[2]) / 2, "ms_in_turns": order,
                        "plain_ms": plain_ms, "plain_shape": {**shape, "B": cut},
                        "bound_ms": bound, "bound_by": bound_by, "dense_bound_ms": dense,
                        "max_abs_err": e}
@@ -1324,8 +1323,8 @@ def phase_poseidon_parity(imad_rate: float, seed: int, device):
                     x = near_p_states(spec, t, B, seed + t + B, device)
                     for conv in (False, True):
                         want = k.permute_lm_plain(x, convert_in=conv)
-                        for layout, fn in (("registers", k.permute_lm),
-                                           ("any_width", k.permute_lm_smem)):
+                        for layout, fn in (("one_column", k.permute_lm),
+                                           ("two_columns", k.permute_lm_two_columns)):
                             checked.append({"kernel": "poseidon_perm", "t": t, "B": B,
                                             "convert_in": conv, "sparse": k.sparse,
                                             "layout": layout,

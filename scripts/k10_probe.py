@@ -9,8 +9,9 @@ Poseidon parity phase (K10 against the dense plain version on the three
 scalar fields, both layouts, the sparse and the dense schedule, then the
 height-9 tree's shapes with the layouts timed in turns), then K2 and K4
 against their plain versions at small and ragged shapes on three curves
-(their product lives in carry.cuh beside K10's).  A few minutes on one
-H100; needs a CUDA device.
+(their product lives in carry.cuh beside K10's), and last K10 with its
+constants in the constant bank (csrc/poseidon_const.cu) against the
+read-only path.  A few minutes on one H100; needs a CUDA device.
 """
 import json
 import sys
@@ -23,6 +24,51 @@ sys.path.insert(0, str(ROOT))
 import torch  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
+
+
+def const_bank_timing(seed: int, device) -> dict:
+    """K10 at the height-9 shapes with its constants in the constant bank
+    (csrc/poseidon_const.cu) and read through the read-only path
+    (permute_lm), timed in turns (read-only, bank, bank, read-only); the
+    outputs must be equal."""
+    import ctypes
+
+    from blaze_tpu_torch import _build
+    from blaze_tpu_torch.fields import FIELDS
+    from blaze_tpu_torch.hash import PoseidonKernels, generate_params
+
+    fn = _build.load("poseidon_const").blz_poseidon_perm_const
+    c = ctypes
+    fn.argtypes = [c.c_void_p, c.c_void_p, c.c_int, c.c_int, c.c_int, c.c_int, c.c_int, c.c_int,
+                   c.c_void_p, c.c_void_p, c.c_int64, c.c_int, c.c_void_p]
+    spec = FIELDS[cs.POSEIDON_FIELD]
+    out = {}
+    for key, t, B, conv in (("t12_2^24", 12, 1 << 24, True), ("t9_2^21", 9, 1 << 21, False)):
+        k = PoseidonKernels.for_params(generate_params(spec, t))
+        x = cs.rand_words(spec, (t, spec.nwords, B), seed + t, device)
+        o = torch.empty_like(x)
+        blk = k._block_on(device)
+        p = k.params
+
+        def bank():
+            stream = torch.cuda.current_stream(device).cuda_stream
+            _build.check(fn(k._consts.ctypes.data, blk.data_ptr(), blk.numel(), t, p.r_f, p.r_p,
+                            k._nm, int(k.sparse), x.data_ptr(), o.data_ptr(), B, int(conv),
+                            stream), "blz_poseidon_perm_const")
+
+        ldg = lambda: k.permute_lm(x, convert_in=conv)  # noqa: E731
+        bank()
+        err = cs.max_abs_err(o, ldg())
+        reps = 1 if B > 1 << 22 else 3
+        order = [cs.cuda_ms(f, reps) for f in (ldg, bank, bank, ldg)]
+        out[key] = {"read_only_ms": (order[0] + order[3]) / 2,
+                    "constant_bank_ms": (order[1] + order[2]) / 2, "ms_in_turns": order,
+                    "max_abs_err": err}
+        if err:
+            raise AssertionError(f"{key}: the constant-bank kernel differs")
+        del x, o
+        torch.cuda.empty_cache()
+    return out
 
 
 def main() -> int:
@@ -45,8 +91,10 @@ def main() -> int:
         cs.emit({"phase": "team_parity", "curve": curve, "max_abs_err": errs})
         if any(errs.values()):
             raise AssertionError(f"{curve}: K2 or K4 differs from its plain version")
-    cs.emit({"card": card, "seconds": time.perf_counter() - t0,
-             "k10_ms": {k: {"registers": v["ms"], "any_width": v["smem_ms"],
+    const = const_bank_timing(0, dev)
+    cs.emit({"phase": "k10_constant_bank", **const})
+    cs.emit({"card": card, "seconds": time.perf_counter() - t0, "constant_bank": const,
+             "k10_ms": {k: {"one_column": v["ms"], "two_columns": v["two_columns_ms"],
                             "bound_ms": v["bound_ms"]} for k, v in timing.items()}})
     return 0
 

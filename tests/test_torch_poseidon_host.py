@@ -1,10 +1,9 @@
 """K10's device code (blaze_tpu_torch/csrc/poseidon.cuh on carry.cuh) run on
 the host: the headers built with g++, where each PTX carry instruction is
-emulated, and the permutation run state by state over a column of stride 1,
-through both of the kernel's layouts (`permute_reg` with the state in
-registers at t = 9 and 12, `permute_smem` at any t) and both schedules
-(sparse partial rounds, and the dense rounds of an instance whose MDS has a
-singular lower-right block).  Its words must equal the dense plain version
+emulated, and the permutation run state by state over a column of stride 1
+(its dense mixes' second column at another stride, as on the card), with
+both schedules (sparse partial rounds, and the dense rounds of an instance
+whose MDS has a singular lower-right block).  Its words must equal the dense plain version
 (`PoseidonKernels.permute_lm_plain`, held against blaze_tpu in
 tests/test_torch_poseidon.py), on the three scalar fields, with and without
 convert_in, on states near p; the canonical carry-chain product and the
@@ -39,23 +38,20 @@ HOST_DRIVER = r"""
 #include "poseidon.cuh"
 
 // States (t, 8, B) lanes-major; each one copied into a column of stride 1,
-// permuted, copied out.  reg != 0 takes permute_reg (t = 9 or 12).
+// permuted with its dense mixes' second column at stride 2 (as the kernel
+// puts it at stride B in device memory), copied out.
 extern "C" int host_perm(const uint32_t* consts, const uint32_t* pc, int t, int r_f, int r_p,
                          int nm, int sparse, const uint32_t* x, uint32_t* o, int64_t B,
-                         int convert_in, int reg) {
+                         int convert_in) {
   constexpr int W = 8;
   const auto fc = blz::load_consts<W>(consts);
   const blz::PoseidonShape sh{t, r_f, r_p, nm, sparse};
   const int words = t * W;
-  std::vector<uint32_t> col(2 * words);
+  std::vector<uint32_t> col(words), tmp(2 * words);
   for (int64_t b = 0; b < B; ++b) {
     for (int i = 0; i < words; ++i) col[i] = x[i * B + b];
-    const uint32_t* res = col.data();
-    if (!reg) res = blz::permute_smem<W>(col.data(), col.data() + words, 1, convert_in, pc, sh, fc);
-    else if (t == 12) blz::permute_reg<12, W>(col.data(), 1, convert_in, pc, sh, fc);
-    else if (t == 9) blz::permute_reg<9, W>(col.data(), 1, convert_in, pc, sh, fc);
-    else return 1;
-    for (int i = 0; i < words; ++i) o[i * B + b] = res[i];
+    blz::poseidon_permute<W>(col.data(), 1, tmp.data(), (int64_t)2, convert_in, pc, sh, fc);
+    for (int i = 0; i < words; ++i) o[i * B + b] = col[i];
   }
   return 0;
 }
@@ -90,7 +86,7 @@ def lib(tmp_path_factory):
                     "-o", str(so), str(d / "driver.cpp")], check=True)
     lib = ctypes.CDLL(str(so))
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.host_perm.argtypes = [p, p, i, i, i, i, i, p, p, ctypes.c_int64, i, i]
+    lib.host_perm.argtypes = [p, p, i, i, i, i, i, p, p, ctypes.c_int64, i]
     lib.host_field.argtypes = [p, i, p, p, p, i, p, i]
     return lib
 
@@ -118,11 +114,11 @@ def near_p_states(spec, t, B, seed):
     return torch.from_numpy(np.ascontiguousarray(w.transpose(1, 2, 0)).view(np.int32))
 
 
-def host_permute(lib, k: PoseidonKernels, x, convert_in: bool, reg: bool):
+def host_permute(lib, k: PoseidonKernels, x, convert_in: bool):
     p = k.params
     o = torch.empty_like(x)
     rc = lib.host_perm(ptr(k._consts), ptr(k._block), p.t, p.r_f, p.r_p, k._nm, int(k.sparse),
-                       ptr(x), ptr(o), x.shape[2], int(convert_in), int(reg))
+                       ptr(x), ptr(o), x.shape[2], int(convert_in))
     assert rc == 0
     return o
 
@@ -135,30 +131,26 @@ def test_host_permutation_matches_plain(lib, field, t):
     assert k.sparse
     x = near_p_states(spec, t, 4, seed=t)
     for conv in (False, True):
-        want = k.permute_lm_plain(x, conv)
-        for reg in (True, False):
-            assert torch.equal(host_permute(lib, k, x, conv, reg), want), (conv, reg)
+        assert torch.equal(host_permute(lib, k, x, conv), k.permute_lm_plain(x, conv)), conv
 
 
 @pytest.mark.parametrize("t", [9, 12])
 def test_host_dense_rounds_match_plain(lib, t):
-    """The singular-block instance: both layouts' dense schedule."""
+    """The singular-block instance: the dense schedule."""
     spec = FIELDS["bls12_381_fr"]
     k = PoseidonKernels.for_params(singular_block(generate_params(spec, t)))
     assert not k.sparse
     x = near_p_states(spec, t, 4, seed=30 + t)
     for conv in (False, True):
-        want = k.permute_lm_plain(x, conv)
-        for reg in (True, False):
-            assert torch.equal(host_permute(lib, k, x, conv, reg), want), (conv, reg)
+        assert torch.equal(host_permute(lib, k, x, conv), k.permute_lm_plain(x, conv)), conv
 
 
 def test_host_other_width_matches_plain(lib):
-    """t = 3 runs the any-width layout only."""
+    """t = 3, the smallest width the tree's parameters generate."""
     spec = FIELDS["bn254_fr"]
     k = PoseidonKernels.for_params(generate_params(spec, 3))
     x = near_p_states(spec, 3, 5, seed=3)
-    assert torch.equal(host_permute(lib, k, x, True, False), k.permute_lm_plain(x, True))
+    assert torch.equal(host_permute(lib, k, x, True), k.permute_lm_plain(x, True))
 
 
 @pytest.mark.parametrize("field", SCALAR_FIELDS)
