@@ -86,16 +86,36 @@ struct PoseidonBlock {
   }
 };
 
+// Element e of a column with stride `stride`: an int stride is a column in
+// shared memory, an int64_t one a thread's column of device memory, read
+// and written at L2 only (ld/st .cg) so that it does not evict the
+// constants from L1.
 template <int W, typename S>
 BLZ_DEVICE void load_el(uint32_t* x, const uint32_t* s, int e, S stride) {
 #pragma unroll
-  for (int w = 0; w < W; ++w) x[w] = s[(e * W + w) * stride];
+  for (int w = 0; w < W; ++w) {
+#ifdef __CUDA_ARCH__
+    if constexpr (sizeof(S) == 8) {
+      x[w] = __ldcg(s + (e * W + w) * stride);
+      continue;
+    }
+#endif
+    x[w] = s[(e * W + w) * stride];
+  }
 }
 
 template <int W, typename S>
 BLZ_DEVICE void store_el(uint32_t* s, const uint32_t* x, int e, S stride) {
 #pragma unroll
-  for (int w = 0; w < W; ++w) s[(e * W + w) * stride] = x[w];
+  for (int w = 0; w < W; ++w) {
+#ifdef __CUDA_ARCH__
+    if constexpr (sizeof(S) == 8) {
+      __stcg(s + (e * W + w) * stride, x[w]);
+      continue;
+    }
+#endif
+    s[(e * W + w) * stride] = x[w];
+  }
 }
 
 template <int W>

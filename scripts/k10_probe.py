@@ -10,8 +10,9 @@ scalar fields, both layouts, the sparse and the dense schedule, then the
 height-9 tree's shapes with the layouts timed in turns), then K2 and K4
 against their plain versions at small and ragged shapes on three curves
 (their product lives in carry.cuh beside K10's), and last K10 with its
-constants in the constant bank (csrc/poseidon_const.cu) against the
-read-only path.  A few minutes on one H100; needs a CUDA device.
+constants in the constant bank against the read-only path, and the
+one-column kernel at several splits of shared memory and L1 and blocks
+per SM (csrc/poseidon_probe.cu).  A few minutes on one H100; needs a CUDA device.
 """
 import json
 import sys
@@ -28,7 +29,7 @@ import chip_smoke as cs  # noqa: E402
 
 def const_bank_timing(seed: int, device) -> dict:
     """K10 at the height-9 shapes with its constants in the constant bank
-    (csrc/poseidon_const.cu) and read through the read-only path
+    (csrc/poseidon_probe.cu) and read through the read-only path
     (permute_lm), timed in turns (read-only, bank, bank, read-only); the
     outputs must be equal."""
     import ctypes
@@ -37,7 +38,7 @@ def const_bank_timing(seed: int, device) -> dict:
     from blaze_tpu_torch.fields import FIELDS
     from blaze_tpu_torch.hash import PoseidonKernels, generate_params
 
-    fn = _build.load("poseidon_const").blz_poseidon_perm_const
+    fn = _build.load("poseidon_probe").blz_poseidon_perm_const
     c = ctypes
     fn.argtypes = [c.c_void_p, c.c_void_p, c.c_int, c.c_int, c.c_int, c.c_int, c.c_int, c.c_int,
                    c.c_void_p, c.c_void_p, c.c_int64, c.c_int, c.c_void_p]
@@ -71,6 +72,57 @@ def const_bank_timing(seed: int, device) -> dict:
     return out
 
 
+def occupancy_sweep(seed: int, device) -> dict:
+    """K10's one-column kernel at t = 12, 2^24 states, convert_in
+    (csrc/poseidon_probe.cu) at several splits of the SM's 256 KB between
+    shared memory and L1 (the carveout, percent of 228 KB) and blocks per SM
+    (capped by asking for more shared memory per block): the L1 left holds
+    the constants.  Each setting timed twice (CUDA events), the list run
+    forward then backward; every output equal to permute_lm's.  Keyed by
+    the carveout, the shared memory asked per block and the blocks per SM
+    that these allow (1 KB reserved per block)."""
+    import ctypes
+
+    from blaze_tpu_torch import _build
+    from blaze_tpu_torch.fields import FIELDS
+    from blaze_tpu_torch.hash import PoseidonKernels, generate_params
+
+    fn = _build.load("poseidon_probe").blz_poseidon_perm_pad
+    c = ctypes
+    fn.argtypes = [c.c_void_p, c.c_void_p, c.c_int, c.c_int, c.c_int, c.c_int, c.c_int,
+                   c.c_void_p, c.c_void_p, c.c_int64, c.c_int, c.c_int, c.c_int, c.c_void_p]
+    spec = FIELDS[cs.POSEIDON_FIELD]
+    t, B = 12, 1 << 24
+    k = PoseidonKernels.for_params(generate_params(spec, t))
+    p, blk = k.params, k._block_on(device)
+    x = cs.rand_words(spec, (t, spec.nwords, B), seed + t, device)
+    o = torch.empty_like(x)
+    want = k.permute_lm(x, convert_in=True)
+    column = t * spec.nwords * 64 * 4
+    # (carveout %, blocks wanted): the column alone (24 KB + 1 KB per block)
+    # fits 9 blocks in 228 KB, 8 in 196, 6 in 164, 5 in 132, 4 in 100
+    settings = [(100, 9), (86, 8), (72, 6), (58, 5), (44, 4), (100, 6), (100, 4)]
+
+    def run(carveout, blocks):
+        smem = max(column, (228 * 1024 * carveout // 100) // blocks - 1024)
+        stream = torch.cuda.current_stream(device).cuda_stream
+        _build.check(fn(k._consts.ctypes.data, blk.data_ptr(), t, p.r_f, p.r_p, k._nm,
+                        int(k.sparse), x.data_ptr(), o.data_ptr(), B, 1, smem, carveout,
+                        stream), "blz_poseidon_perm_pad")
+
+    times = {}
+    for carveout, blocks in settings + settings[::-1]:
+        ms = cs.cuda_ms(lambda: run(carveout, blocks), 1)
+        if cs.max_abs_err(o, want):
+            raise AssertionError(f"carveout {carveout}, {blocks} blocks: the output differs")
+        smem = max(column, (228 * 1024 * carveout // 100) // blocks - 1024)
+        fits = (228 * 1024 * carveout // 100) // (smem + 1024)
+        times.setdefault(f"carveout_{carveout}_smem_{smem}_blocks_{fits}", []).append(ms)
+    del x, o, want
+    torch.cuda.empty_cache()
+    return times
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("k10_probe: no CUDA device", file=sys.stderr)
@@ -91,6 +143,7 @@ def main() -> int:
         cs.emit({"phase": "team_parity", "curve": curve, "max_abs_err": errs})
         if any(errs.values()):
             raise AssertionError(f"{curve}: K2 or K4 differs from its plain version")
+    cs.emit({"phase": "k10_occupancy_sweep", **occupancy_sweep(0, dev)})
     const = const_bank_timing(0, dev)
     cs.emit({"phase": "k10_constant_bank", **const})
     cs.emit({"card": card, "seconds": time.perf_counter() - t0, "constant_bank": const,
