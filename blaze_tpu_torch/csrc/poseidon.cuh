@@ -2,8 +2,8 @@
 // carry-chain products of carry.cuh.
 //
 // Used by K10 (poseidon_kernels.cu), one thread per state.  The state's t
-// elements live in a per-thread column (element e, word w at
-// [(e * W + w) * stride]).  Two schedules compute the same permutation:
+// elements live in a per-thread column of shared memory (element e, word w
+// at [(e * W + w) * stride]).  Two schedules compute the same permutation:
 //
 //   sparse (sh.sparse = 1): hash/params.py SparseForm — full rounds mix by
 //     the dense M (the last one before the partial rounds by `pre`); a
@@ -17,10 +17,11 @@
 //
 // A dense mix is one sum of t unreduced products and one multi-p REDC per
 // row (carry.cuh mul_acc_cc, field.cuh redc_sum).  It reads every old
-// element while it writes the new ones, so it writes into a second column
-// `tmp` (any stride, any memory) and copies back.  Rounds, elements and
-// rows stay rolled loops, so the code holds a few inlined products and no
-// unrolled round body; W-word loops are unrolled.
+// element while it writes the new ones, so it writes a second column and
+// the two swap.  Rounds, elements and rows stay rolled loops, so the code
+// holds a few inlined products and no unrolled round body (an unrolled,
+// register-resident state ran slower on the H100: PERF.md); W-word loops
+// are unrolled.
 //
 // Every thread reads the same constant at the same time, from one constant
 // block in device memory (BLZ_LDG, the read-only path), all Montgomery
@@ -86,36 +87,16 @@ struct PoseidonBlock {
   }
 };
 
-// Element e of a column with stride `stride`: an int stride is a column in
-// shared memory, an int64_t one a thread's column of device memory, read
-// and written at L2 only (ld/st .cg) so that it does not evict the
-// constants from L1.
-template <int W, typename S>
-BLZ_DEVICE void load_el(uint32_t* x, const uint32_t* s, int e, S stride) {
+template <int W>
+BLZ_DEVICE void load_el(uint32_t* x, const uint32_t* s, int e, int stride) {
 #pragma unroll
-  for (int w = 0; w < W; ++w) {
-#ifdef __CUDA_ARCH__
-    if constexpr (sizeof(S) == 8) {
-      x[w] = __ldcg(s + (e * W + w) * stride);
-      continue;
-    }
-#endif
-    x[w] = s[(e * W + w) * stride];
-  }
+  for (int w = 0; w < W; ++w) x[w] = s[(e * W + w) * stride];
 }
 
-template <int W, typename S>
-BLZ_DEVICE void store_el(uint32_t* s, const uint32_t* x, int e, S stride) {
+template <int W>
+BLZ_DEVICE void store_el(uint32_t* s, const uint32_t* x, int e, int stride) {
 #pragma unroll
-  for (int w = 0; w < W; ++w) {
-#ifdef __CUDA_ARCH__
-    if constexpr (sizeof(S) == 8) {
-      __stcg(s + (e * W + w) * stride, x[w]);
-      continue;
-    }
-#endif
-    s[(e * W + w) * stride] = x[w];
-  }
+  for (int w = 0; w < W; ++w) s[(e * W + w) * stride] = x[w];
 }
 
 template <int W>
@@ -167,9 +148,9 @@ BLZ_DEVICE void convert(uint32_t* s, int stride, int t, const uint32_t* r2,
 }
 
 // ----------------------------------------------------------- the rounds
-// tmp = m s, row by row (tmp: a column of t elements with stride ts).
-template <int W, typename S>
-BLZ_DEVICE void mix(uint32_t* tmp, S ts, const uint32_t* s, int stride, int t,
+// nxt = m cur, row by row.
+template <int W>
+BLZ_DEVICE void mix(uint32_t* nxt, const uint32_t* cur, int stride, int t,
                     const uint32_t* m, const PoseidonShape& sh, const PoseidonBlock& pb,
                     const FieldConsts<W>& fc) {
   uint32_t x[W], k[W];
@@ -180,12 +161,12 @@ BLZ_DEVICE void mix(uint32_t* tmp, S ts, const uint32_t* s, int stride, int t,
     for (int j = 0; j < 2 * W + 1; ++j) acc[j] = 0;
 #pragma unroll 1
     for (int j = 0; j < t; ++j) {
-      load_el<W>(x, s, j, stride);
+      load_el<W>(x, cur, j, stride);
       load_const<W>(k, m + (i * t + j) * W);
       mul_acc_cc<W>(acc, k, x);
     }
     redc_sum<W>(x, acc, fc, pb.mults, sh.nm);
-    store_el<W>(tmp, x, i, ts);
+    store_el<W>(nxt, x, i, stride);
   }
 }
 
@@ -218,34 +199,33 @@ BLZ_DEVICE void sparse_round(uint32_t* s, int stride, int t, const uint32_t* k,
   store_el<W>(s, x, 0, stride);
 }
 
-// Permutes the state in the column s in place (Montgomery form in and out;
-// canonical in when convert_in).  Each dense mix writes its rows to the
-// column tmp (stride ts) and copies them back.
-template <int W, typename S>
-BLZ_DEVICE void poseidon_permute(uint32_t* s, int stride, uint32_t* tmp, S ts, bool convert_in,
-                                 const uint32_t* pc, const PoseidonShape& sh,
-                                 const FieldConsts<W>& fc) {
+// Permutes the state in `cur` (Montgomery form in and out; canonical in
+// when convert_in); `nxt` is a second column of the same shape, which the
+// dense mixes write.  Returns the column (cur or nxt) that holds the
+// result.
+template <int W>
+BLZ_DEVICE uint32_t* poseidon_permute(uint32_t* cur, uint32_t* nxt, int stride,
+                                      bool convert_in, const uint32_t* pc,
+                                      const PoseidonShape& sh, const FieldConsts<W>& fc) {
   const PoseidonBlock pb = PoseidonBlock::at<W>(pc, sh);
   const int t = sh.t, half = sh.r_f / 2, rounds = sh.r_f + sh.r_p;
-  if (convert_in) convert<W>(s, stride, t, pb.r2, fc);
+  if (convert_in) convert<W>(cur, stride, t, pb.r2, fc);
 #pragma unroll 1
   for (int r = 0; r < rounds; ++r) {
     const bool partial = r >= half && r < half + sh.r_p;
     if (partial && sh.sparse) {
       const int k = r - half;
-      sparse_round<W>(s, stride, t, pb.rc_partial + k * W, pb.rows + k * t * W,
+      sparse_round<W>(cur, stride, t, pb.rc_partial + k * W, pb.rows + k * t * W,
                       pb.cols + k * (t - 1) * W, sh, pb, fc);
       continue;
     }
-    ark_sbox<W>(s, stride, t, pb.rc<W>(r, sh), partial ? 1 : t, fc);
-    mix<W>(tmp, ts, s, stride, t, pb.mix(r, sh), sh, pb, fc);
-    uint32_t x[W];
-#pragma unroll 1
-    for (int e = 0; e < t; ++e) {
-      load_el<W>(x, tmp, e, ts);
-      store_el<W>(s, x, e, stride);
-    }
+    ark_sbox<W>(cur, stride, t, pb.rc<W>(r, sh), partial ? 1 : t, fc);
+    mix<W>(nxt, cur, stride, t, pb.mix(r, sh), sh, pb, fc);
+    uint32_t* tmp = cur;
+    cur = nxt;
+    nxt = tmp;
   }
+  return cur;
 }
 
 }  // namespace blz

@@ -17,18 +17,21 @@
 // (r_p 63) at W = 8, from 1.49 M and 0.93 M.  Every product is a PTX carry
 // chain (carry.cuh).
 //
-// Design: one thread per state, 64 states per block, the state in one
-// shared column per thread ([(e * W + w) * 64 + thread]: neighbouring
-// threads on neighbouring banks), t W 4 * 64 B per block (24 KB at t = 12).
-// The 8 dense mixes of the full rounds (and each round of a dense-schedule
-// instance) need a second column: it is the thread's own column of the
-// output in device memory ((e, w, b) at (e * W + w) * B + b, coalesced,
-// resident in L2), so shared memory holds one column and an SM keeps 18
-// warps at t = 12 where two shared columns allowed 8.  Loads and stores of
-// the state are coalesced the same way.  Each thread reads its whole state
-// before it writes any of the output, so the kernel may run in place
-// (o == x).  The constants come by pointer, so back-to-back launches of
-// different instances never share a constant symbol.
+// Design: one thread per state, 64 states per block.  A state is t W words
+// (96 at t = 12), and a dense mix needs the old state while it writes the
+// new one, so each thread has two columns in shared memory
+// ([(e * W + w) * 64 + thread]: neighbouring threads on neighbouring
+// banks), 2 t W 4 * 64 B per block (48 KB at t = 12: 8 warps per SM); a
+// sparse partial round runs in place on one.  On the H100 this beat a
+// state held in registers (244 registers at t = 12, and unrolled round
+// bodies) and one shared column with the mixes' rows in device memory (up
+// to 18 warps per SM); reading the constants through the constant bank was
+// slower than the read-only path (PERF.md, PR 5).  Loads and stores of the
+// state in device memory are coalesced ((e, w, b) at (e * W + w) * B + b).
+// Each thread reads its whole state before it writes any of it, so the
+// kernel may run in place (o == x).  The constants come by pointer, so
+// back-to-back launches of different instances never share a constant
+// symbol.
 #include <cuda_runtime.h>
 
 #include <cstring>
@@ -39,9 +42,7 @@ namespace {
 
 constexpr int kThreads = 64;
 
-// two_columns != 0: the second column in shared memory too (the layout
-// this kernel replaced), kept for the layout comparison.
-template <int W, bool kTwoColumns>
+template <int W>
 __global__ void __launch_bounds__(kThreads)
 poseidon_perm_kernel(const uint32_t* x, uint32_t* o, int64_t B, int convert_in,
                      const uint32_t* __restrict__ pc, blz::PoseidonShape sh,
@@ -50,43 +51,26 @@ poseidon_perm_kernel(const uint32_t* x, uint32_t* o, int64_t B, int convert_in,
   const int64_t b = (int64_t)blockIdx.x * kThreads + threadIdx.x;
   if (b >= B) return;                    // no barrier below: threads are independent
   const int words = sh.t * W;
-  uint32_t* s = sm + threadIdx.x;
-  for (int i = 0; i < words; ++i) s[i * kThreads] = x[(int64_t)i * B + b];
-  if (kTwoColumns)
-    blz::poseidon_permute<W>(s, kThreads, s + words * kThreads, kThreads, convert_in != 0, pc,
-                             sh, fc);
-  else
-    blz::poseidon_permute<W>(s, kThreads, o + b, B, convert_in != 0, pc, sh, fc);
-  for (int i = 0; i < words; ++i) o[(int64_t)i * B + b] = s[i * kThreads];
+  uint32_t* cur = sm + threadIdx.x;
+  uint32_t* nxt = cur + words * kThreads;
+  for (int i = 0; i < words; ++i) cur[i * kThreads] = x[(int64_t)i * B + b];
+  const uint32_t* res =
+      blz::poseidon_permute<W>(cur, nxt, kThreads, convert_in != 0, pc, sh, fc);
+  for (int i = 0; i < words; ++i) o[(int64_t)i * B + b] = res[i * kThreads];
 }
 
-template <bool kTwoColumns>
+template <int W>
 int launch(const uint32_t* consts, const void* pc, const blz::PoseidonShape& sh,
            const void* x, void* o, int64_t B, int convert_in, cudaStream_t stream) {
-  constexpr int W = 8;
-  const auto kernel = poseidon_perm_kernel<W, kTwoColumns>;
-  const size_t smem = (kTwoColumns ? 2 : 1) * (size_t)sh.t * W * kThreads * sizeof(uint32_t);
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const size_t smem = (size_t)2 * sh.t * W * kThreads * sizeof(uint32_t);
+  cudaError_t err = cudaFuncSetAttribute(
+      poseidon_perm_kernel<W>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int64_t blocks = (B + kThreads - 1) / kThreads;
-  kernel<<<(unsigned)blocks, kThreads, smem, stream>>>(
+  poseidon_perm_kernel<W><<<(unsigned)blocks, kThreads, smem, stream>>>(
       (const uint32_t*)x, (uint32_t*)o, B, convert_in, (const uint32_t*)pc, sh,
       blz::load_consts<W>(consts));
   return (int)cudaGetLastError();
-}
-
-int perm_entry(int W, const uint32_t* consts, const void* pc, int t, int r_f, int r_p, int nm,
-               int sparse, const void* x, void* o, int64_t B, int convert_in,
-               int two_columns, void* stream) {
-  if (B <= 0) return 0;
-  if (W != 8 || t < 2 || t > 16 || nm < 1 || r_f < 0 || r_p < 0 ||
-      (sparse && (r_f < 2 || r_p < 1)))
-    return (int)cudaErrorInvalidValue;
-  const blz::PoseidonShape sh{t, r_f, r_p, nm, sparse != 0};
-  return two_columns
-             ? launch<true>(consts, pc, sh, x, o, B, convert_in, (cudaStream_t)stream)
-             : launch<false>(consts, pc, sh, x, o, B, convert_in, (cudaStream_t)stream);
 }
 
 // The multi-p REDC on its own, for checks: o[:, b] = (sum_j a[j, :, b] *
@@ -124,15 +108,12 @@ sum_products_kernel(const uint32_t* __restrict__ a, const uint32_t* __restrict__
 extern "C" int blz_poseidon_perm(int W, const uint32_t* consts, const void* pc, int t,
                                  int r_f, int r_p, int nm, int sparse, const void* x, void* o,
                                  int64_t B, int convert_in, void* stream) {
-  return perm_entry(W, consts, pc, t, r_f, r_p, nm, sparse, x, o, B, convert_in, 0, stream);
-}
-
-// The same permutation with both columns in shared memory, for the layout
-// comparison.
-extern "C" int blz_poseidon_perm_two_columns(int W, const uint32_t* consts, const void* pc, int t,
-                                      int r_f, int r_p, int nm, int sparse, const void* x,
-                                      void* o, int64_t B, int convert_in, void* stream) {
-  return perm_entry(W, consts, pc, t, r_f, r_p, nm, sparse, x, o, B, convert_in, 1, stream);
+  if (B <= 0) return 0;
+  if (W != 8 || t < 2 || t > 16 || nm < 1 || r_f < 0 || r_p < 0 ||
+      (sparse && (r_f < 2 || r_p < 1)))
+    return (int)cudaErrorInvalidValue;
+  const blz::PoseidonShape sh{t, r_f, r_p, nm, sparse != 0};
+  return launch<8>(consts, pc, sh, x, o, B, convert_in, (cudaStream_t)stream);
 }
 
 // mults: device pointer to the nm multiples 2^b p (W+1 words each).

@@ -45,7 +45,6 @@ __all__ = ["PoseidonKernels", "sum_products", "sum_products_plain"]
 _c = ctypes
 _ARGTYPES = [_c.c_int, _c.c_void_p, _c.c_void_p, _c.c_int, _c.c_int, _c.c_int, _c.c_int,
              _c.c_int, _c.c_void_p, _c.c_void_p, _c.c_int64, _c.c_int, _c.c_void_p]
-_PERM_ENTRIES = ("blz_poseidon_perm", "blz_poseidon_perm_two_columns")
 _SUM_ARGTYPES = [_c.c_int, _c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_int,
                  _c.c_int64, _c.c_void_p, _c.c_int, _c.c_void_p]
 
@@ -53,7 +52,7 @@ _SUM_ARGTYPES = [_c.c_int, _c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_void_p, _
 def _entry(name: str = "blz_poseidon_perm"):
     fn = getattr(_build.load("poseidon_kernels"), name)
     if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES if name in _PERM_ENTRIES else _SUM_ARGTYPES
+        fn.argtypes = _ARGTYPES if name == "blz_poseidon_perm" else _SUM_ARGTYPES
         fn.restype = ctypes.c_int
     return fn
 
@@ -216,15 +215,6 @@ class PoseidonKernels:
         CANONICAL and converted inside the kernel (one extra product per
         element, x * R^2 / R = xR).  `out` may be `state` itself (in place).
         """
-        return self._permute(state, convert_in, out, "blz_poseidon_perm")
-
-    def permute_lm_two_columns(self, state: torch.Tensor, convert_in: bool = False,
-                               out: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """`permute_lm` with the dense mixes' second column in shared memory
-        too (csrc/poseidon_kernels.cu), for the layout comparison."""
-        return self._permute(state, convert_in, out, "blz_poseidon_perm_two_columns")
-
-    def _permute(self, state, convert_in, out, entry):
         t, W = self.params.t, self.W
         if state.dtype != torch.int32 or state.dim() != 3 or state.shape[:2] != (t, W):
             raise ValueError(
@@ -246,11 +236,11 @@ class PoseidonKernels:
             p = self.params
             with torch.cuda.device(state.device):
                 stream = torch.cuda.current_stream(state.device).cuda_stream
-                rc = _entry(entry)(W, self._consts.ctypes.data,
-                                   self._block_on(state.device).data_ptr(), t, p.r_f, p.r_p,
-                                   self._nm, int(self.sparse), state.data_ptr(), o.data_ptr(),
-                                   B, int(convert_in), stream)
-            _build.check(rc, entry)
+                rc = _entry()(W, self._consts.ctypes.data,
+                              self._block_on(state.device).data_ptr(), t, p.r_f, p.r_p,
+                              self._nm, int(self.sparse), state.data_ptr(), o.data_ptr(), B,
+                              int(convert_in), stream)
+            _build.check(rc, "blz_poseidon_perm")
             _build.LAUNCHES["poseidon_perm"] += 1
         return o
 

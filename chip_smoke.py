@@ -53,14 +53,13 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    roundtrips, and every committed tests/fixtures/ntt_* golden pair.
 8. Poseidon kernel parity: K10 against its (dense) plain version, exact,
    on the three scalar fields (t = 9 and 12, with and without convert_in,
-   B = 1 and 1000, inputs near p, both of the kernel's layouts; the sparse
-   schedule, and on bls12_381_fr the dense rounds of an instance whose MDS
-   has a singular lower-right block), the multi-p REDC twin against the
-   plain redc_sum on edge inputs (T = t (p-1)^2 ...), then at the height-9
-   tree's shapes on bls12_381_fr (t = 12 at 2^24 states with convert_in,
-   t = 9 at 2^21) with times of both layouts in turns, the bounds of the
-   sparse and the dense work, each held against its plain version on a
-   cut of 2^10 states;
+   B = 1 and 1000, inputs near p; the sparse schedule, and on bls12_381_fr
+   the dense rounds of an instance whose MDS has a singular lower-right
+   block), the multi-p REDC twin against the plain redc_sum on edge inputs
+   (T = t (p-1)^2 ...), then at the height-9 tree's shapes on bls12_381_fr
+   (t = 12 at 2^24 states with convert_in, t = 9 at 2^21) with times, the
+   bounds of the sparse and of the dense work, each held against its
+   plain version on a cut of 2^10 states;
 9. PoseidonClient("bls12_381_fr") at height 4, the reference's contract
    (512 leaves, 5,632 wire elements, 585 nodes): initialize -> set_data ->
    start_process -> wait_result -> result(expected_count=585) and
@@ -267,10 +266,8 @@ def ptxas_summary(logs: dict) -> dict:
     return out
 
 
-MIX_OF = ("scan_mixed_kernel<12>", "reduce_cols_kernel<12>", "poseidon_perm_kernel<8>")
-
-
-def sass_summary(libs, mix_of=MIX_OF):
+def sass_summary(libs, mix_of=("scan_mixed_kernel<12>", "reduce_cols_kernel<12>",
+                              "poseidon_perm_kernel<8>")):
     """From cuobjdump -sass of the built libraries: 'kernel<W>[s]' ->
     [LDL, STL], the local-memory loads and stores in its code, and for the
     kernels in `mix_of` the static count of each opcode (the most frequent
@@ -1256,10 +1253,9 @@ def poseidon_main_timing(imad_rate: float, seed: int, device):
     """K10 at the height-9 tree's shapes on bls12_381_fr — the leaf sponge
     (t = 12, B = 2^24, convert_in) and the first node level (t = 9,
     B = 2^21): one warm call whose first 2^10 states are held against the
-    plain version on the same cut, then timed calls (CUDA events) of the
-    kernel's two layouts in turns (one shared column, two, two, one), whose
-    outputs must be equal.  The bound counts the sparse
-    schedule's work; dense_bound_ms the dense rounds' (the TPU kernel's)."""
+    plain version on the same cut, then timed calls (CUDA events).  The
+    bound counts the sparse schedule's work; dense_bound_ms the dense
+    rounds' (the TPU kernel's)."""
     import torch
 
     from blaze_tpu_torch.fields import FIELDS
@@ -1273,24 +1269,16 @@ def poseidon_main_timing(imad_rate: float, seed: int, device):
         params = generate_params(spec, t)
         k = PoseidonKernels.for_params(params)
         x = rand_words(spec, (t, W, B), seed + t, device)
-        got = k.permute_lm(x, convert_in=conv)
-        e = max_abs_err(got[:, :, :cut],
+        e = max_abs_err(k.permute_lm(x, convert_in=conv)[:, :, :cut],
                         k.permute_lm_plain(x[:, :, :cut].contiguous(), conv))
-        e = max(e, max_abs_err(k.permute_lm_two_columns(x, convert_in=conv), got))
-        del got
-        reps = 1 if B > 1 << 22 else 3
-        one, two = (lambda: k.permute_lm(x, convert_in=conv)), \
-            (lambda: k.permute_lm_two_columns(x, convert_in=conv))
-        order = [cuda_ms(f, reps) for f in (one, two, two, one)]
+        ms = cuda_ms(lambda: k.permute_lm(x, convert_in=conv), 1 if B > 1 << 22 else 3)
         _, plain_ms = once_ms(lambda: k.permute_lm_plain(x[:, :, :cut].contiguous(), conv))
         shape = {"t": t, "B": B, "r_f": params.r_f, "r_p": params.r_p, "convert_in": int(conv),
                  "sparse": int(k.sparse)}
         bound, bound_by = work_bound_ms("poseidon_perm", shape, W, imad_rate)
         dense, _ = work_bound_ms("poseidon_perm", {**shape, "sparse": 0}, W, imad_rate)
-        timing[key] = {"shape": shape, "ms": (order[0] + order[3]) / 2,
-                       "two_columns_ms": (order[1] + order[2]) / 2, "ms_in_turns": order,
-                       "plain_ms": plain_ms, "plain_shape": {**shape, "B": cut},
-                       "bound_ms": bound, "bound_by": bound_by, "dense_bound_ms": dense,
+        timing[key] = {"shape": shape, "ms": ms, "plain_ms": plain_ms,
+                       "plain_shape": {**shape, "B": cut}, "bound_ms": bound, "bound_by": bound_by, "dense_bound_ms": dense,
                        "max_abs_err": e}
         del x
         torch.cuda.empty_cache()
@@ -1299,8 +1287,8 @@ def poseidon_main_timing(imad_rate: float, seed: int, device):
 
 def phase_poseidon_parity(imad_rate: float, seed: int, device):
     """K10 against its plain version, exact, on the three scalar fields (t =
-    9 and 12, with and without convert_in, B = 1 and 1000; both layouts; the
-    sparse schedule, and on bls12_381_fr also the dense rounds of an
+    9 and 12, with and without convert_in, B = 1 and 1000; the sparse
+    schedule, and on bls12_381_fr also the dense rounds of an
     instance whose MDS has a singular lower-right block), the multi-p REDC
     twin against the plain redc_sum on edge inputs, then the main shapes."""
     import torch
@@ -1322,13 +1310,11 @@ def phase_poseidon_parity(imad_rate: float, seed: int, device):
                 for B in (1, 1000):
                     x = near_p_states(spec, t, B, seed + t + B, device)
                     for conv in (False, True):
-                        want = k.permute_lm_plain(x, convert_in=conv)
-                        for layout, fn in (("one_column", k.permute_lm),
-                                           ("two_columns", k.permute_lm_two_columns)):
-                            checked.append({"kernel": "poseidon_perm", "t": t, "B": B,
-                                            "convert_in": conv, "sparse": k.sparse,
-                                            "layout": layout,
-                                            "max_abs_err": max_abs_err(fn(x, conv), want)})
+                        e = max_abs_err(k.permute_lm(x, convert_in=conv),
+                                        k.permute_lm_plain(x, convert_in=conv))
+                        checked.append({"kernel": "poseidon_perm", "t": t, "B": B,
+                                        "convert_in": conv, "sparse": k.sparse,
+                                        "max_abs_err": e})
             a, c = redc_edge_inputs(spec, t, seed + t, device)
             e = max_abs_err(sum_products(spec, a, c), sum_products_plain(spec, a, c))
             checked.append({"kernel": "redc_sum", "t": t, "B": a.shape[2], "max_abs_err": e})

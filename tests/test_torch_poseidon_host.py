@@ -1,8 +1,7 @@
 """K10's device code (blaze_tpu_torch/csrc/poseidon.cuh on carry.cuh) run on
 the host: the headers built with g++, where each PTX carry instruction is
-emulated, and the permutation run state by state over a column of stride 1
-(its dense mixes' second column at another stride, as on the card), with
-both schedules (sparse partial rounds, and the dense rounds of an instance
+emulated, and the permutation run state by state over a column of stride 1,
+with both schedules (sparse partial rounds, and the dense rounds of an instance
 whose MDS has a singular lower-right block).  Its words must equal the dense plain version
 (`PoseidonKernels.permute_lm_plain`, held against blaze_tpu in
 tests/test_torch_poseidon.py), on the three scalar fields, with and without
@@ -38,8 +37,7 @@ HOST_DRIVER = r"""
 #include "poseidon.cuh"
 
 // States (t, 8, B) lanes-major; each one copied into a column of stride 1,
-// permuted with its dense mixes' second column at stride 2 (as the kernel
-// puts it at stride B in device memory), copied out.
+// permuted (a second column for the dense mixes beside it), copied out.
 extern "C" int host_perm(const uint32_t* consts, const uint32_t* pc, int t, int r_f, int r_p,
                          int nm, int sparse, const uint32_t* x, uint32_t* o, int64_t B,
                          int convert_in) {
@@ -47,11 +45,12 @@ extern "C" int host_perm(const uint32_t* consts, const uint32_t* pc, int t, int 
   const auto fc = blz::load_consts<W>(consts);
   const blz::PoseidonShape sh{t, r_f, r_p, nm, sparse};
   const int words = t * W;
-  std::vector<uint32_t> col(words), tmp(2 * words);
+  std::vector<uint32_t> col(2 * words);
   for (int64_t b = 0; b < B; ++b) {
     for (int i = 0; i < words; ++i) col[i] = x[i * B + b];
-    blz::poseidon_permute<W>(col.data(), 1, tmp.data(), (int64_t)2, convert_in, pc, sh, fc);
-    for (int i = 0; i < words; ++i) o[i * B + b] = col[i];
+    const uint32_t* res =
+        blz::poseidon_permute<W>(col.data(), col.data() + words, 1, convert_in, pc, sh, fc);
+    for (int i = 0; i < words; ++i) o[i * B + b] = res[i];
   }
   return 0;
 }
