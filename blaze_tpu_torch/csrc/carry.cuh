@@ -174,8 +174,8 @@ BLZ_DEVICE void mont_mul_cc(uint32_t* r, const uint32_t* a, const uint32_t* b,
   }
 }
 
-// acc += a * b: the full 2W-word product, no reduction (field.cuh
-// mul_acc), in carry chains.  Row i adds a * b[i] at word i, its low halves
+// acc += a * b: the full 2W-word product (W^2 wide multiply-adds, no
+// reduction), in carry chains.  Row i adds a * b[i] at word i, its low halves
 // then its high halves; the partial product after row i is below
 // 2^(32(W+i+1)), so no carry leaves word i+W.  The caller keeps the sum
 // below 2^(32(2W+1)).

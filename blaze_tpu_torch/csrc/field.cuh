@@ -27,10 +27,10 @@
 // so the EC kernels' lazy outputs equal the JAX kernels' limb for limb.
 //
 // Multi-p REDC (kernel_ops.py _redc with subs > 1, Poseidon's MDS rows):
-// mul_acc sums up to t unreduced W x W products into a 2W+1-word
-// accumulator, redc_sum reduces that sum once (the reduction half of the
-// CIOS) and brings the result, below (subs + 1) p, under p by conditional
-// subtractions of 2^b p.  The output is canonical, hence unique, so it
+// carry.cuh mul_acc_cc sums up to t unreduced W x W products into a
+// 2W+1-word accumulator, redc_sum reduces that sum once (the reduction
+// half of the CIOS) and brings the result, below (subs + 1) p, under p by
+// conditional subtractions of 2^b p.  The output is canonical, hence unique, so it
 // equals the JAX package's quotient-estimate form bit for bit.
 #pragma once
 
@@ -166,36 +166,6 @@ BLZ_DEVICE void fsub(uint32_t* r, const uint32_t* a, const uint32_t* b,
   const uint32_t borrow = sub_words<W>(d, a, b);
   add_words<W>(e, d, kLazy ? fc.p2 : fc.p);
   select_words<W>(r, borrow != 0, e, d);
-}
-
-// acc += a * b: the full 2W-word product (W^2 wide multiply-adds, no
-// reduction) added into the 2W+1-word accumulator.  The caller keeps the
-// sum below 2^(32(2W+1)).
-template <int W>
-BLZ_DEVICE void mul_acc(uint32_t* acc, const uint32_t* a, const uint32_t* b) {
-  uint32_t t[2 * W];
-#pragma unroll
-  for (int j = 0; j < 2 * W; ++j) t[j] = 0;
-#pragma unroll
-  for (int i = 0; i < W; ++i) {
-    const uint32_t bi = b[i];
-    uint64_t c = 0;
-#pragma unroll
-    for (int j = 0; j < W; ++j) {
-      c += (uint64_t)a[j] * bi + t[i + j];
-      t[i + j] = (uint32_t)c;
-      c >>= 32;
-    }
-    t[i + W] = (uint32_t)c;
-  }
-  uint64_t c = 0;
-#pragma unroll
-  for (int j = 0; j < 2 * W; ++j) {
-    c += (uint64_t)acc[j] + t[j];
-    acc[j] = (uint32_t)c;
-    c >>= 32;
-  }
-  acc[2 * W] += (uint32_t)c;
 }
 
 // r = (T + m p) / R mod p, canonical, for the 2W+1-word sum T in acc of up

@@ -63,7 +63,7 @@ struct PoseidonBlock {
       b.rows = b.pre + t * t * W;
       b.cols = b.rows + sh.r_p * t * W;
       b.r2 = b.cols + sh.r_p * (t - 1) * W;
-    } else {                   // rc (rounds, t, W): partial rounds in place
+    } else {                   // rc (rounds, t, W), the partial rounds' among them
       b.rc_partial = nullptr;
       b.mds = b.rc_full + (sh.r_f + sh.r_p) * t * W;
       b.pre = b.mds;
@@ -113,24 +113,19 @@ BLZ_DEVICE void sbox(uint32_t* x, const FieldConsts<W>& fc) {
   mont_mul_cc<W, false>(x, x4, x, fc);
 }
 
-// Element e of the column: + k, then x^5 when `full`.
-template <int W>
-BLZ_DEVICE void ark_el(uint32_t* s, int e, int stride, const uint32_t* k, bool full,
-                       const FieldConsts<W>& fc) {
-  uint32_t x[W], c[W];
-  load_el<W>(x, s, e, stride);
-  load_const<W>(c, k);
-  fadd<W, false>(x, x, c, fc);
-  if (full) sbox<W>(x, fc);
-  store_el<W>(s, x, e, stride);
-}
-
 // ARK on every element of the column, x^5 on the first `nsbox`.
 template <int W>
 BLZ_DEVICE void ark_sbox(uint32_t* s, int stride, int t, const uint32_t* k, int nsbox,
                          const FieldConsts<W>& fc) {
+  uint32_t x[W], c[W];
 #pragma unroll 1
-  for (int e = 0; e < t; ++e) ark_el<W>(s, e, stride, k + e * W, e < nsbox, fc);
+  for (int e = 0; e < t; ++e) {
+    load_el<W>(x, s, e, stride);
+    load_const<W>(c, k + e * W);
+    fadd<W, false>(x, x, c, fc);
+    if (e < nsbox) sbox<W>(x, fc);
+    store_el<W>(s, x, e, stride);
+  }
 }
 
 // Canonical -> Montgomery: x R^2 / R on every element.

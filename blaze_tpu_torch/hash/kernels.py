@@ -69,7 +69,7 @@ def sum_products_plain(spec: FieldSpec, a: torch.Tensor, c: torch.Tensor) -> tor
 def sum_products(spec: FieldSpec, a: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     """One MDS row's arithmetic on its own, for checks of the multi-p REDC:
     (sum_j a_j c_j) / R mod p, canonical, for canonical (t, W, B) int32
-    words a and c -> (W, B).  CUDA tensors run field.cuh's mul_acc +
+    words a and c -> (W, B).  CUDA tensors run carry.cuh's mul_acc_cc +
     redc_sum (blz_sum_products), CPU tensors the plain version."""
     W = spec.nwords
     if (a.shape != c.shape or a.dim() != 3 or a.shape[1] != W or a.dtype != torch.int32

@@ -99,9 +99,8 @@ class PoseidonParams:
     @functools.cached_property
     def rc_mont(self) -> np.ndarray:
         """(rounds, t, W) int32 words, Montgomery form."""
-        p, r, W = self.spec.p, self.spec.r, self.spec.nwords
-        vals = [int_to_words(c * r % p, W) for c in self.round_constants]
-        return np.stack(vals).view(np.int32).reshape(self.r_f + self.r_p, self.t, W)
+        return mont_words(self.spec, self.round_constants).reshape(
+            self.r_f + self.r_p, self.t, self.spec.nwords)
 
     @functools.cached_property
     def mds_mont(self) -> np.ndarray:
