@@ -1,14 +1,15 @@
-// Complete projective group law (Renes-Costello-Batina 2016, a = 0) in the
-// lazy < 2p discipline of field.cuh.
+// Complete projective addition (Renes-Costello-Batina 2016 alg 7, a = 0)
+// in the lazy < 2p discipline of field.cuh, for K3 (one thread per lane).
 //
-// Replaces the bodies shared by the TPU EC kernels,
-// blaze_tpu/curves/kernels.py ECKernels._add_mixed_body (alg 8) and
-// _add_full_body (alg 7), including _b3_mul (the product with 3b*R).  The
-// formulas are the same operation for operation, so outputs equal the JAX
-// kernels' lazy limbs exactly (every field op here is a function of its
-// input values alone).  Temporaries are ordered so each dies early: a
-// projective point is 3W words and the peak live set is about eight field
-// elements beyond the inputs.
+// Replaces the body of the TPU EC kernels' complete add,
+// blaze_tpu/curves/kernels.py ECKernels._add_full_body, including _b3_mul
+// (the product with 3b*R).  The formula is the same operation for
+// operation, so outputs equal the JAX kernels' lazy limbs exactly (every
+// field op here is a function of its input values alone).  K2, K4, K5 and
+// K6 run the same formulas split over a team of threads (ec_team.cuh).
+// Temporaries are ordered so each dies early: a projective point is 3W
+// words and the peak live set is about eight field elements beyond the
+// inputs.
 #pragma once
 
 #include "field.cuh"
@@ -21,54 +22,8 @@ struct Point {
 };
 
 template <int W>
-BLZ_DEVICE void set_identity(Point<W>& o, const FieldConsts<W>& fc) {
-#pragma unroll
-  for (int i = 0; i < W; ++i) {
-    o.x[i] = 0;
-    o.y[i] = fc.one[i];
-    o.z[i] = 0;
-  }
-}
-
-template <int W>
 BLZ_DEVICE void mul_b3(uint32_t* r, const uint32_t* x, const FieldConsts<W>& fc) {
   mont_mul<W, true>(r, fc.b3, x, fc);
-}
-
-// o = p + (x2, y2) for an affine (x2, y2) (RCB alg 8): 11 products plus two
-// with 3b.  o may alias p.
-template <int W>
-BLZ_DEVICE_CALL void ec_add_mixed(Point<W>& o, const Point<W>& p, const uint32_t* x2,
-                             const uint32_t* y2, const FieldConsts<W>& fc) {
-  uint32_t t0[W], t1[W], t3[W], t4[W], u[W], m0[W], m1[W], w1[W];
-  fadd<W, true>(t0, p.x, p.y, fc);             // s0 = X1 + Y1
-  fadd<W, true>(t1, x2, y2, fc);               // s1 = X2 + Y2
-  mont_mul<W, true>(t3, t0, t1, fc);           // m2 = s0 s1
-  mont_mul<W, true>(m0, p.x, x2, fc);          // m0 = X1 X2
-  mont_mul<W, true>(m1, p.y, y2, fc);          // m1 = Y1 Y2
-  fadd<W, true>(u, m0, m1, fc);                // d0 = m0 + m1
-  fsub<W, true>(t3, t3, u, fc);                // t3 = m2 - d0
-  mont_mul<W, true>(u, y2, p.z, fc);           // m3 = Y2 Z1
-  fadd<W, true>(t4, u, p.y, fc);               // t4 = m3 + Y1
-  mont_mul<W, true>(u, x2, p.z, fc);           // m4 = X2 Z1
-  fadd<W, true>(u, u, p.x, fc);                // u2 = m4 + X1
-  mul_b3<W>(w1, u, fc);                        // w1 = 3b u2
-  fadd<W, true>(t0, m0, m0, fc);               // d3 = m0 + m0
-  fadd<W, true>(t0, t0, m0, fc);               // t0 = d3 + m0
-  mul_b3<W>(u, p.z, fc);                       // w0 = 3b Z1
-  uint32_t z3[W];
-  fadd<W, true>(z3, m1, u, fc);                // z3 = m1 + w0
-  fsub<W, true>(t1, m1, u, fc);                // t1 = m1 - w0
-  // output products (m0, m1 free from here)
-  mont_mul<W, true>(m0, t3, t1, fc);           // r0 = t3 t1
-  mont_mul<W, true>(m1, t4, w1, fc);           // r1 = t4 w1
-  fsub<W, true>(o.x, m0, m1, fc);              // X3 = r0 - r1
-  mont_mul<W, true>(m0, t1, z3, fc);           // r2 = t1 z3
-  mont_mul<W, true>(m1, t0, w1, fc);           // r3 = t0 w1
-  fadd<W, true>(o.y, m0, m1, fc);              // Y3 = r2 + r3
-  mont_mul<W, true>(m0, z3, t4, fc);           // r4 = z3 t4
-  mont_mul<W, true>(m1, t0, t3, fc);           // r5 = t0 t3
-  fadd<W, true>(o.z, m0, m1, fc);              // Z3 = r4 + r5
 }
 
 // o = p + q, complete (RCB alg 7): 12 products plus two with 3b.  o may

@@ -1,13 +1,19 @@
-// Team group operations for K2 (scan_mixed) and K4 (reduce_cols): the
-// products of one group operation split across a team of kTeam threads.
+// Team group operations for K2 (scan_mixed), K4 (reduce_cols), K5 (dbl_n)
+// and K6 (fold_horner): the products of one group operation split across a
+// team of kTeam threads.
 //
-// The formulas and every field operation are those of ec.cuh (RCB 2016
-// alg 8 and alg 7, lazy < 2p); only which thread computes which product
-// changes.  Every field op is a function of its input values alone, so a
-// team's output limbs equal ec_add_mixed / ec_add_full bit for bit.
+// The formulas and every field operation are RCB 2016 alg 8 and alg 7 in
+// the lazy < 2p discipline, as the plain versions compute them
+// (curves/ops.py rcb_add_mixed, rcb_add_full) and ec.cuh ec_add_full for
+// K3; only which thread computes which product changes.  Every field op is
+// a function of its input values alone, so a team's output limbs equal the
+// one-thread formulas bit for bit.
 //
 // Each group op is four steps; inside a step the products are independent:
-//   step 1  6 products of the inputs (with the pre-adds X1+Y1 etc.)
+//   step 1  6 products of the inputs (with the pre-adds X1+Y1 etc.); a
+//           doubling (DBL_1) is alg 7's step 1 with the second operand's
+//           slots those of the first, the complete add of a point with
+//           itself, field op for field op
 //   step 2  alg 8: 1 product (3b u2), alg 7: 2 (3b m2, 3b t5), and the
 //           linear terms t0, t1, t3, t4, z3
 //   step 3  the 6 output products r0..r5
@@ -45,7 +51,7 @@ struct uint4 {
 namespace blz {
 namespace team {
 
-constexpr int kTeam = 6;     // threads per lane of K2 and K4
+constexpr int kTeam = 6;     // threads per lane of K2, K4, K5 and K6
 
 // Lazy add and sub, the rules of field.cuh fadd/fsub<W, true>: the add
 // ignores its carry out and subtracts 2p unless that borrows; the sub adds
@@ -101,7 +107,7 @@ struct Op {
 constexpr int kTasks = 6;    // tasks per step, at most
 constexpr int kTaskOps = 3;  // ops per task, at most
 
-enum Step { MIXED_1, MIXED_2, FULL_1, FULL_2, OUT_3, OUT_4, kSteps };
+enum Step { MIXED_1, MIXED_2, FULL_1, DBL_1, FULL_2, OUT_3, OUT_4, kSteps };
 
 #define BLZ_OP(k, o, a0, a1, b0, b1) {k, o, a0, a1, b0, b1}
 #define BLZ_NOP {NOP, 0, 0, 0, 0, 0}
@@ -130,6 +136,13 @@ BLZ_TEAM_TABLE Op kProgram[kSteps][kTasks][kTaskOps] = {
      {BLZ_OP(MUL, M3, X1, Y1, X2, Y2), BLZ_NOP, BLZ_NOP},        // m3 = [X1+Y1][X2+Y2]
      {BLZ_OP(MUL, M4, Y1, Z1, Y2, Z2), BLZ_NOP, BLZ_NOP},        // m4 = [Y1+Z1][Y2+Z2]
      {BLZ_OP(MUL, M5, X1, Z1, X2, Z2), BLZ_NOP, BLZ_NOP}},       // m5 = [X1+Z1][X2+Z2]
+    // DBL_1: FULL_1 of (X1, Y1, Z1) and itself
+    {{BLZ_OP(MUL, M0, X1, NONE, X1, NONE), BLZ_NOP, BLZ_NOP},    // m0 = X1 X1
+     {BLZ_OP(MUL, M1, Y1, NONE, Y1, NONE), BLZ_NOP, BLZ_NOP},    // m1 = Y1 Y1
+     {BLZ_OP(MUL, M2, Z1, NONE, Z1, NONE), BLZ_NOP, BLZ_NOP},    // m2 = Z1 Z1
+     {BLZ_OP(MUL, M3, X1, Y1, X1, Y1), BLZ_NOP, BLZ_NOP},        // m3 = [X1+Y1][X1+Y1]
+     {BLZ_OP(MUL, M4, Y1, Z1, Y1, Z1), BLZ_NOP, BLZ_NOP},        // m4 = [Y1+Z1][Y1+Z1]
+     {BLZ_OP(MUL, M5, X1, Z1, X1, Z1), BLZ_NOP, BLZ_NOP}},       // m5 = [X1+Z1][X1+Z1]
     // FULL_2
     {{BLZ_OP(MUL, W0, B3, NONE, M2, NONE),                       // w0 = 3b m2
       BLZ_OP(ADD, Z3, M1, NONE, W0, NONE),                       // z3 = m1 + w0
@@ -191,13 +204,13 @@ BLZ_DEVICE void operand(uint32_t* v, const Slots<W, kStride>& sl, uint8_t s0, ui
   }
 }
 
-// Team member `member` runs its tasks of step kStep: member, member +
-// kTeam, ...  Every branch depends on (step, member) alone, so it is
-// uniform over a warp whose 32 threads are one member of 32 teams.
-template <int kStep, int W, int kStride>
+// Team member `member` runs its tasks of step kStep: member, member + kT,
+// ...  Every branch depends on (step, member) alone, so it is uniform over
+// a warp whose 32 threads are one member of 32 teams.
+template <int kStep, int W, int kStride, int kT = kTeam>
 BLZ_DEVICE void run_step(int member, const Slots<W, kStride>& sl, const FieldConsts<W>& fc) {
   constexpr int kN = (kStep == MIXED_2 || kStep == FULL_2 || kStep == OUT_4) ? 3 : kTasks;
-  for (int t = member; t < kN; t += kTeam) {
+  for (int t = member; t < kN; t += kT) {
 #pragma unroll 1
     for (int o = 0; o < kTaskOps; ++o) {
       const Op op = kProgram[kStep][t][o];

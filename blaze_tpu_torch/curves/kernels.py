@@ -11,8 +11,8 @@ PyTorch version beside it only for CPU tensors.  The plain versions compute
 the same function on 16-bit int64 limbs with the lazy twin of field.cuh
 (fields/kernel_ops.py) and the shared RCB formulas (curves/ops.py), so the
 CPU tests hold them limb for limb against the JAX kernels in interpret mode.
-Bounds and design: see csrc/ec_kernels.cu; K2 and K4 split each group op
-over a team of threads per lane (csrc/ec_team.cuh).
+Bounds and design: see csrc/ec_kernels.cu; K2, K4, K5 and K6 split each
+group op over a team of threads per lane (csrc/ec_team.cuh).
 """
 from __future__ import annotations
 
@@ -42,6 +42,10 @@ _ARGTYPES = {
                   _c.c_int64, _c.c_void_p],
     "blz_fold_horner": [_c.c_int, _c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_int,
                         _c.c_int, _c.c_void_p],
+    "blz_product_chain": [_c.c_int, _c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_void_p,
+                          _c.c_int, _c.c_void_p],
+    "blz_ec_probe": [_c.c_int, _c.c_void_p, _c.c_int, _c.c_int, _c.c_void_p, _c.c_void_p,
+                     _c.c_int, _c.c_int64, _c.c_void_p],
 }
 
 
@@ -234,11 +238,49 @@ class ECKernels:
 
     def fold_horner(self, ws: torch.Tensor, c: int) -> torch.Tensor:
         """Horner window fold sum_w 2^(c w) ws[:, w] of (3W, Wn) window sums
-        -> (3W,), in one sequential kernel (doubling = add with itself)."""
+        -> (3W,), one chain of group ops on one team (doubling = add with
+        itself)."""
         self._check(ws, 3 * self.W, "ws")
+        if c < 1 or ws.shape[1] < 1:
+            raise ValueError(f"fold: want c >= 1 and a window, got c={c}, Wn={ws.shape[1]}")
         if ws.device.type == "cpu":
             return self.fold_horner_plain(ws, c)
         out = torch.empty((3 * self.W, 1), dtype=torch.int32, device=ws.device)
         self._launch("blz_fold_horner", "fold_horner", ws.device, ws.data_ptr(),
                      out.data_ptr(), c, ws.shape[1])
         return out[:, 0]
+
+    # --------------------------------------------------------- measurement
+    def product_chain_plain(self, x: torch.Tensor, y: torch.Tensor, n: int) -> torch.Tensor:
+        """Plain version of `product_chain`."""
+        a, b = words_to_limbs16(x), words_to_limbs16(y)
+        for _ in range(n):
+            a = self.ops.mul(a, b)
+        return limbs16_to_words(a)
+
+    def product_chain(self, x: torch.Tensor, y: torch.Tensor, n: int) -> torch.Tensor:
+        """x y^n / R^n by n dependent lazy products on one thread of the card
+        (x, y: (W,) words below 2p): timed, it gives one product's latency,
+        the unit of K5's and K6's chain bound.  Not a kernel of any path."""
+        for v in (x, y):
+            if v.dtype != torch.int32 or v.shape != (self.W,) or v.device.type != "cuda":
+                raise ValueError(f"want ({self.W},) int32 words on the card")
+        out = torch.empty_like(x)
+        with torch.cuda.device(x.device):
+            rc = _entry("blz_product_chain")(self.W, self._consts.ctypes.data, x.data_ptr(),
+                                             y.data_ptr(), out.data_ptr(), n,
+                                             torch.cuda.current_stream(x.device).cuda_stream)
+        _build.check(rc, "blz_product_chain")
+        return out
+
+    def probe(self, which: int, variant: int, x: torch.Tensor, ck: int) -> torch.Tensor:
+        """blz_ec_probe: K5 (which 0, ck doublings) or K6 (which 1, c = ck) in
+        one of the layouts compared on the card."""
+        out = torch.empty_like(x) if which == 0 else torch.empty(
+            (3 * self.W, 1), dtype=torch.int32, device=x.device)
+        with torch.cuda.device(x.device):
+            rc = _entry("blz_ec_probe")(self.W, self._consts.ctypes.data, which, variant,
+                                        x.data_ptr(), out.data_ptr(), ck, x.shape[1],
+                                        torch.cuda.current_stream(x.device).cuda_stream)
+        _build.check(rc, "blz_ec_probe")
+        return out if which == 0 else out[:, 0]

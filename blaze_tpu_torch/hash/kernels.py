@@ -78,8 +78,6 @@ def sum_products(spec: FieldSpec, a: torch.Tensor, c: torch.Tensor) -> torch.Ten
     a, c = a.contiguous(), c.contiguous()
     if a.device.type == "cpu":
         return sum_products_plain(spec, a, c)
-    if W != 8:
-        raise ValueError(f"{spec.name}: the kernel takes 8-word fields only")
     t, _, B = a.shape
     mults = reduce_multiples(spec, t)
     mw = torch.from_numpy(np.concatenate([int_to_words(m, W + 1) for m in mults])
@@ -103,12 +101,14 @@ class PoseidonKernels:
     def for_params(cls, params: PoseidonParams) -> "PoseidonKernels":
         # The key must pin the FULL constant set: two CSV-loaded parameter
         # sets with identical (field, t, rounds) but different constants
-        # must not share an instance (its constant block is built once).
+        # must not share an instance (its constant block is built once),
+        # and alpha, which the Grain constants do not depend on, is refused
+        # unless 5.
         # Exact tuples, not their hash() — a collision would silently
         # reuse the wrong constants.
         consts = (tuple(params.round_constants),
                   tuple(tuple(row) for row in params.mds))
-        key = (params.spec.name, params.t, params.r_f, params.r_p, consts)
+        key = (params.spec.name, params.t, params.alpha, params.r_f, params.r_p, consts)
         inst = cls._CACHE.get(key)
         if inst is None:
             inst = cls._CACHE[key] = cls(params)
@@ -116,10 +116,11 @@ class PoseidonKernels:
 
     def __init__(self, params: PoseidonParams):
         if params.alpha != 5:
+            # blaze_tpu computes x^5 whatever alpha says (its portable S-box,
+            # hash/poseidon.py:27-31): no instance with another alpha has
+            # words to match, so it is refused
             raise ValueError("the fused S-box is specialized to x^5")
         spec = params.spec
-        if spec.nwords != 8:
-            raise ValueError(f"{spec.name}: the Poseidon kernel takes 8-word fields only")
         self.params = params
         self.spec = spec
         self.W = spec.nwords

@@ -13,8 +13,8 @@ bucket method (blaze_tpu/msm/pippenger.py `_fused_chunk`), step for step:
   5. by Abel summation sum_j j*B_j = (B-1)*T[e_{B-1}] - sum_{j<B-1} T[e_j]
      with T the prefix sum, gathered at the bounds: (B-1)*T on K5, the
      sum over the bounds on K4;
-  6. the Horner window fold on K6 (one chunk) or on the Field (streamed
-     chunks, accumulated per window).
+  6. the Horner window fold on K6, of one chunk's window sums or of the
+     streamed chunks' sums, accumulated per window on K3.
 
 Same defaults, digit order, lane counts, paddings and reduction disciplines
 as the JAX package, so on one input both produce the same projective limbs.
@@ -266,11 +266,17 @@ class MSM:
         return self._fused_chunk(points, scalars, c, scalar_bits)
 
     def accumulate(self, wsums, part):
-        """Running per-window accumulation across streamed chunks."""
-        return part if wsums is None else self.curve.add(wsums, part)
+        """Running per-window accumulation across streamed chunks: one K3
+        launch over the windows' sums, canonicalized."""
+        if wsums is None:
+            return part
+        out = self.kern.add(self._pm_to_lm(wsums), self._pm_to_lm(part))
+        return self._canon(self._lm_to_pm(out))
 
     def fold_windows(self, wsums, c: int):
-        """Horner fold: result = sum_w 2^(c*w) * wsums[w] on the Field."""
+        """Horner fold sum_w 2^(c*w) * wsums[w] on the Field (alg 9
+        doublings): the Field-level reference that `finalize` (K6) is held
+        to in the tests."""
         cv = self.curve
         acc = wsums[-1]
         for w in range(wsums.shape[0] - 2, -1, -1):
@@ -280,11 +286,8 @@ class MSM:
         return acc
 
     def finalize(self, wsums, c: int):
-        """Horner window fold of accumulated partials -> (3, W) mont."""
-        return self.fold_windows(wsums, c)
-
-    def _fold_kernel(self, wsums, c: int):
-        """One chunk's fold on K6 (lazy), canonicalized."""
+        """Horner window fold of the (nwin, 3, W) window sums -> (3, W) mont,
+        canonical: one K6 launch (lazy), canonicalized."""
         if wsums.shape[0] == 1:
             return wsums[0]
         res = self.kern.fold_horner(self._pm_to_lm(wsums), c)
@@ -296,15 +299,15 @@ class MSM:
         resident — with canonical scalar limbs, (N, Ls) or (Ls, N).  Returns
         one projective point (3, W), Montgomery form.
 
-        Inputs up to 2^chunk_log2 points run as one chunk folded on K6;
-        larger ones stream in chunks whose window sums are accumulated and
-        folded once (the reference's DMA chunking analog, msm_api.rs:156)."""
+        Inputs up to 2^chunk_log2 points run as one chunk; larger ones stream
+        in chunks whose window sums are accumulated (K3) and folded once on
+        K6 (the reference's DMA chunking analog, msm_api.rs:156)."""
         points, scalars = self._as_resident(points, scalars)
         n = points.shape[1]
         c = window_bits or min(self.config.window_bits, default_window_bits(n))
         chunk = 1 << self.config.chunk_log2
         if n <= chunk:
-            return self._fold_kernel(self._fused_chunk(points, scalars, c, scalar_bits), c)
+            return self.finalize(self._fused_chunk(points, scalars, c, scalar_bits), c)
         wsums = None
         for lo in range(0, n, chunk):
             hi = min(lo + chunk, n)

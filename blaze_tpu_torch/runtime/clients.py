@@ -82,6 +82,26 @@ def _as_i32(arr: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(arr, dtype=np.uint32).view(np.int32))
 
 
+def _host_words(data, W: int, lead: tuple, what: str) -> np.ndarray:
+    """An element array -> uint32 words (..., W).  It may come in the
+    reference's form, 16-bit limbs (..., 2W) (blaze_tpu's MSMInput.points
+    and NTTInput.data), or in 32-bit words (..., W): the last axis says
+    which.  `lead` gives the other axes, None for any length.  Any other
+    shape, or a limb of 16 bits or more, raises DataError."""
+    arr = np.asarray(data)
+    ok = arr.ndim == len(lead) + 1 and all(
+        want is None or got == want for got, want in zip(arr.shape, lead))
+    if not ok or arr.shape[-1] not in (W, 2 * W):
+        dims = ", ".join("n" if d is None else str(d) for d in lead)
+        raise DataError(f"{what}: want ({dims}, {2 * W}) 16-bit limbs or ({dims}, {W}) "
+                        f"words, got shape {arr.shape}")
+    if arr.shape[-1] == W:
+        return np.ascontiguousarray(arr, dtype=np.uint32)
+    if arr.size and (arr.min() < 0 or arr.max() > 0xFFFF):
+        raise DataError(f"{what}: a 16-bit limb is out of range")
+    return np.ascontiguousarray(arr, dtype="<u2").view("<u4")
+
+
 def _device_put(x: torch.Tensor, ctx: DeviceContext) -> torch.Tensor:
     """Transfer with the reference's retry semantics (utils.rs:133-147):
     transient failures get N attempts with a short backoff.  A transfer
@@ -136,7 +156,9 @@ class MSMInput:
     """msm_api.rs:32-37 analog; three set_data modes (README.md:83-113)."""
 
     scalars: object                  # bytes or (N, Ls) uint32 16-bit limbs
-    points: Optional[object] = None  # bytes or (N, 2, W) canonical uint32 words
+    # bytes, or canonical (N, 2, L) 16-bit limbs (the reference's form) or
+    # (N, 2, W) 32-bit words
+    points: Optional[object] = None
     params: Optional[MSMParams] = None
 
 
@@ -206,6 +228,9 @@ class MSMClient(DriverPrimitive):
             scal = decode_scalars(scalars, spec)
         else:
             scal = np.asarray(scalars, dtype=np.uint32)
+            if scal.ndim != 2 or scal.shape[1] != spec.fr.nlimbs:
+                raise DataError(f"scalars: want (n, {spec.fr.nlimbs}) 16-bit limbs, "
+                                f"got shape {scal.shape}")
         n = scal.shape[0]
         st = _as_i32(scal)
         bits = None
@@ -215,14 +240,14 @@ class MSMClient(DriverPrimitive):
         return n, _device_put(scalars_to_resident(st), self.ctx), bits
 
     def _stage_points(self, points, n: Optional[int] = None) -> torch.Tensor:
-        """Wire bytes or words for n bases (k*n points; any multiple of k
-        when n is None) -> resident device points, multiple-major."""
+        """Wire bytes, limbs or words for n bases (k*n points; any multiple
+        of k when n is None) -> resident device points, multiple-major."""
         spec = self.curve.spec
         k = self.init.precompute_factor
         if isinstance(points, (bytes, bytearray, memoryview)):
             pts = decode_affine_points(points, spec)
         else:
-            pts = np.asarray(points, dtype=np.uint32)
+            pts = _host_words(points, spec.fq.nwords, (None, 2), "points")
         if n is None:
             n = pts.shape[0] // k
         if pts.shape[0] != k * n:
@@ -459,7 +484,9 @@ class NTTInit:
 class NTTInput:
     """ntt_api.rs:72-87 analog: raw LE bytes + host buffer index."""
 
-    data: object                   # bytes or (n, W) canonical uint32 words
+    # bytes, or canonical (n, L) 16-bit limbs (the reference's form) or
+    # (n, W) 32-bit words
+    data: object
     buf_host: int = 0              # double-buffer slot (ntt_data.rs:54-56)
 
 
@@ -517,7 +544,8 @@ class NTTClient(DriverPrimitive):
         """No-op (the reference writes disabled debug regs, ntt_api.rs:37-56)."""
 
     def _words(self, data) -> np.ndarray:
-        """Wire bytes (a zero-copy view) or words -> (n, W) int32 words."""
+        """Wire bytes (a zero-copy view), limbs or words -> (n, W) int32
+        words."""
         n, W = 1 << self.logn, self.spec.nwords
         if isinstance(data, (bytes, bytearray, memoryview)):
             raw = np.frombuffer(data, dtype=np.uint8)
@@ -528,9 +556,7 @@ class NTTClient(DriverPrimitive):
                 )
             words = raw.view("<u4").reshape(-1, W)
         else:
-            words = np.asarray(data, dtype=np.uint32)
-            if words.ndim != 2 or words.shape[1] != W:
-                raise DataError(f"want (n, {W}) words, got {words.shape}")
+            words = _host_words(data, W, (None,), "NTT data")
         if words.shape[0] != n:
             raise InvalidPrimitiveParam(f"want {n} elements, got {words.shape[0]}")
         return words.view(np.int32)

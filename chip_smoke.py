@@ -12,23 +12,31 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    (cuobjdump);
 2. kernel parity: K1-K6 against their plain PyTorch versions on the card,
    exact, on BN254, BLS12-377 and BLS12-381 at small shapes (K2 signed and
-   unsigned) and, for K2 and K4, at ragged lane counts B = 1, 33, 1000
-   (C = 1; K4 also over rows that hold identities); then at the main
-   path's shapes for BLS12-381 with each kernel's time (CUDA events), its
-   plain version's time and its bound: K2 at a 2^19 chunk (C 512, B 16384)
-   and a streamed 2^18 chunk (B 8192), K4's five rounds at a 2^19 chunk;
+   unsigned) and at ragged shapes: K2 and K4 at lane counts B = 1, 33,
+   1000 (C = 1; K4 also over rows that hold identities), K5 at B = 1, 33,
+   1000 (k 15), K6 at Wn = 1, 2, 20 (c 13) and, on the 12-word curves, at
+   Wn = 128 (c 2, past 48 KB of shared memory); then at the main path's
+   shapes for BLS12-381 with each kernel's time (CUDA events), its plain
+   version's time and its bound: K2 at a 2^19 chunk (C 512, B 16384) and a
+   streamed 2^18 chunk (B 8192), K4's five rounds at a 2^19 chunk, K5 at
+   (B 16, k 16) and K6 at (Wn 16, c 16) and (Wn 20, c 13) beside their
+   chain bound (the products on the team's critical path times one
+   product's latency, timed on one thread: blz_product_chain);
 3. main path, streamed client: MSMClient(MSMInit("bls12_381")) over 2^20
    points in the reference's order initialize -> start_process -> four
    set_data chunks of wire bytes -> result();
 4. main path, single-chunk client: 2^19 points, set_data -> start_process
-   -> wait_result -> result() (the chunk's fold runs on K6);
+   -> wait_result -> result();
 4b. the headline shape (bench.py:10): 2^24 points resident, set_data once
-   -> start_process -> wait_result -> result(), 32 chunks of 2^19 and the
-   window fold on the Field (its seconds printed).  With --parent DIR the
+   -> start_process -> wait_result -> result(), 32 chunks of 2^19, their
+   window sums accumulated on K3 and folded on K6 (the fold's seconds
+   printed).  Phases 3, 4 and 4b each launch K6 exactly once.  With
+   --parent DIR the
    same instance then runs in five pairs of fresh child processes on the
    same card, one from another tree of the package (the parent commit
    unpacked under build/) and one from this tree, the side that goes
-   first alternating; all must give the same result bytes.  After it, one warm
+   first alternating; all must give the same result bytes (a parent tree
+   whose fold ran on the Field prints it as field_fold_s).  After it, one warm
    2^19 single-chunk MSM runs under torch.profiler (device busy time,
    idle share).
    Phases 3, 4 and 4b use 256 points of the order-r subgroup tiled and
@@ -56,7 +64,9 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    B = 1 and 1000, inputs near p; the sparse schedule, and on bls12_381_fr
    the dense rounds of an instance whose MDS has a singular lower-right
    block), the multi-p REDC twin against the plain redc_sum on edge inputs
-   (T = t (p-1)^2 ...), then at the height-9 tree's shapes on bls12_381_fr
+   (T = t (p-1)^2 ...); then over the 12-word base fields (t = 3 and 17)
+   and at t = 17 on bn254_fr, the widest state of the reference's round
+   table; then at the height-9 tree's shapes on bls12_381_fr
    (t = 12 at 2^24 states with convert_in, t = 9 at 2^21) with times, the
    bounds of the sparse and of the dense work, each held against its
    plain version on a cut of 2^10 states;
@@ -358,6 +368,7 @@ def kernel_cases(spec, C: int, B: int, seed: int, device, main: bool):
     b = a.flip(0).contiguous()
     red_rows = emitted[: C // 2, :, : B // 2].contiguous()
     ws = emitted[-1, :, :16].contiguous()
+    ws20 = emitted[-1, :, 16:36].contiguous()
     pts = p[:, :16].contiguous() if main else p
     cases = [
         ("mont_mul", lambda: mont_mul(spec.fq, a, b), lambda: mont_mul_plain(spec.fq, a, b),
@@ -382,6 +393,8 @@ def kernel_cases(spec, C: int, B: int, seed: int, device, main: bool):
     half = rows[:, :, : B // 2].contiguous()
     cases.append(("scan_mixed_streamed", "scan_mixed", lambda: k.scan_mixed(half),
                   lambda: k.scan_mixed_plain(half), {"C": C, "B": B // 2}))
+    cases.append(("fold_horner_c13", "fold_horner", lambda: k.fold_horner(ws20, 13),
+                  lambda: k.fold_horner_plain(ws20, 13), {"Wn": 20, "c": 13}))
     for r, (Cr, Br) in enumerate(((16, 512), (4, 128), (2, 64), (4, 16)), start=2):
         rr = emitted[:Cr, :, :Br].contiguous()
         cases.append((f"reduce_cols_r{r}", "reduce_cols", lambda rr=rr: k.reduce_cols(rr),
@@ -393,7 +406,10 @@ def ragged_cases(spec, seed: int, device):
     """(key, kernel, kernel call, plain call, shape) for K2 (unsigned and
     signed) and K4 at ragged lane counts B = 1, 33, 1000: one row (C = 1),
     and for K4 also four rows that hold identities, as the bucket sum's
-    padding does."""
+    padding does; K5 at the same lane counts (k 15, identity lanes among
+    them); K6 at Wn = 1, 2 and 20 (c 13) with identity windows, and on
+    12-word curves at Wn = 128 (c 2), whose window sums take K6 past 48 KB
+    of shared memory."""
     from blaze_tpu_torch.curves import Curve
     from blaze_tpu_torch.curves.kernels import ECKernels
 
@@ -417,6 +433,17 @@ def ragged_cases(spec, seed: int, device):
             cases.append(("reduce_cols", "reduce_cols", lambda e=e: k.reduce_cols(e),
                           lambda e=e: k.reduce_cols_plain(e),
                           {"C": C, "B": B, "identities": int(C > 1)}))
+        pts = emitted[1].contiguous()
+        cases.append(("dbl_n", "dbl_n", lambda x=pts: k.dbl_n(x, 15),
+                      lambda x=pts: k.dbl_n_plain(x, 15), {"B": B, "k": 15}))
+    _, _, rows, _ = curve_inputs(spec, 2, 128, seed, device)
+    wins = k.scan_mixed(rows)[0][1]                              # (3W, 128) lazy points
+    wins[:, 1::5] = ident
+    shapes = [(1, 13), (2, 13), (20, 13)] + ([(128, 2)] if spec.fq.nwords == 12 else [])
+    for Wn, c in shapes:
+        ws = wins[:, :Wn].contiguous()
+        cases.append(("fold_horner", "fold_horner", lambda ws=ws, c=c: k.fold_horner(ws, c),
+                      lambda ws=ws, c=c: k.fold_horner_plain(ws, c), {"Wn": Wn, "c": c}))
     return cases
 
 
@@ -489,6 +516,30 @@ def work_bound_ms(name: str, shape: dict, W: int, imad_rate: float):
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
+CHAIN_PRODUCTS = 3     # dependent products per group op on the team (ec_team.cuh)
+
+
+def product_latency_us(spec, device, n: int = 4096) -> float:
+    """One lazy product's latency (us) on one thread of the card: n
+    dependent carry-chain products in one launch (blz_product_chain, CUDA
+    events), its words first held against the plain products at n = 16."""
+    from blaze_tpu_torch.curves.kernels import ECKernels
+
+    k = ECKernels.for_curve(spec)
+    x, y = rand_words(spec.fq, (2, spec.fq.nwords), 7, device).unbind(0)
+    if max_abs_err(k.product_chain(x, y, 16), k.product_chain_plain(x, y, 16)):
+        raise AssertionError("blz_product_chain differs from the plain products")
+    return cuda_ms(lambda: k.product_chain(x, y, n), 3) * 1e3 / n
+
+
+def chain_bound_ms(name: str, shape: dict, latency_us: float) -> float:
+    """K5's and K6's chain bound: the products on the team's critical path
+    (CHAIN_PRODUCTS per group op, one group op per doubling or add) times
+    one product's latency."""
+    ops = shape["k"] if name == "dbl_n" else max((shape["Wn"] - 1) * (shape["c"] + 1), 1)
+    return CHAIN_PRODUCTS * ops * latency_us / 1e3
+
+
 def phase_parity(imad_rate: float, device):
     import torch
 
@@ -518,6 +569,8 @@ def phase_parity(imad_rate: float, device):
     # reduce_cols pass is C = 256 rows of G * R2 = 8192 lanes)
     spec = CURVES["bls12_381"]
     W = spec.fq.nwords
+    latency_us = product_latency_us(spec, device)
+    emit({"phase": "product_latency", "curve": "bls12_381", "W": W, "us": latency_us})
     timing = {}
     for key, name, kern, plain, shape in kernel_cases(spec, 512, 16384, 2, device, main=True):
         reps = 3 if shape.get("C", 0) >= 256 else 20
@@ -529,6 +582,8 @@ def phase_parity(imad_rate: float, device):
         timing[key] = {"shape": shape, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
                        "bound_by": bound_by, "max_abs_err": e,
                        "threads_per_lane": threads_per_lane(name)}
+        if name in ("dbl_n", "fold_horner"):
+            timing[key]["chain_bound_ms"] = chain_bound_ms(name, shape, latency_us)
         del want
         torch.cuda.empty_cache()
     emit({"phase": "parity", "curve": "bls12_381", "shape": "main path", "kernels": timing})
@@ -586,12 +641,8 @@ def phase_main_path(seed: int):
     from blaze_tpu_torch import _build
 
     launches = {}
-    for phase, run, needs in [
-        ("streamed", lambda: run_streamed(1 << 20, 4, seed),
-         ("mont_mul", "scan_mixed", "ec_add", "reduce_cols", "dbl_n")),
-        ("single_chunk", lambda: run_single(1 << 19, seed + 1),
-         ("mont_mul", "scan_mixed", "ec_add", "reduce_cols", "dbl_n", "fold_horner")),
-    ]:
+    for phase, run in [("streamed", lambda: run_streamed(1 << 20, 4, seed)),
+                       ("single_chunk", lambda: run_single(1 << 19, seed + 1))]:
         _build.reset_launches()
         ok, info = run()
         counts = dict(_build.LAUNCHES)
@@ -599,7 +650,7 @@ def phase_main_path(seed: int):
               "launches": counts})
         if not ok:
             raise AssertionError(f"{phase}: result differs from the oracle")
-        check_launches(phase, counts, needs)
+        check_msm_launches(phase, counts)
         for k, v in counts.items():
             launches[k] = launches.get(k, 0) + v
     return launches
@@ -608,7 +659,7 @@ def phase_main_path(seed: int):
 def run_resident(n: int, seed: int, device=None, inputs: Path | None = None):
     """The headline shape (bench.py:10, bls12_381_msm_2^24): set_data once
     with every point and scalar, start_process -> wait_result -> result(),
-    n / 2^19 chunks on the card and the window fold on the Field.  The
+    n / 2^19 chunks on the card and the window fold (`finalize`, timed).  The
     instance is tiled_instance(n, seed), or the one save_instance wrote to
     `inputs`.  Returns (ok, info)."""
     import torch
@@ -650,7 +701,7 @@ def run_resident(n: int, seed: int, device=None, inputs: Path | None = None):
     ok = affine_of(raw, spec) == expected
     return ok, {"n": n, "chunks": -(-n // (1 << client.engine.config.chunk_log2)),
                 "input_gen_s": gen_s, "set_data_s": t1 - t0, "start_to_wait_s": t2 - t1,
-                "points_per_s": n / (t2 - t1), "field_fold_s": fold.get("s"),
+                "points_per_s": n / (t2 - t1), "fold_s": fold.get("s"),
                 "chunks_queued_s": fold["enqueued"] - t1, "chunks_done_s": fold["done"] - t1,
                 "result_sha256": hashlib.sha256(raw).hexdigest()}
 
@@ -699,7 +750,14 @@ def profile_single_chunk(seed: int, n: int = 1 << 19) -> dict:
     return info
 
 
-MSM_2E24_NEEDS = ("mont_mul", "scan_mixed", "ec_add", "reduce_cols", "dbl_n")
+MSM_NEEDS = ("mont_mul", "scan_mixed", "ec_add", "reduce_cols", "dbl_n", "fold_horner")
+
+
+def check_msm_launches(phase: str, counts: dict) -> None:
+    """Every MSM kernel launched, and K6 exactly once: one fold per MSM."""
+    check_launches(phase, counts, MSM_NEEDS)
+    if counts["fold_horner"] != 1:
+        raise AssertionError(f"{phase}: {counts['fold_horner']} K6 launches, want 1")
 
 
 def phase_msm_2e24(seed: int, n: int = 1 << 24) -> dict:
@@ -714,7 +772,7 @@ def phase_msm_2e24(seed: int, n: int = 1 << 24) -> dict:
           "launches": counts})
     if not ok:
         raise AssertionError("msm 2^24: result differs from the oracle")
-    check_launches("msm_2^24", counts, MSM_2E24_NEEDS)
+    check_msm_launches("msm_2^24", counts)
     chunks = info["chunks"]
     if counts["scan_mixed"] != chunks or counts["reduce_cols"] != 5 * chunks:
         raise AssertionError(f"msm 2^24: {counts['scan_mixed']} K2 and "
@@ -796,9 +854,12 @@ def phase_msm_2e24_compare(parent: Path, seed: int, n: int = 1 << 24) -> dict:
         shutil.rmtree(inputs, ignore_errors=True)
     if len({line["result_sha256"] for _, line in runs}) != 1:
         raise AssertionError("msm 2^24: parent and change give different result bytes")
+    # a parent tree whose fold ran on the Field names its time field_fold_s
+    for _, line in runs:
+        line.setdefault("fold_s", line.get("field_fold_s"))
     summary = {side: {key: [line[key] for s, line in runs if s == side]
                       for key in ("points_per_s", "start_to_wait_s", "set_data_s",
-                                  "chunks_done_s", "field_fold_s")}
+                                  "chunks_done_s", "fold_s")}
                for side in ("parent", "change")}
     emit({"phase": "msm_2^24_compare_summary", "order": [s for s, _ in runs], **summary})
     return summary
@@ -1029,7 +1090,7 @@ def run_ntt_client(client, vec, buf: int = 0):
     from blaze_tpu_torch.runtime import NTTInput
 
     t0 = time.perf_counter()
-    client.set_data(NTTInput(data=vec, buf_host=buf))
+    client.set_data(NTTInput(data=memoryview(vec).cast("B"), buf_host=buf))
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     client.start_process(buf)
@@ -1084,7 +1145,7 @@ def phase_ntt_2e27(seed: int, logn: int = 27) -> dict:
         if i >= 2:
             outs[i - 2] = fwd.result(host)
         if i <= 2:
-            fwd.set_data(NTTInput(data=vecs[i], buf_host=host))
+            fwd.set_data(NTTInput(data=memoryview(vecs[i]).cast("B"), buf_host=host))
             vecs[i] = None
         if 1 <= i <= 3:
             fwd.wait_result(kern)
@@ -1285,12 +1346,19 @@ def poseidon_main_timing(imad_rate: float, seed: int, device):
     return timing
 
 
+# (field, t) beyond the tree's: the 12-word base fields, and t = 17, the
+# last entry of the reference's round table (blaze_tpu/hash/params.py)
+WIDE_POSEIDON = (("bls12_381_fq", 3), ("bls12_377_fq", 3), ("bn254_fr", 17),
+                 ("bls12_381_fq", 17))
+
+
 def phase_poseidon_parity(imad_rate: float, seed: int, device):
     """K10 against its plain version, exact, on the three scalar fields (t =
     9 and 12, with and without convert_in, B = 1 and 1000; the sparse
     schedule, and on bls12_381_fr also the dense rounds of an
     instance whose MDS has a singular lower-right block), the multi-p REDC
-    twin against the plain redc_sum on edge inputs, then the main shapes."""
+    twin against the plain redc_sum on edge inputs; then the WIDE_POSEIDON
+    instances (B = 1 and 300) and their REDC twin; then the main shapes."""
     import torch
 
     from blaze_tpu_torch.fields import FIELDS
@@ -1325,6 +1393,28 @@ def phase_poseidon_parity(imad_rate: float, seed: int, device):
         if not any(c.get("sparse") for c in checked):
             raise AssertionError(f"{field}: no instance took the sparse schedule")
         err = max([err] + [c["max_abs_err"] for c in checked if c["kernel"] == "poseidon_perm"])
+    checked = []
+    for field, t in WIDE_POSEIDON:
+        spec = FIELDS[field]
+        k = PoseidonKernels.for_params(generate_params(spec, t))
+        for B in (1, 300):
+            x = near_p_states(spec, t, B, seed + t + B, device)
+            for conv in (False, True):
+                e = max_abs_err(k.permute_lm(x, convert_in=conv),
+                                k.permute_lm_plain(x, convert_in=conv))
+                checked.append({"kernel": "poseidon_perm", "field": field, "W": spec.nwords,
+                                "t": t, "B": B, "convert_in": conv, "sparse": k.sparse,
+                                "max_abs_err": e})
+        a, c = redc_edge_inputs(spec, t, seed + t, device)
+        e = max_abs_err(sum_products(spec, a, c), sum_products_plain(spec, a, c))
+        checked.append({"kernel": "redc_sum", "field": field, "W": spec.nwords, "t": t,
+                        "B": a.shape[2], "max_abs_err": e})
+    torch.cuda.synchronize()
+    emit({"phase": "poseidon_parity", "shape": "12-word fields and t = 17", "cases": checked})
+    if any(c["max_abs_err"] for c in checked):
+        raise AssertionError("K10 or the REDC twin differs from its plain version at W = 12 "
+                             "or t = 17")
+    err = max([err] + [c["max_abs_err"] for c in checked if c["kernel"] == "poseidon_perm"])
     timing = poseidon_main_timing(imad_rate, seed, device)
     emit({"phase": "poseidon_parity", "field": POSEIDON_FIELD,
           "shape": "main path (height 9)", "kernels": timing})
@@ -1642,7 +1732,9 @@ def main() -> int:
          "launches": launches[name], "max_abs_err": errs[name],
          "ms": timing[name]["ms"], "plain_ms": timing[name]["plain_ms"],
          "bound_ms": timing[name]["bound_ms"], "bound_by": timing[name]["bound_by"],
-         "library_ms": None, "threads_per_lane": threads_per_lane(name)}
+         "library_ms": None, "threads_per_lane": threads_per_lane(name),
+         **({"chain_bound_ms": timing[name]["chain_bound_ms"]}
+            if "chain_bound_ms" in timing[name] else {})}
         for name, (src, rep) in KERNELS.items()
     ]})
     print(card, flush=True)

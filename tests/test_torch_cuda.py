@@ -3,8 +3,9 @@
     python -m pytest -m cuda tests/test_torch_cuda.py
 
 K1-K6 against their plain PyTorch versions on the same device inputs,
-exact, on all three curves (K2 and K4 also at ragged lane counts), and K7-K10 (with the multi-p REDC twin) on the
-three scalar fields; the MSM client on the card against the oracle with
+exact, on all three curves (K2, K4 and K5 also at ragged lane counts, K6 at
+ragged window counts), and K7-K10 (with the multi-p REDC twin) on the three
+scalar fields, K10 also over the 12-word base fields and at t = 17; the MSM client on the card against the oracle with
 distinct scalars; the NTT client on the card against every committed golden
 pair, and at 2^16 (the K8 twiddle fallback) against a host NTT in Python
 ints with an inverse roundtrip; the Poseidon client at height 3, staged,
@@ -120,6 +121,33 @@ def test_team_kernels_match_plain_at_ragged_shapes(dev, name, B):
     for C in (1, 4):
         x = em[:C].contiguous()
         assert torch.equal(k.reduce_cols(x), k.reduce_cols_plain(x)), C
+
+
+@pytest.mark.parametrize("name", sorted(CURVES))
+def test_fold_and_doublings_match_plain_at_ragged_shapes(dev, name):
+    """K5 at B = 1, 33, 1000 (k 15 and 16) and K6 at Wn = 1, 2, 16, 20 (and
+    128 on the 12-word curves, past 48 KB of shared memory), identity
+    points among the inputs, exact."""
+    spec = CURVES[name]
+    cv, k = Curve(spec), ECKernels.for_curve(spec)
+    oracle = ECOracle(spec)
+    rng = random.Random(6)
+    pts = [oracle.random_point(rng) for _ in range(2 * 1000)]
+    aff = torch.stack([cv.fq.from_int([x for x, _ in pts], device=dev),
+                       cv.fq.from_int([y for _, y in pts], device=dev)], dim=1)
+    rows = aff.reshape(2, 1000, -1).permute(0, 2, 1).contiguous()
+    lazy = k.scan_mixed(rows)[0][1]                               # (3W, 1000)
+    lazy[:, 1::7] = cv.identity(device=dev).reshape(-1, 1)
+    for B in (1, 33, 1000):
+        x = lazy[:, :B].contiguous()
+        for kd in (15, 16):
+            assert torch.equal(k.dbl_n(x, kd), k.dbl_n_plain(x, kd)), (B, kd)
+    shapes = [(1, 13), (2, 13), (16, 16), (20, 13)]
+    if spec.fq.nwords == 12:
+        shapes.append((128, 2))
+    for Wn, c in shapes:
+        ws = lazy[:, 40:40 + Wn].contiguous()
+        assert torch.equal(k.fold_horner(ws, c), k.fold_horner_plain(ws, c)), (Wn, c)
 
 
 def test_client_on_card_matches_oracle(dev):
@@ -246,6 +274,24 @@ def test_poseidon_kernel_matches_plain_version(dev, field):
         a, c = canonical(spec, (t, W, 64), 2 * t, dev), canonical(spec, (t, W, 64), 3 * t, dev)
         a[:, :, 0] = c[:, :, 0] = pm1                    # T = t (p-1)^2
         assert torch.equal(sum_products(spec, a, c), sum_products_plain(spec, a, c))
+
+
+@pytest.mark.parametrize("field,t", [("bls12_381_fq", 3), ("bls12_377_fq", 5),
+                                     ("bn254_fr", 17), ("bls12_381_fq", 17)])
+def test_poseidon_kernel_at_12_words_and_t17(dev, field, t):
+    """K10 and the multi-p REDC twin over the 12-word base fields and at
+    t = 17, the widest state of the reference's round table."""
+    spec = FIELDS[field]
+    W = spec.nwords
+    pm1 = torch.from_numpy(int_to_words(spec.p - 1, W).view(np.int32)).to(dev)
+    k = PoseidonKernels.for_params(generate_params(spec, t))
+    x = canonical(spec, (t, W, 300), t, dev)
+    x[:, :, 0] = pm1
+    for conv in (False, True):
+        assert torch.equal(k.permute_lm(x, convert_in=conv), k.permute_lm_plain(x, conv)), conv
+    a, c = canonical(spec, (t, W, 64), 2 * t, dev), canonical(spec, (t, W, 64), 3 * t, dev)
+    a[:, :, 0] = c[:, :, 0] = pm1
+    assert torch.equal(sum_products(spec, a, c), sum_products_plain(spec, a, c))
 
 
 def test_poseidon_client_on_card_matches_oracle(dev):

@@ -1,12 +1,14 @@
-"""The team schedule of K2 and K4 (blaze_tpu_torch/csrc/ec_team.cuh) run on
-the host: the header built with g++, where each PTX carry instruction is
-emulated, and each team member's tasks of each step run role by role, the
-steps in the kernels' order and the members first to last and last to
-first (a task that read another member's output of the same step, a race
-on the card, gives a different result in one of the two).  Its outputs must equal the plain versions of K2 and
-K4 (held limb for limb against blaze_tpu's Pallas kernels in
-tests/test_torch_curves.py) and its product, add and sub the plain lazy
-field ops, on the three curves.  Skipped without g++.
+"""The team schedule of K2, K4, K5 and K6 (blaze_tpu_torch/csrc/ec_team.cuh)
+run on the host: the header built with g++, where each PTX carry
+instruction is emulated, and each team member's tasks of each step run role
+by role, the steps in the kernels' order and the members first to last and
+last to first (a task that read another member's output of the same step, a
+race on the card, gives a different result in one of the two).  Its outputs
+must equal the plain versions of K2, K4, K5 and K6 (held limb for limb
+against blaze_tpu's Pallas kernels in tests/test_torch_curves.py) and its
+product, add and sub the plain lazy field ops, on the three curves.  K6's
+driver stages the next window's coordinates in the same step as OUT_4, as
+the kernel does.  Skipped without g++.
 """
 import ctypes
 import random
@@ -115,6 +117,58 @@ void reduce(const uint32_t* consts, const uint32_t* rows, uint32_t* tot, int C, 
   }
 }
 
+// k doublings of each of B lanes (3W, B), DBL_1 each.
+template <int W>
+void dbl(const uint32_t* consts, const uint32_t* p, uint32_t* o, int k, int64_t B, int rev) {
+  const auto fc = blz::load_consts<W>(consts);
+  uint4 mem[tm::kSlots * W / 4];
+  const tm::Slots<W, 1> sl{mem};
+  for (int64_t b = 0; b < B; ++b) {
+    for (int c = 0; c < 3; ++c) {
+      uint32_t v[W];
+      for (int w = 0; w < W; ++w) v[w] = p[(c * W + w) * B + b];
+      sl.store(tm::X1 + c, v);
+    }
+    sl.store(tm::B3, fc.b3);
+    for (int s = 0; s < k; ++s) group_op<tm::DBL_1, tm::FULL_2, W>(sl, fc, rev);
+    put<W>(o + b, sl, B);
+  }
+}
+
+// K6's schedule on (3W, Wn) window sums -> (3W,): step s adds window
+// Wn - 2 - s / (c + 1) when s % (c + 1) == c and doubles otherwise; member
+// k < 3 stages coordinate k of the next step's window right after its
+// tasks of OUT_4.
+template <int W>
+void fold(const uint32_t* consts, const uint32_t* ws, uint32_t* o, int c, int Wn, int rev) {
+  const auto fc = blz::load_consts<W>(consts);
+  uint4 mem[tm::kSlots * W / 4];
+  const tm::Slots<W, 1> sl{mem};
+  auto put_window = [&](int slot, int m, int w) {
+    uint32_t v[W];
+    for (int i = 0; i < W; ++i) v[i] = ws[(m * W + i) * Wn + w];
+    sl.store(slot + m, v);
+  };
+  const int steps = (Wn - 1) * (c + 1) > 1 ? (Wn - 1) * (c + 1) : 1;
+  for (int m = 0; m < 3; ++m) put_window(tm::X1, m, Wn - 1);
+  if (c == 0)
+    for (int m = 0; m < 3; ++m) put_window(tm::X2, m, Wn - 2);
+  sl.store(tm::B3, fc.b3);
+  for (int s = 0; s < steps; ++s) {
+    if (s % (c + 1) == c) step<tm::FULL_1, W>(sl, fc, rev);
+    else step<tm::DBL_1, W>(sl, fc, rev);
+    step<tm::FULL_2, W>(sl, fc, rev);
+    step<tm::OUT_3, W>(sl, fc, rev);
+    const int n = s + 1;
+    for (int i = 0; i < tm::kTeam; ++i) {
+      const int m = rev ? tm::kTeam - 1 - i : i;
+      tm::run_step<tm::OUT_4, W>(m, sl, fc);
+      if (m < 3 && n < steps && n % (c + 1) == c) put_window(tm::X2, m, Wn - 2 - n / (c + 1));
+    }
+  }
+  put<W>(o, sl, 1);
+}
+
 // r = a op b for n elements (op 0 product, 1 add, 2 sub), the team's own
 // field functions.
 template <int W>
@@ -140,6 +194,18 @@ extern "C" void team_reduce(int W, const uint32_t* k, const uint32_t* rows, uint
   else reduce<12>(k, rows, t, C, B, rev);
 }
 
+extern "C" void team_dbl(int W, const uint32_t* k, const uint32_t* p, uint32_t* o, int n,
+                         int64_t B, int rev) {
+  if (W == 8) dbl<8>(k, p, o, n, B, rev);
+  else dbl<12>(k, p, o, n, B, rev);
+}
+
+extern "C" void team_fold(int W, const uint32_t* k, const uint32_t* ws, uint32_t* o, int c,
+                          int Wn, int rev) {
+  if (W == 8) fold<8>(k, ws, o, c, Wn, rev);
+  else fold<12>(k, ws, o, c, Wn, rev);
+}
+
 extern "C" void team_field(int W, const uint32_t* k, int op, const uint32_t* a,
                            const uint32_t* b, uint32_t* r, int64_t n) {
   if (W == 8) field<8>(k, op, a, b, r, n);
@@ -163,6 +229,8 @@ def lib(tmp_path_factory):
     lib.team_scan.argtypes = [i, p, i, p, p, p, i, ctypes.c_int64, i]
     lib.team_reduce.argtypes = [i, p, p, p, i, ctypes.c_int64, i]
     lib.team_field.argtypes = [i, p, i, p, p, p, ctypes.c_int64]
+    lib.team_dbl.argtypes = [i, p, p, p, i, ctypes.c_int64, i]
+    lib.team_fold.argtypes = [i, p, p, p, i, i, i]
     return lib
 
 
@@ -219,6 +287,45 @@ def test_team_reduce_matches_plain(lib, name, rev):
     tot = torch.empty((3 * k.W, 3), dtype=torch.int32)
     lib.team_reduce(k.W, ptr(k._consts), ptr(pts), ptr(tot), 4, 3, rev)
     assert torch.equal(tot, k.reduce_cols_plain(pts))
+
+
+def lazy_points(name: str, n: int, seed: int):
+    """(3W, n) lazy projective points (scan prefixes, values in [p, 2p) too),
+    the identity at column 1 when n > 2."""
+    k = ECKernels.for_curve(CURVES[name])
+    rows, _ = affine_rows(name, n, 1, seed)
+    pts = k.scan_mixed_plain(rows)[0][:, :, 0].t().contiguous()     # (3W, n)
+    if n > 2:
+        pts[:, 1] = Curve(CURVES[name]).identity().reshape(-1)
+    return pts
+
+
+@pytest.mark.parametrize("k_dbl", [1, 16])
+@pytest.mark.parametrize("name", sorted(CURVES))
+def test_team_dbl_n_matches_plain(lib, name, k_dbl):
+    """K5's schedule: k self-adds of each lane, an identity lane included."""
+    k = ECKernels.for_curve(CURVES[name])
+    pts = lazy_points(name, 5, seed=21)
+    want = k.dbl_n_plain(pts, k_dbl)
+    for rev in (0, 1):
+        out = torch.empty_like(pts)
+        lib.team_dbl(k.W, ptr(k._consts), ptr(pts), ptr(out), k_dbl, pts.shape[1], rev)
+        assert torch.equal(out, want), rev
+
+
+@pytest.mark.parametrize("Wn,c", [(1, 16), (2, 16), (2, 13), (20, 13)])
+@pytest.mark.parametrize("name", sorted(CURVES))
+def test_team_fold_horner_matches_plain(lib, name, Wn, c):
+    """K6's schedule against fold_horner_plain: one window (a single
+    doubling, as the TPU kernel's grid of one step), two, and the MSM's 20
+    windows of c = 13, with an identity window among them."""
+    k = ECKernels.for_curve(CURVES[name])
+    ws = lazy_points(name, Wn, seed=Wn + c)
+    want = k.fold_horner_plain(ws, c)
+    for rev in (0, 1):
+        out = torch.empty(3 * k.W, dtype=torch.int32)
+        lib.team_fold(k.W, ptr(k._consts), ptr(ws), ptr(out), c, Wn, rev)
+        assert torch.equal(out, want), rev
 
 
 @pytest.mark.parametrize("name", sorted(CURVES))

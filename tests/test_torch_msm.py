@@ -141,8 +141,8 @@ def test_full_width_scalars_match_oracle(name, c, signed):
 
 
 def test_chunked_accumulate_and_finalize_match_oracle():
-    """Three chunks: per-chunk window sums accumulated and folded on the
-    Field (the streamed client's path)."""
+    """Three chunks: per-chunk window sums accumulated (K3) and folded
+    (K6), the streamed client's path."""
     spec = CURVES["bn254"]
     cv = Curve(spec)
     points, scalars, expected, _ = random_msm_instance(spec, 40, seed=6)
@@ -195,3 +195,52 @@ def test_class_sum_oracle_needs_subgroup_points():
         assert affine(cv, out) == oracle.msm(pts, scalars)
         assert (class_sum_expected(spec, upoints, scalars)
                 == oracle.msm(pts, scalars)) == class_sum_holds
+
+
+def window_sums(spec, nwin: int, seed: int, identities: bool) -> torch.Tensor:
+    """(nwin, 3, W) canonical projective Montgomery window sums: oracle
+    points at a random scale (X, Y, Z) = (lx, ly, l); with `identities`,
+    windows 0, 2 and nwin - 2 are the identity (0 : 1 : 0)."""
+    cv = Curve(spec)
+    p = spec.fq.p
+    rng = random.Random(seed)
+    oracle = ECOracle(spec)
+    rows = []
+    for _ in range(nwin):
+        x, y = oracle.random_point(rng)
+        lam = rng.randrange(1, p)
+        rows.append([x * lam % p, y * lam % p, lam])
+    if identities:
+        for w in (0, 2, nwin - 2):
+            rows[w] = [0, 1, 0]
+    return cv.fq.from_int([v for r in rows for v in r]).reshape(nwin, 3, -1)
+
+
+@pytest.mark.parametrize("c", [13, 16])
+@pytest.mark.parametrize("name", sorted(CURVES))
+def test_finalize_on_k6_matches_field_fold(name, c):
+    """`finalize` (K6: alg 7 doublings on the lazy words, canonicalized) gives
+    the same projective words as the Field's Horner fold (alg 9
+    doublings), at the MSM's window counts for c = 13 and 16, with random
+    and with identity windows."""
+    spec = CURVES[name]
+    msm = MSM(Curve(spec))
+    nwin = -(-spec.fr.bits // c)
+    for identities in (False, True):
+        ws = window_sums(spec, nwin, seed=c + identities, identities=identities)
+        assert torch.equal(msm.finalize(ws, c), msm.fold_windows(ws, c)), identities
+
+
+@pytest.mark.parametrize("name", sorted(CURVES))
+def test_accumulate_on_k3_matches_curve_add(name):
+    """`accumulate` (K3 on the lanes-major window sums, canonicalized) gives
+    the Field's Curve.add words, identity windows on either side included."""
+    spec = CURVES[name]
+    cv, msm = Curve(spec), MSM(Curve(spec))
+    a = window_sums(spec, 16, seed=1, identities=True)
+    b = window_sums(spec, 16, seed=2, identities=False)
+    b[5] = a[2]                                   # identity + identity
+    b[7] = a[7]                                   # a doubling
+    for x, y in ((a, b), (b, a)):
+        assert torch.equal(msm.accumulate(x, y), cv.add(x, y))
+    assert msm.accumulate(None, a) is a

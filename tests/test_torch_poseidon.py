@@ -220,8 +220,28 @@ def test_k10_rejects_what_it_cannot_take():
             k.permute_lm(bad)
     with pytest.raises(ValueError):
         PoseidonKernels(generate_params(SPEC, 9, alpha=3))
+
+
+@pytest.mark.parametrize("field,t", [("bls12_381_fq", 3), ("bn254_fr", 17)])
+def test_other_widths_match_portable_poseidon(field, t):
+    """A 12-word field and t = 17 (the last entry of the reference's round
+    table) against blaze_tpu's portable Poseidon, word for word; alpha = 3
+    raises ValueError, since blaze_tpu's S-box computes x^5 whatever alpha
+    says, so there are no reference words for it."""
+    spec, ref = FIELDS[field], ref_generate_params(REF_FIELDS[field], t)
+    rng = random.Random(t)
+    states = [[spec.p - 1] * t] + [[rng.randrange(spec.p) for _ in range(t)]
+                                   for _ in range(2)]
+    w = np.stack([np.stack([int_to_words(v * spec.r % spec.p, spec.nwords) for v in s])
+                  for s in states])                              # (B, t, W)
+    want = RefPoseidon(ref).permute(jnp.asarray(w.view("<u2").astype(np.uint32)))
+    got = Poseidon(port_params(ref)).permute(torch.from_numpy(w.view(np.int32)))
+    assert np.array_equal(got.numpy().view(np.uint32), words_of_limbs(want))
+    rinv = pow(spec.r, -1, spec.p)
+    assert [[words_to_int(e) * rinv % spec.p for e in s] for s in got.numpy().view(np.uint32)] \
+        == [poseidon_permutation_ref(ref, s) for s in states]
     with pytest.raises(ValueError):
-        PoseidonKernels(generate_params(FIELDS["bls12_381_fq"], 3))
+        Poseidon(generate_params(spec, t, alpha=3))
 
 
 def test_hash_matches_reference():

@@ -17,18 +17,21 @@ import threading
 import time
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
 from blaze_tpu.runtime import MSMClient as RefMSMClient, MSMInit as RefMSMInit
 from blaze_tpu.runtime import MSMInput as RefMSMInput, MSMParams as RefMSMParams
+from blaze_tpu.runtime import NTTClient as RefNTTClient, NTTInit as RefNTTInit
+from blaze_tpu.runtime import NTTInput as RefNTTInput
 from blaze_tpu_torch.curves import (
     CURVES,
     decode_projective_result,
     encode_affine_points,
     encode_scalars,
 )
-from blaze_tpu_torch.fields import words_to_int
+from blaze_tpu_torch.fields import FIELDS, int_to_words, words_to_int
 from blaze_tpu_torch.msm import MSMConfig
 from blaze_tpu_torch.oracle import ECOracle, random_msm_instance
 from blaze_tpu_torch.oracle.gen import points_to_affine_words
@@ -38,8 +41,11 @@ from blaze_tpu_torch.runtime import (
     MSMInit,
     MSMInput,
     MSMParams,
+    NTTClient,
+    NTTInit,
+    NTTInput,
 )
-from blaze_tpu_torch.utils import DeviceError, InvalidPrimitiveParam, NotReady
+from blaze_tpu_torch.utils import DataError, DeviceError, InvalidPrimitiveParam, NotReady
 
 # One intra-op thread: the plain versions run many tiny ops, on which
 # torch's OpenMP workers only spin, and the suite runs several
@@ -183,6 +189,82 @@ def test_error_paths():
         client.set_data(MSMInput(scalars=sraw[: spec.scalar_bytes],
                                  points=praw[: spec.point_bytes]))  # overflow
     assert client.result() is not None
+
+
+def limbs_of(words: np.ndarray) -> np.ndarray:
+    """(..., W) uint32 words -> the reference's (..., 2W) uint32 16-bit limbs."""
+    return np.ascontiguousarray(words, dtype="<u4").view("<u2").astype(np.uint32)
+
+
+def test_msm_client_takes_the_reference_array_form():
+    """MSMInput.points as blaze_tpu takes them, (N, 2, L) 16-bit limbs: the
+    same result bytes as the wire form, and the same point as blaze_tpu's
+    client on the same arrays (its CPU path is another algorithm, so its
+    projective representative differs: compared affine).  Any other
+    shape, or a limb of 16 bits, raises DataError."""
+    spec = CURVES[CURVE]
+    points, scalars, expected, _ = random_msm_instance(spec, N, 50)
+    limbs = limbs_of(points)
+    assert limbs.shape == (N, 2, spec.fq.nlimbs)
+
+    def run(scal, pts):
+        client = cpu_client()
+        client.initialize(MSMParams(nof_elements=N))
+        client.set_data(MSMInput(scalars=scal, points=pts))
+        client.start_process()
+        return client.result().result
+
+    got = run(scalars, limbs)
+    assert got == run(encode_scalars(scalars, spec), encode_affine_points(points, spec))
+    assert affine(got) == expected
+    ref = RefMSMClient(RefMSMInit(curve="BN254", mem_type="dma"))
+    ref.initialize(RefMSMParams(nof_elements=N))
+    ref.set_data(RefMSMInput(scalars=scalars, points=limbs))
+    ref.start_process()
+    assert affine(ref.result().result) == affine(got)
+
+    client = cpu_client()
+    client.initialize(MSMParams(nof_elements=N))
+    over = limbs.copy()
+    over[3, 1, 5] = 1 << 16
+    for scal, pts in ((scalars, limbs[:, :, :5]), (scalars, limbs.reshape(N, -1)),
+                      (scalars, limbs[None]), (scalars, over), (scalars[:, :3], limbs)):
+        with pytest.raises(DataError):
+            client.set_data(MSMInput(scalars=scal, points=pts))
+
+
+def test_ntt_client_takes_the_reference_array_form():
+    """NTTInput.data as blaze_tpu takes it, (n, L) 16-bit limbs: the same
+    result bytes as blaze_tpu's client and as the port's wire form; any
+    other shape, or a limb of 16 bits, raises DataError."""
+    field, logn = "bn254_fr", 6
+    spec = FIELDS[field]
+    rng = np.random.default_rng(60)
+    vals = [int(v) % spec.p for v in rng.integers(0, 1 << 62, size=1 << logn)]
+    words = np.stack([int_to_words(v * (1 << 190) % spec.p, spec.nwords) for v in vals])
+    limbs = limbs_of(words)
+
+    def run(data):
+        client = NTTClient(NTTInit(field=field, logn=logn), device="cpu")
+        client.set_data(NTTInput(data=data))
+        client.start_process()
+        client.wait_result()
+        return client.result()
+
+    got = run(limbs)
+    assert got == run(words.tobytes())
+    ref = RefNTTClient(RefNTTInit(field=field, logn=logn))
+    ref.set_data(RefNTTInput(data=limbs))
+    ref.start_process()
+    ref.wait_result()
+    assert got == ref.result()
+
+    client = NTTClient(NTTInit(field=field, logn=logn), device="cpu")
+    over = limbs.copy()
+    over[7, 2] = 1 << 16
+    for bad in (limbs[:, :5], limbs[:, :, None], limbs.reshape(-1), over):
+        with pytest.raises(DataError):
+            client.set_data(NTTInput(data=bad))
 
 
 def test_streamed_chunk_is_split_by_chunk_log2():
