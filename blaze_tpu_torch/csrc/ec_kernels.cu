@@ -44,10 +44,13 @@
 // (255 at Wn 16, c 16).  Neither can fill the card, so what bounds them is
 // the chain: 3 dependent products per group op on the team (a doubling
 // is the complete add of the point with itself, DBL_1), each a serial
-// carry chain, against 14 on one thread, where they ran at 51.5 us per
+// carry chain, against 14 on one thread, where they ran at ~51 us per
 // group op with ec.cuh's called group op.  The chain bound is the
 // products on the critical path times one product's latency
-// (blz_product_chain).  K6 stages the window sums in shared memory once.
+// (blz_product_chain: 1.24 us at W = 12 on an H100).  There K6 takes 1.98
+// ms at (Wn 16, c 16), 2.1 times its chain bound (one thread: 12.9 ms),
+// and K5 0.123 ms at (B 16, k 16) (one thread: 0.80 ms); the shared-memory
+// operands, the lazy adds and the barriers between steps take the rest.
 #include <cuda_runtime.h>
 
 #include <cstring>
@@ -91,9 +94,9 @@ constexpr int team_smem_bytes() {
 
 // The running point's coordinates go out by the member that computed them
 // in step 4 (coordinate k by member k: its own writes, no barrier).
-template <int W, int kLanes = kTeamLanes>
+template <int W>
 __device__ __forceinline__ void store_coords(uint32_t* dst, int member,
-                                             const blz::team::Slots<W, kLanes>& sl,
+                                             const blz::team::Slots<W, kTeamLanes>& sl,
                                              bool live, int64_t B) {
   if (member < 3) {
     uint32_t v[W];
@@ -240,24 +243,24 @@ reduce_cols_kernel(const uint32_t* __restrict__ rows, uint32_t* __restrict__ tot
 // One team's group op: step kFirst (FULL_1 adds X2..Z2, DBL_1 doubles),
 // then alg 7's FULL_2, OUT_3 and OUT_4, a barrier after each but the last
 // (the caller's, so that it can stage the next operand before it).
-template <int kFirst, int W, int kLanes, int kT>
+template <int kFirst, int W>
 __device__ __forceinline__ void team_add_full(int member,
-                                              const blz::team::Slots<W, kLanes>& sl,
+                                              const blz::team::Slots<W, kTeamLanes>& sl,
                                               const blz::FieldConsts<W>& fc) {
   namespace tm = blz::team;
-  tm::run_step<kFirst, W, kLanes, kT>(member, sl, fc);
+  tm::run_step<kFirst, W>(member, sl, fc);
   __syncthreads();
-  tm::run_step<tm::FULL_2, W, kLanes, kT>(member, sl, fc);
+  tm::run_step<tm::FULL_2, W>(member, sl, fc);
   __syncthreads();
-  tm::run_step<tm::OUT_3, W, kLanes, kT>(member, sl, fc);
+  tm::run_step<tm::OUT_3, W>(member, sl, fc);
   __syncthreads();
-  tm::run_step<tm::OUT_4, W, kLanes, kT>(member, sl, fc);
+  tm::run_step<tm::OUT_4, W>(member, sl, fc);
 }
 
 // (3W, B) -> (3W, B): k doublings per lane, each the complete add of the
 // point with itself.  Member k < 3 loads and stores coordinate k.
-template <int W, int kT>
-__global__ void __launch_bounds__(kTeamLanes * kT)
+template <int W>
+__global__ void __launch_bounds__(kTeamLanes * kTeam)
 dbl_n_kernel(const uint32_t* __restrict__ p, uint32_t* __restrict__ o, int k, int64_t B,
              blz::FieldConsts<W> fc) {
   namespace tm = blz::team;
@@ -276,7 +279,7 @@ dbl_n_kernel(const uint32_t* __restrict__ p, uint32_t* __restrict__ o, int k, in
   if (member == 0) sl.store(tm::B3, fc.b3);
   __syncthreads();
   for (int s = 0; s < k; ++s) {
-    team_add_full<tm::DBL_1, W, kTeamLanes, kT>(member, sl, fc);
+    team_add_full<tm::DBL_1, W>(member, sl, fc);
     __syncthreads();
   }
   store_coords<W>(o + lane, member, sl, live, B);
@@ -285,21 +288,23 @@ dbl_n_kernel(const uint32_t* __restrict__ p, uint32_t* __restrict__ o, int k, in
 // ws (3W, Wn) window sums -> o (3W, 1): sum_w 2^(c w) ws[:, w], in the step
 // order of kernels.py:_fold_fn (step s: r = s / (c+1), pos = s % (c+1);
 // pos == c adds window Wn-2-r, else doubles), at least one step.  One lane,
-// one team: kLanes copies of it run side by side (one warp per member when
-// kLanes = 32) and the first stores the sum.  The window sums are staged in
-// shared memory once; member k < 3 puts coordinate k of the next window
-// into X2..Z2 during the last step of the group op before its add.
-template <int W, int kLanes, int kT>
-__global__ void __launch_bounds__(kLanes * kT)
+// one team, one warp per member: the 32 threads of a warp run 32 copies of
+// the lane (as fast as one) and lane 0 stores the sum.  On the H100 this
+// beat the team of 6 in one warp (its members diverge in step 2) and a
+// team of 3 (PERF.md).  The window sums are staged in shared memory once;
+// member k < 3 puts coordinate k of the next window into X2..Z2 during the
+// last step of the group op before its add.
+template <int W>
+__global__ void __launch_bounds__(kTeamLanes * kTeam)
 fold_horner_kernel(const uint32_t* __restrict__ ws, uint32_t* __restrict__ o, int c, int Wn,
                    blz::FieldConsts<W> fc) {
   namespace tm = blz::team;
   extern __shared__ uint4 team_smem[];
-  const int member = threadIdx.x / kLanes;
-  const int l = threadIdx.x % kLanes;
-  const tm::Slots<W, kLanes> sl{team_smem + l};
-  uint32_t* win = (uint32_t*)(team_smem + tm::kSlots * (W / 4) * kLanes);   // (Wn, 3W)
-  for (int i = threadIdx.x; i < 3 * W * Wn; i += kLanes * kT)
+  const int member = threadIdx.x / kTeamLanes;
+  const int l = threadIdx.x % kTeamLanes;
+  const tm::Slots<W, kTeamLanes> sl{team_smem + l};
+  uint32_t* win = (uint32_t*)(team_smem + tm::kSlots * (W / 4) * kTeamLanes);   // (Wn, 3W)
+  for (int i = threadIdx.x; i < 3 * W * Wn; i += kTeamLanes * kTeam)
     win[i] = ws[(int64_t)(i % (3 * W)) * Wn + i / (3 * W)];
   __syncthreads();
   auto put = [&](int slot, int w) {
@@ -307,20 +312,19 @@ fold_horner_kernel(const uint32_t* __restrict__ ws, uint32_t* __restrict__ o, in
   };
   const int steps = max((Wn - 1) * (c + 1), 1);
   put(tm::X1, Wn - 1);
-  if (c == 0) put(tm::X2, Wn - 2);
   if (member == 0) sl.store(tm::B3, fc.b3);
   __syncthreads();
   for (int s = 0; s < steps; ++s) {
     if (s % (c + 1) == c) {
-      team_add_full<tm::FULL_1, W, kLanes, kT>(member, sl, fc);
+      team_add_full<tm::FULL_1, W>(member, sl, fc);
     } else {
-      team_add_full<tm::DBL_1, W, kLanes, kT>(member, sl, fc);
+      team_add_full<tm::DBL_1, W>(member, sl, fc);
     }
     const int n = s + 1;
     if (n < steps && n % (c + 1) == c) put(tm::X2, Wn - 2 - n / (c + 1));
     __syncthreads();
   }
-  if (l == 0) store_coords<W, kLanes>(o, member, sl, true, 1);
+  store_coords<W>(o, member, sl, l == 0, 1);
 }
 
 // One thread: n dependent lazy products x <- x y (carry.cuh), the latency
@@ -338,43 +342,6 @@ __global__ void product_chain_kernel(const uint32_t* __restrict__ x,
   for (int i = 0; i < n; ++i) blz::mont_mul_cc<W, true>(a, a, b, fc);
 #pragma unroll
   for (int w = 0; w < W; ++w) o[w] = a[w];
-}
-
-// ------------------------------------------------------------------ probe
-// The layouts and team sizes measured against each other for K5 and K6,
-// and the one-thread kernels they replace (blz_ec_probe).
-template <int W>
-__global__ void __launch_bounds__(kThreads)
-dbl_n_one_thread(const uint32_t* __restrict__ p, uint32_t* __restrict__ o, int k,
-                 int64_t B, blz::FieldConsts<W> fc) {
-  const int64_t lane = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= B) return;
-  blz::Point<W> acc;
-  load_point<W>(acc, p + lane, B);
-  for (int s = 0; s < k; ++s) blz::ec_add_full<W>(acc, acc, acc, fc);
-  store_point<W>(o + lane, acc, B);
-}
-
-template <int W>
-__global__ void fold_horner_one_thread(const uint32_t* __restrict__ ws,
-                                       uint32_t* __restrict__ o, int c, int Wn,
-                                       blz::FieldConsts<W> fc) {
-  if (blockIdx.x != 0 || threadIdx.x != 0) return;
-  blz::Point<W> acc, q;
-  load_point<W>(acc, ws + (Wn - 1), Wn);
-  int steps = (Wn - 1) * (c + 1);
-  if (steps < 1) steps = 1;
-  for (int s = 0; s < steps; ++s) {
-    const int r = s / (c + 1);
-    const int pos = s % (c + 1);
-    if (pos == c) {
-      load_point<W>(q, ws + (Wn - 2 - r), Wn);
-      blz::ec_add_full<W>(acc, acc, q, fc);
-    } else {
-      blz::ec_add_full<W>(acc, acc, acc, fc);
-    }
-  }
-  store_point<W>(o, acc, 1);
 }
 
 unsigned blocks_for(int64_t B) { return (unsigned)((B + kThreads - 1) / kThreads); }
@@ -417,31 +384,24 @@ int reduce(const uint32_t* consts, const void* rows, void* tot, int C, int64_t B
 
 template <int W>
 int dbl(const uint32_t* consts, const void* p, void* o, int k, int64_t B, cudaStream_t s) {
-  dbl_n_kernel<W, kTeam><<<team_blocks(B), kTeamLanes * kTeam, team_smem_bytes<W>(), s>>>(
+  dbl_n_kernel<W><<<team_blocks(B), kTeamLanes * kTeam, team_smem_bytes<W>(), s>>>(
       (const uint32_t*)p, (uint32_t*)o, k, B, blz::load_consts<W>(consts));
   return (int)cudaGetLastError();
 }
 
-// K6's shared memory: the team's slots and the Wn window sums.
-template <int W, int kLanes>
-int fold_launch(const uint32_t* consts, const void* ws, void* o, int c, int Wn, int kT,
-                cudaStream_t s) {
-  const int smem = blz::team::kSlots * W * 4 * kLanes + 3 * W * Wn * 4;
-  auto kern = kT == kTeam ? fold_horner_kernel<W, kLanes, kTeam>
-                          : fold_horner_kernel<W, kLanes, 3>;
-  if (smem > 48 * 1024) {
-    const cudaError_t err =
-        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  kern<<<1, kLanes * kT, smem, s>>>((const uint32_t*)ws, (uint32_t*)o, c, Wn,
-                                    blz::load_consts<W>(consts));
-  return (int)cudaGetLastError();
-}
-
+// K6's shared memory: the team's slots and the Wn window sums (past 48 KB
+// for W = 12 beyond 117 windows: c <= 2).
 template <int W>
 int fold(const uint32_t* consts, const void* ws, void* o, int c, int Wn, cudaStream_t s) {
-  return fold_launch<W, kTeamLanes>(consts, ws, o, c, Wn, kTeam, s);
+  const int smem = team_smem_bytes<W>() + 3 * W * Wn * 4;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        fold_horner_kernel<W>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  fold_horner_kernel<W><<<1, kTeamLanes * kTeam, smem, s>>>(
+      (const uint32_t*)ws, (uint32_t*)o, c, Wn, blz::load_consts<W>(consts));
+  return (int)cudaGetLastError();
 }
 
 template <int W>
@@ -450,34 +410,6 @@ int chain(const uint32_t* consts, const void* x, const void* y, void* o, int n,
   product_chain_kernel<W><<<1, 1, 0, s>>>((const uint32_t*)x, (const uint32_t*)y,
                                           (uint32_t*)o, n, blz::load_consts<W>(consts));
   return (int)cudaGetLastError();
-}
-
-template <int W>
-int probe(const uint32_t* consts, int which, int variant, const void* in, void* out, int ck,
-          int64_t n, cudaStream_t s) {
-  const auto fc = blz::load_consts<W>(consts);
-  const auto x = (const uint32_t*)in;
-  const auto o = (uint32_t*)out;
-  if (which == 0) {                                   // dbl_n: ck = k, n = B
-    if (variant == 0) {
-      dbl_n_one_thread<W><<<blocks_for(n), kThreads, 0, s>>>(x, o, ck, n, fc);
-    } else if (variant == 1) {
-      dbl_n_kernel<W, kTeam><<<team_blocks(n), kTeamLanes * kTeam, team_smem_bytes<W>(), s>>>(
-          x, o, ck, n, fc);
-    } else {
-      dbl_n_kernel<W, 3><<<team_blocks(n), kTeamLanes * 3, team_smem_bytes<W>(), s>>>(
-          x, o, ck, n, fc);
-    }
-    return (int)cudaGetLastError();
-  }
-  switch (variant) {                                  // fold_horner: ck = c, n = Wn
-    case 0:
-      fold_horner_one_thread<W><<<1, 1, 0, s>>>(x, o, ck, (int)n, fc);
-      return (int)cudaGetLastError();
-    case 1: return fold_launch<W, kTeamLanes>(consts, in, out, ck, (int)n, kTeam, s);
-    case 2: return fold_launch<W, 1>(consts, in, out, ck, (int)n, kTeam, s);
-    default: return fold_launch<W, kTeamLanes>(consts, in, out, ck, (int)n, 3, s);
-  }
 }
 
 }  // namespace
@@ -547,20 +479,6 @@ extern "C" int blz_product_chain(int W, const uint32_t* consts, const void* x, c
   switch (W) {
     case 8: return chain<8>(consts, x, y, o, n, s);
     case 12: return chain<12>(consts, x, y, o, n, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
-
-// which 0: dbl_n of (3W, n) points, ck doublings; which 1: fold_horner of
-// (3W, n) window sums, c = ck.  variant: 0 one thread (per lane), 1 team
-// of 6 over 32 lanes (one warp per member), 2 (fold) team of 6 in one
-// warp, 2 (dbl) / 3 (fold) team of 3 over 32 lanes.
-extern "C" int blz_ec_probe(int W, const uint32_t* consts, int which, int variant,
-                            const void* in, void* out, int ck, int64_t n, void* stream) {
-  auto s = (cudaStream_t)stream;
-  switch (W) {
-    case 8: return probe<8>(consts, which, variant, in, out, ck, n, s);
-    case 12: return probe<12>(consts, which, variant, in, out, ck, n, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -204,13 +204,13 @@ BLZ_DEVICE void operand(uint32_t* v, const Slots<W, kStride>& sl, uint8_t s0, ui
   }
 }
 
-// Team member `member` runs its tasks of step kStep: member, member + kT,
-// ...  Every branch depends on (step, member) alone, so it is uniform over
-// a warp whose 32 threads are one member of 32 teams.
-template <int kStep, int W, int kStride, int kT = kTeam>
+// Team member `member` runs its tasks of step kStep: member, member +
+// kTeam, ...  Every branch depends on (step, member) alone, so it is
+// uniform over a warp whose 32 threads are one member of 32 teams.
+template <int kStep, int W, int kStride>
 BLZ_DEVICE void run_step(int member, const Slots<W, kStride>& sl, const FieldConsts<W>& fc) {
   constexpr int kN = (kStep == MIXED_2 || kStep == FULL_2 || kStep == OUT_4) ? 3 : kTasks;
-  for (int t = member; t < kN; t += kT) {
+  for (int t = member; t < kN; t += kTeam) {
 #pragma unroll 1
     for (int o = 0; o < kTaskOps; ++o) {
       const Op op = kProgram[kStep][t][o];

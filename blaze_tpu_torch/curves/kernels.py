@@ -44,8 +44,6 @@ _ARGTYPES = {
                         _c.c_int, _c.c_void_p],
     "blz_product_chain": [_c.c_int, _c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_void_p,
                           _c.c_int, _c.c_void_p],
-    "blz_ec_probe": [_c.c_int, _c.c_void_p, _c.c_int, _c.c_int, _c.c_void_p, _c.c_void_p,
-                     _c.c_int, _c.c_int64, _c.c_void_p],
 }
 
 
@@ -272,15 +270,3 @@ class ECKernels:
                                              torch.cuda.current_stream(x.device).cuda_stream)
         _build.check(rc, "blz_product_chain")
         return out
-
-    def probe(self, which: int, variant: int, x: torch.Tensor, ck: int) -> torch.Tensor:
-        """blz_ec_probe: K5 (which 0, ck doublings) or K6 (which 1, c = ck) in
-        one of the layouts compared on the card."""
-        out = torch.empty_like(x) if which == 0 else torch.empty(
-            (3 * self.W, 1), dtype=torch.int32, device=x.device)
-        with torch.cuda.device(x.device):
-            rc = _entry("blz_ec_probe")(self.W, self._consts.ctypes.data, which, variant,
-                                        x.data_ptr(), out.data_ptr(), ck, x.shape[1],
-                                        torch.cuda.current_stream(x.device).cuda_stream)
-        _build.check(rc, "blz_ec_probe")
-        return out if which == 0 else out[:, 0]

@@ -151,8 +151,6 @@ void fold(const uint32_t* consts, const uint32_t* ws, uint32_t* o, int c, int Wn
   };
   const int steps = (Wn - 1) * (c + 1) > 1 ? (Wn - 1) * (c + 1) : 1;
   for (int m = 0; m < 3; ++m) put_window(tm::X1, m, Wn - 1);
-  if (c == 0)
-    for (int m = 0; m < 3; ++m) put_window(tm::X2, m, Wn - 2);
   sl.store(tm::B3, fc.b3);
   for (int s = 0; s < steps; ++s) {
     if (s % (c + 1) == c) step<tm::FULL_1, W>(sl, fc, rev);
