@@ -19,25 +19,25 @@
 //
 // K3: one thread per lane, the group op of ec.cuh.
 //
-// K2, K4, K5 and K6: a team of kTeam = 6 threads per lane (ec_team.cuh).  With one
-// thread per lane they were latency-bound: the MSM gives them few lanes (K2
-// 16384 at a 2^19 chunk, 8192 at a streamed 2^18 chunk; K4's first pass
-// 8192), about one warp per scheduler, and each thread's chain of 13-14
-// dependent products was the critical path (23.6 and 14.1 ms against
-// bounds of 3.8 and 1.0 ms on an H100).  The team splits each group op's
-// independent products over its members (critical path 3 products), so
-// the card holds 6 times the warps, and the product runs its carries
-// through PTX carry chains with no call frame or local memory.  A block is
-// one warp per member over 32 lanes (member-major threads), so every
-// global load and store of a warp stays one 128-byte line; the team's
-// working set lives in shared memory, 21 field elements per lane (32 KB
-// per block at W = 12), with a barrier between steps.  On the H100 K2
-// takes 9.3 ms at B 16384 and 4.6 at B 8192, K4 2.4 ms at its first pass,
-// 41-44% of the IMAD bound.  The card is then full (the time halves with
-// the lanes); each multiply-add issues as a multiply and a carry add, and
-// the carry chains, the barriers and the members idle in the smaller steps
-// take the rest.  Each lane keeps its order of group ops and each group op
-// its order of field ops, so the outputs equal the one-thread kernels'.
+// K2, K4, K5 and K6: a team of kTeam = 6 threads per lane (ec_team.cuh).
+// K2 and K4: with one thread per lane they were latency-bound: the MSM
+// gives them few lanes (K2 16384 at a 2^19 chunk, 8192 at a streamed 2^18
+// chunk; K4's first pass 8192), about one warp per scheduler, and each
+// thread's chain of 13-14 dependent products was the critical path (23.6
+// and 14.1 ms against bounds of 3.8 and 1.0 ms on an H100).  The team splits
+// each group op's independent products over its members (critical path 3
+// products), so the card holds 6 times the warps, and the product runs its
+// carries through PTX carry chains with no call frame or local memory.  A
+// block is one warp per member over 32 lanes (member-major threads), so
+// every global load and store of a warp stays one 128-byte line; the team's
+// working set lives in shared memory, 21 field elements per lane (32 KB per
+// block at W = 12), with a barrier between steps.  On the H100 K2 takes 9.3
+// ms at B 16384 and 4.6 at B 8192, K4 2.4 ms at its first pass, 41-44% of
+// the IMAD bound.  The card is then full (the time halves with the lanes);
+// each multiply-add issues as a multiply and a carry add, and the carry
+// chains, the barriers and the members idle in the smaller steps take the
+// rest.  Each lane keeps its order of group ops and each group op its order
+// of field ops, so the outputs equal the one-thread kernels'.
 //
 // K5 and K6 have few lanes or one: K5 doubles the MSM's 16 window totals
 // 15-16 times, K6 runs one dependent chain of (Wn - 1)(c + 1) group ops
