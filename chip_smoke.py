@@ -87,9 +87,10 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    Launch counts are zeroed just before each client run of phases 3, 4,
    4b, 6, 7, 9, 10 and 11 and read just after; every kernel of the run's
    path must have launched (K10 nine times per height-9 build; K2 once and
-   K4 five times per 2^19 chunk at 2^24).
+   K4 five times per 2^19 chunk at 2^24; K6 once per MSM).
 12. the seconds each phase took, then the kernels line (K1-K10): launches
-   in those runs, parity error, times, bounds, threads per lane.
+   in those runs, parity error, times, bounds, threads per lane, and K5's
+   and K6's chain bound.
 
 The last line is {"ok": true, "device": {...}}; the line before it is the
 card's name and power limit as nvidia-smi prints them.  Without a CUDA
