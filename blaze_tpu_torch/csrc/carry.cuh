@@ -1,8 +1,9 @@
 // Multi-word arithmetic in PTX carry chains, for Hopper (sm_90a).
 //
 // One copy of the carry-chain primitives and the products built on them,
-// shared by K2 and K4 (ec_team.cuh, lazy products) and K10 (poseidon.cuh,
-// canonical products and unreduced sums).  Each add.cc / addc / mad.lo.cc
+// shared by K2-K6 (ec_team.cuh, lazy products), K7 (ntt.cuh, canonical
+// products, adds and subs) and K10 (poseidon.cuh, canonical products and
+// unreduced sums).  Each add.cc / addc / mad.lo.cc
 // / madc.hi.cc is one PTX instruction that reads or writes the carry flag,
 // in place of field.cuh's 64-bit sums and shifts; the values computed are
 // field.cuh's, word for word.
@@ -16,6 +17,12 @@
 #pragma once
 
 #include "field.cuh"
+
+#ifndef __CUDACC__
+struct uint4 {
+  uint32_t x, y, z, w;
+};
+#endif
 
 namespace blz {
 
@@ -172,6 +179,41 @@ BLZ_DEVICE void mont_mul_cc(uint32_t* r, const uint32_t* a, const uint32_t* b,
 #pragma unroll
     for (int j = 0; j < W; ++j) r[j] = keep ? t[j] : s[j];
   }
+}
+
+// Canonical add and sub (< p for a, b < p), the rules of field.cuh
+// fadd/fsub<W, false>: the add subtracts p unless (carry out : sum) < p;
+// the sub adds p back on borrow.  r may alias a or b.
+template <int W>
+BLZ_DEVICE void add_canon(uint32_t* r, const uint32_t* a, const uint32_t* b,
+                          const FieldConsts<W>& fc) {
+  uint32_t s[W], d[W], top, hi, keep, cf = 0;
+  add_cc(s[0], a[0], b[0], cf);
+#pragma unroll
+  for (int j = 1; j < W; ++j) addc_cc(s[j], a[j], b[j], cf);
+  addc(top, 0, 0, cf);
+  sub_cc(d[0], s[0], fc.p[0], cf);
+#pragma unroll
+  for (int j = 1; j < W; ++j) subc_cc(d[j], s[j], fc.p[j], cf);
+  subc_cc(hi, top, 0, cf);
+  subc(keep, 0, 0, cf);                   // all ones iff (top : s) < p
+#pragma unroll
+  for (int j = 0; j < W; ++j) r[j] = keep ? s[j] : d[j];
+}
+
+template <int W>
+BLZ_DEVICE void sub_canon(uint32_t* r, const uint32_t* a, const uint32_t* b,
+                          const FieldConsts<W>& fc) {
+  uint32_t d[W], e[W], borrow, cf = 0;
+  sub_cc(d[0], a[0], b[0], cf);
+#pragma unroll
+  for (int j = 1; j < W; ++j) subc_cc(d[j], a[j], b[j], cf);
+  subc(borrow, 0, 0, cf);                 // all ones on borrow
+  add_cc(e[0], d[0], fc.p[0], cf);
+#pragma unroll
+  for (int j = 1; j < W; ++j) addc_cc(e[j], d[j], fc.p[j], cf);
+#pragma unroll
+  for (int j = 0; j < W; ++j) r[j] = borrow ? e[j] : d[j];
 }
 
 // acc += a * b: the full 2W-word product (W^2 wide multiply-adds, no

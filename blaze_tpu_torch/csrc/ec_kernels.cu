@@ -17,9 +17,9 @@
 // was a grid axis with the running sum in VMEM scratch; here it is a loop
 // with the running sum on the SM, and the lanes are the parallel axis.
 //
-// K3: one thread per lane, the group op of ec.cuh.
+// Every kernel here runs a team of kTeam = 6 threads per lane
+// (ec_team.cuh).
 //
-// K2, K4, K5 and K6: a team of kTeam = 6 threads per lane (ec_team.cuh).
 // K2 and K4: with one thread per lane they were latency-bound: the MSM
 // gives them few lanes (K2 16384 at a 2^19 chunk, 8192 at a streamed 2^18
 // chunk; K4's first pass 8192), about one warp per scheduler, and each
@@ -39,13 +39,21 @@
 // rest.  Each lane keeps its order of group ops and each group op its order
 // of field ops, so the outputs equal the one-thread kernels'.
 //
+// K3 adds two batches elementwise, one group op per lane: B 16384 in each
+// of the 10 Kogge-Stone rounds of a 2^19 chunk's lane prefix, and B = the
+// window count (16) where the chunks' window sums are accumulated.  On one
+// thread per lane (a called group op with a
+// 328-544 B stack frame) it ran 14 dependent products per lane on about
+// one warp per scheduler; on the team its critical path is 3 products,
+// the same as K4's per row, with the card holding 6 times the warps.
+//
 // K5 and K6 have few lanes or one: K5 doubles the MSM's 16 window totals
 // 15-16 times, K6 runs one dependent chain of (Wn - 1)(c + 1) group ops
 // (255 at Wn 16, c 16).  Neither can fill the card, so what bounds them is
 // the chain: 3 dependent products per group op on the team (a doubling
 // is the complete add of the point with itself, DBL_1), each a serial
 // carry chain, against 14 on one thread, where they ran at ~51 us per
-// group op with ec.cuh's called group op.  The chain bound is the
+// group op with a called one-thread group op.  The chain bound is the
 // products on the critical path times one product's latency
 // (blz_product_chain: 1.24 us at W = 12 on an H100).  There K6 takes 1.98
 // ms at (Wn 16, c 16), 2.1 times its chain bound (one thread: 12.9 ms),
@@ -55,34 +63,9 @@
 
 #include <cstring>
 
-#include "ec.cuh"
 #include "ec_team.cuh"
 
 namespace {
-
-constexpr int kThreads = 128;
-
-template <int W>
-__device__ __forceinline__ void load_point(blz::Point<W>& p, const uint32_t* src,
-                                           int64_t stride) {
-#pragma unroll
-  for (int k = 0; k < W; ++k) {
-    p.x[k] = src[k * stride];
-    p.y[k] = src[(W + k) * stride];
-    p.z[k] = src[(2 * W + k) * stride];
-  }
-}
-
-template <int W>
-__device__ __forceinline__ void store_point(uint32_t* dst, const blz::Point<W>& p,
-                                            int64_t stride) {
-#pragma unroll
-  for (int k = 0; k < W; ++k) {
-    dst[k * stride] = p.x[k];
-    dst[(W + k) * stride] = p.y[k];
-    dst[(2 * W + k) * stride] = p.z[k];
-  }
-}
 
 constexpr int kTeamLanes = 32;       // lanes per team block: one warp per member
 using blz::team::kTeam;
@@ -180,19 +163,6 @@ scan_mixed_kernel(const uint32_t* __restrict__ rows, uint32_t* __restrict__ emit
   store_coords<W>(tot + lane, member, sl, live, B);
 }
 
-template <int W>
-__global__ void __launch_bounds__(kThreads)
-ec_add_kernel(const uint32_t* __restrict__ p, const uint32_t* __restrict__ q,
-              uint32_t* __restrict__ o, int64_t B, blz::FieldConsts<W> fc) {
-  const int64_t lane = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= B) return;
-  blz::Point<W> a, b;
-  load_point<W>(a, p + lane, B);
-  load_point<W>(b, q + lane, B);
-  blz::ec_add_full<W>(a, a, b, fc);
-  store_point<W>(o + lane, a, B);
-}
-
 // rows (C, 3W, B) -> tot (3W, B): identity + row 0 + ... + row C-1.
 // Coordinate k of each row is fetched by member k, one row ahead.
 template <int W>
@@ -255,6 +225,36 @@ __device__ __forceinline__ void team_add_full(int member,
   tm::run_step<tm::OUT_3, W>(member, sl, fc);
   __syncthreads();
   tm::run_step<tm::OUT_4, W>(member, sl, fc);
+}
+
+// p, q (3W, B) -> o (3W, B): o = p + q per lane (alg 7), one group op.
+// Member k < 3 loads coordinate k of p into X1..Z1 and of q into X2..Z2.
+template <int W>
+__global__ void __launch_bounds__(kTeamLanes * kTeam)
+ec_add_kernel(const uint32_t* __restrict__ p, const uint32_t* __restrict__ q,
+              uint32_t* __restrict__ o, int64_t B, blz::FieldConsts<W> fc) {
+  namespace tm = blz::team;
+  extern __shared__ uint4 team_smem[];
+  const int member = threadIdx.x / kTeamLanes;
+  const int l = threadIdx.x % kTeamLanes;
+  const int64_t lane = (int64_t)blockIdx.x * kTeamLanes + l;
+  const bool live = lane < B;
+  const tm::Slots<W, kTeamLanes> sl{team_smem + l};
+  if (member < 3) {
+    uint32_t a[W], b[W];
+#pragma unroll
+    for (int w = 0; w < W; ++w) {
+      const int64_t i = (int64_t)(member * W + w) * B + lane;
+      a[w] = live ? p[i] : 0;
+      b[w] = live ? q[i] : 0;
+    }
+    sl.store(tm::X1 + member, a);
+    sl.store(tm::X2 + member, b);
+  }
+  if (member == 3) sl.store(tm::B3, fc.b3);
+  __syncthreads();
+  team_add_full<tm::FULL_1, W>(member, sl, fc);
+  store_coords<W>(o + lane, member, sl, live, B);
 }
 
 // (3W, B) -> (3W, B): k doublings per lane, each the complete add of the
@@ -344,8 +344,6 @@ __global__ void product_chain_kernel(const uint32_t* __restrict__ x,
   for (int w = 0; w < W; ++w) o[w] = a[w];
 }
 
-unsigned blocks_for(int64_t B) { return (unsigned)((B + kThreads - 1) / kThreads); }
-
 unsigned team_blocks(int64_t B) { return (unsigned)((B + kTeamLanes - 1) / kTeamLanes); }
 
 template <int W>
@@ -368,7 +366,7 @@ int scan(int is_signed, const uint32_t* consts, const void* rows, void* emitted,
 template <int W>
 int add(const uint32_t* consts, const void* p, const void* q, void* o, int64_t B,
         cudaStream_t s) {
-  ec_add_kernel<W><<<blocks_for(B), kThreads, 0, s>>>(
+  ec_add_kernel<W><<<team_blocks(B), kTeamLanes * kTeam, team_smem_bytes<W>(), s>>>(
       (const uint32_t*)p, (const uint32_t*)q, (uint32_t*)o, B,
       blz::load_consts<W>(consts));
   return (int)cudaGetLastError();
@@ -486,9 +484,9 @@ extern "C" int blz_product_chain(int W, const uint32_t* consts, const void* x, c
 // Threads that compute one lane of the named kernel as launched above, -1
 // for a name not in this library.
 extern "C" int blz_threads_per_lane(const char* kernel) {
-  if (!strcmp(kernel, "scan_mixed") || !strcmp(kernel, "reduce_cols") ||
-      !strcmp(kernel, "dbl_n") || !strcmp(kernel, "fold_horner"))
+  if (!strcmp(kernel, "scan_mixed") || !strcmp(kernel, "ec_add") ||
+      !strcmp(kernel, "reduce_cols") || !strcmp(kernel, "dbl_n") ||
+      !strcmp(kernel, "fold_horner"))
     return kTeam;
-  if (!strcmp(kernel, "ec_add")) return 1;
   return -1;
 }

@@ -1,11 +1,12 @@
-// Team group operations for K2 (scan_mixed), K4 (reduce_cols), K5 (dbl_n)
-// and K6 (fold_horner): the products of one group operation split across a
-// team of kTeam threads.
+// Team group operations for K2 (scan_mixed), K3 (ec_add), K4 (reduce_cols),
+// K5 (dbl_n) and K6 (fold_horner): the products of one group operation split
+// across a team of kTeam threads.
 //
 // The formulas and every field operation are RCB 2016 alg 8 and alg 7 in
 // the lazy < 2p discipline, as the plain versions compute them
-// (curves/ops.py rcb_add_mixed, rcb_add_full) and ec.cuh ec_add_full for
-// K3; only which thread computes which product changes.  Every field op is
+// (curves/ops.py rcb_add_mixed, rcb_add_full, the JAX kernels' bodies
+// _add_mixed_body and _add_full_body); only which thread computes which
+// product changes.  Every field op is
 // a function of its input values alone, so a team's output limbs equal the
 // one-thread formulas bit for bit.
 //
@@ -40,9 +41,6 @@
 #include "carry.cuh"
 
 #ifndef __CUDACC__
-struct uint4 {
-  uint32_t x, y, z, w;
-};
 #define BLZ_TEAM_TABLE static const
 #else
 #define BLZ_TEAM_TABLE __constant__
@@ -51,7 +49,7 @@ struct uint4 {
 namespace blz {
 namespace team {
 
-constexpr int kTeam = 6;     // threads per lane of K2, K4, K5 and K6
+constexpr int kTeam = 6;     // threads per lane of K2-K6
 
 // Lazy add and sub, the rules of field.cuh fadd/fsub<W, true>: the add
 // ignores its carry out and subtracts 2p unless that borrows; the sub adds
@@ -112,8 +110,8 @@ enum Step { MIXED_1, MIXED_2, FULL_1, DBL_1, FULL_2, OUT_3, OUT_4, kSteps };
 #define BLZ_OP(k, o, a0, a1, b0, b1) {k, o, a0, a1, b0, b1}
 #define BLZ_NOP {NOP, 0, 0, 0, 0, 0}
 
-// kProgram[step][task][op]: ec.cuh's formulas, operation for operation
-// (a pre-add is written [a0 + a1]).
+// kProgram[step][task][op]: the plain formulas (curves/ops.py), operation
+// for operation (a pre-add is written [a0 + a1]).
 BLZ_TEAM_TABLE Op kProgram[kSteps][kTasks][kTaskOps] = {
     // MIXED_1: alg 8 products of (X1, Y1, Z1) and the affine (X2, Y2)
     {{BLZ_OP(MUL, M2, X1, Y1, X2, Y2), BLZ_NOP, BLZ_NOP},        // m2 = [X1+Y1][X2+Y2]

@@ -18,10 +18,11 @@
 // Two reduction disciplines, as in kernel_ops.py:
 //   kLazy = true   values < 2p (needs R > 4p: the base fields).  Products
 //                  skip the final subtraction; add/sub reduce against 2p.
-//                  Used by the EC kernels.
+//                  The EC kernels' discipline (ec_team.cuh runs it in
+//                  carry.cuh's carry chains).
 //   kLazy = false  canonical < p.  Products end with one conditional
 //                  subtraction of p (tracking the top word); add/sub reduce
-//                  against p.  Used by the standalone product (K1).
+//                  against p.  Used by K1, K8, K9 and K10.
 // The rules match kernel_ops.py:_add_f/_sub_f/_redc exactly (the lazy add
 // ignores the carry out, the sub adds the modulus back on borrow modulo R),
 // so the EC kernels' lazy outputs equal the JAX kernels' limb for limb.
@@ -38,11 +39,6 @@
 
 #ifndef BLZ_DEVICE
 #define BLZ_DEVICE __device__ __forceinline__
-#endif
-// Whole group operations are real calls: inlining every product of every
-// formula into each kernel crashed the device compiler (nvcc 12.9).
-#ifndef BLZ_DEVICE_CALL
-#define BLZ_DEVICE_CALL __device__ __noinline__
 #endif
 
 namespace blz {

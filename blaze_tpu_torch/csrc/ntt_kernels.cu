@@ -1,10 +1,10 @@
-// K7-K9: the NTT's kernels, lanes-major (rows x W words x lanes), canonical.
+// K7-K9: the NTT's kernels, canonical.
 //
-// A batch of B independent values per row is (R, W, B) words: word w of
-// (row r, lane b) at (r * W + w) * B + b, so neighbouring threads (lanes)
-// touch neighbouring words and a warp's loads and stores coalesce.  Every
-// value stays canonical (< p): the scalar fields have R < 4p, so the lazy
-// < 2p discipline of the EC kernels is unsound here (kLazy = false).
+// Every value stays canonical (< p): the scalar fields have R < 4p, so the
+// lazy < 2p discipline of the EC kernels is unsound here.  K7 and K9 work on
+// element-contiguous buffers (an element's W = 8 words are 32 consecutive
+// bytes, one sector of device memory); K8 on (M, W, N) lanes-major words,
+// which FusedNTT hands it as (n, W, 1).
 //
 // Replaces (blaze_tpu/ntt/kernels.py, NTTKernels):
 //   K7 blz_ntt_base    <- _ntt_fn / ntt_base      (whole K-point DIT NTT per lane)
@@ -17,109 +17,52 @@
 // K7 pass is about 8.5 ms of IMADs against 2.6 ms of bytes, each K9 pass
 // about 4.2 ms against 2.6 ms.
 //
-// Design.  K7 keeps one block's transforms whole in shared memory across
-// all log2 K stages (the TPU kernel kept them in VMEM), kLanes lanes per
-// block, one butterfly per thread at a time and __syncthreads() between
-// stages; the bit-reversal gather the JAX package did outside the kernel is
-// folded into K7's loads (row rev(k) is read into position k).  Every block
-// reads all its lanes before it writes any, and blocks own disjoint lanes,
-// so K7 may run in place (out == x).  K8 and K9 are one thread per element;
-// K9 reads its two factors straight from the small split tables (T1/T2,
-// 8 MiB each at 2^27, L2-resident), where the TPU kernel needed an
-// iota+where column pick.  K9 is elementwise and may run in place.
+// K7 (ntt.cuh): a block keeps NL lanes of K points in shared memory, each
+// thread 8 points in registers, and runs three radix-2 stages per barrier
+// on carry-chain products; it reads and writes through two TileMaps, so
+// FusedNTT runs each Cooley-Tukey level through strides instead of a
+// transposed copy (see ntt.cuh).  Every block reads all its elements
+// before it writes any and blocks own disjoint lanes, so K7 may run in
+// place (out == x, one map).  The design it replaces, two lanes per block
+// on word-major rows, used 8 bytes of every 32-byte sector it loaded and
+// met at a barrier after every butterfly stage.
+//
+// K8 is one thread per element.  K9 is one thread per element position:
+// it reads the element's twiddle row v and column j from bit fields of
+// its position (the plan's storage order), then its two factors straight
+// from the small split tables (T1/T2, 8 MiB each at 2^27, L2-resident),
+// where the TPU kernel needed an iota+where column pick.  K9 is
+// elementwise and may run in place.
 #include <cuda_runtime.h>
 
 #include <cstring>
 
-#include "field.cuh"
+#include "ntt.cuh"
 
 namespace {
 
+namespace nt = blz::ntt;
+
 // ------------------------------------------------------------------ K7
-// Shared layout of one block: element (k, word w, lane t) at
-// k * kRow + w * kLanes + t.  A warp covers kLanes lanes of 32 / kLanes
-// butterflies; the kPad words per row put the rows of neighbouring
-// butterflies on different banks (conflict-free from stage 4 on, 2-way
-// before).  Two lanes and 128 threads per block: 37 KB of shared memory at
-// K = 512, so several blocks share an SM and one block's loads overlap
-// another's butterflies.
-constexpr int kLanes = 2;
-constexpr int kPad = 2;
-constexpr int kNttThreads = 128;
-constexpr int kMaxLogK = 9;
-
-template <int W>
-constexpr int kRowWords = W * kLanes + kPad;
-
-// the largest tile fits the default 48 KB of dynamic shared memory
-static_assert((1 << kMaxLogK) * kRowWords<8> * 4 <= 48 * 1024, "K7 tile too large");
-
-template <int W>
-__global__ void __launch_bounds__(kNttThreads)
-ntt_base_kernel(const uint32_t* x, const uint32_t* __restrict__ pack, uint32_t* o,
-                int logK, int64_t B, blz::FieldConsts<W> fc) {
-  extern __shared__ uint32_t sm[];
-  constexpr int kRow = kRowWords<W>;
-  const int K = 1 << logK;
-  const int64_t b0 = (int64_t)blockIdx.x * kLanes;
-  const int total = K * W * kLanes;
-
-  // load, bit-reversing the rows: position k <- row rev(k)
-  for (int i = threadIdx.x; i < total; i += blockDim.x) {
-    const int t = i % kLanes;
-    const int w = (i / kLanes) % W;
-    const int k = i / (kLanes * W);
-    const int64_t lane = b0 + t;
-    if (lane < B) {
-      const int src = (int)(__brev((unsigned)k) >> (32 - logK));
-      sm[k * kRow + w * kLanes + t] = x[((int64_t)src * W + w) * B + lane];
-    }
-  }
-  __syncthreads();
-
-  const int t = threadIdx.x % kLanes;
-  const bool live = b0 + t < B;
-  const int jstep = blockDim.x / kLanes;
-  for (int s = 0; s < logK; ++s) {
-    const int m = 1 << s;
-    if (live) {
-      for (int j = threadIdx.x / kLanes; j < K / 2; j += jstep) {
-        const int pos = j & (m - 1);
-        const int ia = ((j >> s) << (s + 1)) | pos;
-        uint32_t* ea = sm + ia * kRow + t;
-        uint32_t* eb = ea + m * kRow;
-        uint32_t u[W], v[W], lo[W], hi[W];
-#pragma unroll
-        for (int w = 0; w < W; ++w) {
-          u[w] = ea[w * kLanes];
-          v[w] = eb[w * kLanes];
-        }
-        if (s > 0) {                       // stage 0's twiddle is W^0 = 1
-          uint32_t tw[W];
-          const uint32_t* tp = pack + (int64_t)(m - 1 + pos) * W;
-#pragma unroll
-          for (int w = 0; w < W; ++w) tw[w] = __ldg(tp + w);
-          blz::mont_mul<W, false>(v, tw, v, fc);
-        }
-        blz::fadd<W, false>(lo, u, v, fc);
-        blz::fsub<W, false>(hi, u, v, fc);
-#pragma unroll
-        for (int w = 0; w < W; ++w) {
-          ea[w * kLanes] = lo[w];
-          eb[w * kLanes] = hi[w];
-        }
-      }
-    }
+template <int W, int kLogK, int kPass>
+__device__ __forceinline__ void ntt_passes(uint4* sm, const uint32_t* x,
+                                           const uint32_t* pack, uint32_t* o, int64_t B,
+                                           const nt::TileMap& in, const nt::TileMap& out,
+                                           const blz::FieldConsts<W>& fc) {
+  nt::run_pass<W, kLogK, kPass>(threadIdx.x, blockIdx.x, sm, x, pack, o, B, in, out, fc);
+  if constexpr (kPass + 1 < nt::Shape<W, kLogK>::kPasses) {
     __syncthreads();
+    ntt_passes<W, kLogK, kPass + 1>(sm, x, pack, o, B, in, out, fc);
   }
+}
 
-  for (int i = threadIdx.x; i < total; i += blockDim.x) {
-    const int tt = i % kLanes;
-    const int w = (i / kLanes) % W;
-    const int k = i / (kLanes * W);
-    const int64_t lane = b0 + tt;
-    if (lane < B) o[((int64_t)k * W + w) * B + lane] = sm[k * kRow + w * kLanes + tt];
-  }
+// x and o may be the same buffer (one map): no __restrict__ on them.
+template <int W, int kLogK>
+__global__ void __launch_bounds__(nt::kThreads, 2)
+ntt_base_kernel(const uint32_t* x, const uint32_t* __restrict__ pack, uint32_t* o,
+                int64_t B, nt::TileMap in, nt::TileMap out, blz::FieldConsts<W> fc) {
+  extern __shared__ uint4 ntt_smem[];
+  ntt_passes<W, kLogK, 0>(ntt_smem, x, pack, o, B, in, out, fc);
 }
 
 // ------------------------------------------------------------------ K8
@@ -151,46 +94,70 @@ mul_lm_kernel(const uint32_t* __restrict__ x, const uint32_t* __restrict__ y,
 }
 
 // ------------------------------------------------------------------ K9
-// y, o: (A, W, J*S*B), lane l = (jo*S + jl)*B + b; t1 (A, W, J), t2 (A, W, S).
-// Grid: x over lanes, y over rows v.
+// Bit fields of an element's position that give its twiddle row and
+// column: v = (pos >> vshift) % A, j = sum_t ((pos >> src[t]) % 2^wid[t])
+// << dst[t], j = jo * S + jl.  Unused fields have wid 0.
+struct TwiddleFields {
+  int vshift;
+  int src[nt::kMaxDigits];
+  int wid[nt::kMaxDigits];
+  int dst[nt::kMaxDigits];
+};
+
+// y, o: (N, W) elements; t1 (A, W, J), t2 (A, W, S) lanes-major words.
 template <int W>
 __global__ void __launch_bounds__(kThreads)
 twiddle_mul_kernel(const uint32_t* y, const uint32_t* __restrict__ t1,
-                   const uint32_t* __restrict__ t2, uint32_t* o, int J, int S,
-                   int B, blz::FieldConsts<W> fc) {
-  const int64_t lanes = (int64_t)J * S * B;
-  const int64_t l = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (l >= lanes) return;
-  const int64_t v = blockIdx.y;
-  const int j = (int)(l / B);
-  const int jo = j / S, jl = j % S;
-  const uint32_t* yp = y + v * W * lanes + l;
-  const uint32_t* p1 = t1 + v * W * J + jo;
-  const uint32_t* p2 = t2 + v * W * S + jl;
-  uint32_t a[W], f[W];
+                   const uint32_t* __restrict__ t2, uint32_t* o, int64_t N, int logA,
+                   int logJ, int logS, TwiddleFields f, blz::FieldConsts<W> fc) {
+  const int64_t pos = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (pos >= N) return;
+  const uint32_t v = (uint32_t)(pos >> f.vshift) & ((1u << logA) - 1);
+  uint32_t j = 0;
 #pragma unroll
-  for (int w = 0; w < W; ++w) {
-    a[w] = yp[w * lanes];
-    f[w] = __ldg(p1 + (int64_t)w * J);
-  }
-  blz::mont_mul<W, false>(a, f, a, fc);
+  for (int t = 0; t < nt::kMaxDigits; ++t)
+    j |= ((uint32_t)(pos >> f.src[t]) & ((1u << f.wid[t]) - 1)) << f.dst[t];
+  const uint32_t jo = j >> logS, jl = j & ((1u << logS) - 1);
+  const uint32_t* p1 = t1 + ((int64_t)v * W << logJ) + jo;
+  const uint32_t* p2 = t2 + ((int64_t)v * W << logS) + jl;
+  uint32_t a[W], b[W];
+  nt::load_el<W>(a, y + pos * W);
 #pragma unroll
-  for (int w = 0; w < W; ++w) f[w] = __ldg(p2 + (int64_t)w * S);
-  blz::mont_mul<W, false>(a, a, f, fc);
-  uint32_t* op = o + v * W * lanes + l;
+  for (int w = 0; w < W; ++w) b[w] = __ldg(p1 + ((int64_t)w << logJ));
+  blz::mont_mul<W, false>(a, b, a, fc);
 #pragma unroll
-  for (int w = 0; w < W; ++w) op[w * lanes] = a[w];
+  for (int w = 0; w < W; ++w) b[w] = __ldg(p2 + ((int64_t)w << logS));
+  blz::mont_mul<W, false>(a, a, b, fc);
+  nt::store_el<W>(o + pos * W, a);
 }
 
 // -------------------------------------------------------------- launches
-template <int W>
+// A TileMap from its host form: ks, then (div, mod, stride) per digit.
+nt::TileMap tile_map(const int64_t* h) {
+  nt::TileMap m;
+  m.ks = h[0];
+  for (int t = 0; t < nt::kMaxDigits; ++t) {
+    m.div[t] = (uint32_t)h[1 + 3 * t];
+    m.mod[t] = (uint32_t)h[2 + 3 * t];
+    m.stride[t] = h[3 + 3 * t];
+  }
+  return m;
+}
+
+template <int W, int kLogK>
 int launch_ntt_base(const uint32_t* consts, const void* x, const void* pack, void* o,
-                    int logK, int64_t B, cudaStream_t stream) {
-  const size_t smem = (size_t)(1 << logK) * kRowWords<W> * sizeof(uint32_t);
-  const int64_t blocks = (B + kLanes - 1) / kLanes;
-  ntt_base_kernel<W><<<(unsigned)blocks, kNttThreads, smem, stream>>>(
-      (const uint32_t*)x, (const uint32_t*)pack, (uint32_t*)o, logK, B,
-      blz::load_consts<W>(consts));
+                    int64_t B, const int64_t* in, const int64_t* out, cudaStream_t stream) {
+  using S = nt::Shape<W, kLogK>;
+  constexpr int smem = S::kSmemBytes;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        ntt_base_kernel<W, kLogK>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int64_t blocks = (B + S::NL - 1) / S::NL;
+  ntt_base_kernel<W, kLogK><<<(unsigned)blocks, nt::kThreads, smem, stream>>>(
+      (const uint32_t*)x, (const uint32_t*)pack, (uint32_t*)o, B, tile_map(in),
+      tile_map(out), blz::load_consts<W>(consts));
   return (int)cudaGetLastError();
 }
 
@@ -206,26 +173,45 @@ int launch_mul_lm(const uint32_t* consts, const void* x, const void* y, const vo
 
 template <int W>
 int launch_twiddle_mul(const uint32_t* consts, const void* y, const void* t1,
-                       const void* t2, void* o, int A, int J, int S, int B,
-                       cudaStream_t stream) {
-  const int64_t lanes = (int64_t)J * S * B;
-  const dim3 grid((unsigned)((lanes + kThreads - 1) / kThreads), (unsigned)A);
-  twiddle_mul_kernel<W><<<grid, kThreads, 0, stream>>>(
-      (const uint32_t*)y, (const uint32_t*)t1, (const uint32_t*)t2, (uint32_t*)o, J, S,
-      B, blz::load_consts<W>(consts));
+                       const void* t2, void* o, int64_t N, int logA, int logJ, int logS,
+                       const int* fields, cudaStream_t stream) {
+  TwiddleFields f;
+  f.vshift = fields[0];
+  for (int t = 0; t < nt::kMaxDigits; ++t) {
+    f.src[t] = fields[1 + 3 * t];
+    f.wid[t] = fields[2 + 3 * t];
+    f.dst[t] = fields[3 + 3 * t];
+  }
+  const int64_t blocks = (N + kThreads - 1) / kThreads;
+  twiddle_mul_kernel<W><<<(unsigned)blocks, kThreads, 0, stream>>>(
+      (const uint32_t*)y, (const uint32_t*)t1, (const uint32_t*)t2, (uint32_t*)o, N, logA,
+      logJ, logS, f, blz::load_consts<W>(consts));
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // Only the 8-word scalar fields (bn254_fr, bls12_377_fr, bls12_381_fr) have
-// NTTs; any other W is refused.
+// NTTs; any other W is refused.  in_map / out_map: the TileMaps of x and o
+// in host form (1 + 3 kMaxDigits int64).
 extern "C" int blz_ntt_base(int W, const uint32_t* consts, const void* x,
                             const void* pack, void* o, int logK, int64_t B,
-                            void* stream) {
+                            const int64_t* in_map, const int64_t* out_map, void* stream) {
   if (B <= 0) return 0;
-  if (W != 8 || logK < 1 || logK > kMaxLogK) return (int)cudaErrorInvalidValue;
-  return launch_ntt_base<8>(consts, x, pack, o, logK, B, (cudaStream_t)stream);
+  if (W != 8) return (int)cudaErrorInvalidValue;
+  auto s = (cudaStream_t)stream;
+  switch (logK) {
+    case 1: return launch_ntt_base<8, 1>(consts, x, pack, o, B, in_map, out_map, s);
+    case 2: return launch_ntt_base<8, 2>(consts, x, pack, o, B, in_map, out_map, s);
+    case 3: return launch_ntt_base<8, 3>(consts, x, pack, o, B, in_map, out_map, s);
+    case 4: return launch_ntt_base<8, 4>(consts, x, pack, o, B, in_map, out_map, s);
+    case 5: return launch_ntt_base<8, 5>(consts, x, pack, o, B, in_map, out_map, s);
+    case 6: return launch_ntt_base<8, 6>(consts, x, pack, o, B, in_map, out_map, s);
+    case 7: return launch_ntt_base<8, 7>(consts, x, pack, o, B, in_map, out_map, s);
+    case 8: return launch_ntt_base<8, 8>(consts, x, pack, o, B, in_map, out_map, s);
+    case 9: return launch_ntt_base<8, 9>(consts, x, pack, o, B, in_map, out_map, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 extern "C" int blz_mul_lm(int W, const uint32_t* consts, const void* x, const void* y,
@@ -235,19 +221,22 @@ extern "C" int blz_mul_lm(int W, const uint32_t* consts, const void* x, const vo
   return launch_mul_lm<8>(consts, x, y, z, o, M, N, (cudaStream_t)stream);
 }
 
+// fields: vshift, then (src, wid, dst) per field (1 + 3 kMaxDigits ints).
 extern "C" int blz_twiddle_mul(int W, const uint32_t* consts, const void* y,
-                               const void* t1, const void* t2, void* o, int A, int J,
-                               int S, int B, void* stream) {
-  if (A <= 0 || J <= 0 || S <= 0 || B <= 0) return 0;
-  if (W != 8 || A > 65535) return (int)cudaErrorInvalidValue;
-  return launch_twiddle_mul<8>(consts, y, t1, t2, o, A, J, S, B, (cudaStream_t)stream);
+                               const void* t1, const void* t2, void* o, int64_t N,
+                               int logA, int logJ, int logS, const int* fields,
+                               void* stream) {
+  if (N <= 0) return 0;
+  if (W != 8) return (int)cudaErrorInvalidValue;
+  return launch_twiddle_mul<8>(consts, y, t1, t2, o, N, logA, logJ, logS, fields,
+                               (cudaStream_t)stream);
 }
 
 // Threads that compute one lane of the named kernel as launched above (K7:
-// a block of kNttThreads threads over kLanes lanes; K8, K9: one thread per
-// element), -1 for a name not in this library.
+// K/8 threads per lane for K >= 8, 64 at the main path's K = 512; K8, K9:
+// one thread per element), -1 for a name not in this library.
 extern "C" int blz_threads_per_lane(const char* kernel) {
-  if (!strcmp(kernel, "ntt_base")) return kNttThreads / kLanes;
+  if (!strcmp(kernel, "ntt_base")) return nt::Shape<8, nt::kMaxLogK>::T;
   if (!strcmp(kernel, "mul_lm") || !strcmp(kernel, "twiddle_mul")) return 1;
   return -1;
 }

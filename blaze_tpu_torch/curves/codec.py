@@ -32,8 +32,13 @@ def decode_affine_points(data: bytes | np.ndarray, spec: CurveSpec) -> np.ndarra
 
 
 def encode_affine_points(points: np.ndarray, spec: CurveSpec) -> bytes:
-    """uint32[N, 2, W] canonical words -> x||y LE bytes."""
-    return words_to_bytes(np.asarray(points), spec.fq)
+    """Canonical affine points -> x||y LE bytes.  They may come as the
+    reference's (N, 2, L) 16-bit limbs (blaze_tpu's get_data_from_hbm) or as
+    (N, 2, W) 32-bit words: the last axis says which (L = 2W)."""
+    arr = np.asarray(points)
+    if arr.ndim and arr.shape[-1] == spec.fq.nlimbs:
+        return limbs_to_bytes(arr, spec.fq)
+    return words_to_bytes(arr, spec.fq)
 
 
 def decode_scalars(data: bytes | np.ndarray, spec: CurveSpec) -> np.ndarray:

@@ -2,10 +2,12 @@
 
 Port of blaze_tpu/ntt/fused.py FusedNTT.  A size-2^logn transform is split
 into balanced factors of at most 2^KLOG points (`split_parts`); each factor
-is one K7 launch over all its sub-transforms, and between factors sit an
-inter-level twiddle (K9, or K8 for narrow cells) and torch transposes — the
-analog of the reference's 16-bank HBM shuffle
-(`blaze/src/ingo_ntt/ntt_data.rs:80-156`).
+is one K7 launch over all its sub-transforms, and between factors sits an
+inter-level twiddle (K9, or K8 for narrow cells).  The reference moves the
+data between levels with a 16-bank HBM shuffle
+(`blaze/src/ingo_ntt/ntt_data.rs:80-156`) and the JAX package with
+transposes; here K7 reads and writes each level through its strides, and
+no level moves the data otherwise.
 
 The inter-level twiddle W^(j*v) of a K = A*C split is applied from two
 SPLIT TABLES: with j = jo*S + jl (S ~ sqrt(C)),
@@ -15,10 +17,18 @@ SPLIT TABLES: with j = jo*S + jl (S ~ sqrt(C)),
 each table A*C/S or A*S entries (8 MiB at 2^27), never the K-entry matrix.
 n^-1 of the inverse is folded into the depth-0 inverse T1.
 
-Working layout: (K, W, B) int32 words — transform index on the leading
-axis, the element's 8 words next, B independent transforms on the lanes.
-A points-major (n, W) input is the B = 1 case.  All values are canonical
-Montgomery representatives.
+Storage order.  With parts a_0..a_{D-1} (A_e = 2^a_e), input index
+i = sum_e i_e S_e (S_e = prod_{f>e} A_f, i_0 most significant) and
+output index k = sum_e k_e P_e (P_e = prod_{f<e} A_f).  Level d transforms
+digit i_d into k_d for every value of the other digits.  Between levels an
+element lives in the plan's buffer at row sum_e digit_e P_e — digit e at
+the output's weight, whether it is still i_e or already k_e — so level d
+(d >= 1) reads and writes the same rows (in place), and after the last
+level the buffer is in natural order.  Level 0 reads the caller's input in
+natural order and writes the buffer (the input is left as it was).  The
+plan holds two buffers, the input and its own.  An (n, W) buffer of int32
+words keeps an element's 32 bytes together, so K7's strided reads and
+writes move whole sectors.
 
 Left out from the JAX plan: the lane-expanded packs and u16 storage (Mosaic
 and TPU-tiling workarounds), the u16 donated entry points and the blocked
@@ -27,14 +37,16 @@ take exactly 32 B per element).
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
 from ..fields.mont import Field
 from ..fields.spec import FieldSpec, int_to_words
-from .kernels import MAX_LOGK, NTTKernels, lane_cols
+from .kernels import MAX_LOGK, NTTKernels, TileMap, twiddle_cols
 
-__all__ = ["FusedNTT", "split_parts", "tables_from_reference"]
+__all__ = ["FusedNTT", "Level", "split_parts", "tables_from_reference"]
 
 KLOG = MAX_LOGK   # max log2 base-kernel size (K7's shared-memory tile)
 
@@ -69,6 +81,41 @@ def tables_from_reference(packs: dict, tabs: dict) -> tuple[dict, dict]:
     return out_packs, out_tabs
 
 
+class Level(NamedTuple):
+    """One level of a plan: K7 over `lanes` transforms of 2^a points, read
+    through `xmap` and written through `omap`; after it (all but the last
+    level) the twiddle, row v = (pos >> vshift) % 2^a and column j from the
+    bit `fields` (src, wid, dst) of each element's row pos."""
+
+    a: int
+    lanes: int
+    xmap: TileMap
+    omap: TileMap
+    vshift: int
+    fields: tuple
+
+
+def plan_levels(parts: list[int]) -> list[Level]:
+    """The levels of a plan over `parts` in the storage order of the module
+    docstring: level d's lane l = J_d * P_d + lo, where lo (< P_d) holds
+    the digits already transformed and J_d (< S_d) the input digits still
+    to go, i_e at weight S_e."""
+    D, logn = len(parts), sum(parts)
+    logP = [sum(parts[:e]) for e in range(D)]
+    logS = [sum(parts[e + 1:]) for e in range(D)]
+    levels = []
+    for d, a in enumerate(parts):
+        P = 1 << logP[d]
+        digits = ((1, P, 1),) if P > 1 else ()
+        digits += tuple((P << logS[e], 1 << parts[e], 1 << logP[e]) for e in range(d + 1, D))
+        omap = TileMap(P, digits)
+        lanes = 1 << (logn - a)
+        xmap = TileMap(lanes, ((1, lanes, 1),)) if d == 0 else omap
+        fields = tuple((logP[e], parts[e], logS[e]) for e in range(d + 1, D))
+        levels.append(Level(a, lanes, xmap, omap, logP[d], fields))
+    return levels
+
+
 class FusedNTT:
     """NTT plan for one (field, logn), its tables on `device`.  `.ntt` /
     `.intt` map (n, W) int32 canonical Montgomery words, natural order in
@@ -91,6 +138,7 @@ class FusedNTT:
         self.logn = logn
         self.n = 1 << logn
         self.parts = split_parts(logn, klog)
+        self.levels = plan_levels(self.parts) if logn else []
         self.device = torch.device(device)
         self.kern = NTTKernels.for_spec(spec)
 
@@ -155,60 +203,42 @@ class FusedNTT:
                 )
 
     # ------------------------------------------------------------ twiddle
-    def _apply_twiddle(self, y: torch.Tensor, depth: int, B: int,
-                       inverse: bool) -> torch.Tensor:
-        """y: (A, W, C*B), lane = j*B + b.  Multiply entry (v, j) by
-        W^(j*v) = tab1[v, j//S] * tab2[v, j%S] — in place on K9 (y is the
-        plan's own buffer here)."""
+    def _apply_twiddle(self, y: torch.Tensor, depth: int, inverse: bool) -> torch.Tensor:
+        """Multiply each element of the plan's buffer y, at level `depth`'s
+        row v and column j, by W^(j*v) = tab1[v, j//S] * tab2[v, j%S] — in
+        place on K9."""
+        lv = self.levels[depth]
         tab1, tab2 = self._tabs[(depth, inverse)]
-        J, S = tab1.shape[2], tab2.shape[2]
-        cell = S if B == 1 else B
+        S = tab2.shape[2]
+        cell = S if lv.vshift == 0 else 1 << lv.vshift
         if cell >= self._TWMUL_MIN_LANES:
-            return self.kern.twiddle_mul(y, tab1, tab2, B, out=y)
-        # small-plan fallback: expand the twiddles lane-wise and use the
-        # generic triple-product kernel
-        jo, jl = lane_cols(J, S, B, y.device)
-        return self.kern.mul_lm(y, tab1.index_select(2, jo).contiguous(),
-                                tab2.index_select(2, jl).contiguous())
+            return self.kern.twiddle_mul(y, tab1, tab2, lv.vshift, lv.fields, out=y)
+        # small-plan fallback: expand the twiddles row by row and use the
+        # generic triple-product kernel on (n, W, 1)
+        n, W = y.shape
+        v, jo, jl = twiddle_cols(n, lv.a, lv.vshift, lv.fields, S.bit_length() - 1,
+                                 y.device)
+        tw1 = tab1.transpose(1, 2)[v, jo].reshape(n, W, 1)
+        tw2 = tab2.transpose(1, 2)[v, jl].reshape(n, W, 1)
+        return self.kern.mul_lm(y.reshape(n, W, 1), tw1, tw2).reshape(n, W)
 
     # ---------------------------------------------------------- recursion
-    def _base(self, x: torch.Tensor, a: int, inverse: bool, in_place: bool) -> torch.Tensor:
-        """Size-2^a transforms along axis 0 of natural-order x (K7 folds the
-        bit-reversal into its loads)."""
-        if a == 0:
-            return x.clone()
-        return self.kern.ntt_base(x, self._packs[(a, inverse)], out=x if in_place else None)
-
     def _rec(self, x: torch.Tensor, inverse: bool) -> torch.Tensor:
-        """(n, W) natural order -> (n, W) natural order.
+        """(n, W) natural order -> a new (n, W) natural order.
 
-        The recursion of the JAX plan, unrolled into a loop down the depths
-        and one back up, so that each step holds only its input and its
-        output: at 2^27 a buffer is 4 GiB.  Every buffer after the first
-        transpose is the plan's own, so K7 and K9 update it in place."""
-        n, W = x.shape
-        parts = self.parts
-        x = x.reshape(n, W, 1)
-        B = 1
-        lanes_b = []
-        for d, a in enumerate(parts[:-1]):
-            K = x.shape[0]
-            A, C = 1 << a, K >> a
-            # column NTTs of size A, batched over (j, b) lanes
-            x = x.reshape(A, C, W, B).transpose(1, 2).contiguous().reshape(A, W, C * B)
-            x = self._base(x, a, inverse, in_place=True)
-            x = self._apply_twiddle(x, d, B, inverse)
-            # row NTTs of size C, batched over (v, b) lanes
-            x = x.reshape(A, W, C, B).permute(2, 1, 0, 3).contiguous().reshape(C, W, A * B)
-            lanes_b.append(B)
-            B = A * B
-        x = self._base(x, parts[-1], inverse, in_place=len(parts) > 1)
-        for d in reversed(range(len(parts) - 1)):
-            A, B = 1 << parts[d], lanes_b[d]
-            C = x.shape[0]
-            # output index u*A + v at x[u, :, v*B + b]
-            x = x.reshape(C, W, A, B).transpose(1, 2).contiguous().reshape(C * A, W, B)
-        return x.reshape(n, W)
+        The recursion of the JAX plan as a loop over its levels: level 0
+        reads x and writes the plan's buffer, every later level and twiddle
+        updates that buffer in place, so a transform holds two buffers (4
+        GiB each at 2^27) and moves no data between levels."""
+        if not self.levels:
+            return x.clone()
+        y = torch.empty_like(x)
+        for d, lv in enumerate(self.levels):
+            self.kern.ntt_base(x if d == 0 else y, self._packs[(lv.a, inverse)], lv.lanes,
+                               lv.xmap, out=y, omap=lv.omap)
+            if d + 1 < len(self.levels):
+                y = self._apply_twiddle(y, d, inverse)
+        return y
 
     def _check(self, x: torch.Tensor) -> None:
         W = self.spec.nwords

@@ -1,23 +1,31 @@
 """K7-K9: the NTT's kernels (csrc/ntt_kernels.cu) and their plain versions.
 
-Replaces blaze_tpu/ntt/kernels.py NTTKernels.  Layout is lanes-major: a
-batch of B values per row is (R, W, B) int32 words (word w of row r, lane b
-at [r, w, b]) — the JAX package's (R, L, B) with 32-bit words in place of
-16-bit limbs.  Every value is canonical (< p): the scalar fields have
-R < 4p, so these kernels use field.cuh's canonical discipline only.
+Replaces blaze_tpu/ntt/kernels.py NTTKernels.  K7 and K9 take
+element-contiguous buffers, (N, W) int32 words (an element's W words
+together); K8 takes (M, W, N) lanes-major words, the JAX package's (R, L, B)
+with 32-bit words in place of 16-bit limbs.  Every value is canonical
+(< p): the scalar fields have R < 4p, so these kernels use the canonical
+discipline only.
+
+K7 reads and writes through a `TileMap`: point k of lane l of a batch of
+K-point transforms lies at row k * ks + sum over its digits of
+((l // div) % mod) * stride, so FusedNTT hands each Cooley-Tukey level its
+strides instead of a transposed copy.  K9 finds each element's twiddle
+row and column in bit fields of its row.
 
 Each public method launches its kernel for CUDA tensors and runs the plain
 PyTorch version beside it only for CPU tensors.  The plain versions compute
 the same function on 16-bit int64 limbs with the canonical twin of
 field.cuh (fields/kernel_ops.py), so the CPU tests hold them limb for limb
 against the JAX kernels in interpret mode.  Bounds and design: see
-csrc/ntt_kernels.cu.
+csrc/ntt_kernels.cu and csrc/ntt.cuh.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from .. import _build
@@ -30,27 +38,70 @@ from ..fields.kernel_ops import (
 from ..fields.spec import FieldSpec
 from .transform import _bitrev_perm
 
-__all__ = ["NTTKernels", "lane_cols"]
+__all__ = ["NTTKernels", "TileMap", "twiddle_cols"]
 
 MAX_LOGK = 9      # K7's shared-memory tile holds up to 2^9 points per lane
+MAX_DIGITS = 6    # lane digits of a TileMap; bit fields of K9's row map
 
 _c = ctypes
 _ARGTYPES = {
     "blz_ntt_base": [_c.c_int, _c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_void_p,
-                     _c.c_int, _c.c_int64, _c.c_void_p],
+                     _c.c_int, _c.c_int64, _c.c_void_p, _c.c_void_p, _c.c_void_p],
     "blz_mul_lm": [_c.c_int, _c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_void_p,
                    _c.c_void_p, _c.c_int64, _c.c_int64, _c.c_void_p],
     "blz_twiddle_mul": [_c.c_int, _c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_void_p,
-                        _c.c_void_p, _c.c_int, _c.c_int, _c.c_int, _c.c_int,
-                        _c.c_void_p],
+                        _c.c_void_p, _c.c_int64, _c.c_int, _c.c_int, _c.c_int,
+                        _c.c_void_p, _c.c_void_p],
 }
 
 
-def lane_cols(J: int, S: int, B: int, device):
-    """Per-lane (jo, jl) of lane (jo*S + jl)*B + b: the split-table columns
-    of each lane of a twiddle cell."""
-    j = torch.arange(J * S * B, device=device) // B
-    return j // S, j % S
+class TileMap(NamedTuple):
+    """Where point k of lane l of a batch of K-point transforms lies in an
+    element-contiguous (N, W) buffer: row k * ks + sum over `digits` of
+    ((l // div) % mod) * stride (csrc/ntt.cuh TileMap)."""
+
+    ks: int
+    digits: tuple = ()
+
+    @staticmethod
+    def rows(lanes: int) -> "TileMap":
+        """(K, lanes) rows: point k of lane l at row k * lanes + l."""
+        return TileMap(lanes, ((1, lanes, 1),))
+
+    def offsets(self, K: int, lanes: int, device) -> torch.Tensor:
+        """(K, lanes) int64 rows of every point."""
+        lane = torch.arange(lanes, dtype=torch.int64, device=device)
+        off = torch.zeros_like(lane)
+        for div, mod, stride in self.digits:
+            off += (lane // div) % mod * stride
+        return torch.arange(K, dtype=torch.int64, device=device)[:, None] * self.ks + off
+
+    def bound(self, K: int, lanes: int) -> int:
+        """An upper bound of the rows it reaches, plus one."""
+        top = (K - 1) * self.ks
+        for div, mod, stride in self.digits:
+            top += (min(mod, -(-lanes // div)) - 1) * stride
+        return top + 1
+
+    def host(self) -> np.ndarray:
+        """The C entry's form: ks, then (div, mod, stride) per digit, unused
+        digits (1, 1, 0)."""
+        if len(self.digits) > MAX_DIGITS:
+            raise ValueError(f"TileMap: more than {MAX_DIGITS} digits")
+        pad = [(1, 1, 0)] * (MAX_DIGITS - len(self.digits))
+        return np.array([self.ks, *(v for d in (*self.digits, *pad) for v in d)],
+                        dtype=np.int64)
+
+
+def twiddle_cols(N: int, logA: int, vshift: int, fields, logS: int, device):
+    """Row v and columns (jo, jl) of the split tables for each of N element
+    rows: v = (pos >> vshift) % 2^logA, j = sum of ((pos >> src) % 2^wid)
+    << dst over `fields`, j = jo * 2^logS + jl."""
+    pos = torch.arange(N, dtype=torch.int64, device=device)
+    j = torch.zeros_like(pos)
+    for src, wid, dst in fields:
+        j |= ((pos >> src) & ((1 << wid) - 1)) << dst
+    return (pos >> vshift) & ((1 << logA) - 1), j >> logS, j & ((1 << logS) - 1)
 
 
 def _entry(name: str):
@@ -59,6 +110,12 @@ def _entry(name: str):
         fn.argtypes = _ARGTYPES[name]
         fn.restype = ctypes.c_int
     return fn
+
+
+def _log2(v: int, what: str) -> int:
+    if v < 1 or v & (v - 1):
+        raise ValueError(f"{what} = {v} is not a power of two")
+    return v.bit_length() - 1
 
 
 class NTTKernels:
@@ -92,15 +149,6 @@ class NTTKernels:
         if x.device.type not in ("cpu", "cuda"):
             raise ValueError(f"{what}: unsupported device {x.device}")
 
-    def _out(self, x: torch.Tensor, out: Optional[torch.Tensor]) -> torch.Tensor:
-        if out is None:
-            return torch.empty_like(x)
-        if out.shape != x.shape or out.dtype != x.dtype or out.device != x.device:
-            raise ValueError("out differs from the input in shape, type or device")
-        if not out.is_contiguous():
-            raise ValueError("out: not contiguous")
-        return out
-
     def _launch(self, name: str, counter: str, dev: torch.device, *args) -> None:
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
@@ -119,52 +167,94 @@ class NTTKernels:
         return limbs16_to_words(x).transpose(1, 2).contiguous()
 
     # ----------------------------------------------------------------- K7
-    def ntt_base_plain(self, x: torch.Tensor, pack: torch.Tensor) -> torch.Tensor:
+    def _elements(self, x: torch.Tensor, what: str) -> None:
+        if x.dtype != torch.int32 or x.dim() != 2 or x.shape[1] != self.W:
+            raise ValueError(f"{what}: want (N, {self.W}) int32, got {tuple(x.shape)} {x.dtype}")
+        if not x.is_contiguous():
+            raise ValueError(f"{what}: not contiguous")
+        if x.device.type not in ("cpu", "cuda"):
+            raise ValueError(f"{what}: unsupported device {x.device}")
+        if x.device.type == "cuda" and x.data_ptr() % 16:
+            raise ValueError(f"{what}: not 16-byte aligned")
+
+    def _ntt_args(self, x, pack, lanes, xmap, out, omap):
+        """Checked (K, lanes, xmap, out, omap) of an ntt_base call."""
+        self._elements(x, "x")
+        K = pack.shape[0] if pack.dim() == 2 else 0
+        if K < 2 or K & (K - 1) or K > 1 << MAX_LOGK:
+            raise ValueError(f"ntt_base: K = {K} is not a power of two in [2, 512]")
+        if pack.shape != (K, self.W) or pack.dtype != torch.int32 \
+                or pack.device != x.device or not pack.is_contiguous() \
+                or (x.device.type == "cuda" and pack.data_ptr() % 16):
+            raise ValueError(f"pack: want contiguous, aligned ({K}, {self.W}) int32 "
+                             f"on {x.device}")
+        if lanes is None:
+            lanes = x.shape[0] // K
+        xmap = TileMap.rows(lanes) if xmap is None else xmap
+        omap = xmap if omap is None else omap
+        if out is None:
+            out = torch.zeros_like(x)
+        else:
+            self._elements(out, "out")
+            if out.device != x.device:
+                raise ValueError("out differs from x in device")
+            if out.data_ptr() == x.data_ptr() and (out is not x or omap != xmap):
+                raise ValueError("in place needs out to be x and one map")
+        if not 1 <= lanes < 1 << 31:
+            raise ValueError(f"ntt_base: {lanes} lanes")
+        for m, buf, what in ((xmap, x, "x"), (omap, out, "out")):
+            if m.ks < 0 or any(d < 1 or md < 1 or st < 0 for d, md, st in m.digits) \
+                    or m.bound(K, lanes) > buf.shape[0]:
+                raise ValueError(f"{what}: map {m} reaches past its {buf.shape[0]} rows")
+        return K, lanes, xmap, out, omap
+
+    def ntt_base_plain(self, x: torch.Tensor, pack: torch.Tensor, lanes: Optional[int] = None,
+                       xmap: Optional[TileMap] = None, out: Optional[torch.Tensor] = None,
+                       omap: Optional[TileMap] = None) -> torch.Tensor:
         """Plain PyTorch version of `ntt_base` (CPU tensors, and the
         reference the kernel is held to on the card)."""
-        K, _, B = x.shape
+        K, lanes, xmap, out, omap = self._ntt_args(x, pack, lanes, xmap, out, omap)
         logK = K.bit_length() - 1
         rev = torch.as_tensor(_bitrev_perm(logK), device=x.device)
-        v = self._limbs(x[rev])                           # (K, B, L), bit-reversed
-        tw = words_to_limbs16(pack)                       # (K, L)
+        rows = xmap.offsets(K, lanes, x.device)[rev]           # bit-reversed
+        v = words_to_limbs16(x[rows])                         # (K, lanes, L)
+        tw = words_to_limbs16(pack)                           # (K, L)
         L = v.shape[-1]
         for s in range(logK):
             m, g2 = 1 << s, K >> (s + 1)
-            vr = v.reshape(g2, 2, m, B, L)
+            vr = v.reshape(g2, 2, m, lanes, L)
             a, b = vr[:, 0], vr[:, 1]
             if s:                                        # stage 0's twiddle is 1
-                w = tw[m - 1 : 2 * m - 1][None, :, None, :].expand(g2, m, B, L)
+                w = tw[m - 1 : 2 * m - 1][None, :, None, :].expand(g2, m, lanes, L)
                 b = self.ops.mul(w, b)
             v = torch.stack([self.ops.add(a, b), self.ops.sub(a, b)], dim=1)
-            v = v.reshape(K, B, L)
-        return self._words(v)
+            v = v.reshape(K, lanes, L)
+        out[omap.offsets(K, lanes, x.device).reshape(-1)] = limbs16_to_words(
+            v.reshape(K * lanes, L))
+        return out
 
-    def ntt_base(self, x: torch.Tensor, pack: torch.Tensor,
-                 out: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """One whole K-point radix-2 DIT NTT per lane.
+    def ntt_base(self, x: torch.Tensor, pack: torch.Tensor, lanes: Optional[int] = None,
+                 xmap: Optional[TileMap] = None, out: Optional[torch.Tensor] = None,
+                 omap: Optional[TileMap] = None) -> torch.Tensor:
+        """One whole K-point radix-2 DIT NTT per lane, K = pack.shape[0].
 
-        x: (K, W, B) int32 canonical words in NATURAL order (the bit-reversal
-        is folded into the kernel's loads; the JAX kernel took bit-reversed
-        input).  pack: (K, W) stage-packed twiddles — entry m-1+t (m = 2^s)
-        is W_K^(t << (logK-1-s)).  Returns (K, W, B) natural order,
-        canonical; `out` may be x itself (in place).
-        """
-        self._check(x, "x")
-        K = x.shape[0]
-        logK = K.bit_length() - 1
-        if K != 1 << logK or not 1 <= logK <= MAX_LOGK:
-            raise ValueError(f"ntt_base: K = {K} is not a power of two in [2, 512]")
-        if pack.shape != (K, self.W) or pack.dtype != torch.int32 \
-                or pack.device != x.device or not pack.is_contiguous():
-            raise ValueError(f"pack: want contiguous ({K}, {self.W}) int32 on {x.device}")
+        x: (N, W) int32 canonical elements; point k of lane l (l < lanes)
+        at row xmap(k, l), in NATURAL order (the bit-reversal is folded into
+        the kernel's loads; the JAX kernel took bit-reversed input).
+        Default: lanes = N // K and xmap = TileMap.rows(lanes), (K, lanes)
+        rows.  pack: (K, W) stage-packed twiddles — entry m-1+t (m = 2^s)
+        is W_K^(t << (logK-1-s)).  Output point k of lane l goes to row
+        omap(k, l) of `out` (default: xmap; out default: a new zeroed
+        buffer like x), natural order, canonical; `out` may be x itself
+        with one map (in place).  Returns out."""
+        K, lanes, xmap, out, omap = self._ntt_args(x, pack, lanes, xmap, out, omap)
         if x.device.type == "cpu":
-            res = self.ntt_base_plain(x, pack)
-            return res if out is None else self._out(x, out).copy_(res)
-        o = self._out(x, out)
-        if x.shape[2]:
-            self._launch("blz_ntt_base", "ntt_base", x.device, x.data_ptr(),
-                         pack.data_ptr(), o.data_ptr(), logK, x.shape[2])
-        return o
+            return self.ntt_base_plain(x, pack, lanes, xmap, out, omap)
+        hx, ho = xmap.host(), omap.host()          # alive through the call
+        self._launch("blz_ntt_base", "ntt_base", x.device, x.data_ptr(), pack.data_ptr(),
+                     out.data_ptr(), K.bit_length() - 1, lanes, hx.ctypes.data,
+                     ho.ctypes.data)
+        return out
 
     # ----------------------------------------------------------------- K8
     def mul_lm_plain(self, x: torch.Tensor, y: torch.Tensor,
@@ -194,35 +284,55 @@ class NTTKernels:
         return o
 
     # ----------------------------------------------------------------- K9
-    def twiddle_mul_plain(self, y: torch.Tensor, t1: torch.Tensor, t2: torch.Tensor,
-                          B: int) -> torch.Tensor:
-        """Plain PyTorch version of `twiddle_mul`: the table columns are
-        gathered per lane, then two products."""
-        jo, jl = lane_cols(t1.shape[2], t2.shape[2], B, y.device)
-        acc = self.ops.mul(self._limbs(t1.index_select(2, jo)), self._limbs(y))
-        return self._words(self.ops.mul(acc, self._limbs(t2.index_select(2, jl))))
-
-    def twiddle_mul(self, y: torch.Tensor, t1: torch.Tensor, t2: torch.Tensor, B: int,
-                    out: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """Inter-level twiddle: entry (v, lane) times T1[v, jo] * T2[v, jl].
-
-        y: (A, W, J*S*B), lane = (jo*S + jl)*B + b; t1: (A, W, J), t2:
-        (A, W, S) split tables (fused.py).  Returns (A, W, J*S*B) canonical;
-        `out` may be y itself (in place)."""
-        self._check(y, "y")
+    def _twiddle_args(self, y, t1, t2, vshift, fields, out):
+        self._elements(y, "y")
         self._check(t1, "t1")
         self._check(t2, "t2")
-        A, _, lanes = y.shape
-        J, S = t1.shape[2], t2.shape[2]
-        if t1.shape[0] != A or t2.shape[0] != A or lanes != J * S * B:
-            raise ValueError(f"twiddle_mul: y {tuple(y.shape)}, J {J}, S {S}, B {B}")
-        if t1.device != y.device or t2.device != y.device:
-            raise ValueError("operands differ in device")
+        A, J, S = t1.shape[0], t1.shape[2], t2.shape[2]
+        logA, logJ, logS = _log2(A, "A"), _log2(J, "J"), _log2(S, "S")
+        if t2.shape[0] != A or t1.device != y.device or t2.device != y.device:
+            raise ValueError(f"twiddle_mul: t1 {tuple(t1.shape)}, t2 {tuple(t2.shape)} "
+                             f"on {t1.device}, {t2.device}")
+        fields = tuple(tuple(f) for f in fields)
+        if len(fields) > MAX_DIGITS or vshift < 0 or any(
+                s < 0 or w < 0 or d < 0 or s + w > 62 or d + w > logJ + logS
+                for s, w, d in fields):
+            raise ValueError(f"twiddle_mul: fields {fields} outside the tables")
+        if out is None:
+            out = torch.empty_like(y)
+        elif out.shape != y.shape or out.dtype != y.dtype or out.device != y.device \
+                or not out.is_contiguous():
+            raise ValueError("out differs from y in shape, type or device")
+        return logA, logJ, logS, fields, out
+
+    def twiddle_mul_plain(self, y: torch.Tensor, t1: torch.Tensor, t2: torch.Tensor,
+                          vshift: int, fields, out: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
+        """Plain PyTorch version of `twiddle_mul`: the table entries are
+        gathered per row, then two products."""
+        logA, _, logS, fields, out = self._twiddle_args(y, t1, t2, vshift, fields, out)
+        v, jo, jl = twiddle_cols(y.shape[0], logA, vshift, fields, logS, y.device)
+        f1 = words_to_limbs16(t1.transpose(1, 2)[v, jo])
+        acc = self.ops.mul(f1, words_to_limbs16(y))
+        f2 = words_to_limbs16(t2.transpose(1, 2)[v, jl])
+        return out.copy_(limbs16_to_words(self.ops.mul(acc, f2)))
+
+    def twiddle_mul(self, y: torch.Tensor, t1: torch.Tensor, t2: torch.Tensor,
+                    vshift: int, fields, out: Optional[torch.Tensor] = None
+                    ) -> torch.Tensor:
+        """Inter-level twiddle: element row pos times T1[v, jo] * T2[v, jl].
+
+        y: (N, W) canonical elements; t1: (A, W, J), t2: (A, W, S) split
+        tables (fused.py), A, J, S powers of two.  Row pos takes table row
+        v = (pos >> vshift) % A and column j = jo * S + jl = sum over
+        `fields` (src, wid, dst) of ((pos >> src) % 2^wid) << dst.  Returns
+        (N, W) canonical; `out` may be y itself (in place)."""
+        logA, logJ, logS, fields, out = self._twiddle_args(y, t1, t2, vshift, fields, out)
         if y.device.type == "cpu":
-            res = self.twiddle_mul_plain(y, t1, t2, B)
-            return res if out is None else self._out(y, out).copy_(res)
-        o = self._out(y, out)
-        if A and lanes:
-            self._launch("blz_twiddle_mul", "twiddle_mul", y.device, y.data_ptr(),
-                         t1.data_ptr(), t2.data_ptr(), o.data_ptr(), A, J, S, B)
-        return o
+            return self.twiddle_mul_plain(y, t1, t2, vshift, fields, out)
+        host = np.array([vshift, *(v for f in (*fields, *[(0, 0, 0)] * (
+            MAX_DIGITS - len(fields))) for v in f)], dtype=np.int32)
+        self._launch("blz_twiddle_mul", "twiddle_mul", y.device, y.data_ptr(),
+                     t1.data_ptr(), t2.data_ptr(), out.data_ptr(), y.shape[0], logA, logJ,
+                     logS, host.ctypes.data)
+        return out

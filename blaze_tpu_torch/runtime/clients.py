@@ -451,9 +451,11 @@ class MSMClient(DriverPrimitive):
         self._hbm_cache[key] = self._stage_points(points)
 
     def get_data_from_hbm(self, key: str) -> np.ndarray:
-        """Read back cached points, canonical words (msm_api.rs:313-322)."""
+        """Read back cached points (msm_api.rs:313-322) in the reference's
+        form: (N, 2, L) uint32 canonical 16-bit limbs, L = 2W."""
         dev = points_from_resident(self.curve, self._hbm_cache[key])
-        return self.curve.fq.from_mont(dev).cpu().numpy().view(np.uint32)
+        words = self.curve.fq.from_mont(dev).cpu().numpy().view(np.uint32)
+        return np.ascontiguousarray(words).view("<u2").astype(np.uint32)
 
     def is_msm_engine_ready(self) -> bool:
         return not self._inflight and self._stream is None

@@ -7,21 +7,24 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 
 1. device: the card (nvidia-smi name and power limit, CUDA, capability),
    then the kernels built from csrc/ with nvcc (seconds, registers, stack,
-   spills) and the local-memory loads and stores (LDL, STL) in the EC and
-   Poseidon kernels' SASS, with the opcode mix of K2, K4 and K10
-   (cuobjdump);
+   spills) and the local-memory loads and stores (LDL, STL) in the EC, NTT
+   and Poseidon kernels' SASS, with the opcode mix of K2, K3, K4, K7 (at
+   K = 512) and K10 (cuobjdump);
 2. kernel parity: K1-K6 against their plain PyTorch versions on the card,
    exact, on BN254, BLS12-377 and BLS12-381 at small shapes (K2 signed and
    unsigned) and at ragged shapes: K2 and K4 at lane counts B = 1, 33,
-   1000 (C = 1; K4 also over rows that hold identities), K5 at B = 1, 33,
+   1000 (C = 1; K4 also over rows that hold identities), K3 at the same
+   lane counts (identities as either operand, p = q), K5 at B = 1, 33,
    1000 (k 15), K6 at Wn = 1, 2, 20 (c 13) and, on the 12-word curves, at
    Wn = 128 (c 2, past 48 KB of shared memory); then at the main path's
    shapes for BLS12-381 with each kernel's time (CUDA events), its plain
    version's time and its bound: K2 at a 2^19 chunk (C 512, B 16384) and a
-   streamed 2^18 chunk (B 8192), K4's five rounds at a 2^19 chunk, K5 at
-   (B 16, k 16) and K6 at (Wn 16, c 16) and (Wn 20, c 13) beside their
-   chain bound (the products on the team's critical path times one
-   product's latency, timed on one thread: blz_product_chain);
+   streamed 2^18 chunk (B 8192), K3 at a lane-prefix round (B 16384) and
+   at the window sums' accumulation (B 16), K4's five rounds at a 2^19
+   chunk, K5 at (B 16, k 16) and K6 at (Wn 16, c 16) and (Wn 20, c 13);
+   K3, K5 and K6 beside their chain bound (the products on the team's
+   critical path times one product's latency, timed on one thread:
+   blz_product_chain);
 3. main path, streamed client: MSMClient(MSMInit("bls12_381")) over 2^20
    points in the reference's order initialize -> start_process -> four
    set_data chunks of wire bytes -> result();
@@ -44,11 +47,17 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    oracle MSM of the 256 points with each point's coefficient sum mod r,
    and the result bytes must match it after z-normalisation.
 5. NTT kernel parity: K7-K9 against their plain versions, exact, on
-   bn254_fr, bls12_377_fr and bls12_381_fr at small shapes (K7 in and out
-   of place, K8 with 2 and 3 operands, K9 with B = 1 and B > 1); then at
-   the 2^27 transform's shapes on bls12_381_fr with times and bounds, each
-   compared with its plain version on a cut of 2^20 elements (the plain
-   versions hold ~2 KB of int64 per element);
+   bn254_fr, bls12_377_fr and bls12_381_fr at small shapes (K7 through
+   (K, B) rows in and out of place, a strided input into a transposed
+   output and two levels of 2^10-point plans, ragged lane counts among
+   them; K8 with 2 and 3 operands; K9 with the twiddle row in low and high
+   bits of the element's row); then at the 2^27 transform's shapes on
+   bls12_381_fr with times and bounds (K7 at each of its three levels, K9
+   at depths 0 and 1), each compared with its plain version on a cut (2^11
+   lanes, 2^20 rows: the plain versions hold ~2 KB of int64 per element);
+   then one whole 2^27 transform under torch.profiler: its time split into
+   K7, K9 and any other device operation (a copy), their counts, and its
+   peak memory;
 6. main path, NTT client at 2^27 on bls12_381_fr: three random vectors,
    each transformed serially and then in the reference's double-buffered
    order (integration_ntt.rs:103-136); each pipelined output must equal
@@ -89,8 +98,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    path must have launched (K10 nine times per height-9 build; K2 once and
    K4 five times per 2^19 chunk at 2^24; K6 once per MSM).
 12. the seconds each phase took, then the kernels line (K1-K10): launches
-   in those runs, parity error, times, bounds, threads per lane, and K5's
-   and K6's chain bound.
+   in those runs, parity error, times, bounds, threads per lane, and K3's,
+   K5's and K6's chain bound.
 
 The last line is {"ok": true, "device": {...}}; the line before it is the
 card's name and power limit as nvidia-smi prints them.  Without a CUDA
@@ -247,16 +256,18 @@ def max_abs_err(a, b) -> int:
 
 
 # ------------------------------------------------------------ phase 1
-KERNEL_NAME = re.compile(r"([a-z_]+_kernel|ec_add_[a-z]+)ILi(\d+)E(?:Lb(\d))?")
+KERNEL_NAME = re.compile(r"([a-z_]+_kernel)ILi(\d+)E(?:Li(\d+)E)?(?:Lb(\d))?")
 
 
 def kernel_key(mangled: str):
-    """'scan_mixed_kernel<12>s' for a mangled kernel name (s: signed), or
-    None for other functions."""
+    """'scan_mixed_kernel<12>s' for a mangled kernel name (s: signed),
+    'ntt_base_kernel<8,9>' for two int parameters, or None for other
+    functions."""
     m = KERNEL_NAME.search(mangled)
     if not m:
         return None
-    return f"{m.group(1)}<{m.group(2)}>" + ("s" if m.group(3) == "1" else "")
+    args = m.group(2) + ("," + m.group(3) if m.group(3) else "")
+    return f"{m.group(1)}<{args}>" + ("s" if m.group(4) == "1" else "")
 
 
 def ptxas_summary(logs: dict) -> dict:
@@ -277,7 +288,8 @@ def ptxas_summary(logs: dict) -> dict:
     return out
 
 
-def sass_summary(libs, mix_of=("scan_mixed_kernel<12>", "reduce_cols_kernel<12>",
+def sass_summary(libs, mix_of=("scan_mixed_kernel<12>", "ec_add_kernel<12>",
+                              "reduce_cols_kernel<12>", "ntt_base_kernel<8,9>",
                               "poseidon_perm_kernel<8>")):
     """From cuobjdump -sass of the built libraries: 'kernel<W>[s]' ->
     [LDL, STL], the local-memory loads and stores in its code, and for the
@@ -323,7 +335,7 @@ def phase_device():
           "cuda": torch.version.cuda, "capability": list(torch.cuda.get_device_capability(0)),
           "sms": props.multi_processor_count, "max_sm_clock_mhz": clock_mhz,
           "build_s": build_s, "ptxas": ptxas_summary(_build.BUILD_LOG),
-          "sass": sass_summary([_build._lib_path(n) for n in ("ec_kernels",
+          "sass": sass_summary([_build._lib_path(n) for n in ("ec_kernels", "ntt_kernels",
                                                               "poseidon_kernels")])})
     return card, props.multi_processor_count * IMAD_PER_CLK_PER_SM * clock_mhz * 1e6
 
@@ -396,6 +408,10 @@ def kernel_cases(spec, C: int, B: int, seed: int, device, main: bool):
                   lambda: k.scan_mixed_plain(half), {"C": C, "B": B // 2}))
     cases.append(("fold_horner_c13", "fold_horner", lambda: k.fold_horner(ws20, 13),
                   lambda: k.fold_horner_plain(ws20, 13), {"Wn": 20, "c": 13}))
+    # K3 at the accumulation of the chunks' window sums: one lane per window
+    pw, qw = p[:, :16].contiguous(), q[:, :16].contiguous()
+    cases.append(("ec_add_windows", "ec_add", lambda: k.add(pw, qw),
+                  lambda: k.add_plain(pw, qw), {"B": 16}))
     for r, (Cr, Br) in enumerate(((16, 512), (4, 128), (2, 64), (4, 16)), start=2):
         rr = emitted[:Cr, :, :Br].contiguous()
         cases.append((f"reduce_cols_r{r}", "reduce_cols", lambda rr=rr: k.reduce_cols(rr),
@@ -407,7 +423,8 @@ def ragged_cases(spec, seed: int, device):
     """(key, kernel, kernel call, plain call, shape) for K2 (unsigned and
     signed) and K4 at ragged lane counts B = 1, 33, 1000: one row (C = 1),
     and for K4 also four rows that hold identities, as the bucket sum's
-    padding does; K5 at the same lane counts (k 15, identity lanes among
+    padding does; K3 at the same lane counts, identities as either operand
+    and p = q; K5 at the same lane counts (k 15, identity lanes among
     them); K6 at Wn = 1, 2 and 20 (c 13) with identity windows, and on
     12-word curves at Wn = 128 (c 2), whose window sums take K6 past 48 KB
     of shared memory."""
@@ -434,6 +451,11 @@ def ragged_cases(spec, seed: int, device):
             cases.append(("reduce_cols", "reduce_cols", lambda e=e: k.reduce_cols(e),
                           lambda e=e: k.reduce_cols_plain(e),
                           {"C": C, "B": B, "identities": int(C > 1)}))
+        p, q = emitted[1].clone(), emitted[2].clone()
+        q[:, 1::4] = p[:, 1::4]                           # p = q
+        for a, b, what in ((p, q, "p+q"), (q, p, "q+p"), (p, p, "p+p")):
+            cases.append(("ec_add", "ec_add", lambda a=a, b=b: k.add(a, b),
+                          lambda a=a, b=b: k.add_plain(a, b), {"B": B, "operands": what}))
         pts = emitted[1].contiguous()
         cases.append(("dbl_n", "dbl_n", lambda x=pts: k.dbl_n(x, 15),
                       lambda x=pts: k.dbl_n_plain(x, 15), {"B": B, "k": 15}))
@@ -533,11 +555,19 @@ def product_latency_us(spec, device, n: int = 4096) -> float:
     return cuda_ms(lambda: k.product_chain(x, y, n), 3) * 1e3 / n
 
 
+CHAINED = ("ec_add", "dbl_n", "fold_horner")
+
+
 def chain_bound_ms(name: str, shape: dict, latency_us: float) -> float:
-    """K5's and K6's chain bound: the products on the team's critical path
-    (CHAIN_PRODUCTS per group op, one group op per doubling or add) times
-    one product's latency."""
-    ops = shape["k"] if name == "dbl_n" else max((shape["Wn"] - 1) * (shape["c"] + 1), 1)
+    """K3's, K5's and K6's chain bound: the products on the team's critical
+    path (CHAIN_PRODUCTS per group op; K3 one group op per lane, K5 one
+    per doubling, K6 one per step) times one product's latency."""
+    if name == "ec_add":
+        ops = 1
+    elif name == "dbl_n":
+        ops = shape["k"]
+    else:
+        ops = max((shape["Wn"] - 1) * (shape["c"] + 1), 1)
     return CHAIN_PRODUCTS * ops * latency_us / 1e3
 
 
@@ -583,7 +613,7 @@ def phase_parity(imad_rate: float, device):
         timing[key] = {"shape": shape, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
                        "bound_by": bound_by, "max_abs_err": e,
                        "threads_per_lane": threads_per_lane(name)}
-        if name in ("dbl_n", "fold_horner"):
+        if name in CHAINED:
             timing[key]["chain_bound_ms"] = chain_bound_ms(name, shape, latency_us)
         del want
         torch.cuda.empty_cache()
@@ -882,102 +912,201 @@ def rand_words(spec, shape, seed: int, device):
 
 def ntt_kernel_cases(spec, seed: int, device):
     """(name, kernel call, plain call, shape) for K7-K9 at small shapes,
-    every branch: K7 out of and in place, K8 with 2 and 3 operands, K9 with
-    B = 1 and B > 1 (and in place)."""
+    every branch: K7 through (K, B) rows out of and in place, a strided
+    input into a transposed output, and two levels of 2^10-point plans
+    (level 0 of parts 3, 4, 3 out of place into reversed lane digits; level
+    1 of 3, 3, 4 in place), ragged lane counts among them; K8 with 2 and 3
+    operands; K9 with the row's v bits low and high (and in place)."""
+    import torch
+
     from blaze_tpu_torch.ntt import NTTKernels
+    from blaze_tpu_torch.ntt.fused import plan_levels
+    from blaze_tpu_torch.ntt.kernels import TileMap
 
     k = NTTKernels.for_spec(spec)
     W = spec.nwords
+    rows = TileMap.rows
+    layouts = [(2, 300, "rows", 600, rows(300), 600, rows(300), False),
+               (8, 1000, "rows", 8000, rows(1000), 8000, rows(1000), False),
+               (512, 37, "rows", 512 * 37, rows(37), 512 * 37, rows(37), False),
+               (512, 64, "rows", 512 * 64, rows(64), 512 * 64, rows(64), True),
+               (64, 45, "strided_to_transposed", 64 * 48, TileMap(48, ((1, 45, 1),)), 64 * 45,
+                TileMap(1, ((1, 45, 64),)), False)]
+    for name, parts, d in (("level0_of_343", [3, 4, 3], 0), ("level1_of_334", [3, 3, 4], 1)):
+        lv = plan_levels(parts)[d]
+        layouts.append((1 << lv.a, lv.lanes, name, 1024, lv.xmap, 1024, lv.omap,
+                        lv.xmap == lv.omap))
     cases = []
-    for i, (K, B) in enumerate(((2, 300), (8, 1000), (512, 37))):
-        x, pack = rand_words(spec, (K, W, B), seed + i, device), rand_words(
-            spec, (K, W), seed + 10 + i, device)
-        cases.append(("ntt_base", lambda x=x, pack=pack: k.ntt_base(x, pack),
-                      lambda x=x, pack=pack: k.ntt_base_plain(x, pack), {"K": K, "lanes": B}))
-    x, pack = rand_words(spec, (512, W, 64), seed + 3, device), rand_words(spec, (512, W), seed + 4, device)
-    cases.append(("ntt_base", lambda: (lambda c: k.ntt_base(c, pack, out=c))(x.clone()),
-                  lambda: k.ntt_base_plain(x, pack), {"K": 512, "lanes": 64, "in_place": 1}))
+    for i, (K, B, name, nx, xmap, no, omap, in_place) in enumerate(layouts):
+        x = rand_words(spec, (nx, W), seed + i, device)
+        pack = rand_words(spec, (K, W), seed + 10 + i, device)
+
+        def fresh(x=x, no=no, in_place=in_place):
+            return x.clone() if in_place else torch.zeros((no, W), dtype=torch.int32,
+                                                          device=device)
+
+        def kern(x=x, pack=pack, B=B, xmap=xmap, omap=omap, fresh=fresh, in_place=in_place):
+            out = fresh()
+            return k.ntt_base(out if in_place else x, pack, B, xmap, out=out, omap=omap)
+
+        cases.append(("ntt_base", kern,
+                      lambda x=x, pack=pack, B=B, xmap=xmap, omap=omap, fresh=fresh:
+                      k.ntt_base_plain(x, pack, B, xmap, out=fresh(), omap=omap),
+                      {"K": K, "lanes": B, "layout": name, "in_place": int(in_place)}))
     a, b, c = (rand_words(spec, (4, W, 1000), seed + 20 + i, device) for i in range(3))
     cases.append(("mul_lm", lambda: k.mul_lm(a, b), lambda: k.mul_lm_plain(a, b),
                   {"M": 4, "N": 1000, "operands": 2}))
     cases.append(("mul_lm", lambda: k.mul_lm(a, b, c), lambda: k.mul_lm_plain(a, b, c),
                   {"M": 4, "N": 1000, "operands": 3}))
-    for i, (A, J, S, B) in enumerate(((16, 8, 32, 1), (16, 4, 8, 24))):
-        y = rand_words(spec, (A, W, J * S * B), seed + 30 + i, device)
+    for i, (A, J, S, B) in enumerate(((16, 8, 32, 1), (16, 4, 8, 16))):
+        y = rand_words(spec, (A * J * S * B, W), seed + 30 + i, device)
         t1 = rand_words(spec, (A, W, J), seed + 40 + i, device)
         t2 = rand_words(spec, (A, W, S), seed + 50 + i, device)
-        shape = {"A": A, "J": J, "S": S, "B": B}
-        cases.append(("twiddle_mul", lambda y=y, t1=t1, t2=t2, B=B: k.twiddle_mul(y, t1, t2, B),
-                      lambda y=y, t1=t1, t2=t2, B=B: k.twiddle_mul_plain(y, t1, t2, B), shape))
-        cases.append(("twiddle_mul",
-                      lambda y=y, t1=t1, t2=t2, B=B: (lambda o: k.twiddle_mul(o, t1, t2, B, out=o))(
-                          y.clone()),
-                      lambda y=y, t1=t1, t2=t2, B=B: k.twiddle_mul_plain(y, t1, t2, B),
+        la, lb, lc = A.bit_length() - 1, B.bit_length() - 1, (J * S).bit_length() - 1
+        # v in the row's low bits (a level-0 twiddle) or above j and b
+        vs, f = (0, ((la + lb, lc, 0),)) if i == 0 else (lb + lc, ((lb, lc, 0),))
+        shape = {"A": A, "J": J, "S": S, "B": B, "vshift": vs}
+        cases.append(("twiddle_mul", lambda y=y, t1=t1, t2=t2, vs=vs, f=f:
+                      k.twiddle_mul(y, t1, t2, vs, f),
+                      lambda y=y, t1=t1, t2=t2, vs=vs, f=f: k.twiddle_mul_plain(y, t1, t2, vs, f),
+                      shape))
+        cases.append(("twiddle_mul", lambda y=y, t1=t1, t2=t2, vs=vs, f=f:
+                      (lambda o: k.twiddle_mul(o, t1, t2, vs, f, out=o))(y.clone()),
+                      lambda y=y, t1=t1, t2=t2, vs=vs, f=f: k.twiddle_mul_plain(y, t1, t2, vs, f),
                       {**shape, "in_place": 1}))
     return cases
 
 
-def ntt_main_timing(imad_rate: float, seed: int, device):
-    """K7-K9 at the shapes of the 2^27 bls12_381_fr transform (K8 at the
-    2^16 plan's twiddle cell, its only main-path use): time, bound, and the
-    kernel's output on a cut of at most 2^20 elements against the plain
-    version on the same cut."""
+def ntt_main_timing(plan, imad_rate: float, seed: int, device):
+    """K7-K9 at the shapes of the 2^27 bls12_381_fr transform (`plan`): K7
+    at each of its three levels (level 0 reads the input's rows and writes
+    the plan's buffer, levels 1 and 2 update it in place), K9 at depths 0
+    and 1, K8 at the 2^16 plan's twiddle cell, its only main-path use:
+    time, bound, and the kernel's output on a cut (K7 2^11 lanes, K9 2^20
+    rows) against the plain version on the same cut."""
     import torch
 
     from blaze_tpu_torch.fields import FIELDS
     from blaze_tpu_torch.ntt import FusedNTT
-    from blaze_tpu_torch.ntt.kernels import lane_cols
+    from blaze_tpu_torch.ntt.kernels import twiddle_cols
 
     spec = FIELDS["bls12_381_fr"]
     W = spec.nwords
-    plan = FusedNTT(spec, 27, device=device)
     k = plan.kern
     timing = {}
 
-    def measure(key, name, shape, kern, plain, cut, plain_shape, reps):
+    def measure(key, name, shape, kern, check, plain, cut, plain_shape, reps):
+        """kern: the timed launch; check: the kernel's output on the plain
+        version's inputs; cut: the rows both cover."""
         ms = cuda_ms(kern, reps)
         want, plain_ms = once_ms(plain)
-        e = max_abs_err(cut(kern()), want)
+        e = max_abs_err(cut(check()), cut(want))
         bound, bound_by = work_bound_ms(name, shape, W, imad_rate)
         timing[key] = {"shape": shape, "ms": ms, "plain_ms": plain_ms,
                        "plain_shape": plain_shape, "bound_ms": bound,
                        "bound_by": bound_by, "max_abs_err": e}
+        del want
         torch.cuda.empty_cache()
 
-    lanes, cut = 1 << 18, 1 << 11
-    x = rand_words(spec, (512, W, lanes), seed, device)
-    pack = plan._packs[(9, False)]
-    measure("ntt_base", "ntt_base", {"K": 512, "lanes": lanes}, lambda: k.ntt_base(x, pack),
-            lambda: k.ntt_base_plain(x[:, :, :cut].contiguous(), pack),
-            lambda o: o[:, :, :cut], {"K": 512, "lanes": cut}, 5)
+    n, lane_cut, row_cut = plan.n, 1 << 11, 1 << 20
+    x = rand_words(spec, (n, W), seed, device)
+    buf = rand_words(spec, (n, W), seed + 1, device)
+    for d, lv in enumerate(plan.levels):
+        key = "ntt_base" if d == 0 else f"ntt_base_level{d}"
+        pack, K = plan._packs[(lv.a, False)], 1 << lv.a
+        src = x if d == 0 else buf.clone()
+
+        def launch(src, lv=lv, pack=pack):
+            return k.ntt_base(src, pack, lv.lanes, lv.xmap, out=buf if d == 0 else src,
+                              omap=lv.omap)
+
+        measure(key, "ntt_base", {"K": K, "lanes": lv.lanes, "level": d},
+                lambda launch=launch: launch(x if d == 0 else buf),
+                lambda launch=launch, src=src: launch(src),
+                lambda lv=lv, pack=pack, src=src: k.ntt_base_plain(
+                    src, pack, lane_cut, lv.xmap, out=torch.zeros_like(buf), omap=lv.omap),
+                lambda o, rows=lv.omap.offsets(K, lane_cut, device).reshape(-1): o[rows],
+                {"K": K, "lanes": lane_cut}, 5)
+        del src
     del x
-    for key, depth, B in (("twiddle_mul", 0, 1), ("twiddle_mul_b512", 1, 512)):
-        t1, t2 = plan._tabs[(depth, False)]
+    for d, lv in enumerate(plan.levels[:-1]):
+        key = "twiddle_mul" if d == 0 else f"twiddle_mul_depth{d}"
+        t1, t2 = plan._tabs[(d, False)]
         J, S = t1.shape[2], t2.shape[2]
-        y = rand_words(spec, (512, W, J * S * B), seed + 1 + depth, device)
-        rows = 4
-        measure(key, "twiddle_mul", {"A": 512, "J": J, "S": S, "B": B},
-                lambda: k.twiddle_mul(y, t1, t2, B),
-                lambda: k.twiddle_mul_plain(y[:rows].contiguous(), t1[:rows].contiguous(),
-                                            t2[:rows].contiguous(), B),
-                lambda o: o[:rows], {"A": rows, "J": J, "S": S, "B": B}, 5)
-        del y
+        y = buf[:row_cut].clone()               # rows 0.. of the buffer: the same v, j
+        measure(key, "twiddle_mul", {"A": 1 << lv.a, "J": J, "S": S,
+                                     "B": 1 << lv.vshift, "depth": d},
+                lambda lv=lv, t1=t1, t2=t2: k.twiddle_mul(buf, t1, t2, lv.vshift, lv.fields,
+                                                          out=buf),
+                lambda y=y, lv=lv, t1=t1, t2=t2: k.twiddle_mul(y, t1, t2, lv.vshift, lv.fields),
+                lambda y=y, lv=lv, t1=t1, t2=t2: k.twiddle_mul_plain(y, t1, t2, lv.vshift,
+                                                                     lv.fields),
+                lambda o: o, {"rows": row_cut}, 5)
+    del buf
     small = FusedNTT(spec, 16, device=device)
+    lv = small.levels[0]
     t1, t2 = small._tabs[(0, False)]
-    J, S = t1.shape[2], t2.shape[2]
-    jo, jl = lane_cols(J, S, 1, device)
-    tw1, tw2 = t1.index_select(2, jo).contiguous(), t2.index_select(2, jl).contiguous()
-    y = rand_words(spec, tw1.shape, seed + 3, device)
-    shape = {"M": tw1.shape[0], "N": tw1.shape[2], "operands": 3}
+    v, jo, jl = twiddle_cols(small.n, lv.a, lv.vshift, lv.fields,
+                             t2.shape[2].bit_length() - 1, device)
+    tw1 = t1.transpose(1, 2)[v, jo].reshape(small.n, W, 1)
+    tw2 = t2.transpose(1, 2)[v, jl].reshape(small.n, W, 1)
+    y = rand_words(spec, (small.n, W, 1), seed + 3, device)
+    shape = {"M": small.n, "N": 1, "operands": 3}
     measure("mul_lm", "mul_lm", shape, lambda: k.mul_lm(y, tw1, tw2),
-            lambda: k.mul_lm_plain(y, tw1, tw2), lambda o: o, shape, 20)
+            lambda: k.mul_lm(y, tw1, tw2), lambda: k.mul_lm_plain(y, tw1, tw2),
+            lambda o: o, shape, 20)
     return timing
+
+
+def ntt_transform_split(plan, seed: int, device) -> dict:
+    """One warm 2^27 transform (plan.ntt) timed whole with CUDA events and
+    traced under torch.profiler: the device time of each operation by
+    name, K7 (ntt_base_kernel), K9 (twiddle_mul_kernel) and every other
+    (a copy, a fill), their counts, and the transform's peak memory."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    W = plan.spec.nwords
+    x = rand_words(plan.spec, (plan.n, W), seed, device)
+    ms = cuda_ms(lambda: plan.ntt(x), 3)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        out = plan.ntt(x)
+        torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    del out, x
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+    ops = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA and dev_us(e) > 0]
+    split = {"ntt_base": [0, 0.0], "twiddle_mul": [0, 0.0], "other": [0, 0.0]}
+    others = []
+    for e in ops:
+        key = ("ntt_base" if "ntt_base_kernel" in e.key else
+               "twiddle_mul" if "twiddle_mul_kernel" in e.key else "other")
+        split[key][0] += e.count
+        split[key][1] += dev_us(e) / 1e3
+        if key == "other":
+            others.append({"name": e.key[:60], "count": e.count, "ms": dev_us(e) / 1e3})
+    info = {"n": plan.n, "parts": plan.parts, "transform_ms": ms,
+            "device_ms": sum(v[1] for v in split.values()),
+            **{f"{k}_launches": v[0] for k, v in split.items()},
+            **{f"{k}_ms": v[1] for k, v in split.items()},
+            "other_ops": others, "input_gib": plan.n * W * 4 / 2**30,
+            "peak_gib": peak / 2**30, "peak_above_input_gib": (peak - base) / 2**30}
+    emit({"phase": "ntt_2^27_split", **info})
+    return info
 
 
 def phase_ntt_parity(imad_rate: float, seed: int, device):
     import torch
 
     from blaze_tpu_torch.fields import FIELDS
+    from blaze_tpu_torch.ntt import FusedNTT
 
     names = ("ntt_base", "mul_lm", "twiddle_mul")
     errs = dict.fromkeys(names, 0)
@@ -991,14 +1120,17 @@ def phase_ntt_parity(imad_rate: float, seed: int, device):
         emit({"phase": "ntt_parity", "field": field, "shape": "small", "cases": checked})
         if any(c["max_abs_err"] for c in checked):
             raise AssertionError(f"{field}: NTT kernel differs from its plain version")
-    timing = ntt_main_timing(imad_rate, seed, device)
+    dev = torch.device("cuda", torch.cuda.current_device())     # the plan's device, indexed
+    plan = FusedNTT(FIELDS["bls12_381_fr"], 27, device=dev)
+    timing = ntt_main_timing(plan, imad_rate, seed, dev)
     emit({"phase": "ntt_parity", "field": "bls12_381_fr", "shape": "main path (2^27)",
           "kernels": timing})
     for key, t in timing.items():
-        name = "twiddle_mul" if key.startswith("twiddle_mul") else key
+        name = next(nm for nm in names if key.startswith(nm))
         errs[name] = max(errs[name], t["max_abs_err"])
     if any(t["max_abs_err"] for t in timing.values()):
         raise AssertionError("NTT kernel differs from its plain version at the main shapes")
+    ntt_transform_split(plan, seed, dev)
     return errs, timing
 
 

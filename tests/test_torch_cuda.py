@@ -3,9 +3,10 @@
     python -m pytest -m cuda tests/test_torch_cuda.py
 
 K1-K6 against their plain PyTorch versions on the same device inputs,
-exact, on all three curves (K2, K4 and K5 also at ragged lane counts, K6 at
+exact, on all three curves (K2-K5 also at ragged lane counts, K6 at
 ragged window counts), and K7-K10 (with the multi-p REDC twin) on the three
-scalar fields, K10 also over the 12-word base fields and at t = 17; the MSM client on the card against the oracle with
+scalar fields (K7 through strided and transposed maps and at the 2^27
+plan's levels), K10 also over the 12-word base fields and at t = 17; the MSM client on the card against the oracle with
 distinct scalars; the NTT client on the card against every committed golden
 pair, and at 2^16 (the K8 twiddle fallback) against a host NTT in Python
 ints with an inverse roundtrip; the Poseidon client at height 3, staged,
@@ -42,6 +43,8 @@ from blaze_tpu_torch.hash import (
 )
 from blaze_tpu_torch.hash.kernels import sum_products, sum_products_plain
 from blaze_tpu_torch.ntt import NTTKernels
+from blaze_tpu_torch.ntt.fused import plan_levels
+from blaze_tpu_torch.ntt.kernels import TileMap
 from blaze_tpu_torch.oracle.poseidon_ref import merkle_tree_ref, poseidon_hash_ref
 from blaze_tpu_torch.runtime import (
     MSMClient,
@@ -178,22 +181,82 @@ def canonical(spec, shape, seed, dev):
     return torch.from_numpy(w.view(np.int32)).to(dev)
 
 
+def ntt_layouts(K: int, B: int):
+    """(input rows, xmap, output rows, omap, in place) of K7's layouts:
+    (K, B) rows out of and in place, a strided input into a transposed
+    output, a transposed buffer in place."""
+    rows, tr = TileMap.rows(B), TileMap(1, ((1, B, K),))
+    return [(K * B, rows, K * B, rows, False), (K * B, rows, K * B, rows, True),
+            (K * (B + 3), TileMap(B + 3, ((1, B, 1),)), K * B, tr, False),
+            (K * B, tr, K * B, tr, True)]
+
+
 @pytest.mark.parametrize("field", ["bn254_fr", "bls12_377_fr", "bls12_381_fr"])
 def test_ntt_kernels_match_plain_versions(dev, field):
     spec = FIELDS[field]
     k, W = NTTKernels.for_spec(spec), spec.nwords
-    for K, B in ((2, 100), (512, 37)):
-        x, pack = canonical(spec, (K, W, B), K, dev), canonical(spec, (K, W), K + 1, dev)
-        want = k.ntt_base_plain(x, pack)
-        assert torch.equal(k.ntt_base(x, pack), want)
-        assert torch.equal(k.ntt_base(x, pack, out=x), want)         # in place
+    for K, B in ((2, 100), (8, 257), (64, 45), (512, 37)):
+        pack = canonical(spec, (K, W), K + 1, dev)
+        for i, (nx, xmap, no, omap, in_place) in enumerate(ntt_layouts(K, B)):
+            x = canonical(spec, (nx, W), K + i, dev)
+            want = k.ntt_base_plain(x, pack, B, xmap, out=torch.zeros_like(x[:no]), omap=omap)
+            out = x.clone() if in_place else torch.zeros_like(x[:no])
+            got = k.ntt_base(out if in_place else x, pack, B, xmap, out=out, omap=omap)
+            assert got is out and torch.equal(out, want), (K, B, i)
     a, b, c = (canonical(spec, (4, W, 300), 10 + i, dev) for i in range(3))
     assert torch.equal(k.mul_lm(a, b), k.mul_lm_plain(a, b))
     assert torch.equal(k.mul_lm(a, b, c), k.mul_lm_plain(a, b, c))
-    for A, J, S, B in ((8, 4, 32, 1), (8, 4, 8, 24)):
-        y = canonical(spec, (A, W, J * S * B), 20, dev)
+    for A, J, S, B in ((8, 4, 32, 1), (8, 4, 8, 16)):
+        y = canonical(spec, (A * J * S * B, W), 20, dev)
         t1, t2 = canonical(spec, (A, W, J), 21, dev), canonical(spec, (A, W, S), 22, dev)
-        assert torch.equal(k.twiddle_mul(y, t1, t2, B), k.twiddle_mul_plain(y, t1, t2, B))
+        # v in the row's low bits, j above the b bits (a plan's level-0 order)
+        lb, lc = B.bit_length() - 1, (J * S).bit_length() - 1
+        vshift, fields = 0, ((A.bit_length() - 1 + lb, lc, 0),)
+        want = k.twiddle_mul_plain(y, t1, t2, vshift, fields)
+        assert torch.equal(k.twiddle_mul(y, t1, t2, vshift, fields), want)
+        assert torch.equal(k.twiddle_mul(y, t1, t2, vshift, fields, out=y), want)
+
+
+@pytest.mark.parametrize("depth", [0, 1, 2])
+def test_ntt_base_at_the_2e27_levels(dev, depth):
+    """K7 through each level's maps of the 2^27 plan (parts 9, 9, 9: level
+    0 out of place into the reversed lane digits, levels 1 and 2 in place)
+    over the whole 4 GiB buffer, held to the plain version on its first
+    2^10 lanes."""
+    spec = FIELDS["bls12_381_fr"]
+    k, W = NTTKernels.for_spec(spec), spec.nwords
+    lv = plan_levels([9, 9, 9])[depth]
+    K, cut = 1 << lv.a, 1 << 10
+    pack = canonical(spec, (K, W), 3, dev)
+    x = canonical(spec, (1 << 27, W), depth, dev)
+    in_place = lv.xmap == lv.omap
+    out = x.clone() if in_place else torch.zeros_like(x)
+    k.ntt_base(out if in_place else x, pack, lv.lanes, lv.xmap, out=out, omap=lv.omap)
+    want = k.ntt_base_plain(x, pack, cut, lv.xmap, out=torch.zeros_like(x), omap=lv.omap)
+    rows = lv.omap.offsets(K, cut, dev).reshape(-1)
+    assert torch.equal(out[rows], want[rows])
+
+
+@pytest.mark.parametrize("B", [1, 33, 1000])
+@pytest.mark.parametrize("name", sorted(CURVES))
+def test_ec_add_matches_plain_at_ragged_shapes(dev, name, B):
+    """K3 at ragged lane counts, exact: distinct lazy points, p = q, and
+    identities as either operand."""
+    spec = CURVES[name]
+    cv, k = Curve(spec), ECKernels.for_curve(spec)
+    oracle = ECOracle(spec)
+    rng = random.Random(B + 7)
+    pts = [oracle.random_point(rng) for _ in range(2 * B)]
+    aff = torch.stack([cv.fq.from_int([x for x, _ in pts], device=dev),
+                       cv.fq.from_int([y for _, y in pts], device=dev)], dim=1)
+    em = k.scan_mixed(aff.reshape(2, B, -1).permute(0, 2, 1).contiguous())[0]
+    ident = cv.identity(device=dev).reshape(-1, 1)
+    p, q = em[0].clone(), em[1].clone()
+    p[:, ::3] = ident
+    q[:, 1::4] = ident
+    q[:, 2::5] = p[:, 2::5]
+    for a, b in ((p, q), (q, p), (p, p)):
+        assert torch.equal(k.add(a, b), k.add_plain(a, b))
 
 
 def _host_ntt(vals, w, p):

@@ -1,10 +1,10 @@
-"""The team schedule of K2, K4, K5 and K6 (blaze_tpu_torch/csrc/ec_team.cuh)
+"""The team schedule of K2-K6 (blaze_tpu_torch/csrc/ec_team.cuh)
 run on the host: the header built with g++, where each PTX carry
 instruction is emulated, and each team member's tasks of each step run role
 by role, the steps in the kernels' order and the members first to last and
 last to first (a task that read another member's output of the same step, a
 race on the card, gives a different result in one of the two).  Its outputs
-must equal the plain versions of K2, K4, K5 and K6 (held limb for limb
+must equal the plain versions of K2-K6 (held limb for limb
 against blaze_tpu's Pallas kernels in tests/test_torch_curves.py) and its
 product, add and sub the plain lazy field ops, on the three curves.  K6's
 driver stages the next window's coordinates in the same step as OUT_4, as
@@ -31,7 +31,6 @@ CSRC = Path(__file__).resolve().parent.parent / "blaze_tpu_torch" / "csrc"
 
 HOST_DRIVER = r"""
 #define BLZ_DEVICE inline
-#define BLZ_DEVICE_CALL inline
 #include <cstdint>
 #include "ec_team.cuh"
 
@@ -117,6 +116,30 @@ void reduce(const uint32_t* consts, const uint32_t* rows, uint32_t* tot, int C, 
   }
 }
 
+// K3's schedule: p + q for each of B lanes (3W, B), p in slot 1 and q in
+// slot 2, one FULL_1 group op.
+template <int W>
+void add(const uint32_t* consts, const uint32_t* p, const uint32_t* q, uint32_t* o,
+         int64_t B, int rev) {
+  const auto fc = blz::load_consts<W>(consts);
+  uint4 mem[tm::kSlots * W / 4];
+  const tm::Slots<W, 1> sl{mem};
+  for (int64_t b = 0; b < B; ++b) {
+    for (int c = 0; c < 3; ++c) {
+      uint32_t u[W], v[W];
+      for (int w = 0; w < W; ++w) {
+        u[w] = p[(c * W + w) * B + b];
+        v[w] = q[(c * W + w) * B + b];
+      }
+      sl.store(tm::X1 + c, u);
+      sl.store(tm::X2 + c, v);
+    }
+    sl.store(tm::B3, fc.b3);
+    group_op<tm::FULL_1, tm::FULL_2, W>(sl, fc, rev);
+    put<W>(o + b, sl, B);
+  }
+}
+
 // k doublings of each of B lanes (3W, B), DBL_1 each.
 template <int W>
 void dbl(const uint32_t* consts, const uint32_t* p, uint32_t* o, int k, int64_t B, int rev) {
@@ -192,6 +215,12 @@ extern "C" void team_reduce(int W, const uint32_t* k, const uint32_t* rows, uint
   else reduce<12>(k, rows, t, C, B, rev);
 }
 
+extern "C" void team_add(int W, const uint32_t* k, const uint32_t* p, const uint32_t* q,
+                         uint32_t* o, int64_t B, int rev) {
+  if (W == 8) add<8>(k, p, q, o, B, rev);
+  else add<12>(k, p, q, o, B, rev);
+}
+
 extern "C" void team_dbl(int W, const uint32_t* k, const uint32_t* p, uint32_t* o, int n,
                          int64_t B, int rev) {
   if (W == 8) dbl<8>(k, p, o, n, B, rev);
@@ -227,6 +256,7 @@ def lib(tmp_path_factory):
     lib.team_scan.argtypes = [i, p, i, p, p, p, i, ctypes.c_int64, i]
     lib.team_reduce.argtypes = [i, p, p, p, i, ctypes.c_int64, i]
     lib.team_field.argtypes = [i, p, i, p, p, p, ctypes.c_int64]
+    lib.team_add.argtypes = [i, p, p, p, p, ctypes.c_int64, i]
     lib.team_dbl.argtypes = [i, p, p, p, i, ctypes.c_int64, i]
     lib.team_fold.argtypes = [i, p, p, p, i, i, i]
     return lib
@@ -296,6 +326,22 @@ def lazy_points(name: str, n: int, seed: int):
     if n > 2:
         pts[:, 1] = Curve(CURVES[name]).identity().reshape(-1)
     return pts
+
+
+@pytest.mark.parametrize("name", sorted(CURVES))
+def test_team_add_matches_plain(lib, name):
+    """K3's schedule (p in slot 1, q in slot 2, one FULL_1 group op) against
+    add_plain on lazy operands: distinct points, p = q, and the identity as
+    either operand or both."""
+    k = ECKernels.for_curve(CURVES[name])
+    pts = lazy_points(name, 9, seed=31)                         # identity at column 1
+    p = torch.cat([pts[:, :8], pts[:, 2:5], pts[:, 1:2]], dim=1).contiguous()
+    q = torch.cat([pts[:, 1:9], pts[:, 2:5], pts[:, 1:2]], dim=1).contiguous()
+    want = k.add_plain(p, q)
+    for rev in (0, 1):
+        out = torch.empty_like(p)
+        lib.team_add(k.W, ptr(k._consts), ptr(p), ptr(q), ptr(out), p.shape[1], rev)
+        assert torch.equal(out, want), rev
 
 
 @pytest.mark.parametrize("k_dbl", [1, 16])

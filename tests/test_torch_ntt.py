@@ -41,6 +41,8 @@ from blaze_tpu_torch.ntt import (
     split_parts,
     tables_from_reference,
 )
+from blaze_tpu_torch.ntt.fused import plan_levels
+from blaze_tpu_torch.ntt.kernels import TileMap
 from blaze_tpu_torch.runtime import NTTClient, NTTInit, NTTInput
 from blaze_tpu_torch.utils import DataError, DeviceError, InvalidPrimitiveParam, NotReady
 
@@ -90,21 +92,44 @@ def wire(w: np.ndarray) -> bytes:
 
 
 # ------------------------------------------------------------------ kernels
-def test_ntt_base_plain_matches_pallas_kernel():
-    """K7: natural-order input (the port folds the bit-reversal into the
-    kernel) against the JAX kernel fed the bit-reversed rows."""
+# K7's layouts: (K, B) rows, and two levels of plans over 2^10 points whose
+# K = 8 levels have 128 lanes: level 0 of [3, 4, 3] (natural input, the
+# output's lane digits reversed, out of place) and level 1 of [3, 3, 4]
+# (two lane digits, in place).
+NTT_LAYOUTS = {
+    "rows": None,
+    "level0_of_343": plan_levels([3, 4, 3])[0],
+    "level1_of_334": plan_levels([3, 3, 4])[1],
+}
+
+
+@pytest.mark.parametrize("layout", sorted(NTT_LAYOUTS))
+def test_ntt_base_plain_matches_pallas_kernel(layout):
+    """K7: natural-order input read through the layout's map (the port
+    folds the bit-reversal into the kernel) against the JAX kernel fed the
+    same lanes' bit-reversed rows; the output read back through the output
+    map."""
     field = "bls12_381_fr"
     spec = FIELDS[field]
     K, B = 8, 128
-    x = rand_words(spec, (K, B), 1)
+    lv = NTT_LAYOUTS[layout]
+    xmap = TileMap.rows(B) if lv is None else lv.xmap
+    omap = xmap if lv is None else lv.omap
+    assert lv is None or (1 << lv.a, lv.lanes) == (K, B)
+    x = rand_words(spec, (K * B,), 1)
     pack = rand_words(spec, (K,), 2)
-    xt, _ = lm(x)
+    rows = xmap.offsets(K, B, "cpu").numpy()
     rev = [0, 4, 2, 6, 1, 5, 3, 7]
-    _, xref = lm(x[rev])
+    _, xref = lm(x[rows[rev]])
     packref = jnp.asarray(np.broadcast_to(limbs(pack)[:, :, None], (K, 16, 128)).astype(np.uint16))
     want = RefNTTKernels.for_spec(REF_FIELDS[field], interpret=True).ntt_base(xref, packref)
-    got = NTTKernels.for_spec(spec).ntt_base(xt, as_t(pack))
-    assert torch.equal(got, ref_words(want))
+    k = NTTKernels.for_spec(spec)
+    xt = as_t(x)
+    in_place = lv is not None and lv.xmap == lv.omap
+    got = k.ntt_base(xt, as_t(pack), B, xmap, out=xt if in_place else None, omap=omap)
+    assert (got is xt) == in_place
+    out_rows = omap.offsets(K, B, "cpu")
+    assert torch.equal(got[out_rows].transpose(1, 2), ref_words(want))
 
 
 @pytest.mark.parametrize("operands", [2, 3])
@@ -119,31 +144,51 @@ def test_mul_lm_plain_matches_pallas_kernel(operands):
 
 @pytest.mark.parametrize("A,J,S,B", [(4, 4, 8, 1), (4, 2, 4, 8)])
 def test_twiddle_mul_plain_matches_pallas_kernel(A, J, S, B):
-    """K9, both branches: B = 1 (depth-0 cells) and B > 1."""
+    """K9, both branches of the JAX kernel: B = 1 (depth-0 cells) and
+    B > 1.  The port's rows are the JAX package's (A, J*S*B) lanes as
+    (A*J*S*B, W) elements: row v * lanes + j * B + b, so v is the row's
+    bits from log2(lanes) and j its bits from log2(B)."""
     spec = FIELDS["bls12_381_fr"]
-    y, yref = lm(rand_words(spec, (A, J * S * B), 20))
+    lanes = J * S * B
+    yw = rand_words(spec, (A, lanes), 20)
+    _, yref = lm(yw)
     t1, t1ref = lm(rand_words(spec, (A, J), 21))
     t2, t2ref = lm(rand_words(spec, (A, S), 22))
     want = RefNTTKernels.for_spec(REF_FIELDS[spec.name], interpret=True).twiddle_mul(
         yref, t1ref, t2ref, B)
+    want = ref_words(want).transpose(1, 2).reshape(A * lanes, spec.nwords)
     k = NTTKernels.for_spec(spec)
-    assert torch.equal(k.twiddle_mul(y, t1, t2, B), ref_words(want))
+    vshift, fields = lanes.bit_length() - 1, ((B.bit_length() - 1, (J * S).bit_length() - 1, 0),)
+    y = as_t(yw.reshape(A * lanes, spec.nwords))
+    assert torch.equal(k.twiddle_mul(y, t1, t2, vshift, fields), want)
     inplace = y.clone()
-    assert k.twiddle_mul(inplace, t1, t2, B, out=inplace) is inplace
-    assert torch.equal(inplace, ref_words(want))
+    assert k.twiddle_mul(inplace, t1, t2, vshift, fields, out=inplace) is inplace
+    assert torch.equal(inplace, want)
 
 
 def test_kernel_wrappers_check_their_operands():
-    k = NTTKernels.for_spec(FIELDS["bn254_fr"])
-    x = as_t(rand_words(FIELDS["bn254_fr"], (8, 4), 3)).reshape(8, 8, 4)
+    spec = FIELDS["bn254_fr"]
+    k = NTTKernels.for_spec(spec)
+    x = as_t(rand_words(spec, (32,), 3))
+    pack = as_t(rand_words(spec, (8,), 4))
     with pytest.raises(ValueError):
-        k.ntt_base(x[:6].contiguous(), torch.zeros((6, 8), dtype=torch.int32))
+        k.ntt_base(x, pack[:6].contiguous())                        # K not a power of two
     with pytest.raises(ValueError):
-        k.ntt_base(x, torch.zeros((4, 8), dtype=torch.int32))
+        k.ntt_base(x.reshape(8, 8, 4), pack)                        # not (N, W)
     with pytest.raises(ValueError):
-        k.mul_lm(x, x[:4].contiguous())
+        k.ntt_base(x, pack, 8)                                      # 8 lanes of 8 > 32 rows
     with pytest.raises(ValueError):
-        k.twiddle_mul(x, x[:, :, :2].contiguous(), x[:, :, :1].contiguous(), 3)
+        k.ntt_base(x, pack, 4, out=x, omap=TileMap(1, ((1, 4, 8),)))   # in place, other map
+    with pytest.raises(ValueError):
+        k.ntt_base(x, pack, 4, omap=TileMap(8, ((1, 4, 1),)))      # out reaches past 32 rows
+    lm3 = x.reshape(4, 8, 8)
+    with pytest.raises(ValueError):
+        k.mul_lm(lm3, lm3[:2].contiguous())
+    t = x.reshape(4, 8, 8)[:, :, :4].contiguous()
+    with pytest.raises(ValueError):
+        k.twiddle_mul(x, t, t[:, :, :3].contiguous(), 0, ())        # S not a power of two
+    with pytest.raises(ValueError):
+        k.twiddle_mul(x, t, t, 0, ((0, 5, 0),))                     # j reaches past J*S
     with pytest.raises(ValueError):
         NTTKernels(FIELDS["bls12_381_fq"])
 
@@ -204,9 +249,10 @@ def test_fused_matches_reference_plans(field, logn, klog, ref_plans):
 
     x = rand_words(spec, (1 << logn,), logn)
     a = plan.parts[0]
-    xb, xbref = lm(x.reshape(1 << a, -1, spec.nwords))
-    assert torch.equal(plan._base(xb, a, True, in_place=False),
-                       ref_words(ref._base(xbref, a, True)))
+    _, xbref = lm(x.reshape(1 << a, -1, spec.nwords))
+    base = plan.kern.ntt_base(as_t(x), plan._packs[(a, True)])     # (A, C) rows
+    want = ref_words(ref._base(xbref, a, True)).transpose(1, 2).reshape(-1, spec.nwords)
+    assert torch.equal(base, want)
 
     xt, xl = as_t(x), jnp.asarray(limbs(x))
     fwd, inv = plan.ntt(xt), plan.intt(xt)

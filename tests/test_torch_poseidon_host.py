@@ -31,7 +31,6 @@ SCALAR_FIELDS = ("bn254_fr", "bls12_377_fr", "bls12_381_fr")
 
 HOST_DRIVER = r"""
 #define BLZ_DEVICE inline
-#define BLZ_DEVICE_CALL inline
 #define BLZ_LDG(p) (*(p))
 #include <cstdint>
 #include <vector>

@@ -114,6 +114,29 @@ def test_hbm_point_cache_and_scalar_only_reuse():
     assert encode_affine_points(client.get_data_from_hbm("bank0"), spec) == praw
 
 
+def test_get_data_from_hbm_returns_the_reference_limbs():
+    """Both packages cache the same points (set_data under a key, and
+    load_data_to_hbm) and read them back in the reference's form: (N, 2, L)
+    uint32 canonical 16-bit limbs, equal in dtype, shape and value."""
+    spec = CURVES[CURVE]
+    points, scalars, _, _ = random_msm_instance(spec, N, 51)
+    praw, sraw = encode_affine_points(points, spec), encode_scalars(scalars, spec)
+    client = cpu_client(mem_type="hbm")
+    client.initialize(MSMParams(nof_elements=N, hbm_point_addr="bank0"))
+    client.set_data(MSMInput(scalars=sraw, points=praw))
+    client.load_data_to_hbm("bank1", praw)
+    ref = RefMSMClient(RefMSMInit(curve="BN254", mem_type="hbm"))
+    ref.initialize(RefMSMParams(nof_elements=N, hbm_point_addr="bank0"))
+    ref.set_data(RefMSMInput(scalars=sraw, points=praw))
+    ref.load_data_to_hbm("bank1", praw)
+    for key in ("bank0", "bank1"):
+        got, want = client.get_data_from_hbm(key), np.asarray(ref.get_data_from_hbm(key))
+        assert got.dtype == want.dtype == np.uint32
+        assert got.shape == want.shape == (N, 2, spec.fq.nlimbs)
+        assert np.array_equal(got, want), key
+        assert encode_affine_points(got, spec) == praw
+
+
 def test_streaming_order_and_task_fifo():
     """initialize -> start_process -> set_data chunks -> result, including
     a streamed scalars-only pass over cached points, then two queued tasks
