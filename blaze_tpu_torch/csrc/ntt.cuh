@@ -10,27 +10,35 @@
 // natural order (point rev(k) is loaded into position k), output in
 // natural order, every value canonical.
 //
-// Schedule.  A block holds NL lanes of K points; each thread keeps P = 8
-// points of one lane in registers (K >= 8; K/8 threads per lane, 256
-// threads per block, NL = 2048 / K) and runs up to three radix-2 DIT
-// stages on them before the next barrier: the log2 K stages are passes of
-// 3 (the last of 1-3), and the threads meet only between passes, through a
-// shared-memory tile (2 barriers at K = 512, against 10 in the one-
-// butterfly-per-thread design).  Pass 0 reads its points straight from
-// device memory (bit-reversed rows) and the last pass writes them straight
-// back; the warps hold 32 / NL groups of NL lanes, so a warp's loads and
-// stores are runs of NL lanes (4 at K = 512: 128 B) or of consecutive
-// points of one lane.  Positions of pass p's groups: stages s0 = 3p ..
-// s0 + r - 1 pair positions that differ in bits s0 .. s0 + r - 1; thread
-// g takes groups q = g + (K/8) u, u < 8 / 2^r.
+// Schedule.  A block holds NL lanes of K points in a shared-memory tile;
+// each thread owns P = 8 positions of one lane per pass (K >= 8; K/8
+// threads per lane, 256 threads per block, NL = 2048 / K) and runs up to
+// three radix-2 DIT stages on them before the next barrier: the log2 K
+// stages are passes of 3 (the last of 1-3), and the threads meet only
+// between passes (2 barriers at K = 512, against 10 in the one-butterfly-
+// per-thread design).  Pass 0 fills its positions straight from device
+// memory (bit-reversed rows) and the last pass writes them straight back;
+// the warps hold 32 / NL groups of NL lanes, so a warp's loads and stores
+// are runs of NL lanes (4 at K = 512: 128 B) or of consecutive points of
+// one lane.  Positions of pass p's groups: stages s0 = 3p .. s0 + r - 1
+// pair positions that differ in bits s0 .. s0 + r - 1; thread g takes
+// groups q = g + (K/8) u, u < 8 / 2^r.
+//
+// Code size.  A butterfly's product, add and sub are about 650
+// instructions.  Each butterfly loads its two points from the tile and
+// stores them back, so one copy of that code serves every stage, pass and
+// butterfly (loops not unrolled).  A variant that kept the eight points in
+// registers across a pass needed every butterfly unrolled, 22,688 SASS
+// instructions at K = 512 (363 KB of code), and ran 36-39 ms per level
+// against this one's (PERF.md, PR 7).
 //
 // Shared memory: the tile as W/4 planes of 16-byte words (plane h holds
 // words 4h .. 4h+3 of each element), element e = pos * NL + lane at
 // e + 4 (e / 32): with that padding the 8 threads of each quarter-warp
-// touch 8 different 16-byte bank groups in every pass.  The twiddle pack
-// is staged once per block (K entries, the same planes); pass 0's
-// twiddles (stages 1 and 2, fixed entries) come from device memory.
-// 90 KB per block at K = 512, two blocks per SM.
+// touch 8 different 16-byte bank groups in every stage.  72 KB per block,
+// three blocks per SM.  The twiddle pack (K entries, 16 KB at K = 512)
+// stays in device memory and is read through the read-only path; it is
+// the same for every block, so it stays in L1.
 //
 // Products are carry.cuh's canonical carry-chain product, adds and subs
 // its canonical carry-chain ones: the same words as field.cuh.
@@ -73,14 +81,14 @@ BLZ_DEVICE int64_t lane_offset(const TileMap& m, uint32_t l) {
 template <int W, int kLogK>
 struct Shape {
   static constexpr int K = 1 << kLogK;
-  static constexpr int P = K < 8 ? K : 8;            // points per thread
+  static constexpr int P = K < 8 ? K : 8;            // points per thread and pass
   static constexpr int T = K / P;                    // threads per lane
   static constexpr int NL = kThreads / T;            // lanes per block
   static constexpr int kPasses = (kLogK + 2) / 3;
   static constexpr int kQ = W / 4;                   // 16-byte words per element
   static constexpr int kTile = NL * K;
   static constexpr int kPlane = kTile + (kTile / 32) * 4;
-  static constexpr int kSmemBytes = kPasses > 1 ? 16 * kQ * (kPlane + K) : 0;
+  static constexpr int kSmemBytes = 16 * kQ * kPlane;
 };
 
 template <int kBits>
@@ -108,19 +116,12 @@ BLZ_DEVICE void load_el(uint32_t* v, const uint32_t* p) {
   }
 }
 
+// The same through the read-only path (a table no kernel writes).
 template <int W>
-BLZ_DEVICE void store_el(uint32_t* p, const uint32_t* v) {
-#pragma unroll
-  for (int q = 0; q < W / 4; ++q)
-    reinterpret_cast<uint4*>(p)[q] = {v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]};
-}
-
-// Element e of a plane-split table whose planes are `plane` 16-byte words apart.
-template <int W>
-BLZ_DEVICE void sm_load(uint32_t* v, const uint4* base, int plane, int e) {
+BLZ_DEVICE void ldg_el(uint32_t* v, const uint32_t* p) {
 #pragma unroll
   for (int q = 0; q < W / 4; ++q) {
-    const uint4 a = base[q * plane + e];
+    const uint4 a = BLZ_LDG(reinterpret_cast<const uint4*>(p) + q);
     v[4 * q] = a.x;
     v[4 * q + 1] = a.y;
     v[4 * q + 2] = a.z;
@@ -129,135 +130,109 @@ BLZ_DEVICE void sm_load(uint32_t* v, const uint4* base, int plane, int e) {
 }
 
 template <int W>
-BLZ_DEVICE void sm_store(uint4* base, int plane, int e, const uint32_t* v) {
+BLZ_DEVICE void store_el(uint32_t* p, const uint32_t* v) {
 #pragma unroll
   for (int q = 0; q < W / 4; ++q)
-    base[q * plane + e] = {v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]};
+    reinterpret_cast<uint4*>(p)[q] = {v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]};
 }
 
-// (u, v) <- (u + w v, u - w v); without a product when kMul is false.
-template <int W, bool kMul>
-BLZ_DEVICE void butterfly(uint32_t* u, uint32_t* v, const uint32_t* w,
-                          const FieldConsts<W>& fc) {
-  if (kMul) mont_mul_cc<W, false>(v, v, w, fc);
-  uint32_t s[W];
-  add_canon<W>(s, u, v, fc);
-  sub_canon<W>(v, u, v, fc);
+// Element e of the tile, its planes `plane` 16-byte words apart.
+template <int W>
+BLZ_DEVICE void sm_load(uint32_t* v, const uint4* sm, int plane, int e) {
 #pragma unroll
-  for (int j = 0; j < W; ++j) u[j] = s[j];
+  for (int q = 0; q < W / 4; ++q) {
+    const uint4 a = sm[q * plane + e];
+    v[4 * q] = a.x;
+    v[4 * q + 1] = a.y;
+    v[4 * q + 2] = a.z;
+    v[4 * q + 3] = a.w;
+  }
 }
 
-// Thread `tid` of block `block` runs pass kPass: it loads its P points
-// (pass 0: from x through `in`, bit-reversed; later passes: from the
-// tile), runs the pass's stages on them and stores them (the last pass: to
-// o through `out`; earlier passes: to the tile).  Pass 0 also stages the
-// twiddle pack in shared memory for the later passes.  The caller puts a
-// barrier between passes.  pack: K twiddles, entry m - 1 + t (m = 2^s)
-// that of stage s at butterfly position t; stage 0 takes none.
-template <int W, int kLogK, int kPass>
-BLZ_DEVICE void run_pass(int tid, int64_t block, uint4* sm, const uint32_t* x,
+template <int W>
+BLZ_DEVICE void sm_store(uint4* sm, int plane, int e, const uint32_t* v) {
+#pragma unroll
+  for (int q = 0; q < W / 4; ++q)
+    sm[q * plane + e] = {v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]};
+}
+
+// Thread `tid` of block `block` runs pass `pass`: the radix-2 DIT stages
+// 3 pass .. 3 pass + r - 1 (r <= 3) on the P positions it owns in this
+// pass, u = 0 .. P/2^r - 1 groups q = g + T u of 2^r positions
+//   (q % 2^s0) + ((q >> s0) << (s0 + r)) + (j << s0),  s0 = 3 pass,
+// each butterfly loading its two points from the tile and storing them
+// back, the twiddle from device memory (L1-resident: K entries).  Pass 0
+// first fills its positions from x through `in` (position k <- row
+// rev(k)); the last pass then writes its positions to o through `out`.
+// The caller puts a barrier between passes.  pack: K twiddles, entry
+// m - 1 + t (m = 2^s) that of stage s at butterfly position t; stage 0
+// takes none.
+template <int W, int kLogK>
+BLZ_DEVICE void run_pass(int pass, int tid, int64_t block, uint4* sm, const uint32_t* x,
                          const uint32_t* pack, uint32_t* o, int64_t B, const TileMap& in,
                          const TileMap& out, const FieldConsts<W>& fc) {
   using S = Shape<W, kLogK>;
-  constexpr int s0 = 3 * kPass;
-  constexpr int r = kLogK - s0 < 3 ? kLogK - s0 : 3;
-  constexpr int R = 1 << r;
-  constexpr int U = S::P / R;                        // groups per thread
-  constexpr bool kFirst = kPass == 0;
-  constexpr bool kLast = kPass == S::kPasses - 1;
+  const int s0 = 3 * pass;
+  const int r = kLogK - s0 < 3 ? kLogK - s0 : 3;
   const int t = tid % S::NL;
   const int g = tid / S::NL;
   const int64_t lane = block * S::NL + t;
   const bool live = lane < B;
-  uint4* tw = sm + S::kQ * S::kPlane;
+  // position of the thread's point i = u 2^r + j in this pass
+  auto pos = [&](int i) {
+    const int q = g + S::T * (i >> r);
+    return (q & ((1 << s0) - 1)) + ((q >> s0) << (s0 + r)) + ((i & ((1 << r) - 1)) << s0);
+  };
+  auto at = [&](int p) { return padded(p * S::NL + t); };
+  uint32_t u[W], v[W], w[W];
 
-  if (kFirst && S::kPasses > 1) {
-    for (int i = tid; i < S::K * S::kQ; i += kThreads) {
-      const uint4* src = reinterpret_cast<const uint4*>(pack) + i;
-      tw[(i % S::kQ) * S::K + i / S::kQ] = BLZ_LDG(src);
-    }
-  }
-
-  int base[U];                                       // position of j = 0
-#pragma unroll
-  for (int u = 0; u < U; ++u) {
-    const int q = g + S::T * u;
-    base[u] = (q & ((1 << s0) - 1)) + ((q >> s0) << (s0 + r));
-  }
-
-  uint32_t v[S::P][W];
-  if (kFirst) {
+  if (pass == 0) {
     const int64_t lo = live ? lane_offset(in, (uint32_t)lane) : 0;
+#pragma unroll 1
+    for (int i = 0; i < S::P; ++i) {
+      const int p = pos(i);
+      if (live) {
+        load_el<W>(v, x + (bitrev<kLogK>(p) * in.ks + lo) * W);
+      } else {
 #pragma unroll
-    for (int u = 0; u < U; ++u) {
-#pragma unroll
-      for (int j = 0; j < R; ++j) {
-        const int row = bitrev<kLogK>(base[u] + (j << s0));
-        if (live) {
-          load_el<W>(v[u * R + j], x + (row * in.ks + lo) * W);
-        } else {
-#pragma unroll
-          for (int w = 0; w < W; ++w) v[u * R + j][w] = 0;
-        }
+        for (int k = 0; k < W; ++k) v[k] = 0;
       }
-    }
-  } else {
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-#pragma unroll
-      for (int j = 0; j < R; ++j)
-        sm_load<W>(v[u * R + j], sm, S::kPlane, padded((base[u] + (j << s0)) * S::NL + t));
+      sm_store<W>(sm, S::kPlane, at(p), v);
     }
   }
 
-#pragma unroll
+#pragma unroll 1
   for (int st = 0; st < r; ++st) {
     const int s = s0 + st;
-    const int half = 1 << st;
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const int low = base[u] & ((1 << s0) - 1);
-#pragma unroll
-      for (int jj = 0; jj < half; ++jj) {
-        uint32_t w[W];
-        if (s > 0) {
-          const int idx = (1 << s) - 1 + low + (jj << s0);
-          if (kFirst) {
-#pragma unroll
-            for (int i = 0; i < W; ++i) w[i] = BLZ_LDG(pack + idx * W + i);
-          } else {
-            sm_load<W>(w, tw, S::K, idx);
-          }
-        }
-#pragma unroll
-        for (int h = 0; h < (R >> (st + 1)); ++h) {
-          const int a = u * R + jj + (h << (st + 1));
-          if (s > 0) {
-            butterfly<W, true>(v[a], v[a + half], w, fc);
-          } else {
-            butterfly<W, false>(v[a], v[a + half], w, fc);
-          }
-        }
+#pragma unroll 1
+    for (int bf = 0; bf < S::P / 2; ++bf) {
+      // butterfly bf of this stage: group u, pair (j, j + 2^st), bit st of j clear
+      const int per = 1 << (r - 1);                  // butterflies per group and stage
+      const int k = bf % per;
+      const int jj = k & ((1 << st) - 1);
+      const int j = jj + ((k >> st) << (st + 1));
+      const int i = (bf / per) * (1 << r) + j;
+      const int pa = pos(i), pb = pa + (1 << s);
+      sm_load<W>(u, sm, S::kPlane, at(pa));
+      sm_load<W>(v, sm, S::kPlane, at(pb));
+      if (s > 0) {
+        ldg_el<W>(w, pack + ((1 << s) - 1 + (pa & ((1 << s) - 1))) * W);
+        mont_mul_cc<W, false>(v, v, w, fc);
       }
+      add_canon<W>(w, u, v, fc);
+      sub_canon<W>(v, u, v, fc);
+      sm_store<W>(sm, S::kPlane, at(pa), w);
+      sm_store<W>(sm, S::kPlane, at(pb), v);
     }
   }
 
-  if (kLast) {
-    if (live) {
-      const int64_t lo = lane_offset(out, (uint32_t)lane);
-#pragma unroll
-      for (int u = 0; u < U; ++u) {
-#pragma unroll
-        for (int j = 0; j < R; ++j)
-          store_el<W>(o + ((base[u] + (j << s0)) * out.ks + lo) * W, v[u * R + j]);
-      }
-    }
-  } else {
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-#pragma unroll
-      for (int j = 0; j < R; ++j)
-        sm_store<W>(sm, S::kPlane, padded((base[u] + (j << s0)) * S::NL + t), v[u * R + j]);
+  if (pass == S::kPasses - 1 && live) {
+    const int64_t lo = lane_offset(out, (uint32_t)lane);
+#pragma unroll 1
+    for (int i = 0; i < S::P; ++i) {
+      const int p = pos(i);
+      sm_load<W>(v, sm, S::kPlane, at(p));
+      store_el<W>(o + (p * out.ks + lo) * W, v);
     }
   }
 }

@@ -18,8 +18,8 @@
 // about 4.2 ms against 2.6 ms.
 //
 // K7 (ntt.cuh): a block keeps NL lanes of K points in shared memory, each
-// thread 8 points in registers, and runs three radix-2 stages per barrier
-// on carry-chain products; it reads and writes through two TileMaps, so
+// thread owns 8 of them per pass and runs three radix-2 stages on them per
+// barrier, on carry-chain products; it reads and writes through two TileMaps, so
 // FusedNTT runs each Cooley-Tukey level through strides instead of a
 // transposed copy (see ntt.cuh).  Every block reads all its elements
 // before it writes any and blocks own disjoint lanes, so K7 may run in
@@ -30,8 +30,9 @@
 // K8 is one thread per element.  K9 is one thread per element position:
 // it reads the element's twiddle row v and column j from bit fields of
 // its position (the plan's storage order), then its two factors straight
-// from the small split tables (T1/T2, 8 MiB each at 2^27, L2-resident),
-// where the TPU kernel needed an iota+where column pick.  K9 is
+// from the small split tables (T1/T2, 8 MiB each at 2^27, L2-resident;
+// each entry one 32-byte sector, as the data), where the TPU kernel
+// needed an iota+where column pick.  K9 is
 // elementwise and may run in place.
 #include <cuda_runtime.h>
 
@@ -44,25 +45,17 @@ namespace {
 namespace nt = blz::ntt;
 
 // ------------------------------------------------------------------ K7
-template <int W, int kLogK, int kPass>
-__device__ __forceinline__ void ntt_passes(uint4* sm, const uint32_t* x,
-                                           const uint32_t* pack, uint32_t* o, int64_t B,
-                                           const nt::TileMap& in, const nt::TileMap& out,
-                                           const blz::FieldConsts<W>& fc) {
-  nt::run_pass<W, kLogK, kPass>(threadIdx.x, blockIdx.x, sm, x, pack, o, B, in, out, fc);
-  if constexpr (kPass + 1 < nt::Shape<W, kLogK>::kPasses) {
-    __syncthreads();
-    ntt_passes<W, kLogK, kPass + 1>(sm, x, pack, o, B, in, out, fc);
-  }
-}
-
 // x and o may be the same buffer (one map): no __restrict__ on them.
 template <int W, int kLogK>
-__global__ void __launch_bounds__(nt::kThreads, 2)
+__global__ void __launch_bounds__(nt::kThreads, 3)
 ntt_base_kernel(const uint32_t* x, const uint32_t* __restrict__ pack, uint32_t* o,
                 int64_t B, nt::TileMap in, nt::TileMap out, blz::FieldConsts<W> fc) {
   extern __shared__ uint4 ntt_smem[];
-  ntt_passes<W, kLogK, 0>(ntt_smem, x, pack, o, B, in, out, fc);
+  for (int pass = 0; pass < nt::Shape<W, kLogK>::kPasses; ++pass) {
+    if (pass) __syncthreads();
+    nt::run_pass<W, kLogK>(pass, threadIdx.x, blockIdx.x, ntt_smem, x, pack, o, B, in, out,
+                           fc);
+  }
 }
 
 // ------------------------------------------------------------------ K8
@@ -104,7 +97,7 @@ struct TwiddleFields {
   int dst[nt::kMaxDigits];
 };
 
-// y, o: (N, W) elements; t1 (A, W, J), t2 (A, W, S) lanes-major words.
+// y, o: (N, W) elements; t1 (A, J, W), t2 (A, S, W) elements.
 template <int W>
 __global__ void __launch_bounds__(kThreads)
 twiddle_mul_kernel(const uint32_t* y, const uint32_t* __restrict__ t1,
@@ -118,15 +111,11 @@ twiddle_mul_kernel(const uint32_t* y, const uint32_t* __restrict__ t1,
   for (int t = 0; t < nt::kMaxDigits; ++t)
     j |= ((uint32_t)(pos >> f.src[t]) & ((1u << f.wid[t]) - 1)) << f.dst[t];
   const uint32_t jo = j >> logS, jl = j & ((1u << logS) - 1);
-  const uint32_t* p1 = t1 + ((int64_t)v * W << logJ) + jo;
-  const uint32_t* p2 = t2 + ((int64_t)v * W << logS) + jl;
   uint32_t a[W], b[W];
   nt::load_el<W>(a, y + pos * W);
-#pragma unroll
-  for (int w = 0; w < W; ++w) b[w] = __ldg(p1 + ((int64_t)w << logJ));
+  nt::ldg_el<W>(b, t1 + (((int64_t)v << logJ) + jo) * W);
   blz::mont_mul<W, false>(a, b, a, fc);
-#pragma unroll
-  for (int w = 0; w < W; ++w) b[w] = __ldg(p2 + ((int64_t)w << logS));
+  nt::ldg_el<W>(b, t2 + (((int64_t)v << logS) + jl) * W);
   blz::mont_mul<W, false>(a, a, b, fc);
   nt::store_el<W>(o + pos * W, a);
 }

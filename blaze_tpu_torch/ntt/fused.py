@@ -73,11 +73,13 @@ def tables_from_reference(packs: dict, tabs: dict) -> tuple[dict, dict]:
     packs: {(a, inverse): (A, L, T) u16} lane-expanded base-kernel twiddle
     packs (blaze_tpu FusedNTT._packs); tabs: {(depth, inverse): ((A, L, J),
     (A, L, S)) u16} split inter-level tables (FusedNTT._tabs), as numpy
-    arrays.  Returns ({key: (A, W) int32}, {key: ((A, W, J), (A, W, S))
-    int32}) — FusedNTT._packs / _tabs of the port on the CPU."""
+    arrays.  Returns ({key: (A, W) int32}, {key: ((A, J, W), (A, S, W))
+    int32}) — FusedNTT._packs / _tabs of the port on the CPU (every table
+    element-contiguous)."""
     out_packs = {k: _u16_to_words(np.asarray(v)[:, :, :1])[:, :, 0].contiguous()
                  for k, v in packs.items()}
-    out_tabs = {k: (_u16_to_words(t1), _u16_to_words(t2)) for k, (t1, t2) in tabs.items()}
+    out_tabs = {k: tuple(_u16_to_words(t).transpose(1, 2).contiguous() for t in (t1, t2))
+                for k, (t1, t2) in tabs.items()}
     return out_packs, out_tabs
 
 
@@ -175,7 +177,7 @@ class FusedNTT:
         # ---- inter-level split twiddle tables, one pair per node depth.
         # Depth d splits K_d = prod(parts[d:]) as A_d * C_d; entry (v, j =
         # jo*S + jl) of the depth's (A, C) grid takes W^(j*v) =
-        # tab1[v, :, jo] * tab2[v, :, jl].
+        # tab1[v, jo] * tab2[v, jl], each table (A, J or S, W) elements.
         self._tabs = {}
         for d in range(len(self.parts) - 1):
             logK = sum(self.parts[d:])
@@ -198,8 +200,8 @@ class FusedNTT:
                 if inv and d == 0:
                     t1 = f.mul(t1, self._ninv_mont)
                 self._tabs[(d, inv)] = (
-                    t1[idx1].transpose(1, 2).contiguous(),         # (A, W, J)
-                    t2[idx2].transpose(1, 2).contiguous(),         # (A, W, S)
+                    t1[idx1].contiguous(),                        # (A, J, W)
+                    t2[idx2].contiguous(),                        # (A, S, W)
                 )
 
     # ------------------------------------------------------------ twiddle
@@ -209,7 +211,7 @@ class FusedNTT:
         place on K9."""
         lv = self.levels[depth]
         tab1, tab2 = self._tabs[(depth, inverse)]
-        S = tab2.shape[2]
+        S = tab2.shape[1]
         cell = S if lv.vshift == 0 else 1 << lv.vshift
         if cell >= self._TWMUL_MIN_LANES:
             return self.kern.twiddle_mul(y, tab1, tab2, lv.vshift, lv.fields, out=y)
@@ -218,8 +220,7 @@ class FusedNTT:
         n, W = y.shape
         v, jo, jl = twiddle_cols(n, lv.a, lv.vshift, lv.fields, S.bit_length() - 1,
                                  y.device)
-        tw1 = tab1.transpose(1, 2)[v, jo].reshape(n, W, 1)
-        tw2 = tab2.transpose(1, 2)[v, jl].reshape(n, W, 1)
+        tw1, tw2 = tab1[v, jo].reshape(n, W, 1), tab2[v, jl].reshape(n, W, 1)
         return self.kern.mul_lm(y.reshape(n, W, 1), tw1, tw2).reshape(n, W)
 
     # ---------------------------------------------------------- recursion

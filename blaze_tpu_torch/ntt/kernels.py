@@ -286,9 +286,12 @@ class NTTKernels:
     # ----------------------------------------------------------------- K9
     def _twiddle_args(self, y, t1, t2, vshift, fields, out):
         self._elements(y, "y")
-        self._check(t1, "t1")
-        self._check(t2, "t2")
-        A, J, S = t1.shape[0], t1.shape[2], t2.shape[2]
+        for t, what in ((t1, "t1"), (t2, "t2")):
+            if t.dtype != torch.int32 or t.dim() != 3 or t.shape[2] != self.W \
+                    or not t.is_contiguous() or t.data_ptr() % 16:
+                raise ValueError(f"{what}: want contiguous, aligned (A, n, {self.W}) int32, "
+                                 f"got {tuple(t.shape)} {t.dtype}")
+        A, J, S = t1.shape[0], t1.shape[1], t2.shape[1]
         logA, logJ, logS = _log2(A, "A"), _log2(J, "J"), _log2(S, "S")
         if t2.shape[0] != A or t1.device != y.device or t2.device != y.device:
             raise ValueError(f"twiddle_mul: t1 {tuple(t1.shape)}, t2 {tuple(t2.shape)} "
@@ -312,9 +315,9 @@ class NTTKernels:
         gathered per row, then two products."""
         logA, _, logS, fields, out = self._twiddle_args(y, t1, t2, vshift, fields, out)
         v, jo, jl = twiddle_cols(y.shape[0], logA, vshift, fields, logS, y.device)
-        f1 = words_to_limbs16(t1.transpose(1, 2)[v, jo])
+        f1 = words_to_limbs16(t1[v, jo])
         acc = self.ops.mul(f1, words_to_limbs16(y))
-        f2 = words_to_limbs16(t2.transpose(1, 2)[v, jl])
+        f2 = words_to_limbs16(t2[v, jl])
         return out.copy_(limbs16_to_words(self.ops.mul(acc, f2)))
 
     def twiddle_mul(self, y: torch.Tensor, t1: torch.Tensor, t2: torch.Tensor,
@@ -322,8 +325,8 @@ class NTTKernels:
                     ) -> torch.Tensor:
         """Inter-level twiddle: element row pos times T1[v, jo] * T2[v, jl].
 
-        y: (N, W) canonical elements; t1: (A, W, J), t2: (A, W, S) split
-        tables (fused.py), A, J, S powers of two.  Row pos takes table row
+        y: (N, W) canonical elements; t1: (A, J, W), t2: (A, S, W) split
+        tables of elements (fused.py), A, J, S powers of two.  Row pos takes table row
         v = (pos >> vshift) % A and column j = jo * S + jl = sum over
         `fields` (src, wid, dst) of ((pos >> src) % 2^wid) << dst.  Returns
         (N, W) canonical; `out` may be y itself (in place)."""

@@ -899,7 +899,7 @@ def phase_msm_2e24_compare(parent: Path, seed: int, n: int = 1 << 24) -> dict:
 # ------------------------------------------------------------ phase 5
 def rand_words(spec, shape, seed: int, device):
     """int32 words of canonical values below 2^(bits-1) < p, the word axis
-    at dim 1 (kernel layouts (R, W, N) and tables (K, W))."""
+    at dim 1 (element buffers (N, W), lanes-major (R, W, N))."""
     import torch
 
     g = torch.Generator(device=device).manual_seed(seed)
@@ -960,8 +960,8 @@ def ntt_kernel_cases(spec, seed: int, device):
                   {"M": 4, "N": 1000, "operands": 3}))
     for i, (A, J, S, B) in enumerate(((16, 8, 32, 1), (16, 4, 8, 16))):
         y = rand_words(spec, (A * J * S * B, W), seed + 30 + i, device)
-        t1 = rand_words(spec, (A, W, J), seed + 40 + i, device)
-        t2 = rand_words(spec, (A, W, S), seed + 50 + i, device)
+        t1 = rand_words(spec, (A * J, W), seed + 40 + i, device).reshape(A, J, W)
+        t2 = rand_words(spec, (A * S, W), seed + 50 + i, device).reshape(A, S, W)
         la, lb, lc = A.bit_length() - 1, B.bit_length() - 1, (J * S).bit_length() - 1
         # v in the row's low bits (a level-0 twiddle) or above j and b
         vs, f = (0, ((la + lb, lc, 0),)) if i == 0 else (lb + lc, ((lb, lc, 0),))
@@ -1032,7 +1032,7 @@ def ntt_main_timing(plan, imad_rate: float, seed: int, device):
     for d, lv in enumerate(plan.levels[:-1]):
         key = "twiddle_mul" if d == 0 else f"twiddle_mul_depth{d}"
         t1, t2 = plan._tabs[(d, False)]
-        J, S = t1.shape[2], t2.shape[2]
+        J, S = t1.shape[1], t2.shape[1]
         y = buf[:row_cut].clone()               # rows 0.. of the buffer: the same v, j
         measure(key, "twiddle_mul", {"A": 1 << lv.a, "J": J, "S": S,
                                      "B": 1 << lv.vshift, "depth": d},
@@ -1047,9 +1047,8 @@ def ntt_main_timing(plan, imad_rate: float, seed: int, device):
     lv = small.levels[0]
     t1, t2 = small._tabs[(0, False)]
     v, jo, jl = twiddle_cols(small.n, lv.a, lv.vshift, lv.fields,
-                             t2.shape[2].bit_length() - 1, device)
-    tw1 = t1.transpose(1, 2)[v, jo].reshape(small.n, W, 1)
-    tw2 = t2.transpose(1, 2)[v, jl].reshape(small.n, W, 1)
+                             t2.shape[1].bit_length() - 1, device)
+    tw1, tw2 = t1[v, jo].reshape(small.n, W, 1), t2[v, jl].reshape(small.n, W, 1)
     y = rand_words(spec, (small.n, W, 1), seed + 3, device)
     shape = {"M": small.n, "N": 1, "operands": 3}
     measure("mul_lm", "mul_lm", shape, lambda: k.mul_lm(y, tw1, tw2),

@@ -3,7 +3,10 @@
 
     python3 scripts/k7_probe.py [--reps N]
 
-Each variant is the kernel's source with a few text substitutions, built
+Variants: three blocks per SM (the kernel as committed), two blocks per
+SM, each stage's four butterflies unrolled, and field.cuh's 64-bit
+product, add and sub in place of carry.cuh's carry chains.  Each variant
+is the kernel's source with a few text substitutions, built
 with nvcc into build/k7_probe/<variant>/ (all builds started together) and
 loaded with ctypes.  Every variant runs the three levels of the 2^27
 bls12_381_fr plan (K 512, 2^18 lanes: level 0 from the input's rows into
@@ -26,10 +29,16 @@ ROOT = Path(__file__).resolve().parent.parent
 CSRC = ROOT / "blaze_tpu_torch" / "csrc"
 OUT = ROOT / "build" / "k7_probe"
 
-BOUNDS = "__launch_bounds__(nt::kThreads, 2)"
+BOUNDS = "__launch_bounds__(nt::kThreads, 3)"
+BUTTERFLIES = "#pragma unroll 1\n    for (int bf"
 VARIANTS = {
-    "two_blocks_per_sm": [],
-    "one_block_per_sm": [("ntt_kernels.cu", BOUNDS, "__launch_bounds__(nt::kThreads, 1)")],
+    "three_blocks_per_sm": [],
+    "two_blocks_per_sm": [("ntt_kernels.cu", BOUNDS, "__launch_bounds__(nt::kThreads, 2)")],
+    "stage_unrolled": [("ntt.cuh", BUTTERFLIES, "#pragma unroll\n    for (int bf")],
+    "field_cuh_ops": [("ntt.cuh", "mont_mul_cc<W, false>(v, v, w, fc);",
+                       "mont_mul<W, false>(v, v, w, fc);"),
+                      ("ntt.cuh", "add_canon<W>(w, u, v, fc);", "fadd<W, false>(w, u, v, fc);"),
+                      ("ntt.cuh", "sub_canon<W>(v, u, v, fc);", "fsub<W, false>(v, u, v, fc);")],
 }
 
 

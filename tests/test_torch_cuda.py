@@ -208,7 +208,8 @@ def test_ntt_kernels_match_plain_versions(dev, field):
     assert torch.equal(k.mul_lm(a, b, c), k.mul_lm_plain(a, b, c))
     for A, J, S, B in ((8, 4, 32, 1), (8, 4, 8, 16)):
         y = canonical(spec, (A * J * S * B, W), 20, dev)
-        t1, t2 = canonical(spec, (A, W, J), 21, dev), canonical(spec, (A, W, S), 22, dev)
+        t1 = canonical(spec, (A * J, W), 21, dev).reshape(A, J, W)
+        t2 = canonical(spec, (A * S, W), 22, dev).reshape(A, S, W)
         # v in the row's low bits, j above the b bits (a plan's level-0 order)
         lb, lc = B.bit_length() - 1, (J * S).bit_length() - 1
         vshift, fields = 0, ((A.bit_length() - 1 + lb, lc, 0),)

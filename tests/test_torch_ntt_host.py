@@ -47,29 +47,22 @@ nt::TileMap tile_map(const int64_t* h) {
   return m;
 }
 
-// One barrier interval of one block: every thread's pass, in order or in
-// reverse.
-template <int kLogK, int kPass>
-void pass(int64_t block, uint4* sm, const uint32_t* x, const uint32_t* pack, uint32_t* o,
-          int64_t B, const nt::TileMap& in, const nt::TileMap& out,
-          const blz::FieldConsts<8>& fc, int rev) {
-  for (int i = 0; i < nt::kThreads; ++i) {
-    const int tid = rev ? nt::kThreads - 1 - i : i;
-    nt::run_pass<8, kLogK, kPass>(tid, block, sm, x, pack, o, B, in, out, fc);
-  }
-}
-
+// One block: each pass (a barrier interval) run by every thread, in order
+// or in reverse.
 template <int kLogK>
 void run(const uint32_t* consts, const uint32_t* x, const uint32_t* pack, uint32_t* o,
          int64_t B, const int64_t* hin, const int64_t* hout, int rev) {
   using S = nt::Shape<8, kLogK>;
   const auto fc = blz::load_consts<8>(consts);
   const nt::TileMap in = tile_map(hin), out = tile_map(hout);
-  std::vector<uint4> sm(S::kSmemBytes / 16 + 1, uint4{0xA5A5A5A5u, 1u, 2u, 3u});
+  std::vector<uint4> sm(S::kSmemBytes / 16, uint4{0xA5A5A5A5u, 1u, 2u, 3u});
   for (int64_t block = 0; block * S::NL < B; ++block) {
-    pass<kLogK, 0>(block, sm.data(), x, pack, o, B, in, out, fc, rev);
-    if constexpr (S::kPasses > 1) pass<kLogK, 1>(block, sm.data(), x, pack, o, B, in, out, fc, rev);
-    if constexpr (S::kPasses > 2) pass<kLogK, 2>(block, sm.data(), x, pack, o, B, in, out, fc, rev);
+    for (int pass = 0; pass < S::kPasses; ++pass) {
+      for (int i = 0; i < nt::kThreads; ++i) {
+        const int tid = rev ? nt::kThreads - 1 - i : i;
+        nt::run_pass<8, kLogK>(pass, tid, block, sm.data(), x, pack, o, B, in, out, fc);
+      }
+    }
   }
 }
 
