@@ -26,17 +26,18 @@
 //
 // Code size.  A butterfly's product, add and sub are about 650
 // instructions.  Each butterfly loads its two points from the tile and
-// stores them back, so one copy of that code serves every stage, pass and
-// butterfly (loops not unrolled).  A variant that kept the eight points in
-// registers across a pass needed every butterfly unrolled, 22,688 SASS
-// instructions at K = 512 (363 KB of code), and ran 36-39 ms per level
-// against this one's (PERF.md, PR 7).
+// stores them back, so one copy of a stage's four butterflies serves every
+// stage and pass (the stage and pass loops are not unrolled).  Keeping the
+// eight points in registers across a pass needed every butterfly of the
+// kernel unrolled, 22,688 SASS instructions at K = 512 (363 KB of code),
+// and ran 36-39 ms per level of the 2^27 plan on an H100, against 17.9 ms
+// for this one; one butterfly's code in a loop ran 18.6 ms (PERF.md, PR 7).
 //
 // Shared memory: the tile as W/4 planes of 16-byte words (plane h holds
 // words 4h .. 4h+3 of each element), element e = pos * NL + lane at
 // e + 4 (e / 32): with that padding the 8 threads of each quarter-warp
 // touch 8 different 16-byte bank groups in every stage.  72 KB per block,
-// three blocks per SM.  The twiddle pack (K entries, 16 KB at K = 512)
+// three blocks per SM (24 warps; 78 registers a thread).  The twiddle pack (K entries, 16 KB at K = 512)
 // stays in device memory and is read through the read-only path; it is
 // the same for every block, so it stays in L1.
 //
@@ -204,14 +205,12 @@ BLZ_DEVICE void run_pass(int pass, int tid, int64_t block, uint4* sm, const uint
 #pragma unroll 1
   for (int st = 0; st < r; ++st) {
     const int s = s0 + st;
-#pragma unroll 1
+#pragma unroll
     for (int bf = 0; bf < S::P / 2; ++bf) {
       // butterfly bf of this stage: group u, pair (j, j + 2^st), bit st of j clear
-      const int per = 1 << (r - 1);                  // butterflies per group and stage
-      const int k = bf % per;
-      const int jj = k & ((1 << st) - 1);
-      const int j = jj + ((k >> st) << (st + 1));
-      const int i = (bf / per) * (1 << r) + j;
+      const int k = bf & ((1 << (r - 1)) - 1);      // 2^(r-1) butterflies per group
+      const int j = (k & ((1 << st) - 1)) + ((k >> st) << (st + 1));
+      const int i = ((bf >> (r - 1)) << r) + j;
       const int pa = pos(i), pb = pa + (1 << s);
       sm_load<W>(u, sm, S::kPlane, at(pa));
       sm_load<W>(v, sm, S::kPlane, at(pb));

@@ -44,7 +44,7 @@ import torch
 
 from ..fields.mont import Field
 from ..fields.spec import FieldSpec, int_to_words
-from .kernels import MAX_LOGK, NTTKernels, TileMap, twiddle_cols
+from .kernels import MAX_DIGITS, MAX_LOGK, NTTKernels, TileMap, twiddle_cols
 
 __all__ = ["FusedNTT", "Level", "split_parts", "tables_from_reference"]
 
@@ -140,6 +140,8 @@ class FusedNTT:
         self.logn = logn
         self.n = 1 << logn
         self.parts = split_parts(logn, klog)
+        if len(self.parts) > MAX_DIGITS + 1:
+            raise ValueError(f"{len(self.parts)} levels: K7 reads at most {MAX_DIGITS + 1}")
         self.levels = plan_levels(self.parts) if logn else []
         self.device = torch.device(device)
         self.kern = NTTKernels.for_spec(spec)
