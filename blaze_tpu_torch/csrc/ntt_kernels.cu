@@ -25,7 +25,10 @@
 // before it writes any and blocks own disjoint lanes, so K7 may run in
 // place (out == x, one map).  The design it replaces, two lanes per block
 // on word-major rows, used 8 bytes of every 32-byte sector it loaded and
-// met at a barrier after every butterfly stage.
+// met at a barrier after every butterfly stage: 22.7 ms per level of the
+// 2^27 plan (K 512, 2^18 lanes) on an H100 at 700 W, where this one takes
+// 17.7 ms, 2.1 times the IMAD bound (about the share K2, K4 and K10 reach
+// with the same carry-chain product).
 //
 // K8 is one thread per element.  K9 is one thread per element position:
 // it reads the element's twiddle row v and column j from bit fields of
