@@ -99,10 +99,10 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    K4 five times per 2^19 chunk at 2^24; K6 once per MSM).
 12. the seconds each phase took, then the kernels line (K1-K10): launches
    in those runs, parity error, times, bounds, threads per lane, and K3's,
-   K5's and K6's chain bound.  A kernel's `ms` is CUDA events over
-   repeated launches; its `device_ms` the card's busy time in one warm
-   launch under torch.profiler, which for a kernel shorter than the
-   host's time to launch it (K1, K3, K8) is the kernel's own time.
+   K5's and K6's chain bound.  A kernel's `ms` is CUDA events around
+   repeated launches queued behind a spin of the card, so a kernel shorter
+   than its launch from Python (K1, K3, K8) is not timed at the host's
+   pace.
 
 The last line is {"ok": true, "device": {...}}; the line before it is the
 card's name and power limit as nvidia-smi prints them.  Without a CUDA
@@ -225,12 +225,20 @@ def affine_of(raw: bytes, spec):
 
 
 # ----------------------------------------------------------------- timing
+SPIN_CYCLES = 40_000_000      # ~20 ms of the card's clock
+
+
 def cuda_ms(fn, reps: int) -> float:
+    """Mean time of fn's work on the card over `reps` calls, warm: CUDA
+    events around the calls, queued behind a spin of the card so that the
+    host has queued them all before the first runs (else a kernel shorter
+    than its launch from Python is timed at the host's pace)."""
     import torch
 
     fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SPIN_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
@@ -252,28 +260,6 @@ def once_ms(fn):
 def dev_us(e) -> float:
     """A profiler event's own device time (us), across torch versions."""
     return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
-
-
-def device_events(fn):
-    """The device's own events (kernels, copies, fills) of one call of fn
-    under torch.profiler, warm; the aten ops above them report the same
-    time again as theirs, so they are left out."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA and dev_us(e) > 0]
-
-
-def device_ms(fn) -> float:
-    """The card's busy time in one call of fn: beside cuda_ms, which for a
-    launch shorter than the host's time to make it measures the host."""
-    return sum(dev_us(e) for e in device_events(fn)) / 1e3
 
 
 def max_abs_err(a, b) -> int:
@@ -640,9 +626,9 @@ def phase_parity(imad_rate: float, device):
         e = output_err(kern(), want)
         errs[name] = max(errs[name], e)
         bound, bound_by = work_bound_ms(name, shape, W, imad_rate)
-        timing[key] = {"shape": shape, "ms": ms, "device_ms": device_ms(kern),
-                       "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
-                       "max_abs_err": e, "threads_per_lane": threads_per_lane(name)}
+        timing[key] = {"shape": shape, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                       "bound_by": bound_by, "max_abs_err": e,
+                       "threads_per_lane": threads_per_lane(name)}
         if name in CHAINED:
             timing[key]["chain_bound_ms"] = chain_bound_ms(name, shape, latency_us)
         del want
@@ -1029,8 +1015,8 @@ def ntt_main_timing(plan, imad_rate: float, seed: int, device):
         want, plain_ms = once_ms(plain)
         e = max_abs_err(cut(check()), cut(want))
         bound, bound_by = work_bound_ms(name, shape, W, imad_rate)
-        timing[key] = {"shape": shape, "ms": ms, "device_ms": device_ms(kern),
-                       "plain_ms": plain_ms, "plain_shape": plain_shape, "bound_ms": bound,
+        timing[key] = {"shape": shape, "ms": ms, "plain_ms": plain_ms,
+                       "plain_shape": plain_shape, "bound_ms": bound,
                        "bound_by": bound_by, "max_abs_err": e}
         del want
         torch.cuda.empty_cache()
@@ -1090,6 +1076,7 @@ def ntt_transform_split(plan, seed: int, device) -> dict:
     name, K7 (ntt_base_kernel), K9 (twiddle_mul_kernel) and every other
     (a copy, a fill), their counts, and the transform's peak memory."""
     import torch
+    from torch.profiler import ProfilerActivity, profile
 
     W = plan.spec.nwords
     x = rand_words(plan.spec, (plan.n, W), seed, device)
@@ -1097,9 +1084,14 @@ def ntt_transform_split(plan, seed: int, device) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
-    ops = device_events(lambda: plan.ntt(x))
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        out = plan.ntt(x)
+        torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
-    del x
+    del out, x
+    # the device's own events: the aten ops above them report the same time
+    ops = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA and dev_us(e) > 0]
     split = {"ntt_base": [0, 0.0], "twiddle_mul": [0, 0.0], "other": [0, 0.0]}
     others = []
     for e in ops:
@@ -1880,8 +1872,7 @@ def main() -> int:
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], "max_abs_err": errs[name],
-         "ms": timing[name]["ms"], "device_ms": timing[name]["device_ms"],
-         "plain_ms": timing[name]["plain_ms"],
+         "ms": timing[name]["ms"], "plain_ms": timing[name]["plain_ms"],
          "bound_ms": timing[name]["bound_ms"], "bound_by": timing[name]["bound_by"],
          "library_ms": None, "threads_per_lane": threads_per_lane(name),
          **({"chain_bound_ms": timing[name]["chain_bound_ms"]}
