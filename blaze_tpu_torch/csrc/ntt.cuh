@@ -3,7 +3,7 @@
 //
 // Layout.  An element is W = 8 consecutive 32-bit words, 32 bytes: one
 // sector of device memory.  Point k of lane l lies at element
-//   k * ks + sum_t ((l / div_t) % mod_t) * stride_t      (TileMap)
+//   k * ks + sum_t ((l >> src_t) % 2^wid_t) << dst_t      (TileMap)
 // of its buffer, so a batch may be read through the strides of a
 // Cooley-Tukey level (fused.py) instead of a transposed copy, and every
 // load or store moves whole sectors whatever the strides.  Input in
@@ -61,22 +61,40 @@ namespace ntt {
 
 constexpr int kMaxLogK = 9;
 constexpr int kThreads = 256;      // threads per block
-constexpr int kMaxDigits = 6;      // lane digits of a TileMap
+constexpr int kMaxFields = 6;      // bit fields of a BitFields
 
-// Element of (point k, lane l): k * ks + sum_t ((l / div[t]) % mod[t]) *
-// stride[t].  Unused digits are (1, 1, 0).
-struct TileMap {
-  int64_t ks;
-  uint32_t div[kMaxDigits];
-  uint32_t mod[kMaxDigits];
-  int64_t stride[kMaxDigits];
+// A head and up to kMaxFields bit fields (src, wid, dst) of an index x,
+// which give sum_t ((x >> src[t]) % 2^wid[t]) << dst[t]; unused fields are
+// (0, 0, 0).  Every digit of a plan's storage order is a power of two, so
+// K7's TileMap (head: the point stride ks, x: the lane) and K9's row map
+// (head: the shift of the twiddle row v, x: the element's position) are
+// both this form, and one host encoder (ntt/kernels.py bit_fields_host)
+// writes it: head, then (src, wid, dst) per field, as int64.
+struct BitFields {
+  int64_t head;
+  int src[kMaxFields];
+  int wid[kMaxFields];
+  int dst[kMaxFields];
 };
+using TileMap = BitFields;
 
-BLZ_DEVICE int64_t lane_offset(const TileMap& m, uint32_t l) {
-  int64_t off = 0;
+inline BitFields bit_fields(const int64_t* h) {
+  BitFields f;
+  f.head = h[0];
+  for (int t = 0; t < kMaxFields; ++t) {
+    f.src[t] = (int)h[1 + 3 * t];
+    f.wid[t] = (int)h[2 + 3 * t];
+    f.dst[t] = (int)h[3 + 3 * t];
+  }
+  return f;
+}
+
+BLZ_DEVICE int64_t field_sum(const BitFields& f, uint64_t x) {
+  int64_t s = 0;
 #pragma unroll
-  for (int t = 0; t < kMaxDigits; ++t) off += (int64_t)((l / m.div[t]) % m.mod[t]) * m.stride[t];
-  return off;
+  for (int t = 0; t < kMaxFields; ++t)
+    s += (int64_t)((x >> f.src[t]) & ((1ull << f.wid[t]) - 1)) << f.dst[t];
+  return s;
 }
 
 template <int W, int kLogK>
@@ -188,12 +206,12 @@ BLZ_DEVICE void run_pass(int pass, int tid, int64_t block, uint4* sm, const uint
   uint32_t u[W], v[W], w[W];
 
   if (pass == 0) {
-    const int64_t lo = live ? lane_offset(in, (uint32_t)lane) : 0;
+    const int64_t lo = live ? field_sum(in, (uint64_t)lane) : 0;
 #pragma unroll 1
     for (int i = 0; i < S::P; ++i) {
       const int p = pos(i);
       if (live) {
-        load_el<W>(v, x + (bitrev<kLogK>(p) * in.ks + lo) * W);
+        load_el<W>(v, x + (bitrev<kLogK>(p) * in.head + lo) * W);
       } else {
 #pragma unroll
         for (int k = 0; k < W; ++k) v[k] = 0;
@@ -226,12 +244,12 @@ BLZ_DEVICE void run_pass(int pass, int tid, int64_t block, uint4* sm, const uint
   }
 
   if (pass == S::kPasses - 1 && live) {
-    const int64_t lo = lane_offset(out, (uint32_t)lane);
+    const int64_t lo = field_sum(out, (uint64_t)lane);
 #pragma unroll 1
     for (int i = 0; i < S::P; ++i) {
       const int p = pos(i);
       sm_load<W>(v, sm, S::kPlane, at(p));
-      store_el<W>(o + (p * out.ks + lo) * W, v);
+      store_el<W>(o + (p * out.head + lo) * W, v);
     }
   }
 }

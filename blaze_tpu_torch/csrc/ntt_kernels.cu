@@ -12,9 +12,10 @@
 //   K9 blz_twiddle_mul <- _twmul_fn / twiddle_mul (y * T1[v, jo] * T2[v, jl])
 //
 // Bound on the H100: integer multiply-adds.  A W-word product is 4W^2 + W
-// IMADs; K7 does (K/2)(log2 K - 1) products per K points (stage 0 has no
-// twiddle), K9 two per element, K8 one or two.  At the 2^27 transform each
-// K7 pass is about 8.5 ms of IMADs against 2.6 ms of bytes, each K9 pass
+// IMADs; K7 does (K/2) log2 K - (K - 1) products per K points (a
+// butterfly whose twiddle is W^0 needs none: all of stage 0, K/2^(s+1) of
+// stage s), K9 two per element, K8 one or two.  At the 2^27 transform each
+// K7 pass is about 7.4 ms of IMADs against 2.6 ms of bytes, each K9 pass
 // about 4.2 ms against 2.6 ms.
 //
 // K7 (ntt.cuh): a block keeps NL lanes of K points in shared memory, each
@@ -90,29 +91,18 @@ mul_lm_kernel(const uint32_t* __restrict__ x, const uint32_t* __restrict__ y,
 }
 
 // ------------------------------------------------------------------ K9
-// Bit fields of an element's position that give its twiddle row and
-// column: v = (pos >> vshift) % A, j = sum_t ((pos >> src[t]) % 2^wid[t])
-// << dst[t], j = jo * S + jl.  Unused fields have wid 0.
-struct TwiddleFields {
-  int vshift;
-  int src[nt::kMaxDigits];
-  int wid[nt::kMaxDigits];
-  int dst[nt::kMaxDigits];
-};
-
-// y, o: (N, W) elements; t1 (A, J, W), t2 (A, S, W) elements.
+// y, o: (N, W) elements; t1 (A, J, W), t2 (A, S, W) elements.  The bit
+// fields of an element's position give its twiddle row v = (pos >> head)
+// % A and column j = field_sum(f, pos) = jo * S + jl (ntt.cuh BitFields).
 template <int W>
 __global__ void __launch_bounds__(kThreads)
 twiddle_mul_kernel(const uint32_t* y, const uint32_t* __restrict__ t1,
                    const uint32_t* __restrict__ t2, uint32_t* o, int64_t N, int logA,
-                   int logJ, int logS, TwiddleFields f, blz::FieldConsts<W> fc) {
+                   int logJ, int logS, nt::BitFields f, blz::FieldConsts<W> fc) {
   const int64_t pos = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (pos >= N) return;
-  const uint32_t v = (uint32_t)(pos >> f.vshift) & ((1u << logA) - 1);
-  uint32_t j = 0;
-#pragma unroll
-  for (int t = 0; t < nt::kMaxDigits; ++t)
-    j |= ((uint32_t)(pos >> f.src[t]) & ((1u << f.wid[t]) - 1)) << f.dst[t];
+  const uint32_t v = (uint32_t)(pos >> f.head) & ((1u << logA) - 1);
+  const uint32_t j = (uint32_t)nt::field_sum(f, (uint64_t)pos);
   const uint32_t jo = j >> logS, jl = j & ((1u << logS) - 1);
   uint32_t a[W], b[W];
   nt::load_el<W>(a, y + pos * W);
@@ -124,18 +114,6 @@ twiddle_mul_kernel(const uint32_t* y, const uint32_t* __restrict__ t1,
 }
 
 // -------------------------------------------------------------- launches
-// A TileMap from its host form: ks, then (div, mod, stride) per digit.
-nt::TileMap tile_map(const int64_t* h) {
-  nt::TileMap m;
-  m.ks = h[0];
-  for (int t = 0; t < nt::kMaxDigits; ++t) {
-    m.div[t] = (uint32_t)h[1 + 3 * t];
-    m.mod[t] = (uint32_t)h[2 + 3 * t];
-    m.stride[t] = h[3 + 3 * t];
-  }
-  return m;
-}
-
 template <int W, int kLogK>
 int launch_ntt_base(const uint32_t* consts, const void* x, const void* pack, void* o,
                     int64_t B, const int64_t* in, const int64_t* out, cudaStream_t stream) {
@@ -148,8 +126,8 @@ int launch_ntt_base(const uint32_t* consts, const void* x, const void* pack, voi
   }
   const int64_t blocks = (B + S::NL - 1) / S::NL;
   ntt_base_kernel<W, kLogK><<<(unsigned)blocks, nt::kThreads, smem, stream>>>(
-      (const uint32_t*)x, (const uint32_t*)pack, (uint32_t*)o, B, tile_map(in),
-      tile_map(out), blz::load_consts<W>(consts));
+      (const uint32_t*)x, (const uint32_t*)pack, (uint32_t*)o, B, nt::bit_fields(in),
+      nt::bit_fields(out), blz::load_consts<W>(consts));
   return (int)cudaGetLastError();
 }
 
@@ -166,18 +144,11 @@ int launch_mul_lm(const uint32_t* consts, const void* x, const void* y, const vo
 template <int W>
 int launch_twiddle_mul(const uint32_t* consts, const void* y, const void* t1,
                        const void* t2, void* o, int64_t N, int logA, int logJ, int logS,
-                       const int* fields, cudaStream_t stream) {
-  TwiddleFields f;
-  f.vshift = fields[0];
-  for (int t = 0; t < nt::kMaxDigits; ++t) {
-    f.src[t] = fields[1 + 3 * t];
-    f.wid[t] = fields[2 + 3 * t];
-    f.dst[t] = fields[3 + 3 * t];
-  }
+                       const int64_t* fields, cudaStream_t stream) {
   const int64_t blocks = (N + kThreads - 1) / kThreads;
   twiddle_mul_kernel<W><<<(unsigned)blocks, kThreads, 0, stream>>>(
       (const uint32_t*)y, (const uint32_t*)t1, (const uint32_t*)t2, (uint32_t*)o, N, logA,
-      logJ, logS, f, blz::load_consts<W>(consts));
+      logJ, logS, nt::bit_fields(fields), blz::load_consts<W>(consts));
   return (int)cudaGetLastError();
 }
 
@@ -185,7 +156,7 @@ int launch_twiddle_mul(const uint32_t* consts, const void* y, const void* t1,
 
 // Only the 8-word scalar fields (bn254_fr, bls12_377_fr, bls12_381_fr) have
 // NTTs; any other W is refused.  in_map / out_map: the TileMaps of x and o
-// in host form (1 + 3 kMaxDigits int64).
+// in host form (ntt.cuh BitFields: 1 + 3 kMaxFields int64).
 extern "C" int blz_ntt_base(int W, const uint32_t* consts, const void* x,
                             const void* pack, void* o, int logK, int64_t B,
                             const int64_t* in_map, const int64_t* out_map, void* stream) {
@@ -213,10 +184,10 @@ extern "C" int blz_mul_lm(int W, const uint32_t* consts, const void* x, const vo
   return launch_mul_lm<8>(consts, x, y, z, o, M, N, (cudaStream_t)stream);
 }
 
-// fields: vshift, then (src, wid, dst) per field (1 + 3 kMaxDigits ints).
+// fields: the row map in host form (ntt.cuh BitFields, head = v's shift).
 extern "C" int blz_twiddle_mul(int W, const uint32_t* consts, const void* y,
                                const void* t1, const void* t2, void* o, int64_t N,
-                               int logA, int logJ, int logS, const int* fields,
+                               int logA, int logJ, int logS, const int64_t* fields,
                                void* stream) {
   if (N <= 0) return 0;
   if (W != 8) return (int)cudaErrorInvalidValue;

@@ -44,7 +44,7 @@ import torch
 
 from ..fields.mont import Field
 from ..fields.spec import FieldSpec, int_to_words
-from .kernels import MAX_DIGITS, MAX_LOGK, NTTKernels, TileMap, twiddle_cols
+from .kernels import MAX_FIELDS, MAX_LOGK, NTTKernels, TileMap, twiddle_cols
 
 __all__ = ["FusedNTT", "Level", "split_parts", "tables_from_reference"]
 
@@ -108,11 +108,13 @@ def plan_levels(parts: list[int]) -> list[Level]:
     levels = []
     for d, a in enumerate(parts):
         P = 1 << logP[d]
-        digits = ((1, P, 1),) if P > 1 else ()
-        digits += tuple((P << logS[e], 1 << parts[e], 1 << logP[e]) for e in range(d + 1, D))
-        omap = TileMap(P, digits)
+        # lo at weight 1, then each digit i_e (bits logP_d + logS_e up of
+        # the lane) at the output's weight P_e
+        lane = ((0, logP[d], 0),) if P > 1 else ()
+        lane += tuple((logP[d] + logS[e], parts[e], logP[e]) for e in range(d + 1, D))
+        omap = TileMap(P, lane)
         lanes = 1 << (logn - a)
-        xmap = TileMap(lanes, ((1, lanes, 1),)) if d == 0 else omap
+        xmap = TileMap.rows(lanes) if d == 0 else omap
         fields = tuple((logP[e], parts[e], logS[e]) for e in range(d + 1, D))
         levels.append(Level(a, lanes, xmap, omap, logP[d], fields))
     return levels
@@ -121,7 +123,13 @@ def plan_levels(parts: list[int]) -> list[Level]:
 class FusedNTT:
     """NTT plan for one (field, logn), its tables on `device`.  `.ntt` /
     `.intt` map (n, W) int32 canonical Montgomery words, natural order in
-    and out, to a new (n, W) tensor; the input is left as it was."""
+    and out, to a new (n, W) tensor; the input is left as it was.
+
+    klog caps the parts (KLOG = 9 on every client).  A plan of more than
+    MAX_FIELDS + 1 = 7 levels is refused, since level 0's maps hold one
+    lane field per later level: klog 3 from logn 22, klog 2 from logn 15
+    (blaze_tpu's FusedNTT builds those).  At klog 9 every field's plan
+    fits (6 levels at bls12_377_fr's 2-adicity 47)."""
 
     # Cells narrower than this many lanes take the K8 fallback with
     # lane-expanded twiddles (only small plans, 2^10-2^19); tests may lower
@@ -140,8 +148,10 @@ class FusedNTT:
         self.logn = logn
         self.n = 1 << logn
         self.parts = split_parts(logn, klog)
-        if len(self.parts) > MAX_DIGITS + 1:
-            raise ValueError(f"{len(self.parts)} levels: K7 reads at most {MAX_DIGITS + 1}")
+        if len(self.parts) > MAX_FIELDS + 1:
+            # level 0's maps hold one lane field per later level
+            raise ValueError(f"{len(self.parts)} levels: K7's maps hold at most "
+                             f"{MAX_FIELDS + 1} (a larger klog cuts the count)")
         self.levels = plan_levels(self.parts) if logn else []
         self.device = torch.device(device)
         self.kern = NTTKernels.for_spec(spec)

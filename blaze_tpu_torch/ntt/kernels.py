@@ -8,10 +8,11 @@ with 32-bit words in place of 16-bit limbs.  Every value is canonical
 discipline only.
 
 K7 reads and writes through a `TileMap`: point k of lane l of a batch of
-K-point transforms lies at row k * ks + sum over its digits of
-((l // div) % mod) * stride, so FusedNTT hands each Cooley-Tukey level its
-strides instead of a transposed copy.  K9 finds each element's twiddle
-row and column in bit fields of its row.
+K-point transforms lies at row k * ks + sum over its bit fields (src, wid,
+dst) of ((l >> src) % 2^wid) << dst, so FusedNTT hands each Cooley-Tukey
+level its strides instead of a transposed copy.  K9 finds each element's
+twiddle row and column in bit fields of its row, in the same form
+(`bit_fields_host`, csrc/ntt.cuh BitFields).
 
 Each public method launches its kernel for CUDA tensors and runs the plain
 PyTorch version beside it only for CPU tensors.  The plain versions compute
@@ -41,7 +42,8 @@ from .transform import _bitrev_perm
 __all__ = ["NTTKernels", "TileMap", "twiddle_cols"]
 
 MAX_LOGK = 9      # K7's shared-memory tile holds up to 2^9 points per lane
-MAX_DIGITS = 6    # lane digits of a TileMap; bit fields of K9's row map
+MAX_FIELDS = 6    # bit fields of a TileMap or of K9's row map
+LANE_BITS = 31    # a field this wide holds any lane index whole
 
 _c = ctypes
 _ARGTYPES = {
@@ -55,52 +57,74 @@ _ARGTYPES = {
 }
 
 
+def field_sum(x: torch.Tensor, fields) -> torch.Tensor:
+    """Sum over `fields` (src, wid, dst) of ((x >> src) % 2^wid) << dst."""
+    out = torch.zeros_like(x)
+    for src, wid, dst in fields:
+        out += ((x >> src) & ((1 << wid) - 1)) << dst
+    return out
+
+
+def field_max(fields, top: int) -> int:
+    """The largest field_sum of an index below `top`."""
+    return sum(min((1 << wid) - 1, (top - 1) >> src) << dst for src, wid, dst in fields)
+
+
+def check_fields(fields, what: str) -> tuple:
+    fields = tuple(tuple(int(v) for v in f) for f in fields)
+    if len(fields) > MAX_FIELDS or any(
+            len(f) != 3 or min(f) < 0 or f[0] > 62 or f[1] > 32 or f[1] + f[2] > 62
+            for f in fields):
+        raise ValueError(f"{what}: bit fields {fields} out of range")
+    return fields
+
+
+def bit_fields_host(head: int, fields) -> np.ndarray:
+    """The C entries' form of a head and its bit fields (csrc/ntt.cuh
+    BitFields): head, then (src, wid, dst) per field, unused fields (0, 0,
+    0), int64."""
+    pad = [(0, 0, 0)] * (MAX_FIELDS - len(fields))
+    return np.array([head, *(v for f in (*fields, *pad) for v in f)], dtype=np.int64)
+
+
 class TileMap(NamedTuple):
     """Where point k of lane l of a batch of K-point transforms lies in an
-    element-contiguous (N, W) buffer: row k * ks + sum over `digits` of
-    ((l // div) % mod) * stride (csrc/ntt.cuh TileMap)."""
+    element-contiguous (N, W) buffer: row k * ks + field_sum(l, fields),
+    each field (src, wid, dst) one lane digit of a power-of-two size at a
+    power-of-two stride (csrc/ntt.cuh TileMap)."""
 
     ks: int
-    digits: tuple = ()
+    fields: tuple = ()
+
+    @staticmethod
+    def lanes_at(ks: int, log_stride: int = 0) -> "TileMap":
+        """Point k of lane l at row k * ks + (l << log_stride)."""
+        return TileMap(ks, ((0, LANE_BITS, log_stride),))
 
     @staticmethod
     def rows(lanes: int) -> "TileMap":
         """(K, lanes) rows: point k of lane l at row k * lanes + l."""
-        return TileMap(lanes, ((1, lanes, 1),))
+        return TileMap.lanes_at(lanes)
 
     def offsets(self, K: int, lanes: int, device) -> torch.Tensor:
         """(K, lanes) int64 rows of every point."""
-        lane = torch.arange(lanes, dtype=torch.int64, device=device)
-        off = torch.zeros_like(lane)
-        for div, mod, stride in self.digits:
-            off += (lane // div) % mod * stride
+        off = field_sum(torch.arange(lanes, dtype=torch.int64, device=device), self.fields)
         return torch.arange(K, dtype=torch.int64, device=device)[:, None] * self.ks + off
 
     def bound(self, K: int, lanes: int) -> int:
-        """An upper bound of the rows it reaches, plus one."""
-        top = (K - 1) * self.ks
-        for div, mod, stride in self.digits:
-            top += (min(mod, -(-lanes // div)) - 1) * stride
-        return top + 1
+        """The last row it reaches, plus one."""
+        return (K - 1) * self.ks + field_max(self.fields, lanes) + 1
 
     def host(self) -> np.ndarray:
-        """The C entry's form: ks, then (div, mod, stride) per digit, unused
-        digits (1, 1, 0)."""
-        if len(self.digits) > MAX_DIGITS:
-            raise ValueError(f"TileMap: more than {MAX_DIGITS} digits")
-        pad = [(1, 1, 0)] * (MAX_DIGITS - len(self.digits))
-        return np.array([self.ks, *(v for d in (*self.digits, *pad) for v in d)],
-                        dtype=np.int64)
+        return bit_fields_host(self.ks, check_fields(self.fields, "TileMap"))
 
 
 def twiddle_cols(N: int, logA: int, vshift: int, fields, logS: int, device):
     """Row v and columns (jo, jl) of the split tables for each of N element
-    rows: v = (pos >> vshift) % 2^logA, j = sum of ((pos >> src) % 2^wid)
-    << dst over `fields`, j = jo * 2^logS + jl."""
+    rows: v = (pos >> vshift) % 2^logA, j = field_sum(pos, fields) =
+    jo * 2^logS + jl."""
     pos = torch.arange(N, dtype=torch.int64, device=device)
-    j = torch.zeros_like(pos)
-    for src, wid, dst in fields:
-        j |= ((pos >> src) & ((1 << wid) - 1)) << dst
+    j = field_sum(pos, fields)
     return (pos >> vshift) & ((1 << logA) - 1), j >> logS, j & ((1 << logS) - 1)
 
 
@@ -203,8 +227,8 @@ class NTTKernels:
         if not 1 <= lanes < 1 << 31:
             raise ValueError(f"ntt_base: {lanes} lanes")
         for m, buf, what in ((xmap, x, "x"), (omap, out, "out")):
-            if m.ks < 0 or any(d < 1 or md < 1 or st < 0 for d, md, st in m.digits) \
-                    or m.bound(K, lanes) > buf.shape[0]:
+            check_fields(m.fields, what)
+            if m.ks < 0 or m.bound(K, lanes) > buf.shape[0]:
                 raise ValueError(f"{what}: map {m} reaches past its {buf.shape[0]} rows")
         return K, lanes, xmap, out, omap
 
@@ -296,10 +320,8 @@ class NTTKernels:
         if t2.shape[0] != A or t1.device != y.device or t2.device != y.device:
             raise ValueError(f"twiddle_mul: t1 {tuple(t1.shape)}, t2 {tuple(t2.shape)} "
                              f"on {t1.device}, {t2.device}")
-        fields = tuple(tuple(f) for f in fields)
-        if len(fields) > MAX_DIGITS or vshift < 0 or any(
-                s < 0 or w < 0 or d < 0 or s + w > 62 or d + w > logJ + logS
-                for s, w, d in fields):
+        fields = check_fields(fields, "twiddle_mul")
+        if not 0 <= vshift <= 62 or field_max(fields, y.shape[0]) >> (logJ + logS):
             raise ValueError(f"twiddle_mul: fields {fields} outside the tables")
         if out is None:
             out = torch.empty_like(y)
@@ -333,8 +355,7 @@ class NTTKernels:
         logA, logJ, logS, fields, out = self._twiddle_args(y, t1, t2, vshift, fields, out)
         if y.device.type == "cpu":
             return self.twiddle_mul_plain(y, t1, t2, vshift, fields, out)
-        host = np.array([vshift, *(v for f in (*fields, *[(0, 0, 0)] * (
-            MAX_DIGITS - len(fields))) for v in f)], dtype=np.int32)
+        host = bit_fields_host(vshift, fields)
         self._launch("blz_twiddle_mul", "twiddle_mul", y.device, y.data_ptr(),
                      t1.data_ptr(), t2.data_ptr(), out.data_ptr(), y.shape[0], logA, logJ,
                      logS, host.ctypes.data)

@@ -514,9 +514,10 @@ def work_bound_ms(name: str, shape: dict, W: int, imad_rate: float):
     (inputs read once, outputs written once) over HBM bandwidth and its
     32-bit multiply-adds over the card's IMAD rate.  A W-word Montgomery
     product needs 2W^2 full 32x32->64 products (2 IMADs each) and W low
-    products (4W^2 + W IMADs); alg 8 has 13 products, alg 7 has 14.  K7
-    does (K/2)(log2 K - 1) products per lane (stage 0 has no twiddle), K9
-    two per element, K8 one per operand past the first."""
+    products (4W^2 + W IMADs); alg 8 has 13 products, alg 7 has 14.  A
+    K-point NTT needs (K/2) log2 K - (K - 1) products per lane: a butterfly
+    whose twiddle is W^0 needs none (all of stage 0, K/2^(s+1) of stage s).
+    K9 needs two per element, K8 one per operand past the first."""
     per_mul = 4 * W * W + W
     pt = 3 * W * 4                                # bytes of one projective point
     el = W * 4                                    # bytes of one field element
@@ -525,7 +526,7 @@ def work_bound_ms(name: str, shape: dict, W: int, imad_rate: float):
         nbytes = 2 * shape["t"] * shape["B"] * el
     elif name == "ntt_base":
         K, N = shape["K"], shape["lanes"]
-        muls = (K // 2) * (K.bit_length() - 2) * N
+        muls = ((K // 2) * (K.bit_length() - 1) - (K - 1)) * N
         nbytes = 2 * K * N * el + K * el
     elif name == "twiddle_mul":
         A, J, S, B = shape["A"], shape["J"], shape["S"], shape["B"]
@@ -943,8 +944,8 @@ def ntt_kernel_cases(spec, seed: int, device):
                (8, 1000, "rows", 8000, rows(1000), 8000, rows(1000), False),
                (512, 37, "rows", 512 * 37, rows(37), 512 * 37, rows(37), False),
                (512, 64, "rows", 512 * 64, rows(64), 512 * 64, rows(64), True),
-               (64, 45, "strided_to_transposed", 64 * 48, TileMap(48, ((1, 45, 1),)), 64 * 45,
-                TileMap(1, ((1, 45, 64),)), False)]
+               (64, 45, "strided_to_transposed", 64 * 48, TileMap.lanes_at(48), 64 * 45,
+                TileMap.lanes_at(1, 6), False)]
     for name, parts, d in (("level0_of_343", [3, 4, 3], 0), ("level1_of_334", [3, 3, 4], 1)):
         lv = plan_levels(parts)[d]
         layouts.append((1 << lv.a, lv.lanes, name, 1024, lv.xmap, 1024, lv.omap,

@@ -185,9 +185,9 @@ def ntt_layouts(K: int, B: int):
     """(input rows, xmap, output rows, omap, in place) of K7's layouts:
     (K, B) rows out of and in place, a strided input into a transposed
     output, a transposed buffer in place."""
-    rows, tr = TileMap.rows(B), TileMap(1, ((1, B, K),))
+    rows, tr = TileMap.rows(B), TileMap.lanes_at(1, K.bit_length() - 1)
     return [(K * B, rows, K * B, rows, False), (K * B, rows, K * B, rows, True),
-            (K * (B + 3), TileMap(B + 3, ((1, B, 1),)), K * B, tr, False),
+            (K * (B + 3), TileMap.lanes_at(B + 3), K * B, tr, False),
             (K * B, tr, K * B, tr, True)]
 
 
@@ -195,7 +195,7 @@ def ntt_layouts(K: int, B: int):
 def test_ntt_kernels_match_plain_versions(dev, field):
     spec = FIELDS[field]
     k, W = NTTKernels.for_spec(spec), spec.nwords
-    for K, B in ((2, 100), (8, 257), (64, 45), (512, 37)):
+    for K, B in ((2, 100), (8, 257), (64, 45), (128, 21), (256, 11), (512, 37)):
         pack = canonical(spec, (K, W), K + 1, dev)
         for i, (nx, xmap, no, omap, in_place) in enumerate(ntt_layouts(K, B)):
             x = canonical(spec, (nx, W), K + i, dev)

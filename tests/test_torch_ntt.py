@@ -42,7 +42,7 @@ from blaze_tpu_torch.ntt import (
     tables_from_reference,
 )
 from blaze_tpu_torch.ntt.fused import plan_levels
-from blaze_tpu_torch.ntt.kernels import TileMap
+from blaze_tpu_torch.ntt.kernels import MAX_FIELDS, TileMap
 from blaze_tpu_torch.runtime import NTTClient, NTTInit, NTTInput
 from blaze_tpu_torch.utils import DataError, DeviceError, InvalidPrimitiveParam, NotReady
 
@@ -179,9 +179,9 @@ def test_kernel_wrappers_check_their_operands():
     with pytest.raises(ValueError):
         k.ntt_base(x, pack, 8)                                      # 8 lanes of 8 > 32 rows
     with pytest.raises(ValueError):
-        k.ntt_base(x, pack, 4, out=x, omap=TileMap(1, ((1, 4, 8),)))   # in place, other map
+        k.ntt_base(x, pack, 4, out=x, omap=TileMap.lanes_at(1, 3))     # in place, other map
     with pytest.raises(ValueError):
-        k.ntt_base(x, pack, 4, omap=TileMap(8, ((1, 4, 1),)))      # out reaches past 32 rows
+        k.ntt_base(x, pack, 4, omap=TileMap.lanes_at(8))           # out reaches past 32 rows
     lm3 = x.reshape(4, 8, 8)
     with pytest.raises(ValueError):
         k.mul_lm(lm3, lm3[:2].contiguous())
@@ -281,6 +281,27 @@ def test_plan_factory_and_sizes():
         FusedNTT(spec, spec.two_adicity + 1, device="cpu")
     with pytest.raises(ValueError):
         plan.ntt(x[:8])
+
+
+@pytest.mark.parametrize("logn,klog", [(8, 1), (15, 2), (22, 3)])
+def test_fused_refuses_plans_past_k7s_maps(logn, klog):
+    """A plan of more than MAX_FIELDS + 1 = 7 levels is refused (level 0's
+    maps hold one lane field per later level); one level less, 7 levels of
+    one point pair at logn 7 with K9 on all six of depth 0's fields, equals
+    the one-level plan.  At klog 9 the deepest plan, bls12_377_fr at its
+    2-adicity 47, has 6 levels."""
+    spec = FIELDS["bls12_377_fr"]
+    assert len(split_parts(logn, klog)) == MAX_FIELDS + 2
+    with pytest.raises(ValueError, match="levels"):
+        FusedNTT(spec, logn, klog=klog, device="cpu")
+    assert len(split_parts(spec.two_adicity, 9)) == 6
+    if klog == 1:
+        deep, flat = FusedNTT(spec, 7, klog=1, device="cpu"), FusedNTT(spec, 7, device="cpu")
+        deep._TWMUL_MIN_LANES = 1
+        assert len(deep.levels) == 7 and len(deep.levels[0].fields) == MAX_FIELDS
+        x = as_t(rand_words(spec, (128,), 7))
+        assert torch.equal(deep.ntt(x), flat.ntt(x))
+        assert torch.equal(deep.intt(x), flat.intt(x))
 
 
 # ------------------------------------------------------------------ client

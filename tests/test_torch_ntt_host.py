@@ -5,9 +5,11 @@ the threads first to last and last to first (a thread that read another
 thread's output of the same pass, a race on the card, gives a different
 result in one of the two).  Its outputs must equal ntt_base_plain (held
 limb for limb against blaze_tpu's Pallas kernel in tests/test_torch_ntt.py)
-on the three NTT fields, at K = 2, 8, 64 and 512, at lane counts that
-leave the last block ragged, through three layouts: (K, B) rows, a strided
-input read into a transposed output, and a transposed buffer in place.
+on the three NTT fields, at K = 2, 8, 16, 64, 128, 256 and 512 (each
+count of stages in the last pass, after none, one and two full passes),
+at lane counts that leave the last block ragged, through three layouts:
+(K, B) rows, a strided input read into a transposed output, and a
+transposed buffer in place.
 Skipped without g++.
 """
 import ctypes
@@ -36,17 +38,6 @@ HOST_DRIVER = r"""
 
 namespace nt = blz::ntt;
 
-nt::TileMap tile_map(const int64_t* h) {
-  nt::TileMap m;
-  m.ks = h[0];
-  for (int t = 0; t < nt::kMaxDigits; ++t) {
-    m.div[t] = (uint32_t)h[1 + 3 * t];
-    m.mod[t] = (uint32_t)h[2 + 3 * t];
-    m.stride[t] = h[3 + 3 * t];
-  }
-  return m;
-}
-
 // One block: each pass (a barrier interval) run by every thread, in order
 // or in reverse.
 template <int kLogK>
@@ -54,7 +45,7 @@ void run(const uint32_t* consts, const uint32_t* x, const uint32_t* pack, uint32
          int64_t B, const int64_t* hin, const int64_t* hout, int rev) {
   using S = nt::Shape<8, kLogK>;
   const auto fc = blz::load_consts<8>(consts);
-  const nt::TileMap in = tile_map(hin), out = tile_map(hout);
+  const nt::TileMap in = nt::bit_fields(hin), out = nt::bit_fields(hout);
   std::vector<uint4> sm(S::kSmemBytes / 16, uint4{0xA5A5A5A5u, 1u, 2u, 3u});
   for (int64_t block = 0; block * S::NL < B; ++block) {
     for (int pass = 0; pass < S::kPasses; ++pass) {
@@ -72,7 +63,10 @@ extern "C" int ntt_host(int logK, const uint32_t* k, const uint32_t* x, const ui
   switch (logK) {
     case 1: run<1>(k, x, pack, o, B, in, out, rev); return 0;
     case 3: run<3>(k, x, pack, o, B, in, out, rev); return 0;
+    case 4: run<4>(k, x, pack, o, B, in, out, rev); return 0;
     case 6: run<6>(k, x, pack, o, B, in, out, rev); return 0;
+    case 7: run<7>(k, x, pack, o, B, in, out, rev); return 0;
+    case 8: run<8>(k, x, pack, o, B, in, out, rev); return 0;
     case 9: run<9>(k, x, pack, o, B, in, out, rev); return 0;
     default: return 1;
   }
@@ -89,8 +83,10 @@ extern "C" int threads_per_lane(int logK) {
 }
 """
 
-# K -> lanes: the last block ragged (lanes per block 256, 256, 32, 4)
-LANES = {2: 300, 8: 37, 64: 45, 512: 5}
+# K -> lanes: the last block ragged (lanes per block 256, 256, 128, 32, 16,
+# 8, 4); K = 16, 128 and 256 end on a pass of 1, 1 and 2 stages after full
+# ones, the plans' [8, 8] (2^16) and [7, 7, 6] (2^20) among them
+LANES = {2: 300, 8: 37, 16: 130, 64: 45, 128: 21, 256: 11, 512: 5}
 
 
 @pytest.fixture(scope="module")
@@ -121,10 +117,10 @@ def layouts(K: int, B: int):
     """(name, input rows, xmap, output rows, omap, in place)."""
     return [
         ("rows", K * B, TileMap.rows(B), K * B, TileMap.rows(B), False),
-        ("strided_to_transposed", K * (B + 3), TileMap(B + 3, ((1, B, 1),)), K * B,
-         TileMap(1, ((1, B, K),)), False),
-        ("transposed_in_place", K * B, TileMap(1, ((1, B, K),)), K * B,
-         TileMap(1, ((1, B, K),)), True),
+        ("strided_to_transposed", K * (B + 3), TileMap.lanes_at(B + 3), K * B,
+         TileMap.lanes_at(1, K.bit_length() - 1), False),
+        ("transposed_in_place", K * B, TileMap.lanes_at(1, K.bit_length() - 1), K * B,
+         TileMap.lanes_at(1, K.bit_length() - 1), True),
     ]
 
 
