@@ -37,7 +37,7 @@
 // words 4h .. 4h+3 of each element), element e = pos * NL + lane at
 // e + 4 (e / 32): with that padding the 8 threads of each quarter-warp
 // touch 8 different 16-byte bank groups in every stage.  72 KB per block,
-// three blocks per SM (24 warps; 78 registers a thread).  The twiddle pack (K entries, 16 KB at K = 512)
+// three blocks per SM (24 warps; 76 registers a thread).  The twiddle pack (K entries, 16 KB at K = 512)
 // stays in device memory and is read through the read-only path; it is
 // the same for every block, so it stays in L1.
 //
@@ -184,8 +184,13 @@ BLZ_DEVICE void sm_store(uint4* sm, int plane, int e, const uint32_t* v) {
 // first fills its positions from x through `in` (position k <- row
 // rev(k)); the last pass then writes its positions to o through `out`.
 // The caller puts a barrier between passes.  pack: K twiddles, entry
-// m - 1 + t (m = 2^s) that of stage s at butterfly position t; stage 0
-// takes none.
+// m - 1 + t (m = 2^s) that of stage s at butterfly position t.  A
+// butterfly at t = 0 (all of stage 0, K/2^(s+1) of stage s) has twiddle
+// W^0 = 1 and skips the product; entry m - 1 is never read.  These are
+// K/2 - 1 of the (K/2)(log2 K - 1) products past stage 0.  In pass 0 t is
+// the same for all of a warp's threads (3 of a thread's 32 products at K =
+// 512 skipped); in later passes it differs between them, and the warp runs
+// the product for the threads that need it.
 template <int W, int kLogK>
 BLZ_DEVICE void run_pass(int pass, int tid, int64_t block, uint4* sm, const uint32_t* x,
                          const uint32_t* pack, uint32_t* o, int64_t B, const TileMap& in,
@@ -232,8 +237,9 @@ BLZ_DEVICE void run_pass(int pass, int tid, int64_t block, uint4* sm, const uint
       const int pa = pos(i), pb = pa + (1 << s);
       sm_load<W>(u, sm, S::kPlane, at(pa));
       sm_load<W>(v, sm, S::kPlane, at(pb));
-      if (s > 0) {
-        ldg_el<W>(w, pack + ((1 << s) - 1 + (pa & ((1 << s) - 1))) * W);
+      const int tw = pa & ((1 << s) - 1);           // twiddle W^tw of the stage
+      if (tw) {
+        ldg_el<W>(w, pack + ((1 << s) - 1 + tw) * W);
         mont_mul_cc<W, false>(v, v, w, fc);
       }
       add_canon<W>(w, u, v, fc);

@@ -28,8 +28,8 @@
 // on word-major rows, used 8 bytes of every 32-byte sector it loaded and
 // met at a barrier after every butterfly stage: 22.7 ms per level of the
 // 2^27 plan (K 512, 2^18 lanes) on an H100 at 700 W, where this one takes
-// 17.7 ms, 2.1 times the IMAD bound (about the share K2, K4 and K10 reach
-// with the same carry-chain product).
+// 15.9 ms, 2.14 times the IMAD bound (17.2 ms with a product at every
+// butterfly past stage 0; scripts/k7_probe.py at cd1a2b6, PERF.md).
 //
 // K8 is one thread per element.  K9 is one thread per element position:
 // it reads the element's twiddle row v and column j from bit fields of

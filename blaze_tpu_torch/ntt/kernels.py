@@ -248,9 +248,9 @@ class NTTKernels:
             m, g2 = 1 << s, K >> (s + 1)
             vr = v.reshape(g2, 2, m, lanes, L)
             a, b = vr[:, 0], vr[:, 1]
-            if s:                                        # stage 0's twiddle is 1
-                w = tw[m - 1 : 2 * m - 1][None, :, None, :].expand(g2, m, lanes, L)
-                b = self.ops.mul(w, b)
+            if s:                       # twiddle W^0 = 1 at t = 0 (all of stage 0)
+                w = tw[m : 2 * m - 1][None, :, None, :].expand(g2, m - 1, lanes, L)
+                b = torch.cat([b[:, :1], self.ops.mul(w, b[:, 1:])], dim=1)
             v = torch.stack([self.ops.add(a, b), self.ops.sub(a, b)], dim=1)
             v = v.reshape(K, lanes, L)
         out[omap.offsets(K, lanes, x.device).reshape(-1)] = limbs16_to_words(
@@ -267,7 +267,9 @@ class NTTKernels:
         the kernel's loads; the JAX kernel took bit-reversed input).
         Default: lanes = N // K and xmap = TileMap.rows(lanes), (K, lanes)
         rows.  pack: (K, W) stage-packed twiddles — entry m-1+t (m = 2^s)
-        is W_K^(t << (logK-1-s)).  Output point k of lane l goes to row
+        is W_K^(t << (logK-1-s)); entry m-1, W^0 = 1, is not read (its
+        butterflies skip the product, as the JAX kernel does at stage 0).
+        Output point k of lane l goes to row
         omap(k, l) of `out` (default: xmap; out default: a new zeroed
         buffer like x), natural order, canonical; `out` may be x itself
         with one map (in place).  Returns out."""

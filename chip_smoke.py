@@ -516,8 +516,9 @@ def work_bound_ms(name: str, shape: dict, W: int, imad_rate: float):
     product needs 2W^2 full 32x32->64 products (2 IMADs each) and W low
     products (4W^2 + W IMADs); alg 8 has 13 products, alg 7 has 14.  A
     K-point NTT needs (K/2) log2 K - (K - 1) products per lane: a butterfly
-    whose twiddle is W^0 needs none (all of stage 0, K/2^(s+1) of stage s).
-    K9 needs two per element, K8 one per operand past the first."""
+    whose twiddle is W^0 needs none (all of stage 0, K/2^(s+1) of stage s;
+    K7 skips them).  K9 needs two per element, K8 one per operand past the
+    first."""
     per_mul = 4 * W * W + W
     pt = 3 * W * 4                                # bytes of one projective point
     el = W * 4                                    # bytes of one field element
@@ -926,7 +927,8 @@ def rand_words(spec, shape, seed: int, device):
 
 def ntt_kernel_cases(spec, seed: int, device):
     """(name, kernel call, plain call, shape) for K7-K9 at small shapes,
-    every branch: K7 through (K, B) rows out of and in place, a strided
+    every branch: K7 through (K, B) rows out of and in place (K = 128 and
+    256 end on a short pass after full ones), a strided
     input into a transposed output, and two levels of 2^10-point plans
     (level 0 of parts 3, 4, 3 out of place into reversed lane digits; level
     1 of 3, 3, 4 in place), ragged lane counts among them; K8 with 2 and 3
@@ -942,6 +944,8 @@ def ntt_kernel_cases(spec, seed: int, device):
     rows = TileMap.rows
     layouts = [(2, 300, "rows", 600, rows(300), 600, rows(300), False),
                (8, 1000, "rows", 8000, rows(1000), 8000, rows(1000), False),
+               (128, 21, "rows", 128 * 21, rows(21), 128 * 21, rows(21), False),
+               (256, 11, "rows", 256 * 11, rows(11), 256 * 11, rows(11), True),
                (512, 37, "rows", 512 * 37, rows(37), 512 * 37, rows(37), False),
                (512, 64, "rows", 512 * 64, rows(64), 512 * 64, rows(64), True),
                (64, 45, "strided_to_transposed", 64 * 48, TileMap.lanes_at(48), 64 * 45,

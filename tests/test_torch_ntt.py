@@ -118,6 +118,7 @@ def test_ntt_base_plain_matches_pallas_kernel(layout):
     assert lv is None or (1 << lv.a, lv.lanes) == (K, B)
     x = rand_words(spec, (K * B,), 1)
     pack = rand_words(spec, (K,), 2)
+    pack[[0, 1, 3]] = int_to_words(spec.r % spec.p, spec.nwords)    # W^0 = 1 at m - 1
     rows = xmap.offsets(K, B, "cpu").numpy()
     rev = [0, 4, 2, 6, 1, 5, 3, 7]
     _, xref = lm(x[rows[rev]])
