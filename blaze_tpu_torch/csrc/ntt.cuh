@@ -32,7 +32,7 @@
 // kernel unrolled, 22,688 SASS instructions at K = 512 (363 KB of code),
 // and ran 36-39 ms per level of the 2^27 plan on an H100, against 17.9 ms
 // for this one (before it skipped the W^0 products); one butterfly's code
-// in a loop ran 18.6 ms (PERF.md, PR 7).
+// in a loop ran 18.6 ms (PERF.md).
 //
 // Shared memory: the tile as W/4 planes of 16-byte words (plane h holds
 // words 4h .. 4h+3 of each element), element e = pos * NL + lane at
