@@ -4,7 +4,7 @@
 // lazy < 2p discipline of the EC kernels is unsound here.  K7 and K9 work on
 // element-contiguous buffers (an element's W = 8 words are 32 consecutive
 // bytes, one sector of device memory); K8 on (M, W, N) lanes-major words,
-// which FusedNTT hands it as (n, W, 1).
+// which FusedNTT hands it as element rows, (n, W, 1).
 //
 // Replaces (blaze_tpu/ntt/kernels.py, NTTKernels):
 //   K7 blz_ntt_base    <- _ntt_fn / ntt_base      (whole K-point DIT NTT per lane)
@@ -31,7 +31,14 @@
 // 15.9 ms, 2.14 times the IMAD bound (17.2 ms with a product at every
 // butterfly past stage 0; scripts/k7_probe.py at cd1a2b6, PERF.md).
 //
-// K8 is one thread per element.  K9 is one thread per element position:
+// K8 is one thread per element.  Its element rows (N = 1, the plan's form)
+// are read and written as 16-byte words, y and z through the read-only
+// path, and multiplied on carry.cuh's canonical carry chain; bound by bytes
+// (3 elements of 32 B moved per product at two operands).  The design it
+// replaces read each word at stride N (8 bytes apart for neighbouring
+// threads at N = 1) and multiplied on field.cuh's word-serial product.
+// Word-major batches (N > 1) keep one thread per element, their words read
+// at stride N.  K9 is one thread per element position:
 // it reads the element's twiddle row v and column j from bit fields of
 // its position (the plan's storage order), then its two factors straight
 // from the small split tables (T1/T2, 8 MiB each at 2^27, L2-resident;
@@ -64,13 +71,41 @@ ntt_base_kernel(const uint32_t* x, const uint32_t* __restrict__ pack, uint32_t* 
 
 // ------------------------------------------------------------------ K8
 constexpr int kThreads = 256;
+// Elements per thread of K8's element rows: at the 2^16 plan's shape two
+// were 3-6% slower and four 55-75% slower than one (scripts/k8_probe.py).
+constexpr int kMulElems = 1;
 
-// x, y (and z unless null), o: (M, W, N); element (m, n) per thread.
+// Element rows (N = 1): x, y (and z unless null), o are (M, W) elements.
+// o may be x (in place); y and z are never written.
 template <int W>
 __global__ void __launch_bounds__(kThreads)
-mul_lm_kernel(const uint32_t* __restrict__ x, const uint32_t* __restrict__ y,
-              const uint32_t* __restrict__ z, uint32_t* __restrict__ o, int64_t M,
-              int64_t N, blz::FieldConsts<W> fc) {
+mul_lm_rows_kernel(const uint32_t* x, const uint32_t* __restrict__ y,
+                   const uint32_t* __restrict__ z, uint32_t* o, int64_t M,
+                   blz::FieldConsts<W> fc) {
+  const int64_t first = (int64_t)blockIdx.x * (kThreads * kMulElems) + threadIdx.x;
+#pragma unroll
+  for (int e = 0; e < kMulElems; ++e) {
+    const int64_t i = first + (int64_t)e * kThreads;
+    if (i >= M) return;
+    uint32_t a[W], b[W];
+    nt::load_el<W>(a, x + i * W);
+    nt::ldg_el<W>(b, y + i * W);
+    blz::mont_mul_cc<W, false>(a, a, b, fc);
+    if (z != nullptr) {
+      nt::ldg_el<W>(b, z + i * W);
+      blz::mont_mul_cc<W, false>(a, a, b, fc);
+    }
+    nt::store_el<W>(o + i * W, a);
+  }
+}
+
+// Word-major batches (N > 1): x, y (and z unless null), o are (M, W, N);
+// element (m, n) per thread.  o may be x (in place).
+template <int W>
+__global__ void __launch_bounds__(kThreads)
+mul_lm_kernel(const uint32_t* x, const uint32_t* __restrict__ y,
+              const uint32_t* __restrict__ z, uint32_t* o, int64_t M, int64_t N,
+              blz::FieldConsts<W> fc) {
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= M * N) return;
   const int64_t base = (i / N) * W * N + i % N;
@@ -80,11 +115,11 @@ mul_lm_kernel(const uint32_t* __restrict__ x, const uint32_t* __restrict__ y,
     a[w] = x[base + w * N];
     b[w] = y[base + w * N];
   }
-  blz::mont_mul<W, false>(a, a, b, fc);
+  blz::mont_mul_cc<W, false>(a, a, b, fc);
   if (z != nullptr) {
 #pragma unroll
     for (int w = 0; w < W; ++w) b[w] = z[base + w * N];
-    blz::mont_mul<W, false>(a, a, b, fc);
+    blz::mont_mul_cc<W, false>(a, a, b, fc);
   }
 #pragma unroll
   for (int w = 0; w < W; ++w) o[base + w * N] = a[w];
@@ -134,10 +169,17 @@ int launch_ntt_base(const uint32_t* consts, const void* x, const void* pack, voi
 template <int W>
 int launch_mul_lm(const uint32_t* consts, const void* x, const void* y, const void* z,
                   void* o, int64_t M, int64_t N, cudaStream_t stream) {
-  const int64_t blocks = (M * N + kThreads - 1) / kThreads;
-  mul_lm_kernel<W><<<(unsigned)blocks, kThreads, 0, stream>>>(
-      (const uint32_t*)x, (const uint32_t*)y, (const uint32_t*)z, (uint32_t*)o, M, N,
-      blz::load_consts<W>(consts));
+  const auto fc = blz::load_consts<W>(consts);
+  if (N == 1) {
+    constexpr int64_t per_block = kThreads * kMulElems;
+    mul_lm_rows_kernel<W><<<(unsigned)((M + per_block - 1) / per_block), kThreads, 0,
+                            stream>>>((const uint32_t*)x, (const uint32_t*)y,
+                                      (const uint32_t*)z, (uint32_t*)o, M, fc);
+  } else {
+    mul_lm_kernel<W><<<(unsigned)((M * N + kThreads - 1) / kThreads), kThreads, 0,
+                       stream>>>((const uint32_t*)x, (const uint32_t*)y,
+                                 (const uint32_t*)z, (uint32_t*)o, M, N, fc);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -177,6 +219,7 @@ extern "C" int blz_ntt_base(int W, const uint32_t* consts, const void* x,
   }
 }
 
+// N = 1: element rows, every pointer 16-byte aligned.  o may be x.
 extern "C" int blz_mul_lm(int W, const uint32_t* consts, const void* x, const void* y,
                           const void* z, void* o, int64_t M, int64_t N, void* stream) {
   if (M <= 0 || N <= 0) return 0;

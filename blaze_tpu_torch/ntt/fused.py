@@ -3,8 +3,9 @@
 Port of blaze_tpu/ntt/fused.py FusedNTT.  A size-2^logn transform is split
 into balanced factors of at most 2^KLOG points (`split_parts`); each factor
 is one K7 launch over all its sub-transforms, and between factors sits an
-inter-level twiddle (K9, or K8 for narrow cells).  The reference moves the
-data between levels with a 16-bank HBM shuffle
+inter-level twiddle (K9, or K8 for narrow cells, on twiddles the plan
+keeps in element order).  The reference moves the data between levels
+with a 16-bank HBM shuffle
 (`blaze/src/ingo_ntt/ntt_data.rs:80-156`) and the JAX package with
 transposes; here K7 reads and writes each level through its strides, and
 no level moves the data otherwise.
@@ -131,9 +132,9 @@ class FusedNTT:
     (blaze_tpu's FusedNTT builds those).  At klog 9 every field's plan
     fits (6 levels at bls12_377_fr's 2-adicity 47)."""
 
-    # Cells narrower than this many lanes take the K8 fallback with
-    # lane-expanded twiddles (only small plans, 2^10-2^19); tests may lower
-    # it to force K9 at small sizes.
+    # Cells narrower than this many lanes take the K8 fallback on the
+    # twiddles in element order (only small plans, 2^10-2^19); tests may
+    # lower it to force K9 at small sizes.
     _TWMUL_MIN_LANES = 128
 
     def __init__(self, spec: FieldSpec, logn: int, klog: int = KLOG, device="cuda"):
@@ -216,24 +217,52 @@ class FusedNTT:
                     t2[idx2].contiguous(),                        # (A, S, W)
                 )
 
+        # ---- the small-plan fallback's twiddles, one (n, W) tensor per
+        # (depth, inverse) whose cell K8 serves
+        self._rows = {}
+        for d in range(len(self.parts) - 1):
+            if self._takes_k8(d):
+                for inv in (False, True):
+                    self._twiddle_rows(d, inv)
+
     # ------------------------------------------------------------ twiddle
+    def _takes_k8(self, depth: int) -> bool:
+        """Whether level `depth`'s twiddle cell is narrower than
+        _TWMUL_MIN_LANES (the K8 fallback)."""
+        lv = self.levels[depth]
+        S = self._tabs[(depth, False)][1].shape[1]
+        cell = S if lv.vshift == 0 else 1 << lv.vshift
+        return cell < self._TWMUL_MIN_LANES
+
+    def _twiddle_rows(self, depth: int, inverse: bool) -> torch.Tensor:
+        """The twiddle of every row of level `depth`'s buffer, in element
+        order: row pos holds tab1[v, jo] * tab2[v, jl], one Montgomery product
+        (K1; canonical products are associative mod p, so K8's y * rows
+        equals y * tab1 * tab2 word for word).  Built with the plan for the
+        depths K8 serves, n x 32 B each (2 MiB at 2^16, 16 MiB at 2^19)."""
+        key = (depth, inverse)
+        rows = self._rows.get(key)
+        if rows is None:
+            lv = self.levels[depth]
+            tab1, tab2 = self._tabs[key]
+            v, jo, jl = twiddle_cols(self.n, lv.a, lv.vshift, lv.fields,
+                                     tab2.shape[1].bit_length() - 1, self.device)
+            rows = self._rows[key] = self.field.mul(tab1[v, jo], tab2[v, jl])
+        return rows
+
     def _apply_twiddle(self, y: torch.Tensor, depth: int, inverse: bool) -> torch.Tensor:
         """Multiply each element of the plan's buffer y, at level `depth`'s
-        row v and column j, by W^(j*v) = tab1[v, j//S] * tab2[v, j%S] — in
-        place on K9."""
-        lv = self.levels[depth]
-        tab1, tab2 = self._tabs[(depth, inverse)]
-        S = tab2.shape[1]
-        cell = S if lv.vshift == 0 else 1 << lv.vshift
-        if cell >= self._TWMUL_MIN_LANES:
+        row v and column j, by W^(j*v) = tab1[v, j//S] * tab2[v, j%S], in
+        place: on K9 from the split tables, or for a narrow cell on K8 with
+        the plan's element-order twiddles (two operands, one launch)."""
+        if not self._takes_k8(depth):
+            lv = self.levels[depth]
+            tab1, tab2 = self._tabs[(depth, inverse)]
             return self.kern.twiddle_mul(y, tab1, tab2, lv.vshift, lv.fields, out=y)
-        # small-plan fallback: expand the twiddles row by row and use the
-        # generic triple-product kernel on (n, W, 1)
         n, W = y.shape
-        v, jo, jl = twiddle_cols(n, lv.a, lv.vshift, lv.fields, S.bit_length() - 1,
-                                 y.device)
-        tw1, tw2 = tab1[v, jo].reshape(n, W, 1), tab2[v, jl].reshape(n, W, 1)
-        return self.kern.mul_lm(y.reshape(n, W, 1), tw1, tw2).reshape(n, W)
+        rows = y.view(n, W, 1)
+        self.kern.mul_lm(rows, self._twiddle_rows(depth, inverse).view(n, W, 1), out=rows)
+        return y
 
     # ---------------------------------------------------------- recursion
     def _rec(self, x: torch.Tensor, inverse: bool) -> torch.Tensor:

@@ -3,7 +3,8 @@
 Replaces blaze_tpu/ntt/kernels.py NTTKernels.  K7 and K9 take
 element-contiguous buffers, (N, W) int32 words (an element's W words
 together); K8 takes (M, W, N) lanes-major words, the JAX package's (R, L, B)
-with 32-bit words in place of 16-bit limbs.  Every value is canonical
+with 32-bit words in place of 16-bit limbs, and FusedNTT hands it element
+rows, (n, W, 1).  Every value is canonical
 (< p): the scalar fields have R < 4p, so these kernels use the canonical
 discipline only.
 
@@ -283,31 +284,57 @@ class NTTKernels:
         return out
 
     # ----------------------------------------------------------------- K8
-    def mul_lm_plain(self, x: torch.Tensor, y: torch.Tensor,
-                     z: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """Plain PyTorch version of `mul_lm`."""
-        acc = self.ops.mul(self._limbs(x), self._limbs(y))
-        if z is not None:
-            acc = self.ops.mul(acc, self._limbs(z))
-        return self._words(acc)
-
-    def mul_lm(self, x: torch.Tensor, y: torch.Tensor,
-               z: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """Elementwise Montgomery product x*y (or x*y*z) of (M, W, N) batches,
-        canonical."""
+    def _mul_args(self, x, y, z, out) -> torch.Tensor:
+        """Checked operands of a mul_lm call; returns the output buffer."""
         ops = [x, y] + ([z] if z is not None else [])
         for i, t in enumerate(ops):
             self._check(t, "xyz"[i])
             if t.shape != x.shape or t.device != x.device:
                 raise ValueError("operands differ in shape or device")
+        if out is None:
+            out = torch.empty_like(x)
+        else:
+            self._check(out, "out")
+            if out.shape != x.shape or out.device != x.device:
+                raise ValueError("out differs from x in shape or device")
+            # out may be x itself; y and z are read through the read-only
+            # path, so out must not touch them
+            nbytes = out.numel() * 4
+            for t, what in ((x, "x"), (y, "y"), (z, "z")):
+                if t is None or (t is x and out.data_ptr() == x.data_ptr()):
+                    continue
+                if nbytes and abs(out.data_ptr() - t.data_ptr()) < nbytes:
+                    raise ValueError(f"out overlaps {what}")
+        if x.device.type == "cuda" and x.shape[2] == 1 and any(
+                t.data_ptr() % 16 for t in ops + [out]):
+            raise ValueError("mul_lm: element rows (N = 1) must be 16-byte aligned")
+        return out
+
+    def mul_lm_plain(self, x: torch.Tensor, y: torch.Tensor,
+                     z: Optional[torch.Tensor] = None,
+                     out: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Plain PyTorch version of `mul_lm`."""
+        out = self._mul_args(x, y, z, out)
+        acc = self.ops.mul(self._limbs(x), self._limbs(y))
+        if z is not None:
+            acc = self.ops.mul(acc, self._limbs(z))
+        return out.copy_(self._words(acc))
+
+    def mul_lm(self, x: torch.Tensor, y: torch.Tensor,
+               z: Optional[torch.Tensor] = None,
+               out: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Elementwise Montgomery product x*y (or x*y*z) of (M, W, N) batches,
+        canonical, into `out` (default: a new tensor; it may be x itself, in
+        place, but may not overlap y or z).  N = 1 is the element rows
+        FusedNTT hands it, each element's W words together.  Returns out."""
+        out = self._mul_args(x, y, z, out)
         if x.device.type == "cpu":
-            return self.mul_lm_plain(x, y, z)
-        o = torch.empty_like(x)
+            return self.mul_lm_plain(x, y, z, out)
         M, _, N = x.shape
         if M and N:
             self._launch("blz_mul_lm", "mul_lm", x.device, x.data_ptr(), y.data_ptr(),
-                         None if z is None else z.data_ptr(), o.data_ptr(), M, N)
-        return o
+                         None if z is None else z.data_ptr(), out.data_ptr(), M, N)
+        return out
 
     # ----------------------------------------------------------------- K9
     def _twiddle_args(self, y, t1, t2, vshift, fields, out):

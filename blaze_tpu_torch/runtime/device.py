@@ -6,20 +6,32 @@ sensors (`blaze/src/driver_client/dclient.rs:50-151`).  On a GPU
 the CUDA runtime replaces the transport; what remains useful is:
 
   * connection: pick a device (the slot-id analog, dclient.rs:79-86);
-  * health/telemetry: device memory in place of CMS sensors and AXI
-    firewall status (dclient.rs:115-151, 566-579).
+  * 'binary load': build the csrc/ kernel libraries and warm a client's
+    kernels up (load_binary, dclient.rs:213-236: nvcc output in place of
+    bitstreams);
+  * health/telemetry: device memory and the caching allocator's live
+    blocks in place of CMS sensors and AXI firewall status
+    (dclient.rs:115-151, 566-579), and a torch.profiler trace in place of
+    the hardware perf counters (msm_hw_code.rs:35-54).
 
 The default device is `cuda`; without one the context raises.  Pass
-`device="cpu"` to run the plain PyTorch versions of the kernels.
+`device="cpu"` to run the plain PyTorch versions of the kernels.  The mesh
+(`num_devices`, `make_mesh`) comes with the sharded paths.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Optional
+import time
+from pathlib import Path
+from typing import Optional, Sequence
 
 import torch
 
-from ..utils.errors import DeviceError
+from .. import _build
+from ..utils.errors import DeviceError, LoadFailed
+
+TRACE_FILE = "trace.json"      # what `profile` writes into its trace_dir
 
 
 @dataclasses.dataclass
@@ -71,3 +83,60 @@ class DeviceContext:
             bytes_limit=total,
             peak_bytes_in_use=torch.cuda.max_memory_allocated(self.device),
         )
+
+    def live_buffers(self) -> int:
+        """Firewall-status analog: the caching allocator's active blocks on
+        this device (allocations not yet freed); -1 on the CPU, which keeps
+        no such count (the JAX version's answer when it cannot count)."""
+        if self.device.type != "cuda":
+            return -1
+        return int(torch.cuda.memory_stats(self.device).get("active.all.current", 0))
+
+    # ----------------------------------------------------------- profiler
+    @contextlib.contextmanager
+    def profile(self, trace_dir):
+        """Profile a block with torch.profiler (CPU activity, and CUDA on a
+        card, which is synchronised before the block ends) and write its
+        Chrome/Perfetto trace to `trace_dir`/trace.json (TRACE_FILE): per-
+        kernel device times, the analog of the reference's hardware perf
+        counters (per-phase busy/total clocks, msm_hw_code.rs:35-54).
+        Yields the profiler, for its key_averages():
+
+            with ctx.profile("build/msm_trace") as prof:
+                client.start_process(); client.wait_result()
+        """
+        from torch.profiler import ProfilerActivity, profile
+
+        cuda = self.device.type == "cuda"
+        out = Path(trace_dir)
+        out.mkdir(parents=True, exist_ok=True)
+        activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+        with profile(activities=activities) as prof:
+            yield prof
+            if cuda:
+                torch.cuda.synchronize(self.device)
+        prof.export_chrome_trace(str(out / TRACE_FILE))
+
+    # ---------------------------------------------------------- 'binary'
+    def load_binary(self, warmup_fns: Sequence) -> float:
+        """Build the csrc/ kernel libraries (on a card; the CPU runs the
+        plain versions) and call each zero-argument warm-up, synchronising
+        after it: the bitstream-load analog.  Returns the wall seconds
+        (dclient.rs:213-236); a failed build or warm-up raises LoadFailed."""
+        t0 = time.perf_counter()
+        cuda = self.device.type == "cuda"
+        if cuda:
+            try:
+                _build.build_all()
+            except OSError as e:
+                raise LoadFailed(f"kernel build failed: {e}") from e
+        for fn in warmup_fns:
+            try:
+                fn()
+                if cuda:
+                    torch.cuda.synchronize(self.device)
+            except Exception as e:
+                raise LoadFailed(
+                    f"kernel warm-up failed for {getattr(fn, '__name__', fn)}: {e}"
+                ) from e
+        return time.perf_counter() - t0

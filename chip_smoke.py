@@ -50,14 +50,18 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    bn254_fr, bls12_377_fr and bls12_381_fr at small shapes (K7 through
    (K, B) rows in and out of place, a strided input into a transposed
    output and two levels of 2^10-point plans, ragged lane counts among
-   them; K8 with 2 and 3 operands; K9 with the twiddle row in low and high
-   bits of the element's row); then at the 2^27 transform's shapes on
-   bls12_381_fr with times and bounds (K7 at each of its three levels, K9
-   at depths 0 and 1), each compared with its plain version on a cut (2^11
-   lanes, 2^20 rows: the plain versions hold ~2 KB of int64 per element);
-   then one whole 2^27 transform under torch.profiler: its time split into
-   K7, K9 and any other device operation (a copy), their counts, and its
-   peak memory;
+   them; K8 with 2 and 3 operands on word-major batches and on element
+   rows of 1, 33 and 1000 elements, in place; K9 with the twiddle row in
+   low and high bits of the element's row); then at the 2^27 transform's
+   shapes on bls12_381_fr with times and bounds (K7 at each of its three
+   levels, K9 at depths 0 and 1), each compared with its plain version on
+   a cut (2^11 lanes, 2^20 rows: the plain versions hold ~2 KB of int64
+   per element), and K8 at the 2^16 plan's call (2^16 element rows times
+   the plan's element-order twiddles, in place) and with 3 operands; then
+   one whole 2^27 and one 2^16 transform under torch.profiler: the time
+   split into K7, K8, K9 and any other device operation, their counts
+   (K7 x3 and K9 x2 at 2^27, K7 x2 and K8 x1 at 2^16, nothing else, or
+   the phase fails), and the peak memory;
 6. main path, NTT client at 2^27 on bls12_381_fr: three random vectors,
    each transformed serially and then in the reference's double-buffered
    order (integration_ntt.rs:103-136); each pipelined output must equal
@@ -68,6 +72,20 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 7. NTT client at 2^16 (the K8 twiddle fallback) and 2^20 (K9, both
    branches) against an independent host NTT in Python ints, with inverse
    roundtrips, and every committed tests/fixtures/ntt_* golden pair.
+7b. the proof pipeline (ProofPipeline on BLS12-381) at ntt_logn 27 and
+   msm_logn 24: 256 order-r subgroup points tiled to 2^24 and resident on
+   the card; three coefficient batches made on the card from --seed (e_1,
+   e_k for an odd k, a e_j + b e_k'), run serially (one batch at a time,
+   synchronised, launch counts per batch: K7 x3, K9 x2, K2 x32, K6 x1, no
+   K8) and then through run_batches (the next batch's NTT on a side stream
+   while the host queues this batch's MSM); the results must be distinct,
+   equal byte for byte between the two runs and equal each batch's
+   geometric oracle (pipeline.geometric_msm_oracle, by linearity for the
+   third).  It prints the serial and pipelined walls per batch, proofs/s,
+   one batch's NTT and scalars alone (CUDA events), the NTT stream's and
+   the MSM's device time, each stream's operations and the card's idle
+   share around the middle batch of a third run (DeviceContext.profile),
+   and the peak device memory;
 8. Poseidon kernel parity: K10 against its (dense) plain version, exact,
    on the three scalar fields (t = 9 and 12, with and without convert_in,
    B = 1 and 1000, inputs near p; the sparse schedule, and on bls12_381_fr
@@ -94,9 +112,10 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    records must arrive before the last feed and the closed tree must
    equal a staged build of the same elements.
    Launch counts are zeroed just before each client run of phases 3, 4,
-   4b, 6, 7, 9, 10 and 11 and read just after; every kernel of the run's
-   path must have launched (K10 nine times per height-9 build; K2 once and
-   K4 five times per 2^19 chunk at 2^24; K6 once per MSM).
+   4b, 6, 7, 9, 10 and 11 and each serial batch of 7b, and read just
+   after; every kernel of the run's path must have launched (K10 nine
+   times per height-9 build; K2 once and K4 five times per 2^19 chunk at
+   2^24; K6 once per MSM).
 12. the seconds each phase took, then the kernels line (K1-K10): launches
    in those runs, parity error, times, bounds, threads per lane, and K3's,
    K5's and K6's chain bound.  A kernel's `ms` is CUDA events around
@@ -932,7 +951,9 @@ def ntt_kernel_cases(spec, seed: int, device):
     input into a transposed output, and two levels of 2^10-point plans
     (level 0 of parts 3, 4, 3 out of place into reversed lane digits; level
     1 of 3, 3, 4 in place), ragged lane counts among them; K8 with 2 and 3
-    operands; K9 with the row's v bits low and high (and in place)."""
+    operands on word-major batches and on element rows (M = 1, 33, 1000;
+    three operands in place); K9 with the row's v bits low and high (and
+    in place)."""
     import torch
 
     from blaze_tpu_torch.ntt import NTTKernels
@@ -976,6 +997,14 @@ def ntt_kernel_cases(spec, seed: int, device):
                   {"M": 4, "N": 1000, "operands": 2}))
     cases.append(("mul_lm", lambda: k.mul_lm(a, b, c), lambda: k.mul_lm_plain(a, b, c),
                   {"M": 4, "N": 1000, "operands": 3}))
+    for M in (1, 33, 1000):                 # element rows, the plan's form
+        a, b, c = (rand_words(spec, (M, W, 1), seed + 60 + M + i, device) for i in range(3))
+        cases.append(("mul_lm", lambda a=a, b=b: k.mul_lm(a, b),
+                      lambda a=a, b=b: k.mul_lm_plain(a, b), {"M": M, "N": 1, "operands": 2}))
+        cases.append(("mul_lm", lambda a=a, b=b, c=c: (lambda o: k.mul_lm(o, b, c, out=o))(
+                          a.clone()),
+                      lambda a=a, b=b, c=c: k.mul_lm_plain(a, b, c),
+                      {"M": M, "N": 1, "operands": 3, "in_place": 1}))
     for i, (A, J, S, B) in enumerate(((16, 8, 32, 1), (16, 4, 8, 16))):
         y = rand_words(spec, (A * J * S * B, W), seed + 30 + i, device)
         t1 = rand_words(spec, (A * J, W), seed + 40 + i, device).reshape(A, J, W)
@@ -999,14 +1028,14 @@ def ntt_main_timing(plan, imad_rate: float, seed: int, device):
     """K7-K9 at the shapes of the 2^27 bls12_381_fr transform (`plan`): K7
     at each of its three levels (level 0 reads the input's rows and writes
     the plan's buffer, levels 1 and 2 update it in place), K9 at depths 0
-    and 1, K8 at the 2^16 plan's twiddle cell, its only main-path use:
-    time, bound, and the kernel's output on a cut (K7 2^11 lanes, K9 2^20
-    rows) against the plain version on the same cut."""
+    and 1, K8 at the 2^16 plan's twiddle call (two operands in place, its
+    only main-path use) and with three operands: time, bound, and the
+    kernel's output on a cut (K7 2^11 lanes, K9 2^20 rows) against the
+    plain version on the same cut."""
     import torch
 
     from blaze_tpu_torch.fields import FIELDS
     from blaze_tpu_torch.ntt import FusedNTT
-    from blaze_tpu_torch.ntt.kernels import twiddle_cols
 
     spec = FIELDS["bls12_381_fr"]
     W = spec.nwords
@@ -1061,25 +1090,31 @@ def ntt_main_timing(plan, imad_rate: float, seed: int, device):
                                                                      lv.fields),
                 lambda o: o, {"rows": row_cut}, 5)
     del buf
+    # K8 at the 2^16 plan's call: its buffer times the plan's element-order
+    # twiddles, in place; and with three operands into a new buffer
     small = FusedNTT(spec, 16, device=device)
-    lv = small.levels[0]
-    t1, t2 = small._tabs[(0, False)]
-    v, jo, jl = twiddle_cols(small.n, lv.a, lv.vshift, lv.fields,
-                             t2.shape[1].bit_length() - 1, device)
-    tw1, tw2 = t1[v, jo].reshape(small.n, W, 1), t2[v, jl].reshape(small.n, W, 1)
-    y = rand_words(spec, (small.n, W, 1), seed + 3, device)
-    shape = {"M": small.n, "N": 1, "operands": 3}
-    measure("mul_lm", "mul_lm", shape, lambda: k.mul_lm(y, tw1, tw2),
-            lambda: k.mul_lm(y, tw1, tw2), lambda: k.mul_lm_plain(y, tw1, tw2),
-            lambda o: o, shape, 20)
+    rows = small._twiddle_rows(0, False).view(small.n, W, 1)
+    y, z = (rand_words(spec, (small.n, W, 1), seed + 3 + i, device) for i in range(2))
+    ybuf = y.clone()
+    for key, ops in (("mul_lm", (rows,)), ("mul_lm_3_operands", (rows, z))):
+        shape = {"M": small.n, "N": 1, "operands": 1 + len(ops)}
+        timed = ((lambda: k.mul_lm(ybuf, rows, out=ybuf)) if len(ops) == 1 else
+                 (lambda ops=ops: k.mul_lm(y, *ops)))
+        measure(key, "mul_lm", shape, timed, lambda ops=ops: k.mul_lm(y, *ops),
+                lambda ops=ops: k.mul_lm_plain(y, *ops), lambda o: o, shape, 50)
     return timing
 
 
-def ntt_transform_split(plan, seed: int, device) -> dict:
-    """One warm 2^27 transform (plan.ntt) timed whole with CUDA events and
-    traced under torch.profiler: the device time of each operation by
-    name, K7 (ntt_base_kernel), K9 (twiddle_mul_kernel) and every other
-    (a copy, a fill), their counts, and the transform's peak memory."""
+SPLIT_KERNELS = ("ntt_base", "mul_lm", "twiddle_mul")
+
+
+def ntt_transform_split(plan, seed: int, device, want: dict) -> dict:
+    """One warm transform (plan.ntt) timed whole with CUDA events and traced
+    under torch.profiler: the device time of each operation by name, K7
+    (ntt_base_kernel), K8 (mul_lm_*kernel), K9 (twiddle_mul_kernel) and
+    every other (a copy, a fill, a gather), their counts, and the
+    transform's peak memory.  `want`: the launches of each kernel; any
+    other count, or any other device operation, raises."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1097,11 +1132,11 @@ def ntt_transform_split(plan, seed: int, device) -> dict:
     # the device's own events: the aten ops above them report the same time
     ops = [e for e in prof.key_averages()
            if e.device_type == torch.autograd.DeviceType.CUDA and dev_us(e) > 0]
-    split = {"ntt_base": [0, 0.0], "twiddle_mul": [0, 0.0], "other": [0, 0.0]}
+    split = {k: [0, 0.0] for k in (*SPLIT_KERNELS, "other")}
     others = []
     for e in ops:
-        key = ("ntt_base" if "ntt_base_kernel" in e.key else
-               "twiddle_mul" if "twiddle_mul_kernel" in e.key else "other")
+        key = next((k for k in SPLIT_KERNELS if k + "_" in e.key and "kernel" in e.key),
+                   "other")
         split[key][0] += e.count
         split[key][1] += dev_us(e) / 1e3
         if key == "other":
@@ -1112,7 +1147,11 @@ def ntt_transform_split(plan, seed: int, device) -> dict:
             **{f"{k}_ms": v[1] for k, v in split.items()},
             "other_ops": others, "input_gib": plan.n * W * 4 / 2**30,
             "peak_gib": peak / 2**30, "peak_above_input_gib": (peak - base) / 2**30}
-    emit({"phase": "ntt_2^27_split", **info})
+    emit({"phase": f"ntt_2^{plan.logn}_split", **info})
+    got = {k: split[k][0] for k in (*SPLIT_KERNELS, "other")}
+    if got != {**dict.fromkeys(SPLIT_KERNELS, 0), **want, "other": 0}:
+        raise AssertionError(f"ntt 2^{plan.logn}: device operations {got}, want {want} "
+                             f"and nothing else")
     return info
 
 
@@ -1144,7 +1183,10 @@ def phase_ntt_parity(imad_rate: float, seed: int, device):
         errs[name] = max(errs[name], t["max_abs_err"])
     if any(t["max_abs_err"] for t in timing.values()):
         raise AssertionError("NTT kernel differs from its plain version at the main shapes")
-    ntt_transform_split(plan, seed, dev)
+    ntt_transform_split(plan, seed, dev, {"ntt_base": 3, "twiddle_mul": 2})
+    del plan
+    ntt_transform_split(FusedNTT(FIELDS["bls12_381_fr"], 16, device=dev), seed, dev,
+                        {"ntt_base": 2, "mul_lm": 1})
     return errs, timing
 
 
@@ -1399,6 +1441,191 @@ def phase_ntt_small(seed: int) -> dict:
     emit({"phase": "ntt_goldens", "pairs": goldens})
     if not goldens or not all(goldens.values()):
         raise AssertionError(f"ntt goldens: {goldens}")
+    return total
+
+
+# ------------------------------------------------------- pipeline phase
+PIPELINE_UNIQUE = 256          # subgroup points, tiled to the MSM's size
+
+
+def pipeline_terms(r: int, n: int, seed: int):
+    """The pipeline phase's three coefficient batches as (row, value)
+    terms: e_1 (scalars W^i), e_k for an odd k > 1 (scalars (W^k)^i) and
+    a e_j + b e_k' (a G(W^j) + b G(W^k') by linearity), the odd rows k, j,
+    k' (an odd power of W keeps its order, so no geometric ratio divides
+    by zero) and a, b from the seed."""
+    rnd = random.Random(seed)
+    k, j, k2 = (2 * v + 1 for v in rnd.sample(range(1, min(n, 1 << 20) // 2), 3))
+    return [((1, 1),), ((k, 1),), ((j, rnd.randrange(1, r)), (k2, rnd.randrange(1, r)))]
+
+
+def pipeline_trace_split(trace: Path, wall_s: float) -> dict:
+    """Device time per stream from a torch.profiler Chrome trace: the NTT's
+    stream (the one that ran ntt_base_kernel; None when the trace holds no
+    NTT kernel) and every other (the MSM's), their union, the card's idle
+    share of `wall_s`, and each stream's operations and milliseconds."""
+    events = [e for e in json.loads(trace.read_text()).get("traceEvents", [])
+              if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    if not events:
+        return {"ntt_stream_ms": None, "msm_stream_ms": None, "device_busy_ms": None,
+                "idle_share": None}
+    streams = {}
+    for e in events:
+        st = streams.setdefault(str(e["args"].get("stream")), {"ops": 0, "ms": 0.0})
+        st["ops"] += 1
+        st["ms"] += e["dur"] / 1e3
+    ntt_streams = {str(e["args"].get("stream")) for e in events
+                   if "ntt_base_kernel" in e["name"]}
+    ntt = sum(streams[k]["ms"] for k in ntt_streams)
+    spans, busy, end = sorted((e["ts"], e["ts"] + e["dur"]) for e in events), 0.0, None
+    for a, b in spans:                           # the union of the device intervals
+        if end is None or a > end:
+            busy, end = busy + (b - a), b
+        elif b > end:
+            busy, end = busy + (b - end), b
+    return {"ntt_stream_ms": ntt if ntt_streams else None,
+            "msm_stream_ms": sum(v["ms"] for v in streams.values()) - ntt,
+            "device_busy_ms": busy / 1e3, "device_ops": len(events),
+            "idle_share": 1 - busy / 1e6 / wall_s, "streams": streams}
+
+
+def phase_pipeline(seed: int, ntt_logn: int = 27, msm_logn: int = 24) -> dict:
+    """The proof pipeline (ProofPipeline, BLS12-381) at the reference's NTT
+    size and the headline MSM size: three batches made on the card, run
+    serially (one batch at a time, synchronised, launch counts per batch)
+    and then through run_batches; the results must be equal byte for byte
+    and each equal its geometric oracle.  One more pipelined run is
+    profiled around its middle batch (DeviceContext.profile).  Returns the
+    launch counts of the serial runs."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from blaze_tpu_torch import _build
+    from blaze_tpu_torch.curves import CURVES, Curve
+    from blaze_tpu_torch.fields import int_to_words
+    from blaze_tpu_torch.msm import points_to_resident
+    from blaze_tpu_torch.oracle import ECOracle
+    from blaze_tpu_torch.oracle.gen import points_to_affine_words
+    from blaze_tpu_torch.pipeline import ProofPipeline, geometric_msm_oracle
+    from blaze_tpu_torch.runtime.device import TRACE_FILE
+
+    spec = CURVES["bls12_381"]
+    cv, r = Curve(spec), spec.fr.p
+    n, m = 1 << ntt_logn, 1 << msm_logn
+    U = min(PIPELINE_UNIQUE, m)
+    t0 = time.perf_counter()
+    rng = random.Random(seed)
+    oracle = ECOracle(spec)
+    upoints = [oracle.random_subgroup_point(rng) for _ in range(U)]
+    terms = pipeline_terms(r, n, seed)
+    w = spec.fr.root_of_unity(ntt_logn)
+    geo = {}
+    for t in terms:
+        for row, _ in t:
+            geo[row] = geometric_msm_oracle(spec, U, m, pow(w, row, r), upoints)
+    expected = [oracle.msm([geo[row] for row, _ in t], [v for _, v in t]) for t in terms]
+    oracle_s = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    pipe = ProofPipeline(cv, ntt_logn, msm_logn)
+    dev = pipe.ctx.device
+    pts = torch.from_numpy(points_to_affine_words(spec, upoints).view(np.int32)).to(dev)
+    resident = points_to_resident(cv, pts).repeat(1, m // U)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+
+    def batch(t):
+        x = torch.zeros((n, spec.fr.nwords), dtype=torch.int32, device=dev)
+        for row, v in t:
+            x[row] = torch.from_numpy(int_to_words(v, spec.fr.nwords).view(np.int32)).to(dev)
+        return x
+
+    serial, serial_s, counts = [], [], []
+    for t in terms:
+        x = batch(t)
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        (res,) = pipe.run_batches([x], resident)
+        torch.cuda.synchronize()
+        serial_s.append(time.perf_counter() - t0)
+        counts.append(dict(_build.LAUNCHES))
+        serial.append(res.cpu().numpy().tobytes())
+        del x, res
+    # one batch's NTT and scalars alone on the card (CUDA events): the work
+    # the side stream does per batch
+    x = batch(terms[0])
+    ntt_ms = cuda_ms(lambda: pipe.scalars(x), 3)
+    del x
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    piped = [res.cpu().numpy().tobytes()
+             for res in pipe.run_batches((batch(t) for t in terms), resident)]
+    pipelined_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+
+    trace_dir = ROOT / "build" / "pipeline_trace"
+    runs = pipe.run_batches((batch(t) for t in terms), resident)
+    profiled = [next(runs).cpu().numpy().tobytes()]
+    try:
+        with pipe.ctx.profile(trace_dir):
+            t0 = time.perf_counter()
+            profiled.append(next(runs).cpu().numpy().tobytes())
+            profiled_s = time.perf_counter() - t0
+        split = pipeline_trace_split(trace_dir / TRACE_FILE, profiled_s)
+        split["trace_mib"] = (trace_dir / TRACE_FILE).stat().st_size / 2**20
+    finally:
+        shutil.rmtree(trace_dir, ignore_errors=True)
+    profiled += [res.cpu().numpy().tobytes() for res in runs]
+
+    oracle_ok = []
+    for raw, want in zip(serial, expected):
+        X, Y, Z = (int.from_bytes(raw[i * 4 * cv.nwords:(i + 1) * 4 * cv.nwords], "little")
+                   for i in range(3))
+        p = spec.fq.p
+        # Montgomery words x R: z-normalisation divides the R out
+        zi = pow(Z, -1, p) if Z % p else None
+        got = None if zi is None else (X * zi % p, Y * zi % p)
+        oracle_ok.append(got == want)
+    # one batch's launches: K7 per level and K9 (or K8 for a narrow cell)
+    # per later level, K2 per chunk of the MSM, K6 once; at (2^27, 2^24):
+    # K7 x3, K9 x2, K2 x32, K6 x1 and no K8
+    k8 = sum(pipe.plan._takes_k8(d) for d in range(len(pipe.plan.levels) - 1))
+    want = {"ntt_base": len(pipe.plan.levels), "mul_lm": k8,
+            "twiddle_mul": len(pipe.plan.levels) - 1 - k8,
+            "scan_mixed": -(-m // (1 << pipe.msm.config.chunk_log2)), "fold_horner": 1,
+            "poseidon_perm": 0}
+    per_batch = pipelined_s / len(terms)
+    info = {"curve": "bls12_381", "ntt_logn": ntt_logn, "msm_logn": msm_logn,
+            "unique_points": U, "batches": [[[row, str(v)] for row, v in t] for t in terms],
+            "oracle_s": oracle_s, "setup_s": setup_s,
+            "serial_s": serial_s, "serial_per_batch_s": sum(serial_s) / len(terms),
+            "pipelined_s": pipelined_s, "pipelined_per_batch_s": per_batch,
+            "proofs_per_s": 1 / per_batch, "ntt_and_scalars_ms": ntt_ms,
+            "profiled_batch_s": profiled_s, **split,
+            "max_memory_allocated_gib": peak / 2**30,
+            "launches_per_batch": counts, "launches_want": want,
+            "pipelined_equals_serial": piped == serial,
+            "profiled_equals_serial": profiled == serial,
+            "distinct_results": len(set(serial)) == len(serial), "oracle": oracle_ok}
+    emit({"phase": "pipeline", **info})
+    for i, c in enumerate(counts):
+        check_msm_launches(f"pipeline batch {i}", c)
+        bad = {k: c[k] for k, v in want.items() if c[k] != v}
+        if bad:
+            raise AssertionError(f"pipeline batch {i}: launches {bad}, want {want}")
+    if not (all(oracle_ok) and piped == serial and profiled == serial
+            and len(set(serial)) == len(serial)):
+        raise AssertionError(f"pipeline: oracle {oracle_ok}, pipelined == serial "
+                             f"{piped == serial}, profiled == serial {profiled == serial}, "
+                             f"distinct {len(set(serial)) == len(serial)}")
+    total = {}
+    for c in counts:
+        for k, v in c.items():
+            total[k] = total.get(k, 0) + v
     return total
 
 
@@ -1861,7 +2088,8 @@ def main() -> int:
     errs.update(ntt_errs)
     timing.update(ntt_timing)
     for counts in (timed_phase("ntt_2^27", phase_ntt_2e27, args.seed),
-                   timed_phase("ntt_2^16_2^20_goldens", phase_ntt_small, args.seed)):
+                   timed_phase("ntt_2^16_2^20_goldens", phase_ntt_small, args.seed),
+                   timed_phase("pipeline", phase_pipeline, args.seed)):
         for k, v in counts.items():
             launches[k] += v
     pos_errs, pos_timing = timed_phase("poseidon_parity", phase_poseidon_parity, imad_rate,

@@ -6,12 +6,14 @@ K1-K6 against their plain PyTorch versions on the same device inputs,
 exact, on all three curves (K2-K5 also at ragged lane counts, K6 at
 ragged window counts), and K7-K10 (with the multi-p REDC twin) on the three
 scalar fields (K7 through strided and transposed maps and at the 2^27
-plan's levels), K10 also over the 12-word base fields and at t = 17; the MSM client on the card against the oracle with
+plan's levels, K8's element rows at ragged lengths, in place and out of
+place), K10 also over the 12-word base fields and at t = 17; the MSM client on the card against the oracle with
 distinct scalars; the NTT client on the card against every committed golden
-pair, and at 2^16 (the K8 twiddle fallback) against a host NTT in Python
-ints with an inverse roundtrip; the Poseidon client at height 3, staged,
-streamed and TREE_D, against the oracle.  chip_smoke.py runs the same
-checks at the main path's sizes.
+pair, and at 2^16 (the K8 twiddle fallback: K7 twice and K8 once, nothing
+else on the card) against a host NTT in Python ints with an inverse
+roundtrip; the Poseidon client at height 3, staged, streamed and TREE_D,
+against the oracle; the proof pipeline at (2^12, 2^10) against its CPU
+run.  chip_smoke.py runs the same checks at the main path's sizes.
 """
 import random
 from pathlib import Path
@@ -42,10 +44,12 @@ from blaze_tpu_torch.hash import (
     params_from_reference,
 )
 from blaze_tpu_torch.hash.kernels import sum_products, sum_products_plain
-from blaze_tpu_torch.ntt import NTTKernels
+from blaze_tpu_torch.msm import points_to_resident
+from blaze_tpu_torch.ntt import FusedNTT, NTTKernels
 from blaze_tpu_torch.ntt.fused import plan_levels
 from blaze_tpu_torch.ntt.kernels import TileMap
 from blaze_tpu_torch.oracle.poseidon_ref import merkle_tree_ref, poseidon_hash_ref
+from blaze_tpu_torch.pipeline import ProofPipeline
 from blaze_tpu_torch.runtime import (
     MSMClient,
     MSMInit,
@@ -384,3 +388,73 @@ def test_poseidon_client_on_card_matches_oracle(dev):
     client.start_process()
     client.wait_result()
     assert words_to_int(client.root) == poseidon_hash_ref(node_p, leaves)
+
+
+@pytest.mark.parametrize("field", ["bn254_fr", "bls12_377_fr", "bls12_381_fr"])
+def test_mul_lm_element_rows_match_plain(dev, field):
+    """K8's element rows (N = 1, the plan's form) at ragged lengths, two and
+    three operands, into a new buffer and in place."""
+    spec = FIELDS[field]
+    k, W = NTTKernels.for_spec(spec), spec.nwords
+    for n in (1, 33, 1000, (1 << 16) + 1):
+        x, y, z = (canonical(spec, (n, W), n + i, dev).reshape(n, W, 1) for i in range(3))
+        x[0, :, 0] = torch.from_numpy(int_to_words(spec.p - 1, W).view(np.int32)).to(dev)
+        for ops in ((y,), (y, z)):
+            want = k.mul_lm_plain(x, *ops)
+            assert torch.equal(k.mul_lm(x, *ops), want), (n, len(ops))
+            buf = x.clone()
+            assert k.mul_lm(buf, *ops, out=buf) is buf
+            assert torch.equal(buf, want), (n, len(ops), "in place")
+
+
+def test_ntt_2e16_is_two_k7_and_one_k8(dev):
+    """The 2^16 transform (the K8 fallback) launches K7 twice and K8 once,
+    with the plan's element-order twiddles and no other device operation
+    (no gather, no index, no K1); it equals the plan's plain run."""
+    from torch.profiler import ProfilerActivity, profile
+
+    spec = FIELDS["bls12_381_fr"]
+    plan = FusedNTT(spec, 16, device=torch.device("cuda", torch.cuda.current_device()))
+    rows = plan._twiddle_rows(0, False)
+    x = canonical(spec, (plan.n, spec.nwords), 16, dev)
+    plan.ntt(x)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        out = plan.ntt(x)
+        torch.cuda.synchronize()
+    counts = dict(_build.LAUNCHES)
+    assert (counts["ntt_base"], counts["mul_lm"]) == (2, 1)
+    assert sum(counts.values()) == 3
+    assert plan._twiddle_rows(0, False) is rows
+    names = {e.key for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and (getattr(e, "self_device_time_total", None)
+                  or getattr(e, "self_cuda_time_total", 0)) > 0}
+    assert names and all("ntt_base_kernel" in n or "mul_lm_rows_kernel" in n for n in names), names
+    cpu = FusedNTT(spec, 16, device="cpu")
+    assert torch.equal(out.cpu(), cpu.ntt(x.cpu()))
+
+
+def test_pipeline_on_card_matches_its_cpu_run(dev):
+    """ProofPipeline at (ntt_logn 12, msm_logn 10) on BLS12-381: three
+    batches (one as 16-bit limbs) through run_batches on the card equal the
+    same batches through the pipeline on the CPU."""
+    spec = CURVES["bls12_381"]
+    cv = Curve(spec)
+    oracle = ECOracle(spec)
+    rng = random.Random(12)
+    upoints = [oracle.random_subgroup_point(rng) for _ in range(16)]
+    pts = torch.from_numpy(points_to_affine_words(spec, upoints).view(np.int32))
+    resident = points_to_resident(cv, pts).repeat(1, 64).contiguous()
+    fr = spec.fr
+    batches = [canonical(fr, (1 << 12, fr.nwords), 40 + i, "cpu") for i in range(3)]
+    batches[1] = torch.from_numpy(batches[1].numpy().view("<u2").astype(np.int32))
+    card = ProofPipeline(cv, 12, 10)
+    assert card.ctx.device.type == "cuda"
+    got = [r.cpu() for r in card.run_batches([b.to(dev) for b in batches],
+                                              resident.to(dev), window_bits=8)]
+    want = list(ProofPipeline(cv, 12, 10, device="cpu").run_batches(batches, resident,
+                                                                     window_bits=8))
+    assert len(got) == 3 and all(torch.equal(g, w) for g, w in zip(got, want))
+    assert not torch.equal(got[0], got[2])

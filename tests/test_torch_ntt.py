@@ -42,7 +42,7 @@ from blaze_tpu_torch.ntt import (
     tables_from_reference,
 )
 from blaze_tpu_torch.ntt.fused import plan_levels
-from blaze_tpu_torch.ntt.kernels import MAX_FIELDS, TileMap
+from blaze_tpu_torch.ntt.kernels import MAX_FIELDS, TileMap, twiddle_cols
 from blaze_tpu_torch.runtime import NTTClient, NTTInit, NTTInput
 from blaze_tpu_torch.utils import DataError, DeviceError, InvalidPrimitiveParam, NotReady
 
@@ -266,6 +266,41 @@ def test_fused_matches_reference_plans(field, logn, klog, ref_plans):
         if logn == 9:
             assert np.array_equal(np.asarray(r_fused(xl), np.uint32), want)
     assert torch.equal(plan.intt(fwd), xt)
+
+
+@pytest.mark.parametrize("field", TWO_FIELDS)
+def test_small_plan_twiddles_are_cached_products_on_one_k8_call(field, monkeypatch):
+    """The K8 fallback at logn 10 (parts 5, 5: a twiddle cell of 8 lanes,
+    under _TWMUL_MIN_LANES as it is): the plan keeps, per direction, the
+    element-order twiddles tab1[v, jo] * tab2[v, jl] built once, and each
+    transform makes one mul_lm call of two operands on them, in place;
+    forward and inverse equal blaze_tpu's NTTPlan."""
+    spec = FIELDS[field]
+    plan = FusedNTT(spec, 10, device="cpu")
+    assert plan.parts == [5, 5] and plan._takes_k8(0)
+    lv = plan.levels[0]
+    for inv in (False, True):
+        tab1, tab2 = plan._tabs[(0, inv)]
+        v, jo, jl = twiddle_cols(plan.n, lv.a, lv.vshift, lv.fields,
+                                 tab2.shape[1].bit_length() - 1, "cpu")
+        rows = plan._twiddle_rows(0, inv)
+        assert rows.shape == (plan.n, spec.nwords)
+        assert torch.equal(rows, Field(spec).mul(tab1[v, jo], tab2[v, jl]))
+    calls = []
+    mul_lm = plan.kern.mul_lm
+
+    def recording(x, y, z=None, out=None):
+        calls.append((z is None, out is x, y.data_ptr()))
+        return mul_lm(x, y, z, out)
+
+    monkeypatch.setattr(plan.kern, "mul_lm", recording)
+    x = rand_words(spec, (plan.n,), 11)
+    xt, xl = as_t(x), jnp.asarray(limbs(x))
+    fwd, inv = plan.ntt(xt), plan.intt(xt)
+    assert calls == [(True, True, plan._twiddle_rows(0, d).data_ptr()) for d in (False, True)]
+    portable = NTTPlan(REF_FIELDS[field], 10)
+    assert np.array_equal(limbs(fwd.numpy().view(np.uint32)), np.asarray(portable.ntt(xl)))
+    assert np.array_equal(limbs(inv.numpy().view(np.uint32)), np.asarray(portable.intt(xl)))
 
 
 def test_plan_factory_and_sizes():

@@ -5,11 +5,13 @@ Covers the three set_data modes, the streaming order (start_process before
 set_data), the task FIFO, precomputed multiples and the error paths, and the
 four repairs over blaze_tpu's client (a streamed chunk split by chunk_log2,
 the precompute layout of load_data_to_hbm, the lock, params on a streamed
-chunk); checks
+chunk); DeviceContext's profile, live_buffers and load_binary on the CPU;
+checks
 that blaze_tpu_torch and chip_smoke.py import neither jax nor blaze_tpu, and
 that the entry points default to CUDA and raise without it.
 """
 import ast
+import json
 import os
 import subprocess
 import sys
@@ -45,7 +47,14 @@ from blaze_tpu_torch.runtime import (
     NTTInit,
     NTTInput,
 )
-from blaze_tpu_torch.utils import DataError, DeviceError, InvalidPrimitiveParam, NotReady
+from blaze_tpu_torch.runtime.device import TRACE_FILE
+from blaze_tpu_torch.utils import (
+    DataError,
+    DeviceError,
+    InvalidPrimitiveParam,
+    LoadFailed,
+    NotReady,
+)
 
 # One intra-op thread: the plain versions run many tiny ops, on which
 # torch's OpenMP workers only spin, and the suite runs several
@@ -430,6 +439,44 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
         DeviceContext()
     ctx = DeviceContext(device="cpu")
     assert ctx.device.type == "cpu" and ctx.health().ok()
+
+
+def test_profile_writes_a_trace_of_a_cpu_block(tmp_path):
+    """DeviceContext.profile: torch.profiler around the block, its
+    Chrome/Perfetto trace written to trace_dir (made if missing), the
+    profiler yielded for key_averages()."""
+    ctx = DeviceContext(device="cpu")
+    trace_dir = tmp_path / "trace"
+    with ctx.profile(trace_dir) as prof:
+        torch.ones(64, 64) @ torch.ones(64, 64)
+    trace = json.loads((trace_dir / TRACE_FILE).read_text())
+    assert trace["traceEvents"]
+    assert any("mm" in e.key for e in prof.key_averages())
+
+
+def test_load_binary_times_the_warm_ups_and_raises_load_failed():
+    """DeviceContext.load_binary: every warm-up is called once, the wall
+    seconds come back as a float; a failing warm-up raises LoadFailed
+    naming it, with the error as its cause.  (On the CPU nothing is built:
+    the plain versions need no library.)"""
+    ctx = DeviceContext(device="cpu")
+    calls = []
+    secs = ctx.load_binary([lambda: calls.append(1), lambda: calls.append(2)])
+    assert isinstance(secs, float) and secs >= 0 and calls == [1, 2]
+
+    def warm_up_that_fails():
+        raise RuntimeError("no kernel")
+
+    with pytest.raises(LoadFailed, match="warm_up_that_fails") as info:
+        ctx.load_binary([warm_up_that_fails])
+    assert isinstance(info.value.__cause__, RuntimeError)
+
+
+def test_live_buffers_is_minus_one_on_the_cpu():
+    """The caching allocator's active-block count exists only on a card;
+    the CPU context answers -1, as the JAX version does when it cannot
+    count."""
+    assert DeviceContext(device="cpu").live_buffers() == -1
 
 
 def _imports(path: Path):
