@@ -1,12 +1,15 @@
-"""Build and load the CUDA kernels: nvcc by hand into shared libraries with a
-plain C interface, loaded with ctypes.
+"""Build and load the native libraries: nvcc (the CUDA kernels) or g++ (the
+host codec) by hand into shared libraries with a plain C interface, loaded
+with ctypes.
 
 Each `csrc/*.cu` becomes one library, compiled for `sm_90a` at first use into
 `build/blaze_tpu_torch/<hash>/` beside the package (the hash covers every
 source and header, so an edited kernel is rebuilt and a stale library is
-never loaded).  `build_all()` starts one nvcc per source, all at once.  A
-missing nvcc or a failed build raises: there is no fallback to the plain
-PyTorch versions, which only CPU tensors reach.
+never loaded).  `build_all()` starts one nvcc per source, all at once.  Each
+`csrc/*.cpp` (HOST_SOURCES: the host codec) is compiled the same way by g++,
+with no -march (the build directory may travel with a copy of the tree).
+A missing compiler or a failed build raises LoadFailed: there is no
+fallback to the plain PyTorch or numpy versions.
 """
 from __future__ import annotations
 
@@ -24,10 +27,12 @@ from .utils.errors import DeviceError, LoadFailed
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "build" / "blaze_tpu_torch"
 SOURCES = ("montmul", "ec_kernels", "ntt_kernels", "poseidon_kernels")
+HOST_SOURCES = ("codec",)
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
+GXX_FLAGS = ["-std=c++17", "-O3", "-shared", "-fPIC", "-Wall"]
 
 # Launches per kernel wrapper: each wrapper adds one where it launches its
 # kernel (never on the plain CPU path), so a run can show which kernels it
@@ -52,13 +57,20 @@ def _nvcc() -> str:
     return found
 
 
+def _gxx() -> str:
+    found = shutil.which(os.environ.get("CXX", "g++"))
+    if found is None:
+        raise LoadFailed("g++ not found: the host codec cannot be built")
+    return found
+
+
 def _source_hash() -> str:
     h = hashlib.sha256()
     for f in sorted(CSRC.iterdir()):
-        if f.suffix in (".cu", ".cuh"):
+        if f.suffix in (".cu", ".cuh", ".cpp"):
             h.update(f.name.encode())
             h.update(f.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(NVCC_FLAGS + GXX_FLAGS).encode())
     return h.hexdigest()[:16]
 
 
@@ -69,17 +81,18 @@ def _lib_path(name: str) -> Path:
 def build_all(names=SOURCES) -> float:
     """Compile every missing library in parallel; returns wall seconds."""
     t0 = time.perf_counter()
-    nvcc = None
     procs = {}
     for name in names:
         out = _lib_path(name)
         if out.exists():
             continue
-        nvcc = nvcc or _nvcc()
         out.parent.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-               str(CSRC / f"{name}.cu")]
+        if name in HOST_SOURCES:
+            cmd = [_gxx(), *GXX_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cpp")]
+        else:
+            cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+                   str(CSRC / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out)
@@ -88,16 +101,16 @@ def build_all(names=SOURCES) -> float:
         log, _ = proc.communicate()
         BUILD_LOG[name] = log
         if proc.returncode != 0:
-            failed.append(f"{name}.cu (rc {proc.returncode}):\n{log}")
+            failed.append(f"{name} (rc {proc.returncode}):\n{log}")
             continue
         os.replace(tmp, out)
     if failed:
-        raise LoadFailed("nvcc failed for " + "\n".join(failed))
+        raise LoadFailed("build failed for " + "\n".join(failed))
     return time.perf_counter() - t0
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library for csrc/<name>.cu, building it if needed."""
+    """The loaded library for csrc/<name>.cu (or .cpp), building it if needed."""
     lib = _LIBS.get(name)
     if lib is not None:
         return lib

@@ -7,8 +7,8 @@ rows, Montgomery form); identity is (0 : 1 : 0).
 
 The alg 7 and alg 8 formulas are written once (`rcb_add_full`,
 `rcb_add_mixed`) over any field-ops object F with broadcasting mul / add /
-sub, given 3b in F's representation: `Curve.add` runs alg 7 on the
-canonical Field, and the plain versions of the EC kernels
+sub, given 3b in F's representation: `Curve.add` and `Curve.add_mixed`
+run them on the canonical Field, and the plain versions of the EC kernels
 (curves/kernels.py) run both on the lazy 16-bit-limb twin of
 csrc/field.cuh.
 Independent products of one formula are stacked into one batched call.
@@ -89,6 +89,15 @@ class Curve:
         return self.pack(f.zeros(batch_shape, device), f.one(batch_shape, device),
                          f.zeros(batch_shape, device))
 
+    def is_identity(self, p):
+        """Boolean (...,): true where Z = 0, the identity (0 : 1 : 0)."""
+        return self.fq.is_zero(p[..., 2, :])
+
+    @staticmethod
+    def select(cond, p, q):
+        """where(cond, p, q) over points; cond shaped (...,)."""
+        return torch.where(cond[..., None, None], p, q)
+
     def neg(self, p):
         x, y, z = self.unpack(p)
         return self.pack(x, self.fq.neg(y), z)
@@ -100,6 +109,18 @@ class Curve:
         X3, Y3, Z3 = rcb_add_full(self.fq, self.fq.const(self._b3, p.device),
                                   *self.unpack(p.expand(shape)),
                                   *self.unpack(q.expand(shape)))
+        return self.pack(X3, Y3, Z3)
+
+    def add_mixed(self, p, q_affine):
+        """Complete mixed addition (RCB alg 8, a=0): p projective, q affine
+        (..., 2, W).  Handles p = identity; q must be a real point (the
+        affine encoding cannot express the identity)."""
+        shape = torch.broadcast_shapes(p.shape[:-2], q_affine.shape[:-2])
+        W = self.nwords
+        p = p.expand(*shape, 3, W)
+        q = q_affine.expand(*shape, 2, W)
+        X3, Y3, Z3 = rcb_add_mixed(self.fq, self.fq.const(self._b3, p.device),
+                                   *self.unpack(p), q[..., 0, :], q[..., 1, :])
         return self.pack(X3, Y3, Z3)
 
     def dbl(self, p):
@@ -122,6 +143,20 @@ class Curve:
         Z3 = r[1]
         return self.pack(X3, Y3, Z3)
 
+    # ------------------------------------------------------------- checks
+    def on_curve(self, p):
+        """Boolean (...,): the projective equation Y^2 Z = X^3 + b Z^3, scaled
+        by 3 to use the 3b constant (3 Y^2 Z = 3 X^3 + 3b Z^3).  The identity
+        passes."""
+        f = self.fq
+        X, Y, Z = self.unpack(p)
+        sq = f.mul(torch.stack([Y, X, Z]), torch.stack([Y, X, Z]))      # Y^2, X^2, Z^2
+        cu = f.mul(sq, torch.stack([Z, X, Z]))                          # Y^2 Z, X^3, Z^3
+        bz3 = f.mul(f.const(self._b3, p.device), cu[2])
+        lhs3 = f.add(f.add(cu[0], cu[0]), cu[0])
+        rhs3 = f.add(f.add(f.add(cu[1], cu[1]), cu[1]), bz3)
+        return (lhs3 == rhs3).all(dim=-1)
+
     # --------------------------------------------------------- conversions
     def to_affine(self, p):
         """Projective -> affine (..., 2, W); identity maps to (0, 0)."""
@@ -136,3 +171,18 @@ class Curve:
         y = q_affine[..., 1, :]
         return self.pack(x, y, self.fq.one(x.shape[:-1], x.device))
 
+    # -------------------------------------------------------- scalar mul
+    def scalar_mul(self, p, k: int):
+        """p * k for a Python-int scalar (test and oracle use): double-and-add
+        from the identity over the bits of k mod r, top bit first, the add
+        taken where the bit is set (a host branch: the bits are known).  The
+        JAX package runs all of r's bits to keep one traced loop body; the
+        doublings of the identity above k's top bit change nothing, so they
+        are left out."""
+        k %= self.spec.fr.p
+        acc = self.identity(p.shape[:-2], p.device)
+        for i in reversed(range(k.bit_length())):
+            acc = self.dbl(acc)
+            if k >> i & 1:
+                acc = self.add(acc, p)
+        return acc

@@ -9,13 +9,20 @@ A little-endian byte string is at once the memory image of its 16-bit limbs
 and of its 32-bit words, so both codecs are numpy views: field elements
 (point coordinates) decode to 32-bit words, the port's device form;
 scalars decode to 16-bit limbs, the form the MSM's digit extraction reads.
+From _NATIVE_MIN_BYTES up, the limb codecs run the host codec
+(native/codec.py, csrc/codec.cpp), as the JAX package's do; its build
+failing raises LoadFailed.
 """
 from __future__ import annotations
 
 import numpy as np
 
+from ..native import codec as _native
 from ..utils.errors import DataError
 from .spec import FieldSpec
+
+# Below this, numpy's vectorized astype wins over the ctypes call overhead.
+_NATIVE_MIN_BYTES = 1 << 22
 
 
 def _as_u8(data: bytes | np.ndarray, spec: FieldSpec) -> np.ndarray:
@@ -32,14 +39,17 @@ def _as_u8(data: bytes | np.ndarray, spec: FieldSpec) -> np.ndarray:
 
 def bytes_to_limbs(data: bytes | np.ndarray, spec: FieldSpec) -> np.ndarray:
     """LE bytes (N * nbytes) -> uint32[N, nlimbs] 16-bit limbs."""
-    return _as_u8(data, spec).view("<u2").reshape(-1, spec.nlimbs).astype(
-        np.uint32
-    )
+    buf = _as_u8(data, spec)
+    if buf.size >= _NATIVE_MIN_BYTES:
+        return _native.bytes_to_limbs(buf, spec.nbytes)
+    return buf.view("<u2").reshape(-1, spec.nlimbs).astype(np.uint32)
 
 
 def limbs_to_bytes(limbs: np.ndarray, spec: FieldSpec) -> bytes:
     """uint32[..., nlimbs] 16-bit limbs -> LE bytes."""
     arr = np.asarray(limbs, dtype=np.uint32).reshape(-1, spec.nlimbs)
+    if arr.nbytes >= 2 * _NATIVE_MIN_BYTES:
+        return _native.limbs_to_bytes(arr, spec.nbytes)
     return arr.astype("<u2").tobytes()
 
 

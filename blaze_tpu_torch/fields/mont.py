@@ -131,6 +131,25 @@ class Field:
                 cur = self.mul(cur, cur)
         return out
 
+    def power_matrix(self, bases_mont: torch.Tensor, m: int) -> torch.Tensor:
+        """(n, W) bases -> (n, m, W) matrix M[i, j] = bases[i]^j, Montgomery.
+
+        Log-doubling along j with the whole base column batched: log2(m)
+        rounds of K1 products, n*m products in all — the four-step NTT's
+        inter-pass twiddle tables (ntt/transform.py)."""
+        n = bases_mont.shape[0]
+        out = self.one((n, 1), bases_mont.device)
+        if m <= 1:
+            return out[:, :m]
+        cur = bases_mont.reshape(n, 1, self.nwords)        # bases^(2^k) walker
+        while out.shape[1] < m:
+            k = out.shape[1]
+            take = min(k, m - k)
+            out = torch.cat([out, self.mul(out[:, :take], cur)], dim=1)
+            if out.shape[1] < m:
+                cur = self.mul(cur, cur)
+        return out
+
     # ------------------------------------------------------- host transfers
     def from_int(self, values, mont=True, device="cpu"):
         """Python ints -> (len, W) words on `device` (Montgomery by default)."""

@@ -31,6 +31,23 @@ plan holds two buffers, the input and its own.  An (n, W) buffer of int32
 words keeps an element's 32 bytes together, so K7's strided reads and
 writes move whole sectors.
 
+Batches.  `ntt_batch` / `intt_batch` run B independent transforms of the
+plan's size in the same launches: one K7 launch per level over all B, one
+K9 launch per twiddle.  Point i of transform b is read at row i*es + b*bs
+of the caller's buffer (es, bs powers of two: the four-step's columns are
+read through their stride, with no transpose copy), and the result is
+written as (B, n) rows or, `minor`, as (n, B) rows.  The batch is one more
+lane field of each level's maps (`batch_level`): the transform index's
+bits sit below the level's lane bits for (n, B) rows (neighbouring lanes
+on neighbouring rows) and above them for (B, n) rows.  K9 needs no batch
+field: an element's position inside its transform is its row shifted
+right by log2(B) ((n, B) rows) or its row's low log2(n) bits ((B, n)
+rows), so only its map's shifts move.  What does not fit: a batched plan
+of more than MAX_FIELDS = 6 levels (level 0's output map holds one field
+per later level and the batch field), and a count that is not a power of
+two (NTTPlan runs such a batch as power-of-two pieces).  Batched plans
+take K9 at every level; the K8 fallback serves only the single transform.
+
 Left out from the JAX plan: the lane-expanded packs and u16 storage (Mosaic
 and TPU-tiling workarounds), the u16 donated entry points and the blocked
 layout (the TPU pads a (K, 16) u16 array 8x; (n, 8) int32 words already
@@ -45,9 +62,9 @@ import torch
 
 from ..fields.mont import Field
 from ..fields.spec import FieldSpec, int_to_words
-from .kernels import MAX_FIELDS, MAX_LOGK, NTTKernels, TileMap, twiddle_cols
+from .kernels import MAX_FIELDS, MAX_LOGK, NTTKernels, TileMap, _log2, twiddle_cols
 
-__all__ = ["FusedNTT", "Level", "split_parts", "tables_from_reference"]
+__all__ = ["FusedNTT", "Level", "batch_level", "split_parts", "tables_from_reference"]
 
 KLOG = MAX_LOGK   # max log2 base-kernel size (K7's shared-memory tile)
 
@@ -119,6 +136,36 @@ def plan_levels(parts: list[int]) -> list[Level]:
         fields = tuple((logP[e], parts[e], logS[e]) for e in range(d + 1, D))
         levels.append(Level(a, lanes, xmap, omap, logP[d], fields))
     return levels
+
+
+def _lay_out(m: TileMap, log_lanes: int, logB: int, es: int, bs: int, low: bool) -> TileMap:
+    """A level's map of one transform (lane l < 2^log_lanes at logical row
+    k*ks + field_sum(l)) for B = 2^logB transforms at physical row
+    logical*es + b*bs, lane l*B + b (`low`) or b*2^log_lanes + l."""
+    les, lbs = es.bit_length() - 1, bs.bit_length() - 1
+    if low:
+        fields = ((0, logB, lbs),) + tuple((s + logB, w, d + les) for s, w, d in m.fields)
+    else:
+        fields = tuple((s, w, d + les) for s, w, d in m.fields) + ((log_lanes, logB, lbs),)
+    return TileMap(m.ks * es, tuple(f for f in fields if f[1]))
+
+
+def batch_level(lv: Level, d: int, logn: int, B: int, src: tuple, minor: bool) -> Level:
+    """Level `d` of a plan over 2^logn points for B = 2^k transforms: read
+    (level 0) point i of transform b at row i*src[0] + b*src[1], and keep
+    the plan's buffer as (n, B) rows (`minor`) or (B, n) rows."""
+    logB = B.bit_length() - 1
+    log_lanes = lv.lanes.bit_length() - 1
+    es, bs = (B, 1) if minor else (1, 1 << logn)
+    omap = _lay_out(lv.omap, log_lanes, logB, es, bs, minor)
+    if d == 0:
+        one = TileMap(lv.lanes, ((0, log_lanes, 0),) if log_lanes else ())
+        xmap = _lay_out(one, log_lanes, logB, src[0], src[1], minor)
+    else:
+        xmap = omap
+    shift = es.bit_length() - 1
+    return Level(lv.a, lv.lanes * B, xmap, omap, lv.vshift + shift,
+                 tuple((s + shift, w, dd) for s, w, dd in lv.fields))
 
 
 class FusedNTT:
@@ -250,13 +297,14 @@ class FusedNTT:
             rows = self._rows[key] = self.field.mul(tab1[v, jo], tab2[v, jl])
         return rows
 
-    def _apply_twiddle(self, y: torch.Tensor, depth: int, inverse: bool) -> torch.Tensor:
-        """Multiply each element of the plan's buffer y, at level `depth`'s
-        row v and column j, by W^(j*v) = tab1[v, j//S] * tab2[v, j%S], in
-        place: on K9 from the split tables, or for a narrow cell on K8 with
-        the plan's element-order twiddles (two operands, one launch)."""
-        if not self._takes_k8(depth):
-            lv = self.levels[depth]
+    def _apply_twiddle(self, y: torch.Tensor, depth: int, inverse: bool,
+                       lv: Level) -> torch.Tensor:
+        """Multiply each element of the plan's buffer y, at level `lv`'s row
+        v and column j, by W^(j*v) = tab1[v, j//S] * tab2[v, j%S], in
+        place: on K9 from the split tables, or for a narrow cell of the
+        single transform (lv is self.levels[depth]) on K8 with the plan's
+        element-order twiddles (two operands, one launch)."""
+        if lv is not self.levels[depth] or not self._takes_k8(depth):
             tab1, tab2 = self._tabs[(depth, inverse)]
             return self.kern.twiddle_mul(y, tab1, tab2, lv.vshift, lv.fields, out=y)
         n, W = y.shape
@@ -265,21 +313,22 @@ class FusedNTT:
         return y
 
     # ---------------------------------------------------------- recursion
-    def _rec(self, x: torch.Tensor, inverse: bool) -> torch.Tensor:
-        """(n, W) natural order -> a new (n, W) natural order.
+    def _rec(self, x: torch.Tensor, inverse: bool, levels: list, rows: int) -> torch.Tensor:
+        """Run `levels` (self.levels, or their batch_level forms) on x into
+        a new (rows, W) buffer.
 
         The recursion of the JAX plan as a loop over its levels: level 0
         reads x and writes the plan's buffer, every later level and twiddle
         updates that buffer in place, so a transform holds two buffers (4
         GiB each at 2^27) and moves no data between levels."""
-        if not self.levels:
+        if not levels:
             return x.clone()
-        y = torch.empty_like(x)
-        for d, lv in enumerate(self.levels):
+        y = torch.empty((rows, x.shape[1]), dtype=x.dtype, device=x.device)
+        for d, lv in enumerate(levels):
             self.kern.ntt_base(x if d == 0 else y, self._packs[(lv.a, inverse)], lv.lanes,
                                lv.xmap, out=y, omap=lv.omap)
-            if d + 1 < len(self.levels):
-                y = self._apply_twiddle(y, d, inverse)
+            if d + 1 < len(levels):
+                y = self._apply_twiddle(y, d, inverse, lv)
         return y
 
     def _check(self, x: torch.Tensor) -> None:
@@ -289,17 +338,58 @@ class FusedNTT:
         if x.device != self.device:
             raise ValueError(f"input on {x.device}, plan on {self.device}")
 
+    def _batch(self, x: torch.Tensor, inverse: bool, count: int, stride: int,
+               batch_stride, minor: bool) -> torch.Tensor:
+        W = self.spec.nwords
+        if x.dtype != torch.int32 or x.dim() != 2 or x.shape[1] != W:
+            raise ValueError(f"want (rows, {W}) int32, got {tuple(x.shape)} {x.dtype}")
+        if x.device != self.device:
+            raise ValueError(f"input on {x.device}, plan on {self.device}")
+        batch_stride = self.n * stride if batch_stride is None else batch_stride
+        logB = _log2(count, "count")
+        _log2(stride, "stride")
+        _log2(batch_stride, "batch_stride")
+        if logB and len(self.levels) > MAX_FIELDS:
+            raise ValueError(f"a batched plan of {len(self.levels)} levels needs that many "
+                             f"lane fields, K7's maps hold {MAX_FIELDS}")
+        x = x.contiguous()
+        if not self.levels:                          # n = 1: a copy of each transform
+            idx = torch.arange(count, device=x.device) * batch_stride
+            return x[idx].clone()
+        levels = [batch_level(lv, d, self.logn, count, (stride, batch_stride), minor)
+                  for d, lv in enumerate(self.levels)]
+        out = self._rec(x, inverse, levels, self.n * count)
+        if inverse and len(self.parts) == 1:
+            out = self.field.mul(out, self._ninv_mont)
+        return out
+
     # ------------------------------------------------------------- public
     def ntt(self, x: torch.Tensor) -> torch.Tensor:
         """Forward NTT: (n, W) int32 Montgomery words -> same."""
         self._check(x)
-        return self._rec(x.contiguous(), False)
+        return self._rec(x.contiguous(), False, self.levels, self.n)
 
     def intt(self, x: torch.Tensor) -> torch.Tensor:
         """Inverse NTT (n^-1 folded into the depth-0 T1 of multi-level
         plans, one K1 pass otherwise)."""
         self._check(x)
-        out = self._rec(x.contiguous(), True)
+        out = self._rec(x.contiguous(), True, self.levels, self.n)
         if len(self.parts) == 1:
             out = self.field.mul(out, self._ninv_mont)
         return out
+
+    def ntt_batch(self, x: torch.Tensor, count: int, stride: int = 1,
+                  batch_stride: int | None = None, minor: bool = False) -> torch.Tensor:
+        """`count` forward NTTs in one pass of the plan's launches.
+
+        x: (rows, W) int32 Montgomery words on the plan's device; point i of
+        transform b at row i*stride + b*batch_stride (powers of two; default
+        batch_stride n*stride, (count, n) rows at stride 1), count a power of
+        two.  Returns a new (count*n, W) tensor in natural order: transform
+        b's point k at row b*n + k, or with `minor` at row k*count + b."""
+        return self._batch(x, False, count, stride, batch_stride, minor)
+
+    def intt_batch(self, x: torch.Tensor, count: int, stride: int = 1,
+                   batch_stride: int | None = None, minor: bool = False) -> torch.Tensor:
+        """`count` inverse NTTs, laid out as in `ntt_batch`."""
+        return self._batch(x, True, count, stride, batch_stride, minor)

@@ -38,7 +38,6 @@ from ..fields.kernel_ops import (
     words_to_limbs16,
 )
 from ..fields.spec import FieldSpec
-from .transform import _bitrev_perm
 
 __all__ = ["NTTKernels", "TileMap", "twiddle_cols"]
 
@@ -56,6 +55,15 @@ _ARGTYPES = {
                         _c.c_void_p, _c.c_int64, _c.c_int, _c.c_int, _c.c_int,
                         _c.c_void_p, _c.c_void_p],
 }
+
+
+def _bitrev_perm(logn: int) -> np.ndarray:
+    n = 1 << logn
+    idx = np.arange(n)
+    rev = np.zeros(n, dtype=np.int64)
+    for b in range(logn):
+        rev |= ((idx >> b) & 1) << (logn - 1 - b)
+    return rev
 
 
 def field_sum(x: torch.Tensor, fields) -> torch.Tensor:

@@ -11,18 +11,24 @@ caller's current stream; an event orders each MSM after its own NTT, and
 the two streams' tensors are handed over with `record_stream`, so the
 caching allocator reuses none of them early.
 
-Left out until dist/ lands (ROADMAP queue A5): the mesh path (`run_dist`,
-DistributedNTT feeding DistributedMSM).  Not ported: the TPU's blocked u16
-NTT layout and its relayout (`_spectral_to_scalars_blocked`); the port's
-NTT keeps (n, W) int32 words, and the scalars are their 16-bit halves.
+On a mesh (`mesh=`, a DeviceMesh from dist.make_mesh) the pipeline runs
+`run_dist`: DistributedNTT (the four-step, all_to_all between its passes)
+on the `ntt_axis`, the first 2^msm_logn spectral values in natural order,
+their canonical form (from_mont, K1) as the scalars, and DistributedMSM
+(per-rank chunks, all_gather of the window sums, K3 tree reduce, K6 fold)
+on the `msm_axis`.  Not ported: the TPU's blocked u16 NTT layout and its
+relayout (`_spectral_to_scalars_blocked`); the port's NTT keeps (n, W)
+int32 words, and the scalars are their 16-bit halves.
 """
 from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
 from .curves.ops import Curve
+from .fields.mont import Field
 from .fields.spec import FieldSpec
 from .msm import MSM, MSMConfig
 from .ntt import make_ntt
@@ -40,21 +46,41 @@ class ProofPipeline:
     2^msm_logn spectral values become the MSM scalars (a proving system
     commits to evaluation-form polynomials).  The plan (FusedNTT) and the
     MSM run on the context's device: the card by default, where a missing
-    card raises; `device="cpu"` runs the kernels' plain versions.
+    card raises; `device="cpu"` runs the kernels' plain versions.  With a
+    `mesh` (a DeviceMesh; its device type picks the device) the pipeline
+    runs `run_dist` on DistributedNTT (`ntt_axis`) and DistributedMSM
+    (`msm_axis`) instead of `run_batches`.
     """
 
     def __init__(self, curve: Curve, ntt_logn: int, msm_logn: int, mesh=None,
+                 msm_axis: str = "dp", ntt_axis: str = "sp",
                  config: MSMConfig | None = None, ctx: Optional[DeviceContext] = None,
                  device: Optional[str] = None):
-        if mesh is not None:
-            raise ValueError("the mesh pipeline (run_dist on DistributedNTT and "
-                             "DistributedMSM) comes with dist/, ROADMAP queue A5")
         if not 0 <= msm_logn <= ntt_logn:
             raise ValueError("msm_logn must be <= ntt_logn")
         self.curve = curve
         self.fr: FieldSpec = curve.spec.fr
         self.ntt_logn = ntt_logn
         self.msm_logn = msm_logn
+        self.mesh = mesh
+        self.plan = self.msm = self.dntt = self.dmsm = self._side = None
+        if mesh is not None:
+            from torch.distributed.device_mesh import DeviceMesh
+
+            from .dist import DistributedMSM, DistributedNTT
+            from .dist.mesh import mesh_device
+
+            if not isinstance(mesh, DeviceMesh):
+                raise ValueError(f"mesh: want a torch DeviceMesh (dist.make_mesh), got "
+                                 f"{type(mesh).__name__}")
+            dev = mesh_device(mesh)
+            self.ctx = ctx or DeviceContext(device_id=dev.index or 0, device=dev.type)
+            if self.ctx.device != dev:
+                raise ValueError(f"context on {self.ctx.device}, mesh on {dev}")
+            self.dntt = DistributedNTT(self.fr, ntt_logn, mesh, axis=ntt_axis)
+            self.dmsm = DistributedMSM(curve, mesh, axis=msm_axis, config=config)
+            self._fr = Field(self.fr)
+            return
         self.ctx = ctx or DeviceContext(device=device)
         self.plan = make_ntt(self.fr, ntt_logn, device=self.ctx.device)
         self.msm = MSM(curve, config)
@@ -66,7 +92,7 @@ class ProofPipeline:
         """A batch is (2^n, W) int32 words or the reference's unblocked
         (2^n, L) 16-bit limbs (L = 2W, int32 or int64) on the pipeline's
         device; any other shape, type or device raises DataError."""
-        n, W = self.plan.n, self.fr.nwords
+        n, W = 1 << self.ntt_logn, self.fr.nwords
         if not isinstance(coeffs, torch.Tensor) or coeffs.dim() != 2 \
                 or coeffs.shape[0] != n or coeffs.shape[1] not in (W, 2 * W):
             got = tuple(coeffs.shape) if isinstance(coeffs, torch.Tensor) else type(coeffs)
@@ -120,6 +146,8 @@ class ProofPipeline:
         transform is linear and the plan's twiddles are Montgomery
         representatives, so representatives go to representatives
         (NTTClient)."""
+        if self.plan is None:
+            raise ValueError("a mesh pipeline runs run_dist")
         return self._spectral_scalars(self.plan.ntt(self._coeff_words(coeffs)))
 
     def _queue_ntt(self, coeffs):
@@ -153,6 +181,8 @@ class ProofPipeline:
         computed.  Batch k+1's NTT is queued before batch k's MSM, so on the
         card it runs while the host queues that MSM.  On a CUDA tensor every
         step runs on the card or raises."""
+        if self.plan is None:
+            raise ValueError("a mesh pipeline runs run_dist")
         self._check_points(points_resident)
         batches = iter(coeff_batches)
         coeffs = next(batches, None)
@@ -173,6 +203,35 @@ class ProofPipeline:
                 msm_done.record(stream)
                 msm_done.synchronize()
             yield res
+
+    # ------------------------------------------------------- distributed
+    def run_dist(self, coeffs, points, window_bits: int | None = None,
+                 scalar_bits: int | None = None, scalar_mask=None) -> torch.Tensor:
+        """The mesh path: the sharded NTT (all_to_all between its passes)
+        feeding the dp-sharded MSM; every rank calls it with the whole
+        input and gets the (3, W) projective Montgomery result.
+
+        coeffs: (2^n, W) int32 Montgomery words (or the reference's (2^n, L)
+        16-bit limbs) on the mesh's device.  points: the 2^m affine
+        Montgomery bases, (2^m, 2, W) words or the (2W, 2^m) residency.
+        The first 2^m spectral values, natural order, are Montgomery here
+        (the sharded NTT keeps the form): from_mont (K1) makes them the
+        canonical scalars.  scalar_mask, Ls per-limb bit masks (e.g. [0xFF,
+        0, ...] keeps 8 scalar bits), truncates them for short dry runs."""
+        if self.dntt is None:
+            raise ValueError("no mesh: use run_batches")
+        x = self._coeff_words(coeffs)
+        y = self.dntt._natural(self.dntt.ntt(x), 1 << self.msm_logn)   # (2^m, W)
+        scal = self._spectral_scalars(self._fr.from_mont(y))            # (Ls, 2^m)
+        if scalar_mask is not None:
+            mask = torch.as_tensor(np.asarray(scalar_mask, dtype=np.int64), device=scal.device)
+            if mask.shape != (scal.shape[0],):
+                raise DataError(f"scalar_mask: want {scal.shape[0]} per-limb masks, got "
+                                f"{tuple(mask.shape)}")
+            scal &= mask.to(scal.dtype)[:, None]
+        if points.dim() == 3:
+            scal = scal.t()
+        return self.dmsm(points, scal, window_bits=window_bits, scalar_bits=scalar_bits)
 
 
 def geometric_msm_oracle(curve_spec, npoints_unique: int, n: int, w: int, base_points):

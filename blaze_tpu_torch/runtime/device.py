@@ -14,9 +14,11 @@ the CUDA runtime replaces the transport; what remains useful is:
     (dclient.rs:115-151, 566-579), and a torch.profiler trace in place of
     the hardware perf counters (msm_hw_code.rs:35-54).
 
+  * the mesh: `num_devices` and `make_mesh`, a named
+    torch.distributed DeviceMesh for the sharded paths (dist/).
+
 The default device is `cuda`; without one the context raises.  Pass
-`device="cpu"` to run the plain PyTorch versions of the kernels.  The mesh
-(`num_devices`, `make_mesh`) comes with the sharded paths.
+`device="cpu"` to run the plain PyTorch versions of the kernels.
 """
 from __future__ import annotations
 
@@ -70,6 +72,21 @@ class DeviceContext:
             if self.device.type != "cpu":
                 raise DeviceError(f"unsupported device {device!r}")
         self.device_id = device_id
+
+    # --------------------------------------------------------------- mesh
+    @property
+    def num_devices(self) -> int:
+        """The CUDA devices this process sees on a card, 1 on the CPU."""
+        return torch.cuda.device_count() if self.device.type == "cuda" else 1
+
+    def make_mesh(self, shape: dict):
+        """Named mesh of this context's device type, e.g. {'dp': 4, 'sp': 2}
+        (dist.make_mesh): a DeviceMesh whose mesh_dim_names are the keys.
+        Raises ValueError when it wants more ranks than the process group
+        has (one process per card; without a group, a group of one)."""
+        from ..dist.mesh import make_mesh
+
+        return make_mesh(shape, device_type=self.device.type)
 
     # ------------------------------------------------------------- health
     def health(self) -> DeviceHealth:

@@ -86,6 +86,25 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    the MSM's device time, each stream's operations and the card's idle
    share around the middle batch of a third run (DeviceContext.profile),
    and the peak device memory;
+7c. (run before 7b) the sharded paths (dist/) on the card, NCCL, every
+   mesh of one rank (make_mesh's group of one): K7 and K9 at batched maps (FusedNTT's
+   ntt_batch levels, B transforms per launch) against their plain
+   versions, whole, on the three scalar fields, then at the 2^27
+   four-step's maps (K7 at each level of the 2^13 column and 2^14 row
+   sub-plans, K9 at their twiddles and at the inter-pass twiddle) with
+   times and bounds, each held against its plain version on a cut;
+   DistributedMSM at 2^24 on BLS12-381 (256 subgroup points tiled,
+   distinct full-width scalars) equal to the single-card MSM.__call__
+   (run in turns with it: sharded, single, single, sharded) and the
+   oracle; DistributedNTT at 2^27 on bls12_381_fr (logn1 13)
+   whose spectral_to_natural equals FusedNTT.ntt word for word and
+   whose intt comes back to the input (launches K7 x4, K9 x3, no K8; one
+   transform under torch.profiler: K7 x4, K9 x3 and nothing else, where
+   the profiler records device events at all);
+   ProofPipeline(mesh={dp: 1, sp: 1}).run_dist at (2^27, 2^24) with
+   full-width scalars against its geometric oracle.  Each prints wall
+   seconds, device milliseconds (CUDA events), launches per kernel and
+   peak memory; launch counts are zeroed before each run;
 8. Poseidon kernel parity: K10 against its (dense) plain version, exact,
    on the three scalar fields (t = 9 and 12, with and without convert_in,
    B = 1 and 1000, inputs near p; the sparse schedule, and on bls12_381_fr
@@ -112,8 +131,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    records must arrive before the last feed and the closed tree must
    equal a staged build of the same elements.
    Launch counts are zeroed just before each client run of phases 3, 4,
-   4b, 6, 7, 9, 10 and 11 and each serial batch of 7b, and read just
-   after; every kernel of the run's path must have launched (K10 nine
+   4b, 6, 7, 9, 10 and 11, each serial batch of 7b and each run of 7c,
+   and read just after; every kernel of the run's path must have launched (K10 nine
    times per height-9 build; K2 once and K4 five times per 2^19 chunk at
    2^24; K6 once per MSM).
 12. the seconds each phase took, then the kernels line (K1-K10): launches
@@ -208,21 +227,19 @@ def random_scalars(spec, n: int, seed: int):
     return np.ascontiguousarray(out).view("<u2").astype(np.uint32).reshape(n, -1)
 
 
-def tiled_instance(spec, n: int, seed: int, expected: bool = True):
-    """Wire bytes of n points (256 oracle points of the order-r subgroup
-    tiled, n a multiple of 256) and n distinct random scalars, and the
-    expected affine MSM: the oracle MSM of the 256 points with each one's
-    coefficient sum mod r (summed per 16-bit limb in numpy)."""
+def tiled_arrays(spec, n: int, seed: int, expected: bool = True):
+    """256 oracle points of the order-r subgroup (to be tiled: point i is
+    upoints[i % 256], n a multiple of 256), n distinct random scalars as
+    (n, Ls) uint32 limbs, and the expected affine MSM: the oracle MSM of the
+    256 points with each one's coefficient sum mod r (summed per 16-bit
+    limb in numpy)."""
     import numpy as np
 
-    from blaze_tpu_torch.curves import encode_affine_points, encode_scalars
     from blaze_tpu_torch.oracle import ECOracle
-    from blaze_tpu_torch.oracle.gen import points_to_affine_words
 
     rng = random.Random(seed)
     oracle = ECOracle(spec)
     upoints = [oracle.random_subgroup_point(rng) for _ in range(256)]
-    pts = points_to_affine_words(spec, upoints)[np.arange(n) % 256]
     scal = random_scalars(spec, n, seed)
     want = None
     if expected:
@@ -230,6 +247,19 @@ def tiled_instance(spec, n: int, seed: int, expected: bool = True):
         coeffs = [sum(int(v) << (16 * i) for i, v in enumerate(row)) % spec.fr.p
                   for row in sums]
         want = oracle.msm(upoints, coeffs)
+    return upoints, scal, want
+
+
+def tiled_instance(spec, n: int, seed: int, expected: bool = True):
+    """Wire bytes of n points (tiled_arrays' 256 points tiled) and n
+    distinct random scalars, and the expected affine MSM."""
+    import numpy as np
+
+    from blaze_tpu_torch.curves import encode_affine_points, encode_scalars
+    from blaze_tpu_torch.oracle.gen import points_to_affine_words
+
+    upoints, scal, want = tiled_arrays(spec, n, seed, expected)
+    pts = points_to_affine_words(spec, upoints)[np.arange(n) % 256]
     return encode_affine_points(pts, spec), encode_scalars(scal, spec), want
 
 
@@ -1106,17 +1136,47 @@ def ntt_main_timing(plan, imad_rate: float, seed: int, device):
 
 
 SPLIT_KERNELS = ("ntt_base", "mul_lm", "twiddle_mul")
+SPLIT = (*SPLIT_KERNELS, "nccl", "other")
+
+
+def device_split(fn) -> dict:
+    """fn() once under torch.profiler: the device time and count of K7
+    (ntt_base_kernel), K8 (mul_lm_*kernel), K9 (twiddle_mul_kernel), NCCL's
+    collectives (kernels named nccl*) and every other device operation (a
+    copy, a fill, a gather, listed in other_ops), and the wall ms."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    del out
+    split = {k: [0, 0.0] for k in SPLIT}
+    others = []
+    # the device's own events: the aten ops above them report the same time
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA or dev_us(e) <= 0:
+            continue
+        key = next((k for k in SPLIT_KERNELS if k + "_" in e.key and "kernel" in e.key),
+                   "nccl" if "nccl" in e.key.lower() else "other")
+        split[key][0] += e.count
+        split[key][1] += dev_us(e) / 1e3
+        if key == "other":
+            others.append({"name": e.key[:60], "count": e.count, "ms": dev_us(e) / 1e3})
+    return {"wall_ms": wall * 1e3, "device_ms": sum(v[1] for v in split.values()),
+            **{f"{k}_launches": v[0] for k, v in split.items()},
+            **{f"{k}_ms": v[1] for k, v in split.items()}, "other_ops": others}
 
 
 def ntt_transform_split(plan, seed: int, device, want: dict) -> dict:
     """One warm transform (plan.ntt) timed whole with CUDA events and traced
-    under torch.profiler: the device time of each operation by name, K7
-    (ntt_base_kernel), K8 (mul_lm_*kernel), K9 (twiddle_mul_kernel) and
-    every other (a copy, a fill, a gather), their counts, and the
-    transform's peak memory.  `want`: the launches of each kernel; any
-    other count, or any other device operation, raises."""
+    under torch.profiler (device_split), and the transform's peak memory.
+    `want`: the launches of each kernel; any other count, or any other
+    device operation, raises."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     W = plan.spec.nwords
     x = rand_words(plan.spec, (plan.n, W), seed, device)
@@ -1124,32 +1184,15 @@ def ntt_transform_split(plan, seed: int, device, want: dict) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        out = plan.ntt(x)
-        torch.cuda.synchronize()
+    split = device_split(lambda: plan.ntt(x))
     peak = torch.cuda.max_memory_allocated()
-    del out, x
-    # the device's own events: the aten ops above them report the same time
-    ops = [e for e in prof.key_averages()
-           if e.device_type == torch.autograd.DeviceType.CUDA and dev_us(e) > 0]
-    split = {k: [0, 0.0] for k in (*SPLIT_KERNELS, "other")}
-    others = []
-    for e in ops:
-        key = next((k for k in SPLIT_KERNELS if k + "_" in e.key and "kernel" in e.key),
-                   "other")
-        split[key][0] += e.count
-        split[key][1] += dev_us(e) / 1e3
-        if key == "other":
-            others.append({"name": e.key[:60], "count": e.count, "ms": dev_us(e) / 1e3})
-    info = {"n": plan.n, "parts": plan.parts, "transform_ms": ms,
-            "device_ms": sum(v[1] for v in split.values()),
-            **{f"{k}_launches": v[0] for k, v in split.items()},
-            **{f"{k}_ms": v[1] for k, v in split.items()},
-            "other_ops": others, "input_gib": plan.n * W * 4 / 2**30,
+    del x
+    info = {"n": plan.n, "parts": plan.parts, "transform_ms": ms, **split,
+            "input_gib": plan.n * W * 4 / 2**30,
             "peak_gib": peak / 2**30, "peak_above_input_gib": (peak - base) / 2**30}
     emit({"phase": f"ntt_2^{plan.logn}_split", **info})
-    got = {k: split[k][0] for k in (*SPLIT_KERNELS, "other")}
-    if got != {**dict.fromkeys(SPLIT_KERNELS, 0), **want, "other": 0}:
+    got = {k: split[f"{k}_launches"] for k in SPLIT}
+    if got != {**dict.fromkeys(SPLIT, 0), **want}:
         raise AssertionError(f"ntt 2^{plan.logn}: device operations {got}, want {want} "
                              f"and nothing else")
     return info
@@ -1629,6 +1672,319 @@ def phase_pipeline(seed: int, ntt_logn: int = 27, msm_logn: int = 24) -> dict:
     return total
 
 
+# ------------------------------------------------------------ the dist phase
+def timed_run(fn):
+    """fn() once, synchronised: its result, wall seconds, device ms (CUDA
+    events around it), the launches of each kernel and the peak memory
+    above what was allocated before."""
+    import torch
+
+    from blaze_tpu_torch import _build
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(_build.LAUNCHES)
+    return out, {"wall_s": wall, "device_ms": start.elapsed_time(end), "launches": counts,
+                 "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                 "peak_above_inputs_gib": (torch.cuda.max_memory_allocated() - base) / 2**30}
+
+
+def batched_kernel_cases(spec, seed: int, device):
+    """(name, kernel call, plain call, shape) for K7 and K9 at batched maps
+    (FusedNTT.ntt_batch's levels, fused.batch_level), compared whole: B = 8
+    transforms of 2^10 (klog 4: three levels) read at element stride 16
+    into (n, B) rows, and B = 4 of 2^9 (klog 5: two levels) read as (B, n)
+    rows into (B, n) rows; each level's K7 from the plan's input (level 0)
+    or a random buffer, each twiddle's K9."""
+    import torch
+
+    from blaze_tpu_torch.ntt import FusedNTT
+    from blaze_tpu_torch.ntt.fused import batch_level
+
+    W = spec.nwords
+    cases = []
+    for i, (logn, klog, B, src, minor) in enumerate(((10, 4, 8, (16, 1), True),
+                                                     (9, 5, 4, (1, 512), False))):
+        plan = FusedNTT(spec, logn, klog=klog, device=device)
+        n = plan.n
+        x = rand_words(spec, ((n - 1) * src[0] + (B - 1) * src[1] + 1, W), seed + i, device)
+        buf = rand_words(spec, (n * B, W), seed + 10 + i, device)
+        for d, lv0 in enumerate(plan.levels):
+            lv = batch_level(lv0, d, logn, B, src, minor)
+            pack = plan._packs[(lv.a, False)]
+            inp = x if d == 0 else buf
+            shape = {"logn": logn, "B": B, "minor": int(minor), "level": d, "K": 1 << lv.a,
+                     "lanes": lv.lanes, "fields": len(lv.omap.fields)}
+            k, out = plan.kern, torch.zeros_like(buf)
+            cases.append(("ntt_base",
+                          lambda inp=inp, pack=pack, lv=lv, k=k, out=out: k.ntt_base(
+                              inp, pack, lv.lanes, lv.xmap, out=out.clone(), omap=lv.omap),
+                          lambda inp=inp, pack=pack, lv=lv, k=k, out=out: k.ntt_base_plain(
+                              inp, pack, lv.lanes, lv.xmap, out=out.clone(), omap=lv.omap),
+                          shape))
+            if d + 1 < len(plan.levels):
+                t1, t2 = plan._tabs[(d, False)]
+                cases.append(("twiddle_mul",
+                              lambda t1=t1, t2=t2, lv=lv, k=k, buf=buf: k.twiddle_mul(
+                                  buf, t1, t2, lv.vshift, lv.fields),
+                              lambda t1=t1, t2=t2, lv=lv, k=k, buf=buf: k.twiddle_mul_plain(
+                                  buf, t1, t2, lv.vshift, lv.fields),
+                              {"logn": logn, "B": B, "minor": int(minor), "depth": d}))
+    return cases
+
+
+def four_step_timing(dntt, imad_rate: float, seed: int, device) -> tuple:
+    """K7 at each batched level of the 2^27 four-step's sub-plans and K9 at
+    their twiddles and at the inter-pass twiddle (this rank's tables), at
+    the main path's maps: time (CUDA events), bound, and the kernel's
+    output against the plain version on a cut (K7 2^11 lanes, K9 2^20
+    rows).  Returns (timing, max error per kernel)."""
+    import torch
+
+    from blaze_tpu_torch.ntt.fused import batch_level
+
+    W = dntt.spec.nwords
+    n = dntt.n
+    lane_cut, row_cut = 1 << 11, 1 << 20
+    x = rand_words(dntt.spec, (n, W), seed, device)
+    buf = rand_words(dntt.spec, (n, W), seed + 1, device)
+    timing, errs = {}, {"ntt_base": 0, "twiddle_mul": 0}
+    steps = (("cols", dntt.plan1, dntt.ncols, (dntt.n2, 1), True),
+             ("rows", dntt.plan2, dntt.n1 // dntt.ndev, (1, dntt.n2), False))
+    for tag, plan, B, src, minor in steps:
+        k = plan.kern
+        for d, lv0 in enumerate(plan.levels):
+            lv = batch_level(lv0, d, plan.logn, B, src, minor)
+            pack, K = plan._packs[(lv.a, False)], 1 << lv.a
+            inp = x if d == 0 else buf
+            ms = cuda_ms(lambda inp=inp, lv=lv, pack=pack: k.ntt_base(
+                inp, pack, lv.lanes, lv.xmap, out=buf, omap=lv.omap), 3)
+            got = k.ntt_base(inp, pack, lv.lanes, lv.xmap, out=torch.zeros_like(buf),
+                             omap=lv.omap)
+            cut = min(lane_cut, lv.lanes)
+            want, plain_ms = once_ms(lambda inp=inp, lv=lv, pack=pack: k.ntt_base_plain(
+                inp, pack, cut, lv.xmap, out=torch.zeros_like(buf), omap=lv.omap))
+            rows = lv.omap.offsets(K, cut, device).reshape(-1)
+            e = max_abs_err(got[rows], want[rows])
+            del got, want
+            shape = {"K": K, "lanes": lv.lanes}
+            bound, by = work_bound_ms("ntt_base", shape, W, imad_rate)
+            timing[f"k7_{tag}_level{d}"] = {**shape, "fields": len(lv.omap.fields), "ms": ms,
+                                            "bound_ms": bound, "bound_by": by,
+                                            "plain_ms": plain_ms, "plain_lanes": cut,
+                                            "max_abs_err": e}
+            errs["ntt_base"] = max(errs["ntt_base"], e)
+            if d + 1 < len(plan.levels):
+                t1, t2 = plan._tabs[(d, False)]
+                twiddles = [(f"k9_{tag}_depth{d}", t1, t2, lv.vshift, lv.fields)]
+            else:
+                twiddles = []
+            if tag == "cols" and d + 1 == len(plan.levels):
+                t1, t2 = dntt._tw[False]
+                logc = dntt.ncols.bit_length() - 1
+                twiddles.append(("k9_inter_pass", t1, t2, logc, ((0, logc, 0),)))
+            for key, t1, t2, vs, f in twiddles:
+                ms = cuda_ms(lambda t1=t1, t2=t2, vs=vs, f=f: k.twiddle_mul(
+                    buf, t1, t2, vs, f, out=buf), 3)
+                y = buf[:min(row_cut, n)].clone()
+                got = k.twiddle_mul(y, t1, t2, vs, f)
+                want, plain_ms = once_ms(lambda y=y, t1=t1, t2=t2, vs=vs, f=f:
+                                         k.twiddle_mul_plain(y, t1, t2, vs, f))
+                e = max_abs_err(got, want)
+                shape = {"A": t1.shape[0], "J": t1.shape[1], "S": t2.shape[1],
+                         "B": n // (t1.shape[0] * t1.shape[1] * t2.shape[1])}
+                bound, by = work_bound_ms("twiddle_mul", shape, W, imad_rate)
+                timing[key] = {**shape, "ms": ms, "bound_ms": bound, "bound_by": by,
+                               "plain_ms": plain_ms, "plain_rows": y.shape[0], "max_abs_err": e}
+                errs["twiddle_mul"] = max(errs["twiddle_mul"], e)
+                del y, got, want
+    del x, buf
+    torch.cuda.empty_cache()
+    return timing, errs
+
+
+def phase_dist(imad_rate: float, seed: int, ntt_logn: int = 27, msm_logn: int = 24,
+               logn1: int = 13, device=None) -> tuple:
+    """The sharded paths through their public entry points on the card, NCCL,
+    every mesh of one rank (a group of one from make_mesh): batched K7/K9
+    against their plain versions; DistributedMSM at 2^msm_logn on BLS12-381
+    (full-width distinct scalars, 256 subgroup points tiled) against the
+    single-card MSM.__call__ and the oracle; DistributedNTT at 2^ntt_logn on
+    bls12_381_fr (logn1) against FusedNTT.ntt word for word, its inverse
+    back to the input, one transform's device time split into K7, K9, NCCL
+    and the rest; run_dist at (ntt_logn, msm_logn) on {dp: 1, sp: 1}
+    against its geometric oracle.  `device` (default: the current card)
+    picks the meshes' device type: the CPU rehearses the phase at small
+    sizes.  Returns (errors, launches, info)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from blaze_tpu_torch.curves import CURVES, Curve
+    from blaze_tpu_torch.dist import DistributedMSM, DistributedNTT, make_mesh
+    from blaze_tpu_torch.fields import FIELDS, int_to_words
+    from blaze_tpu_torch.msm import MSM, points_to_resident
+    from blaze_tpu_torch.oracle import ECOracle
+    from blaze_tpu_torch.oracle.gen import points_to_affine_words
+    from blaze_tpu_torch.pipeline import ProofPipeline, geometric_msm_oracle
+
+    dev = device or torch.device("cuda", torch.cuda.current_device())
+    spec = CURVES["bls12_381"]
+    cv = Curve(spec)
+    fr = FIELDS["bls12_381_fr"]
+    errs = {"ntt_base": 0, "twiddle_mul": 0}
+    launches, info = {}, {}
+
+    def add_launches(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
+    def aff(res):
+        X, Y, Z = (int.from_bytes(res[i].cpu().numpy().tobytes(), "little") for i in range(3))
+        p = spec.fq.p
+        return (X * pow(Z, -1, p) % p, Y * pow(Z, -1, p) % p) if Z % p else None
+
+    # ---- batched K7 / K9 against their plain versions, whole
+    checked = []
+    for field in NTT_FIELDS:
+        for name, kern, plain, shape in batched_kernel_cases(FIELDS[field], seed, dev):
+            e = max_abs_err(kern(), plain())
+            errs[name] = max(errs[name], e)
+            checked.append({"field": field, "kernel": name, **shape, "max_abs_err": e})
+    emit({"phase": "dist_batched_parity", "cases": checked})
+    if any(c["max_abs_err"] for c in checked):
+        raise AssertionError("a batched K7/K9 call differs from its plain version")
+
+    try:
+        mesh = make_mesh({"dp": 1}, device_type=dev.type)
+        info["backend"] = str(dist.get_backend())
+        # ---- DistributedMSM at 2^msm_logn against MSM.__call__ and the oracle
+        m = 1 << msm_logn
+        t0 = time.perf_counter()
+        upoints, scal_np, want = tiled_arrays(spec, m, seed + 5)
+        pts256 = torch.from_numpy(points_to_affine_words(spec, upoints).view(np.int32)).to(dev)
+        resident = points_to_resident(cv, pts256).repeat(1, m // 256)
+        scal = torch.from_numpy(scal_np.view(np.int32)).to(dev).t().contiguous()
+        gen_s = time.perf_counter() - t0
+        # in turns with the single-card MSM on the same inputs: sharded,
+        # single, single, sharded (the first run of a shape grows the
+        # allocator's cache)
+        dmsm, single = DistributedMSM(cv, mesh, axis="dp"), MSM(cv)
+        runs = [timed_run(lambda f=f: f(resident, scal))
+                for f in (dmsm, single, single, dmsm)]
+        got = aff(runs[0][0])
+        ok = {"oracle": got == want,
+              "equals_single_card": all(aff(r) == got for r, _ in runs)}
+        run = runs[0][1]
+        info["msm"] = {"n": m, "input_gen_s": gen_s, **run,
+                       "wall_s_in_turns": {"sharded": [runs[0][1]["wall_s"], runs[3][1]["wall_s"]],
+                                           "single_card": [runs[1][1]["wall_s"],
+                                                           runs[2][1]["wall_s"]]},
+                       **ok}
+        emit({"phase": "dist_msm", **info["msm"]})
+        add_launches(run["launches"])
+        check_msm_launches("dist_msm", run["launches"])
+        if not all(ok.values()) or runs[3][1]["launches"] != run["launches"]:
+            raise AssertionError(f"DistributedMSM 2^{msm_logn}: {ok}")
+        del resident, scal, runs
+
+        # ---- DistributedNTT at 2^ntt_logn against FusedNTT, and back
+        from blaze_tpu_torch.ntt import FusedNTT
+
+        mesh_sp = make_mesh({"sp": 1}, device_type=dev.type)
+        t0 = time.perf_counter()
+        dntt = DistributedNTT(fr, ntt_logn, mesh_sp, axis="sp", logn1=logn1)
+        torch.cuda.synchronize()
+        plan_s = time.perf_counter() - t0
+        timing, kerr = four_step_timing(dntt, imad_rate, seed, dev)
+        for k_, v in kerr.items():
+            errs[k_] = max(errs[k_], v)
+        emit({"phase": "dist_ntt_kernels", "kernels": timing})
+        if any(kerr.values()):
+            raise AssertionError("a four-step K7/K9 call differs from its plain version")
+        x = rand_words(fr, (1 << ntt_logn, fr.nwords), seed + 6, dev)
+        xk, run = timed_run(lambda: dntt.ntt(x))
+        add_launches(run["launches"])
+        want_counts = {"ntt_base": len(dntt.plan1.levels) + len(dntt.plan2.levels),
+                       "twiddle_mul": len(dntt.plan1.levels) + len(dntt.plan2.levels) - 1,
+                       "mul_lm": 0}
+        bad = {k_: run["launches"][k_] for k_, v in want_counts.items()
+               if run["launches"][k_] != v}
+        ntt_ms = cuda_ms(lambda: dntt.ntt(x), 3)
+        split = device_split(lambda: dntt.ntt(x))
+        nat = dntt.spectral_to_natural(xk)
+        fused = FusedNTT(fr, ntt_logn, device=dev)
+        ref = fused.ntt(x)
+        equal = bool(torch.equal(nat, ref))
+        del nat, ref
+        fused_ms = cuda_ms(lambda: fused.ntt(x), 3)
+        del fused
+        back, run_inv = timed_run(lambda: dntt.intt(xk))
+        roundtrip = bool(torch.equal(back, x))
+        del back, xk, x
+        info["ntt"] = {"n": 1 << ntt_logn, "logn1": logn1, "sub_parts": [dntt.plan1.parts,
+                                                                         dntt.plan2.parts],
+                       "plan_s": plan_s, **run, "transform_ms": ntt_ms,
+                       "fused_plan_transform_ms": fused_ms, "split": split,
+                       "intt": run_inv, "equals_fused_ntt": equal, "roundtrip": roundtrip,
+                       "launches_want": want_counts}
+        # late in a full run the profiler has recorded no device event at
+        # all (PERF.md §7): then the split is not measured, and the launch
+        # counts and CUDA event times stand alone
+        captured = split["device_ms"] > 0
+        info["ntt"]["split_captured"] = captured
+        emit({"phase": "dist_ntt", **info["ntt"]})
+        split_bad = captured and {k_: split[f"{k_}_launches"] for k_ in SPLIT} != {
+            **dict.fromkeys(SPLIT, 0), **want_counts}
+        if bad or split_bad or not (equal and roundtrip):
+            raise AssertionError(f"DistributedNTT 2^{ntt_logn}: launches {bad}, equal {equal}, "
+                                 f"roundtrip {roundtrip}, profiled device ops {split}")
+        torch.cuda.empty_cache()
+
+        # ---- run_dist at (ntt_logn, msm_logn) on {dp: 1, sp: 1}
+        mesh2 = make_mesh({"dp": 1, "sp": 1}, device_type=dev.type)
+        r = spec.fr.p
+        terms = pipeline_terms(r, 1 << ntt_logn, seed + 7)[2]       # a e_j + b e_k'
+        up = upoints                                 # tiled_arrays' subgroup points
+        U = len(up)
+        oracle = ECOracle(spec)
+        w = spec.fr.root_of_unity(ntt_logn)
+        t0 = time.perf_counter()
+        want = oracle.msm([geometric_msm_oracle(spec, U, m, pow(w, row, r), up)
+                           for row, _ in terms], [v for _, v in terms])
+        oracle_s = time.perf_counter() - t0
+        pipe = ProofPipeline(cv, ntt_logn, msm_logn, mesh=mesh2)
+        pts = torch.from_numpy(points_to_affine_words(spec, up).view(np.int32)).to(dev)
+        resident = points_to_resident(cv, pts).repeat(1, m // U)
+        x = torch.zeros((1 << ntt_logn, fr.nwords), dtype=torch.int32, device=dev)
+        for row, v in terms:                                       # Montgomery form
+            x[row] = torch.from_numpy(int_to_words(v * fr.r % r, fr.nwords).view(np.int32))
+        got, run = timed_run(lambda: pipe.run_dist(x, resident))
+        add_launches(run["launches"])
+        ok = aff(got) == want
+        info["run_dist"] = {"ntt_logn": ntt_logn, "msm_logn": msm_logn, "unique_points": U,
+                            "terms": [[row, str(v)] for row, v in terms],
+                            "oracle_s": oracle_s, **run, "oracle": ok}
+        emit({"phase": "run_dist", **info["run_dist"]})
+        check_msm_launches("run_dist", run["launches"])
+        if run["launches"]["ntt_base"] != want_counts["ntt_base"] or not ok:
+            raise AssertionError(f"run_dist: oracle {ok}, launches {run['launches']}")
+        del x, resident, got
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    return errs, launches, info
+
+
 # ------------------------------------------------------- Poseidon phases
 POSEIDON_FIELD = "bls12_381_fr"
 
@@ -2088,10 +2444,16 @@ def main() -> int:
     errs.update(ntt_errs)
     timing.update(ntt_timing)
     for counts in (timed_phase("ntt_2^27", phase_ntt_2e27, args.seed),
-                   timed_phase("ntt_2^16_2^20_goldens", phase_ntt_small, args.seed),
-                   timed_phase("pipeline", phase_pipeline, args.seed)):
+                   timed_phase("ntt_2^16_2^20_goldens", phase_ntt_small, args.seed)):
         for k, v in counts.items():
             launches[k] += v
+    dist_errs, dist_counts, _ = timed_phase("dist", phase_dist, imad_rate, args.seed)
+    for k, v in dist_errs.items():
+        errs[k] = max(errs[k], v)
+    for k, v in dist_counts.items():
+        launches[k] += v
+    for k, v in timed_phase("pipeline", phase_pipeline, args.seed).items():
+        launches[k] += v
     pos_errs, pos_timing = timed_phase("poseidon_parity", phase_poseidon_parity, imad_rate,
                                        args.seed, dev)
     errs.update(pos_errs)

@@ -13,7 +13,11 @@ pair, and at 2^16 (the K8 twiddle fallback: K7 twice and K8 once, nothing
 else on the card) against a host NTT in Python ints with an inverse
 roundtrip; the Poseidon client at height 3, staged, streamed and TREE_D,
 against the oracle; the proof pipeline at (2^12, 2^10) against its CPU
-run.  chip_smoke.py runs the same checks at the main path's sizes.
+run; K7 and K9 at batched maps (FusedNTT.ntt_batch) against their plain
+versions, and the sharded paths over NCCL on a mesh of one rank
+(DistributedMSM against the plain MSM and the oracle, DistributedNTT
+against the CPU four-step and FusedNTT, run_dist against its geometric
+oracle).  chip_smoke.py runs the same checks at the main path's sizes.
 """
 import random
 from pathlib import Path
@@ -45,7 +49,7 @@ from blaze_tpu_torch.hash import (
 )
 from blaze_tpu_torch.hash.kernels import sum_products, sum_products_plain
 from blaze_tpu_torch.msm import points_to_resident
-from blaze_tpu_torch.ntt import FusedNTT, NTTKernels
+from blaze_tpu_torch.ntt import FourStepNTT, FusedNTT, NTTKernels
 from blaze_tpu_torch.ntt.fused import plan_levels
 from blaze_tpu_torch.ntt.kernels import TileMap
 from blaze_tpu_torch.oracle.poseidon_ref import merkle_tree_ref, poseidon_hash_ref
@@ -458,3 +462,133 @@ def test_pipeline_on_card_matches_its_cpu_run(dev):
                                                                      window_bits=8))
     assert len(got) == 3 and all(torch.equal(g, w) for g, w in zip(got, want))
     assert not torch.equal(got[0], got[2])
+
+
+# ------------------------------------------------------- the sharded paths
+@pytest.fixture
+def one_rank(dev):
+    """make_mesh's group of one (NCCL on the card), destroyed afterwards."""
+    import torch.distributed as dist
+
+    yield dev
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("field", ["bn254_fr", "bls12_377_fr", "bls12_381_fr"])
+def test_batched_ntt_kernels_match_plain_versions(dev, field):
+    """K7 and K9 at FusedNTT.ntt_batch's maps (B transforms per launch, the
+    batch one more lane field): B = 8 transforms of 2^10 (three levels)
+    read at element stride 16 into (n, B) rows, and B = 4 of 2^9 (two
+    levels) as (B, n) rows, each level and twiddle against the plain
+    version; then the whole batched transform against the CPU plan."""
+    from blaze_tpu_torch.ntt.fused import batch_level
+
+    spec = FIELDS[field]
+    W = spec.nwords
+    card = torch.device("cuda", torch.cuda.current_device())
+    for logn, klog, B, src, minor in ((10, 4, 8, (16, 1), True), (9, 5, 4, (1, 512), False)):
+        plan = FusedNTT(spec, logn, klog=klog, device=card)
+        n = plan.n
+        x = canonical(spec, ((n - 1) * src[0] + (B - 1) * src[1] + 1, W), logn, dev)
+        buf = canonical(spec, (n * B, W), logn + 1, dev)
+        for d, lv0 in enumerate(plan.levels):
+            lv = batch_level(lv0, d, logn, B, src, minor)
+            pack = plan._packs[(lv.a, False)]
+            inp = x if d == 0 else buf
+            got = plan.kern.ntt_base(inp, pack, lv.lanes, lv.xmap, out=torch.zeros_like(buf),
+                                     omap=lv.omap)
+            want = plan.kern.ntt_base_plain(inp, pack, lv.lanes, lv.xmap,
+                                            out=torch.zeros_like(buf), omap=lv.omap)
+            assert torch.equal(got, want), (logn, d)
+            if d + 1 < len(plan.levels):
+                t1, t2 = plan._tabs[(d, False)]
+                assert torch.equal(plan.kern.twiddle_mul(buf, t1, t2, lv.vshift, lv.fields),
+                                   plan.kern.twiddle_mul_plain(buf, t1, t2, lv.vshift,
+                                                               lv.fields)), (logn, d)
+        cpu = FusedNTT(spec, logn, klog=klog, device="cpu")
+        for inverse in (False, True):
+            run = "intt_batch" if inverse else "ntt_batch"
+            got = getattr(plan, run)(x, B, src[0], src[1], minor)
+            assert torch.equal(got.cpu(), getattr(cpu, run)(x.cpu(), B, src[0], src[1], minor))
+
+
+def test_distributed_msm_on_card_matches_cpu_and_oracle(one_rank):
+    """DistributedMSM over NCCL on a mesh of one, bn254, 2^10 distinct
+    scalars over 16 tiled subgroup points, window 8: equal to the plain MSM
+    on the CPU and to the oracle; K6 once."""
+    from blaze_tpu_torch.dist import DistributedMSM, make_mesh
+    from blaze_tpu_torch.msm import MSM
+
+    dev = one_rank
+    spec = CURVES["bn254"]
+    cv = Curve(spec)
+    oracle = ECOracle(spec)
+    rng = random.Random(21)
+    upoints = [oracle.random_subgroup_point(rng) for _ in range(16)]
+    n = 1 << 10
+    scalars = [rng.randrange(spec.fr.p) for _ in range(n)]
+    pts = torch.from_numpy(points_to_affine_words(spec, upoints).view(np.int32))
+    resident = points_to_resident(cv, pts).repeat(1, n // 16).contiguous()
+    scal = torch.from_numpy(scalars_to_limbs(spec, scalars).astype(np.int32)).t().contiguous()
+    mesh = make_mesh({"dp": 1})
+    _build.reset_launches()
+    got = DistributedMSM(cv, mesh)(resident.to(dev), scal.to(dev), window_bits=8)
+    assert _build.LAUNCHES["fold_horner"] == 1
+    want = MSM(cv)(resident, scal, window_bits=8)
+    assert torch.equal(got.cpu(), want)
+    X, Y, Z = (words_to_int(v) for v in got.cpu().numpy().view(np.uint32))
+    zi = pow(Z, -1, spec.fq.p)
+    assert (X * zi % spec.fq.p, Y * zi % spec.fq.p) == class_sum_expected(spec, upoints,
+                                                                          scalars)
+
+
+def test_distributed_ntt_on_card_matches_cpu(one_rank):
+    """DistributedNTT over NCCL on a mesh of one, bls12_381_fr at 2^12
+    (logn1 6): the k-matrix equals the CPU four-step's, spectral_to_natural
+    equals FusedNTT on the card, intt comes back; K7 x2, K9 x1 per ntt."""
+    from blaze_tpu_torch.dist import DistributedNTT, make_mesh
+
+    dev = one_rank
+    spec = FIELDS["bls12_381_fr"]
+    x = canonical(spec, (1 << 12, spec.nwords), 77, dev)
+    dntt = DistributedNTT(spec, 12, make_mesh({"sp": 1}), logn1=6)
+    _build.reset_launches()
+    xk = dntt.ntt(x)
+    assert (_build.LAUNCHES["ntt_base"], _build.LAUNCHES["twiddle_mul"]) == (2, 1)
+    cpu = FourStepNTT(spec, 12, 6, device="cpu")
+    nat = dntt.spectral_to_natural(xk)
+    assert torch.equal(nat.cpu(), cpu.ntt(x.cpu()))
+    assert torch.equal(nat, FusedNTT(spec, 12, device=x.device).ntt(x))
+    k1, k2 = np.meshgrid(np.arange(64), np.arange(64), indexing="ij")
+    assert torch.equal(xk.cpu(), nat.cpu()[torch.from_numpy(k1 + 64 * k2)])
+    assert torch.equal(dntt.intt(xk), x)
+
+
+def test_run_dist_on_card_matches_oracle(one_rank):
+    """ProofPipeline(mesh={dp: 1, sp: 1}).run_dist at (2^12, 2^10) on
+    BLS12-381: Montgomery e_1 + a e_3, so the scalars are W^i + a W^(3i),
+    full width, against the geometric oracle."""
+    from blaze_tpu_torch.dist import make_mesh
+    from blaze_tpu_torch.pipeline import geometric_msm_oracle
+
+    dev = one_rank
+    spec = CURVES["bls12_381"]
+    cv, fr = Curve(spec), spec.fr
+    oracle = ECOracle(spec)
+    rng = random.Random(31)
+    upoints = [oracle.random_subgroup_point(rng) for _ in range(16)]
+    pts = torch.from_numpy(points_to_affine_words(spec, upoints).view(np.int32))
+    resident = points_to_resident(cv, pts).repeat(1, 64).contiguous().to(dev)
+    a = rng.randrange(1, fr.p)
+    x = torch.zeros((1 << 12, fr.nwords), dtype=torch.int32)
+    for row, v in ((1, 1), (3, a)):
+        x[row] = torch.from_numpy(int_to_words(v * fr.r % fr.p, fr.nwords).view(np.int32))
+    pipe = ProofPipeline(cv, 12, 10, mesh=make_mesh({"dp": 1, "sp": 1}))
+    out = pipe.run_dist(x.to(dev), resident, window_bits=8)
+    w = fr.root_of_unity(12)
+    want = oracle.msm([geometric_msm_oracle(spec, 16, 1 << 10, pow(w, k, fr.p), upoints)
+                       for k in (1, 3)], [1, a])
+    X, Y, Z = (words_to_int(v) for v in out.cpu().numpy().view(np.uint32))
+    zi = pow(Z, -1, spec.fq.p)
+    assert (X * zi % spec.fq.p, Y * zi % spec.fq.p) == want

@@ -10,8 +10,8 @@ tests run.  The scalars are held to a host NTT in Python ints (b), the
 geometric oracle to blaze_tpu's and to the pipeline, and shown wrong off
 BLS12-381's order-r subgroup (c); results come one per batch in batch
 order, equal to serial runs (d); both input forms are taken and others
-refused (e), and so are a wider MSM than NTT, a mesh and a missing card
-(f).  Inputs are made with seeded numpy and random.Random; everything is
+refused (e), and so are a wider MSM than NTT, a mesh that is not a
+DeviceMesh and a missing card (f).  Inputs are made with seeded numpy and random.Random; everything is
 integer arithmetic, so every comparison is exact.
 """
 import random
@@ -266,12 +266,13 @@ def test_input_forms_and_refusals():
 
 # ------------------------------------------------- (f) what it refuses to be
 def test_refuses_a_wider_msm_a_mesh_and_a_missing_card():
-    """(f) msm_logn > ntt_logn and a mesh raise ValueError (the mesh path
-    comes with dist/); without a card the default construction raises."""
+    """(f) msm_logn > ntt_logn and a mesh that is not a torch DeviceMesh
+    raise ValueError (a DeviceMesh runs run_dist: tests/test_torch_dist.py);
+    without a card the default construction raises."""
     cv = Curve(CURVES["bn254"])
     with pytest.raises(ValueError):
         ProofPipeline(cv, 4, 5, device="cpu")
-    with pytest.raises(ValueError, match="dist/"):
+    with pytest.raises(ValueError, match="DeviceMesh"):
         ProofPipeline(cv, 4, 2, mesh=object(), device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(DeviceError):
