@@ -54,16 +54,52 @@ class ECOracle:
     def dbl(self, pt):
         return self.add(pt, pt)
 
+    # Jacobian (X, Y, Z) ~ (X/Z^2, Y/Z^3), Z = 0 the identity: `mul` adds
+    # and doubles without an inversion each (y^2 = x^3 + b, a = 0), then
+    # returns to affine once.
+    def _jdbl(self, q):
+        X, Y, Z = q
+        P = self.p
+        if Z == 0 or Y == 0:
+            return (1, 1, 0)
+        yy = Y * Y % P
+        s = 4 * X * yy % P
+        m = 3 * X * X % P
+        x3 = (m * m - 2 * s) % P
+        return (x3, (m * (s - x3) - 8 * yy * yy) % P, 2 * Y * Z % P)
+
+    def _jadd_affine(self, q, pt):
+        X, Y, Z = q
+        P = self.p
+        if Z == 0:
+            return (pt[0], pt[1], 1)
+        zz = Z * Z % P
+        h = (pt[0] * zz - X) % P
+        rr = (pt[1] * zz * Z - Y) % P
+        if h == 0:
+            return self._jdbl(q) if rr == 0 else (1, 1, 0)
+        hh = h * h % P
+        hhh = h * hh % P
+        v = X * hh % P
+        x3 = (rr * rr - hhh - 2 * v) % P
+        return (x3, (rr * (v - x3) - Y * hhh) % P, Z * h % P)
+
     def mul(self, pt, k: int):
+        """k pt (k mod r), by double-and-add from k's top bit."""
         k %= self.r
-        acc = None
-        add = pt
-        while k:
-            if k & 1:
-                acc = self.add(acc, add)
-            add = self.dbl(add)
-            k >>= 1
-        return acc
+        if pt is None or k == 0:
+            return None
+        q = (pt[0], pt[1], 1)
+        for bit in bin(k)[3:]:
+            q = self._jdbl(q)
+            if bit == "1":
+                q = self._jadd_affine(q, pt)
+        X, Y, Z = q
+        if Z == 0:
+            return None
+        zi = pow(Z, -1, self.p)
+        zi2 = zi * zi % self.p
+        return (X * zi2 % self.p, Y * zi2 * zi % self.p)
 
     def msm(self, points, scalars):
         acc = None

@@ -5,11 +5,14 @@
 
 Phases, one JSON line each; any failure raises and exits non-zero:
 
-1. device: the card (nvidia-smi name and power limit, CUDA, capability),
-   then the kernels built from csrc/ with nvcc (seconds, registers, stack,
-   spills) and the local-memory loads and stores (LDL, STL) in the EC, NTT
-   and Poseidon kernels' SASS, with the opcode mix of K2, K3, K4, K7 (at
-   K = 512) and K10 (cuobjdump);
+1. device: the card (nvidia-smi name and power limit, CUDA, capability)
+   and its row of blaze_tpu_torch.bench.profile's SOL_TABLE, held against
+   the max SM clock nvidia-smi reads and the SMs and shared memory torch
+   reads (the bounds below come from that row), then the kernels built
+   from csrc/ with nvcc (seconds, registers, stack, spills) and the
+   local-memory loads and stores (LDL, STL) in the EC, NTT and Poseidon
+   kernels' SASS, with the opcode mix of K2, K3, K4, K7 (at K = 512) and
+   K10 (cuobjdump);
 2. kernel parity: K1-K6 against their plain PyTorch versions on the card,
    exact, on BN254, BLS12-377 and BLS12-381 at small shapes (K2 signed and
    unsigned) and at ragged shapes: K2 and K4 at lane counts B = 1, 33,
@@ -99,8 +102,7 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    oracle; DistributedNTT at 2^27 on bls12_381_fr (logn1 13)
    whose spectral_to_natural equals FusedNTT.ntt word for word and
    whose intt comes back to the input (launches K7 x4, K9 x3, no K8; one
-   transform under torch.profiler: K7 x4, K9 x3 and nothing else, where
-   the profiler records device events at all);
+   transform under torch.profiler: K7 x4, K9 x3 and nothing else);
    ProofPipeline(mesh={dp: 1, sp: 1}).run_dist at (2^27, 2^24) with
    full-width scalars against its geometric oracle.  Each prints wall
    seconds, device milliseconds (CUDA events), launches per kernel and
@@ -135,12 +137,23 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    and read just after; every kernel of the run's path must have launched (K10 nine
    times per height-9 build; K2 once and K4 five times per 2^19 chunk at
    2^24; K6 once per MSM).
-12. the seconds each phase took, then the kernels line (K1-K10): launches
+12. the benchmark module (blaze_tpu_torch.bench) in child processes:
+   python -m blaze_tpu_torch.bench at its full sizes, one timed run each
+   (MSM 2^24, NTT 2^27, Poseidon over 2^24 leaves, the pipeline at (2^27,
+   2^24)), every record oracle-exact, and the microbench (K1 and K8 on the
+   same operands) at bls12_381_fq 2^19 and bls12_381_fr 2^19;
+13. the seconds each phase took, then the kernels line (K1-K10): launches
    in those runs, parity error, times, bounds, threads per lane, and K3's,
    K5's and K6's chain bound.  A kernel's `ms` is CUDA events around
    repeated launches queued behind a spin of the card, so a kernel shorter
    than its launch from Python (K1, K3, K8) is not timed at the host's
    pace.
+Every torch.profiler measurement (the 2^19 MSM profile, the NTT splits of
+phase 5 and 7c, the pipeline's trace) runs early in a child process of its
+own (`fresh`): on the card's machine the profiler drops more of the card's
+events the older the process is, from about 40 s on (PERF.md §7).  A trace
+that holds fewer events of a kernel than its launch counter rose by in the
+window fails the phase (bench.profile.TraceLost).
 
 The last line is {"ok": true, "device": {...}}; the line before it is the
 card's name and power limit as nvidia-smi prints them.  Without a CUDA
@@ -152,6 +165,7 @@ from __future__ import annotations
 import argparse
 import hashlib
 import json
+import os
 import random
 import re
 import subprocess
@@ -160,9 +174,6 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-
-HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
-IMAD_PER_CLK_PER_SM = 64           # 32-bit integer multiply-add, CC 9.0
 
 # launch-counter name -> (source, the TPU kernel's pallas_call it replaces);
 # in PERF.md's table these are K1-K10 in this order
@@ -194,71 +205,44 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def smi(query: str) -> str:
-    return subprocess.run(
-        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
+FRESH_TIMEOUT_S = 600
+
+
+def fresh(fn_name: str, *args):
+    """chip_smoke.<fn_name>(*args) in a fresh child process on the same card:
+    its lines are printed here, and what it returns (JSON) is returned.  On
+    the card's machine torch.profiler drops more of the card's events the
+    older the process is, from about 40 s on (PERF.md §7), so each profiled
+    measurement runs early in a process of its own.  Raises if the child
+    fails."""
+    code = ("import json, sys\n"
+            f"sys.path.insert(0, {str(ROOT)!r})\n"
+            "import chip_smoke as cs\n"
+            f"out = cs.{fn_name}(*json.loads(sys.argv[1]))\n"
+            "print('RESULT ' + json.dumps(out), flush=True)\n")
+    out = subprocess.run([sys.executable, "-c", code, json.dumps(args)], cwd=ROOT,
+                         capture_output=True, text=True, timeout=FRESH_TIMEOUT_S)
+    result = None
+    for line in out.stdout.splitlines():
+        if line.startswith("RESULT "):
+            result = json.loads(line[len("RESULT "):])
+        else:
+            print(line, flush=True)
+    if out.returncode != 0:
+        raise AssertionError(f"{fn_name} in a fresh process failed:\n{out.stderr[-4000:]}")
+    return result
 
 
 # ------------------------------------------------------------------ inputs
-def random_scalars(spec, n: int, seed: int):
-    """n distinct scalars uniform in [0, r) as (n, Ls) uint32 16-bit limbs,
-    drawn with seeded numpy by rejection of 255-bit words >= r."""
-    import numpy as np
-
-    fr = spec.fr
-    nw = fr.nwords
-    r_words = np.frombuffer(fr.p.to_bytes(4 * nw, "little"), dtype="<u4")
-    top_mask = (1 << (fr.bits - 32 * (nw - 1))) - 1
-    rng = np.random.default_rng(seed)
-    out = np.empty((0, nw), dtype=np.uint32)
-    while out.shape[0] < n:
-        w = rng.integers(0, 1 << 32, size=(n, nw), dtype=np.uint64).astype(np.uint32)
-        w[:, -1] &= top_mask
-        diff = (w != r_words)[:, ::-1]                     # from the top word
-        first = nw - 1 - np.argmax(diff, axis=1)
-        lt = diff.any(axis=1) & (w[np.arange(n), first] < r_words[first])
-        out = np.concatenate([out, w[lt]])[:n]
-    # distinct: the top 64 bits already are, but for a chance of ~n^2 2^-64
-    top = np.ascontiguousarray(out[:, -2:]).view(np.uint64)[:, 0]
-    if np.unique(top).shape[0] != n and np.unique(out, axis=0).shape[0] != n:
-        raise AssertionError("scalars not distinct")
-    return np.ascontiguousarray(out).view("<u2").astype(np.uint32).reshape(n, -1)
-
-
-def tiled_arrays(spec, n: int, seed: int, expected: bool = True):
-    """256 oracle points of the order-r subgroup (to be tiled: point i is
-    upoints[i % 256], n a multiple of 256), n distinct random scalars as
-    (n, Ls) uint32 limbs, and the expected affine MSM: the oracle MSM of the
-    256 points with each one's coefficient sum mod r (summed per 16-bit
-    limb in numpy)."""
-    import numpy as np
-
-    from blaze_tpu_torch.oracle import ECOracle
-
-    rng = random.Random(seed)
-    oracle = ECOracle(spec)
-    upoints = [oracle.random_subgroup_point(rng) for _ in range(256)]
-    scal = random_scalars(spec, n, seed)
-    want = None
-    if expected:
-        sums = scal.reshape(n // 256, 256, -1).sum(axis=0, dtype=np.int64)   # (256, Ls)
-        coeffs = [sum(int(v) << (16 * i) for i, v in enumerate(row)) % spec.fr.p
-                  for row in sums]
-        want = oracle.msm(upoints, coeffs)
-    return upoints, scal, want
-
-
 def tiled_instance(spec, n: int, seed: int, expected: bool = True):
-    """Wire bytes of n points (tiled_arrays' 256 points tiled) and n
-    distinct random scalars, and the expected affine MSM."""
+    """Wire bytes of n points (subgroup_msm_instance's 256 points tiled)
+    and n distinct random scalars, and the expected affine MSM."""
     import numpy as np
 
     from blaze_tpu_torch.curves import encode_affine_points, encode_scalars
-    from blaze_tpu_torch.oracle.gen import points_to_affine_words
+    from blaze_tpu_torch.oracle.gen import points_to_affine_words, subgroup_msm_instance
 
-    upoints, scal, want = tiled_arrays(spec, n, seed, expected)
+    upoints, scal, want = subgroup_msm_instance(spec, n, seed, expected)
     pts = points_to_affine_words(spec, upoints)[np.arange(n) % 256]
     return encode_affine_points(pts, spec), encode_scalars(scal, spec), want
 
@@ -274,28 +258,6 @@ def affine_of(raw: bytes, spec):
 
 
 # ----------------------------------------------------------------- timing
-SPIN_CYCLES = 40_000_000      # ~20 ms of the card's clock
-
-
-def cuda_ms(fn, reps: int) -> float:
-    """Mean time of fn's work on the card over `reps` calls, warm: CUDA
-    events around the calls, queued behind a spin of the card so that the
-    host has queued them all before the first runs (else a kernel shorter
-    than its launch from Python is timed at the host's pace)."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(SPIN_CYCLES)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def once_ms(fn):
     import torch
 
@@ -304,11 +266,6 @@ def once_ms(fn):
     out = fn()
     torch.cuda.synchronize()
     return out, (time.perf_counter() - t0) * 1e3
-
-
-def dev_us(e) -> float:
-    """A profiler event's own device time (us), across torch versions."""
-    return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
 
 
 def max_abs_err(a, b) -> int:
@@ -388,21 +345,24 @@ def sass_summary(libs, mix_of=("scan_mixed_kernel<12>", "ec_add_kernel<12>",
 
 
 def phase_device():
+    """The card's name and power limit, and its SOL_TABLE row (held against
+    nvidia-smi and torch: bench.profile.check_card)."""
     import torch
 
     from blaze_tpu_torch import _build
+    from blaze_tpu_torch.bench.profile import check_card, smi, speed_of_light
 
     card = smi("name,power.limit")
-    clock_mhz = float(smi("clocks.max.sm").split()[0])
-    props = torch.cuda.get_device_properties(0)
+    sol = speed_of_light(torch.cuda.get_device_name(0))
+    read = check_card(sol)
     build_s = _build.build_all()
     emit({"phase": "device", "card": card, "torch": torch.__version__,
           "cuda": torch.version.cuda, "capability": list(torch.cuda.get_device_capability(0)),
-          "sms": props.multi_processor_count, "max_sm_clock_mhz": clock_mhz,
+          **read, "imad_per_s": sol.imad_per_s, "hbm_bytes_per_s": sol.hbm_bytes_per_s,
           "build_s": build_s, "ptxas": ptxas_summary(_build.BUILD_LOG),
           "sass": sass_summary([_build._lib_path(n) for n in ("ec_kernels", "ntt_kernels",
                                                               "poseidon_kernels")])})
-    return card, props.multi_processor_count * IMAD_PER_CLK_PER_SM * clock_mhz * 1e6
+    return card, sol
 
 
 # ------------------------------------------------------------ phase 2
@@ -543,104 +503,11 @@ def output_err(got, want) -> int:
     return max(max_abs_err(g, w) for g, w in zip(as_tuple(got), as_tuple(want)))
 
 
-def poseidon_imads(shape: dict, W: int, sparse: bool) -> int:
-    """32-bit multiply-adds of one Poseidon state: 3 full products per
-    S-box (r_f t + r_p of them) and t more with convert_in; a dense mix is
-    t^2 unreduced products (2W^2 each) and t row REDCs (2W^2 + W); a sparse
-    partial round's mix is t unreduced products, one REDC and t - 1 full
-    products."""
-    t, r_f, r_p = shape["t"], shape["r_f"], shape["r_p"]
-    full, unreduced, redc = 4 * W * W + W, 2 * W * W, 2 * W * W + W
-    n = (3 * (r_f * t + r_p) + t * shape["convert_in"]) * full
-    n += r_f * t * (t * unreduced + redc)
-    if sparse:
-        return n + r_p * (t * unreduced + redc + (t - 1) * full)
-    return n + r_p * t * (t * unreduced + redc)
-
-
-def work_bound_ms(name: str, shape: dict, W: int, imad_rate: float):
-    """Least time for the same work: the larger of the bytes it must move
-    (inputs read once, outputs written once) over HBM bandwidth and its
-    32-bit multiply-adds over the card's IMAD rate.  A W-word Montgomery
-    product needs 2W^2 full 32x32->64 products (2 IMADs each) and W low
-    products (4W^2 + W IMADs); alg 8 has 13 products, alg 7 has 14.  A
-    K-point NTT needs (K/2) log2 K - (K - 1) products per lane: a butterfly
-    whose twiddle is W^0 needs none (all of stage 0, K/2^(s+1) of stage s;
-    K7 skips them).  K9 needs two per element, K8 one per operand past the
-    first."""
-    per_mul = 4 * W * W + W
-    pt = 3 * W * 4                                # bytes of one projective point
-    el = W * 4                                    # bytes of one field element
-    if name == "poseidon_perm":
-        muls = shape["B"] * poseidon_imads(shape, W, shape["sparse"]) / per_mul
-        nbytes = 2 * shape["t"] * shape["B"] * el
-    elif name == "ntt_base":
-        K, N = shape["K"], shape["lanes"]
-        muls = ((K // 2) * (K.bit_length() - 1) - (K - 1)) * N
-        nbytes = 2 * K * N * el + K * el
-    elif name == "twiddle_mul":
-        A, J, S, B = shape["A"], shape["J"], shape["S"], shape["B"]
-        muls = 2 * A * J * S * B
-        nbytes = 2 * A * J * S * B * el + A * (J + S) * el
-    elif name == "mul_lm":
-        M, N, k = shape["M"], shape["N"], shape["operands"]
-        muls, nbytes = (k - 1) * M * N, (k + 1) * M * N * el
-    elif name == "mont_mul":
-        muls, nbytes = shape["M"], 3 * shape["M"] * W * 4
-    elif name == "scan_mixed":
-        C, B = shape["C"], shape["B"]
-        muls = 13 * C * B
-        nbytes = C * B * (2 * W * 4 + 4 * shape.get("signed", 0)) + C * B * pt + B * pt
-    elif name == "ec_add":
-        muls, nbytes = 14 * shape["B"], 3 * shape["B"] * pt
-    elif name == "reduce_cols":
-        C, B = shape["C"], shape["B"]
-        muls, nbytes = 14 * C * B, (C + 1) * B * pt
-    elif name == "dbl_n":
-        muls, nbytes = 14 * shape["k"] * shape["B"], 2 * shape["B"] * pt
-    else:  # fold_horner
-        muls = 14 * (shape["Wn"] - 1) * (shape["c"] + 1)
-        nbytes = (shape["Wn"] + 1) * pt
-    t_ops = muls * per_mul / imad_rate * 1e3
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
-
-
-CHAIN_PRODUCTS = 3     # dependent products per group op on the team (ec_team.cuh)
-
-
-def product_latency_us(spec, device, n: int = 4096) -> float:
-    """One lazy product's latency (us) on one thread of the card: n
-    dependent carry-chain products in one launch (blz_product_chain, CUDA
-    events), its words first held against the plain products at n = 16."""
-    from blaze_tpu_torch.curves.kernels import ECKernels
-
-    k = ECKernels.for_curve(spec)
-    x, y = rand_words(spec.fq, (2, spec.fq.nwords), 7, device).unbind(0)
-    if max_abs_err(k.product_chain(x, y, 16), k.product_chain_plain(x, y, 16)):
-        raise AssertionError("blz_product_chain differs from the plain products")
-    return cuda_ms(lambda: k.product_chain(x, y, n), 3) * 1e3 / n
-
-
-CHAINED = ("ec_add", "dbl_n", "fold_horner")
-
-
-def chain_bound_ms(name: str, shape: dict, latency_us: float) -> float:
-    """K3's, K5's and K6's chain bound: the products on the team's critical
-    path (CHAIN_PRODUCTS per group op; K3 one group op per lane, K5 one
-    per doubling, K6 one per step) times one product's latency."""
-    if name == "ec_add":
-        ops = 1
-    elif name == "dbl_n":
-        ops = shape["k"]
-    else:
-        ops = max((shape["Wn"] - 1) * (shape["c"] + 1), 1)
-    return CHAIN_PRODUCTS * ops * latency_us / 1e3
-
-
-def phase_parity(imad_rate: float, device):
+def phase_parity(sol, device):
     import torch
 
+    from blaze_tpu_torch.bench.profile import (CHAINED, chain_bound_ms, cuda_ms,
+                                               product_latency_us, work_bound_ms)
     from blaze_tpu_torch.curves import CURVES
 
     errs = {name: 0 for name in KERNELS}
@@ -676,7 +543,7 @@ def phase_parity(imad_rate: float, device):
         want, plain_ms = once_ms(plain)
         e = output_err(kern(), want)
         errs[name] = max(errs[name], e)
-        bound, bound_by = work_bound_ms(name, shape, W, imad_rate)
+        bound, bound_by = work_bound_ms(name, shape, W, sol)
         timing[key] = {"shape": shape, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
                        "bound_by": bound_by, "max_abs_err": e,
                        "threads_per_lane": threads_per_lane(name)}
@@ -808,10 +675,13 @@ def profile_single_chunk(seed: int, n: int = 1 << 19) -> dict:
     """One warm single-chunk MSM (start_process -> wait_result) under
     torch.profiler: the wall time, the device's busy time (the sum of the
     device events' times: kernels and copies on one stream) and idle share,
-    their count, and the ones that took the most device time."""
+    their count, and the ones that took the most device time.  Raises
+    TraceLost when the trace misses a kernel launch of the run."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from blaze_tpu_torch import _build
+    from blaze_tpu_torch.bench.profile import check_trace, dev_us, traced_launches
     from blaze_tpu_torch.curves import CURVES
     from blaze_tpu_torch.runtime import MSMClient, MSMInit, MSMInput, MSMParams
 
@@ -824,17 +694,21 @@ def profile_single_chunk(seed: int, n: int = 1 << 19) -> dict:
     client.wait_result()
     client.result()
     torch.cuda.synchronize()
+    before = dict(_build.LAUNCHES)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         client.start_process()
         client.wait_result()
         wall = time.perf_counter() - t0
+    launched = {k: v - before[k] for k, v in _build.LAUNCHES.items()}
     client.result()
 
     # the device's own events (kernels, copies): the aten ops above them
     # report the same time again as theirs
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA and dev_us(e) > 0]
+    check_trace(traced_launches((e.key, e.count) for e in kernels), launched,
+                "msm_2^19_profile")
     busy_ms = sum(dev_us(e) for e in kernels) / 1e3
     top = sorted(kernels, key=dev_us, reverse=True)[:12]
     info = {"n": n, "wall_ms": wall * 1e3, "device_busy_ms": busy_ms or None,
@@ -961,19 +835,6 @@ def phase_msm_2e24_compare(parent: Path, seed: int, n: int = 1 << 24) -> dict:
 
 
 # ------------------------------------------------------------ phase 5
-def rand_words(spec, shape, seed: int, device):
-    """int32 words of canonical values below 2^(bits-1) < p, the word axis
-    at dim 1 (element buffers (N, W), lanes-major (R, W, N))."""
-    import torch
-
-    g = torch.Generator(device=device).manual_seed(seed)
-    x = torch.randint(-(1 << 31), (1 << 31) - 1, shape, generator=g,
-                      dtype=torch.int32, device=device)
-    top = spec.bits - 1 - 32 * (spec.nwords - 1)
-    x.select(1, spec.nwords - 1).bitwise_and_((1 << top) - 1)
-    return x
-
-
 def ntt_kernel_cases(spec, seed: int, device):
     """(name, kernel call, plain call, shape) for K7-K9 at small shapes,
     every branch: K7 through (K, B) rows out of and in place (K = 128 and
@@ -989,6 +850,7 @@ def ntt_kernel_cases(spec, seed: int, device):
     from blaze_tpu_torch.ntt import NTTKernels
     from blaze_tpu_torch.ntt.fused import plan_levels
     from blaze_tpu_torch.ntt.kernels import TileMap
+    from blaze_tpu_torch.oracle.gen import rand_words
 
     k = NTTKernels.for_spec(spec)
     W = spec.nwords
@@ -1054,7 +916,7 @@ def ntt_kernel_cases(spec, seed: int, device):
     return cases
 
 
-def ntt_main_timing(plan, imad_rate: float, seed: int, device):
+def ntt_main_timing(plan, sol, seed: int, device):
     """K7-K9 at the shapes of the 2^27 bls12_381_fr transform (`plan`): K7
     at each of its three levels (level 0 reads the input's rows and writes
     the plan's buffer, levels 1 and 2 update it in place), K9 at depths 0
@@ -1064,8 +926,10 @@ def ntt_main_timing(plan, imad_rate: float, seed: int, device):
     plain version on the same cut."""
     import torch
 
+    from blaze_tpu_torch.bench.profile import cuda_ms, work_bound_ms
     from blaze_tpu_torch.fields import FIELDS
     from blaze_tpu_torch.ntt import FusedNTT
+    from blaze_tpu_torch.oracle.gen import rand_words
 
     spec = FIELDS["bls12_381_fr"]
     W = spec.nwords
@@ -1078,7 +942,7 @@ def ntt_main_timing(plan, imad_rate: float, seed: int, device):
         ms = cuda_ms(kern, reps)
         want, plain_ms = once_ms(plain)
         e = max_abs_err(cut(check()), cut(want))
-        bound, bound_by = work_bound_ms(name, shape, W, imad_rate)
+        bound, bound_by = work_bound_ms(name, shape, W, sol)
         timing[key] = {"shape": shape, "ms": ms, "plain_ms": plain_ms,
                        "plain_shape": plain_shape, "bound_ms": bound,
                        "bound_by": bound_by, "max_abs_err": e}
@@ -1135,48 +999,15 @@ def ntt_main_timing(plan, imad_rate: float, seed: int, device):
     return timing
 
 
-SPLIT_KERNELS = ("ntt_base", "mul_lm", "twiddle_mul")
-SPLIT = (*SPLIT_KERNELS, "nccl", "other")
-
-
-def device_split(fn) -> dict:
-    """fn() once under torch.profiler: the device time and count of K7
-    (ntt_base_kernel), K8 (mul_lm_*kernel), K9 (twiddle_mul_kernel), NCCL's
-    collectives (kernels named nccl*) and every other device operation (a
-    copy, a fill, a gather, listed in other_ops), and the wall ms."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    del out
-    split = {k: [0, 0.0] for k in SPLIT}
-    others = []
-    # the device's own events: the aten ops above them report the same time
-    for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA or dev_us(e) <= 0:
-            continue
-        key = next((k for k in SPLIT_KERNELS if k + "_" in e.key and "kernel" in e.key),
-                   "nccl" if "nccl" in e.key.lower() else "other")
-        split[key][0] += e.count
-        split[key][1] += dev_us(e) / 1e3
-        if key == "other":
-            others.append({"name": e.key[:60], "count": e.count, "ms": dev_us(e) / 1e3})
-    return {"wall_ms": wall * 1e3, "device_ms": sum(v[1] for v in split.values()),
-            **{f"{k}_launches": v[0] for k, v in split.items()},
-            **{f"{k}_ms": v[1] for k, v in split.items()}, "other_ops": others}
-
-
 def ntt_transform_split(plan, seed: int, device, want: dict) -> dict:
     """One warm transform (plan.ntt) timed whole with CUDA events and traced
     under torch.profiler (device_split), and the transform's peak memory.
     `want`: the launches of each kernel; any other count, or any other
     device operation, raises."""
     import torch
+
+    from blaze_tpu_torch.bench.profile import SPLIT, cuda_ms, device_split
+    from blaze_tpu_torch.oracle.gen import rand_words
 
     W = plan.spec.nwords
     x = rand_words(plan.spec, (plan.n, W), seed, device)
@@ -1198,7 +1029,7 @@ def ntt_transform_split(plan, seed: int, device, want: dict) -> dict:
     return info
 
 
-def phase_ntt_parity(imad_rate: float, seed: int, device):
+def phase_ntt_parity(sol, seed: int, device):
     import torch
 
     from blaze_tpu_torch.fields import FIELDS
@@ -1218,7 +1049,7 @@ def phase_ntt_parity(imad_rate: float, seed: int, device):
             raise AssertionError(f"{field}: NTT kernel differs from its plain version")
     dev = torch.device("cuda", torch.cuda.current_device())     # the plan's device, indexed
     plan = FusedNTT(FIELDS["bls12_381_fr"], 27, device=dev)
-    timing = ntt_main_timing(plan, imad_rate, seed, dev)
+    timing = ntt_main_timing(plan, sol, seed, dev)
     emit({"phase": "ntt_parity", "field": "bls12_381_fr", "shape": "main path (2^27)",
           "kernels": timing})
     for key, t in timing.items():
@@ -1226,37 +1057,28 @@ def phase_ntt_parity(imad_rate: float, seed: int, device):
         errs[name] = max(errs[name], t["max_abs_err"])
     if any(t["max_abs_err"] for t in timing.values()):
         raise AssertionError("NTT kernel differs from its plain version at the main shapes")
-    ntt_transform_split(plan, seed, dev, {"ntt_base": 3, "twiddle_mul": 2})
     del plan
-    ntt_transform_split(FusedNTT(FIELDS["bls12_381_fr"], 16, device=dev), seed, dev,
-                        {"ntt_base": 2, "mul_lm": 1})
+    torch.cuda.empty_cache()
+    fresh("ntt_splits", seed)
     return errs, timing
 
 
+def ntt_splits(seed: int) -> list:
+    """ntt_transform_split of the 2^27 plan (K7 x3, K9 x2) and the 2^16 plan
+    (K7 x2, K8 x1) on bls12_381_fr; run in a fresh process (`fresh`)."""
+    import torch
+
+    from blaze_tpu_torch.fields import FIELDS
+    from blaze_tpu_torch.ntt import FusedNTT
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    spec = FIELDS["bls12_381_fr"]
+    return [ntt_transform_split(FusedNTT(spec, logn, device=dev), seed, dev, want)
+            for logn, want in ((27, {"ntt_base": 3, "twiddle_mul": 2}),
+                               (16, {"ntt_base": 2, "mul_lm": 1}))]
+
+
 # --------------------------------------------------------- phases 6 and 7
-def host_vector(n: int, seed: int, parts: int = 8):
-    """(n, 8) uint32 words of random values below 2^254 < p (bls12_381_fr):
-    the raw 64-bit output of `parts` numpy generators spawned from the seed,
-    filled in threads (numpy releases the GIL there), the top word masked as
-    bench.py:156-157 does."""
-    from concurrent.futures import ThreadPoolExecutor
-
-    import numpy as np
-
-    w = np.empty((n, 8), dtype=np.uint32)
-    flat = w.reshape(-1).view(np.uint64)
-    step = -(-flat.size // parts)
-
-    def fill(i, seq):
-        part = flat[i * step:(i + 1) * step]
-        part[:] = np.random.PCG64(seq).random_raw(part.size)
-
-    with ThreadPoolExecutor(parts) as ex:
-        list(ex.map(fill, range(parts), np.random.SeedSequence(seed).spawn(parts)))
-    w[:, 7] &= 0x3FFFFFFF
-    return w
-
-
 def host_ntt(vals, w: int, p: int):
     """X[k] = sum_i vals[i] w^(ik) by recursive Cooley-Tukey on Python ints
     (the algorithm of scripts/gen_ntt_vectors.py:43-57, which shares nothing
@@ -1273,43 +1095,6 @@ def host_ntt(vals, w: int, p: int):
         out[k] = (even[k] + t) % p
         out[k + n // 2] = (even[k] - t) % p
         wk = wk * w % p
-    return out
-
-
-def word_ints(words) -> list:
-    """(n, W) uint32 words -> Python ints."""
-    return [int.from_bytes(row.tobytes(), "little") for row in words]
-
-
-def evaluate_on_card(spec, x, root: int, ks, chunk: int = 1 << 22) -> list:
-    """sum_i x[i] root^(ik) mod p for each k, without any NTT kernel: per
-    chunk, Field.powers of root^k (K1) times root^(k c0), times x (K1:
-    canonical x against a Montgomery power gives the canonical product),
-    then the products' 16-bit limbs summed as integers on the card."""
-    import numpy as np
-    import torch
-
-    from blaze_tpu_torch.fields import Field, int_to_words
-    from blaze_tpu_torch.fields.kernel_ops import words_to_limbs16
-
-    f, p, W = Field(spec), spec.p, spec.nwords
-
-    def mont(v):
-        return torch.as_tensor(int_to_words(v * spec.r % p, W).view(np.int32),
-                               device=x.device)
-
-    chunk = min(chunk, x.shape[0])
-    out = []
-    for k in ks:
-        wk = pow(root, k, p)
-        base = f.powers(mont(wk), chunk)
-        acc = 0
-        for c0 in range(0, x.shape[0], chunk):
-            xs = x[c0:c0 + chunk]
-            prod = f.mul(xs, f.mul(base[: xs.shape[0]], mont(pow(wk, c0, p))))
-            cols = words_to_limbs16(prod).sum(dim=0).tolist()
-            acc += sum(c << (16 * i) for i, c in enumerate(cols))
-        out.append(acc % p)
     return out
 
 
@@ -1345,7 +1130,9 @@ def phase_ntt_2e27(seed: int, logn: int = 27) -> dict:
     import torch
 
     from blaze_tpu_torch import _build
+    from blaze_tpu_torch.bench.runners import evaluate_on_card, word_ints
     from blaze_tpu_torch.fields import FIELDS, int_to_words
+    from blaze_tpu_torch.oracle.gen import host_vector
     from blaze_tpu_torch.runtime import NTTClient, NTTInit, NTTInput
 
     spec = FIELDS["bls12_381_fr"]
@@ -1448,7 +1235,9 @@ def phase_ntt_small(seed: int) -> dict:
     import numpy as np
 
     from blaze_tpu_torch import _build
+    from blaze_tpu_torch.bench.runners import word_ints
     from blaze_tpu_torch.fields import FIELDS
+    from blaze_tpu_torch.oracle.gen import host_vector
     from blaze_tpu_torch.runtime import NTTClient, NTTInit
 
     spec = FIELDS["bls12_381_fr"]
@@ -1491,27 +1280,18 @@ def phase_ntt_small(seed: int) -> dict:
 PIPELINE_UNIQUE = 256          # subgroup points, tiled to the MSM's size
 
 
-def pipeline_terms(r: int, n: int, seed: int):
-    """The pipeline phase's three coefficient batches as (row, value)
-    terms: e_1 (scalars W^i), e_k for an odd k > 1 (scalars (W^k)^i) and
-    a e_j + b e_k' (a G(W^j) + b G(W^k') by linearity), the odd rows k, j,
-    k' (an odd power of W keeps its order, so no geometric ratio divides
-    by zero) and a, b from the seed."""
-    rnd = random.Random(seed)
-    k, j, k2 = (2 * v + 1 for v in rnd.sample(range(1, min(n, 1 << 20) // 2), 3))
-    return [((1, 1),), ((k, 1),), ((j, rnd.randrange(1, r)), (k2, rnd.randrange(1, r)))]
-
-
-def pipeline_trace_split(trace: Path, wall_s: float) -> dict:
+def pipeline_trace_split(trace: Path, wall_s: float, launched: dict) -> dict:
     """Device time per stream from a torch.profiler Chrome trace: the NTT's
-    stream (the one that ran ntt_base_kernel; None when the trace holds no
-    NTT kernel) and every other (the MSM's), their union, the card's idle
-    share of `wall_s`, and each stream's operations and milliseconds."""
+    stream (the one that ran ntt_base_kernel) and every other (the MSM's),
+    their union, the card's idle share of `wall_s`, and each stream's
+    operations and milliseconds.  Raises TraceLost when the trace holds
+    fewer events of a kernel than `launched` (launch-counter key -> count
+    in the traced window)."""
+    from blaze_tpu_torch.bench.profile import check_trace, traced_launches
+
     events = [e for e in json.loads(trace.read_text()).get("traceEvents", [])
               if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
-    if not events:
-        return {"ntt_stream_ms": None, "msm_stream_ms": None, "device_busy_ms": None,
-                "idle_share": None}
+    check_trace(traced_launches((e["name"], 1) for e in events), launched, "pipeline trace")
     streams = {}
     for e in events:
         st = streams.setdefault(str(e["args"].get("stream")), {"ops": 0, "ms": 0.0})
@@ -1526,10 +1306,72 @@ def pipeline_trace_split(trace: Path, wall_s: float) -> dict:
             busy, end = busy + (b - a), b
         elif b > end:
             busy, end = busy + (b - end), b
-    return {"ntt_stream_ms": ntt if ntt_streams else None,
+    return {"ntt_stream_ms": ntt,
             "msm_stream_ms": sum(v["ms"] for v in streams.values()) - ntt,
             "device_busy_ms": busy / 1e3, "device_ops": len(events),
             "idle_share": 1 - busy / 1e6 / wall_s, "streams": streams}
+
+
+def pipeline_setup(seed: int, ntt_logn: int, msm_logn: int):
+    """The pipeline phase's ProofPipeline (BLS12-381) on the card, its
+    resident points (PIPELINE_UNIQUE order-r subgroup points from the seed,
+    tiled to 2^msm_logn), its three batches' terms (pipeline_terms) and a
+    function making a batch's coefficients on the card."""
+    import numpy as np
+    import torch
+
+    from blaze_tpu_torch.bench.runners import coeff_batch, pipeline_terms
+    from blaze_tpu_torch.curves import CURVES, Curve
+    from blaze_tpu_torch.msm import points_to_resident
+    from blaze_tpu_torch.oracle import ECOracle
+    from blaze_tpu_torch.oracle.gen import points_to_affine_words
+    from blaze_tpu_torch.pipeline import ProofPipeline
+
+    spec = CURVES["bls12_381"]
+    cv = Curve(spec)
+    n, m = 1 << ntt_logn, 1 << msm_logn
+    U = min(PIPELINE_UNIQUE, m)
+    rng = random.Random(seed)
+    oracle = ECOracle(spec)
+    upoints = [oracle.random_subgroup_point(rng) for _ in range(U)]
+    terms = pipeline_terms(spec.fr.p, n, seed)
+    pipe = ProofPipeline(cv, ntt_logn, msm_logn)
+    dev = pipe.ctx.device
+    pts = torch.from_numpy(points_to_affine_words(spec, upoints).view(np.int32)).to(dev)
+    resident = points_to_resident(cv, pts).repeat(1, m // U)
+
+    return pipe, resident, terms, upoints, lambda t: coeff_batch(t, n, spec.fr.nwords, dev)
+
+
+def pipeline_profile(seed: int, ntt_logn: int, msm_logn: int) -> dict:
+    """The pipeline phase's three batches through run_batches with the
+    middle batch under torch.profiler (DeviceContext.profile): its wall
+    seconds, pipeline_trace_split of its trace (checked against the launch
+    counters), and the SHA-256 of each batch's result bytes; run in a fresh
+    process (`fresh`)."""
+    import shutil
+
+    from blaze_tpu_torch import _build
+    from blaze_tpu_torch.runtime.device import TRACE_FILE
+
+    pipe, resident, terms, _, batch = pipeline_setup(seed, ntt_logn, msm_logn)
+    trace_dir = ROOT / "build" / f"pipeline_trace_{os.getpid()}"
+    runs = pipe.run_batches((batch(t) for t in terms), resident)
+    results = [next(runs).cpu().numpy().tobytes()]
+    try:
+        before = dict(_build.LAUNCHES)
+        with pipe.ctx.profile(trace_dir):
+            t0 = time.perf_counter()
+            results.append(next(runs).cpu().numpy().tobytes())
+            profiled_s = time.perf_counter() - t0
+        launched = {k: v - before[k] for k, v in _build.LAUNCHES.items()}
+        split = pipeline_trace_split(trace_dir / TRACE_FILE, profiled_s, launched)
+        split["trace_mib"] = (trace_dir / TRACE_FILE).stat().st_size / 2**20
+    finally:
+        shutil.rmtree(trace_dir, ignore_errors=True)
+    results += [res.cpu().numpy().tobytes() for res in runs]
+    return {"profiled_batch_s": profiled_s, **split,
+            "results_sha256": [hashlib.sha256(b).hexdigest() for b in results]}
 
 
 def phase_pipeline(seed: int, ntt_logn: int = 27, msm_logn: int = 24) -> dict:
@@ -1538,52 +1380,26 @@ def phase_pipeline(seed: int, ntt_logn: int = 27, msm_logn: int = 24) -> dict:
     serially (one batch at a time, synchronised, launch counts per batch)
     and then through run_batches; the results must be equal byte for byte
     and each equal its geometric oracle.  One more pipelined run is
-    profiled around its middle batch (DeviceContext.profile).  Returns the
-    launch counts of the serial runs."""
-    import shutil
-
-    import numpy as np
+    profiled around its middle batch in a fresh process
+    (pipeline_profile), its results equal to these.  Returns the launch
+    counts of the serial runs."""
     import torch
 
     from blaze_tpu_torch import _build
-    from blaze_tpu_torch.curves import CURVES, Curve
-    from blaze_tpu_torch.fields import int_to_words
-    from blaze_tpu_torch.msm import points_to_resident
-    from blaze_tpu_torch.oracle import ECOracle
-    from blaze_tpu_torch.oracle.gen import points_to_affine_words
-    from blaze_tpu_torch.pipeline import ProofPipeline, geometric_msm_oracle
-    from blaze_tpu_torch.runtime.device import TRACE_FILE
+    from blaze_tpu_torch.bench.profile import cuda_ms
+    from blaze_tpu_torch.bench.runners import pipeline_expected
+    from blaze_tpu_torch.curves import CURVES
 
     spec = CURVES["bls12_381"]
-    cv, r = Curve(spec), spec.fr.p
-    n, m = 1 << ntt_logn, 1 << msm_logn
-    U = min(PIPELINE_UNIQUE, m)
+    m = 1 << msm_logn
     t0 = time.perf_counter()
-    rng = random.Random(seed)
-    oracle = ECOracle(spec)
-    upoints = [oracle.random_subgroup_point(rng) for _ in range(U)]
-    terms = pipeline_terms(r, n, seed)
-    w = spec.fr.root_of_unity(ntt_logn)
-    geo = {}
-    for t in terms:
-        for row, _ in t:
-            geo[row] = geometric_msm_oracle(spec, U, m, pow(w, row, r), upoints)
-    expected = [oracle.msm([geo[row] for row, _ in t], [v for _, v in t]) for t in terms]
-    oracle_s = time.perf_counter() - t0
-
-    t0 = time.perf_counter()
-    pipe = ProofPipeline(cv, ntt_logn, msm_logn)
-    dev = pipe.ctx.device
-    pts = torch.from_numpy(points_to_affine_words(spec, upoints).view(np.int32)).to(dev)
-    resident = points_to_resident(cv, pts).repeat(1, m // U)
+    pipe, resident, terms, upoints, batch = pipeline_setup(seed, ntt_logn, msm_logn)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
-
-    def batch(t):
-        x = torch.zeros((n, spec.fr.nwords), dtype=torch.int32, device=dev)
-        for row, v in t:
-            x[row] = torch.from_numpy(int_to_words(v, spec.fr.nwords).view(np.int32)).to(dev)
-        return x
+    cv, U = pipe.curve, len(upoints)
+    t0 = time.perf_counter()
+    expected = pipeline_expected(spec, upoints, terms, ntt_logn, m)
+    oracle_s = time.perf_counter() - t0
 
     serial, serial_s, counts = [], [], []
     for t in terms:
@@ -1609,20 +1425,10 @@ def phase_pipeline(seed: int, ntt_logn: int = 27, msm_logn: int = 24) -> dict:
              for res in pipe.run_batches((batch(t) for t in terms), resident)]
     pipelined_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
-
-    trace_dir = ROOT / "build" / "pipeline_trace"
-    runs = pipe.run_batches((batch(t) for t in terms), resident)
-    profiled = [next(runs).cpu().numpy().tobytes()]
-    try:
-        with pipe.ctx.profile(trace_dir):
-            t0 = time.perf_counter()
-            profiled.append(next(runs).cpu().numpy().tobytes())
-            profiled_s = time.perf_counter() - t0
-        split = pipeline_trace_split(trace_dir / TRACE_FILE, profiled_s)
-        split["trace_mib"] = (trace_dir / TRACE_FILE).stat().st_size / 2**20
-    finally:
-        shutil.rmtree(trace_dir, ignore_errors=True)
-    profiled += [res.cpu().numpy().tobytes() for res in runs]
+    torch.cuda.empty_cache()
+    prof = fresh("pipeline_profile", seed, ntt_logn, msm_logn)
+    profiled_equal = prof.pop("results_sha256") == [hashlib.sha256(b).hexdigest()
+                                                    for b in serial]
 
     oracle_ok = []
     for raw, want in zip(serial, expected):
@@ -1648,11 +1454,10 @@ def phase_pipeline(seed: int, ntt_logn: int = 27, msm_logn: int = 24) -> dict:
             "serial_s": serial_s, "serial_per_batch_s": sum(serial_s) / len(terms),
             "pipelined_s": pipelined_s, "pipelined_per_batch_s": per_batch,
             "proofs_per_s": 1 / per_batch, "ntt_and_scalars_ms": ntt_ms,
-            "profiled_batch_s": profiled_s, **split,
-            "max_memory_allocated_gib": peak / 2**30,
+            **prof, "max_memory_allocated_gib": peak / 2**30,
             "launches_per_batch": counts, "launches_want": want,
             "pipelined_equals_serial": piped == serial,
-            "profiled_equals_serial": profiled == serial,
+            "profiled_equals_serial": profiled_equal,
             "distinct_results": len(set(serial)) == len(serial), "oracle": oracle_ok}
     emit({"phase": "pipeline", **info})
     for i, c in enumerate(counts):
@@ -1660,10 +1465,10 @@ def phase_pipeline(seed: int, ntt_logn: int = 27, msm_logn: int = 24) -> dict:
         bad = {k: c[k] for k, v in want.items() if c[k] != v}
         if bad:
             raise AssertionError(f"pipeline batch {i}: launches {bad}, want {want}")
-    if not (all(oracle_ok) and piped == serial and profiled == serial
+    if not (all(oracle_ok) and piped == serial and profiled_equal
             and len(set(serial)) == len(serial)):
         raise AssertionError(f"pipeline: oracle {oracle_ok}, pipelined == serial "
-                             f"{piped == serial}, profiled == serial {profiled == serial}, "
+                             f"{piped == serial}, profiled == serial {profiled_equal}, "
                              f"distinct {len(set(serial)) == len(serial)}")
     total = {}
     for c in counts:
@@ -1709,6 +1514,7 @@ def batched_kernel_cases(spec, seed: int, device):
 
     from blaze_tpu_torch.ntt import FusedNTT
     from blaze_tpu_torch.ntt.fused import batch_level
+    from blaze_tpu_torch.oracle.gen import rand_words
 
     W = spec.nwords
     cases = []
@@ -1742,7 +1548,7 @@ def batched_kernel_cases(spec, seed: int, device):
     return cases
 
 
-def four_step_timing(dntt, imad_rate: float, seed: int, device) -> tuple:
+def four_step_timing(dntt, sol, seed: int, device) -> tuple:
     """K7 at each batched level of the 2^27 four-step's sub-plans and K9 at
     their twiddles and at the inter-pass twiddle (this rank's tables), at
     the main path's maps: time (CUDA events), bound, and the kernel's
@@ -1750,7 +1556,9 @@ def four_step_timing(dntt, imad_rate: float, seed: int, device) -> tuple:
     rows).  Returns (timing, max error per kernel)."""
     import torch
 
+    from blaze_tpu_torch.bench.profile import cuda_ms, work_bound_ms
     from blaze_tpu_torch.ntt.fused import batch_level
+    from blaze_tpu_torch.oracle.gen import rand_words
 
     W = dntt.spec.nwords
     n = dntt.n
@@ -1777,7 +1585,7 @@ def four_step_timing(dntt, imad_rate: float, seed: int, device) -> tuple:
             e = max_abs_err(got[rows], want[rows])
             del got, want
             shape = {"K": K, "lanes": lv.lanes}
-            bound, by = work_bound_ms("ntt_base", shape, W, imad_rate)
+            bound, by = work_bound_ms("ntt_base", shape, W, sol)
             timing[f"k7_{tag}_level{d}"] = {**shape, "fields": len(lv.omap.fields), "ms": ms,
                                             "bound_ms": bound, "bound_by": by,
                                             "plain_ms": plain_ms, "plain_lanes": cut,
@@ -1802,7 +1610,7 @@ def four_step_timing(dntt, imad_rate: float, seed: int, device) -> tuple:
                 e = max_abs_err(got, want)
                 shape = {"A": t1.shape[0], "J": t1.shape[1], "S": t2.shape[1],
                          "B": n // (t1.shape[0] * t1.shape[1] * t2.shape[1])}
-                bound, by = work_bound_ms("twiddle_mul", shape, W, imad_rate)
+                bound, by = work_bound_ms("twiddle_mul", shape, W, sol)
                 timing[key] = {**shape, "ms": ms, "bound_ms": bound, "bound_by": by,
                                "plain_ms": plain_ms, "plain_rows": y.shape[0], "max_abs_err": e}
                 errs["twiddle_mul"] = max(errs["twiddle_mul"], e)
@@ -1812,7 +1620,7 @@ def four_step_timing(dntt, imad_rate: float, seed: int, device) -> tuple:
     return timing, errs
 
 
-def phase_dist(imad_rate: float, seed: int, ntt_logn: int = 27, msm_logn: int = 24,
+def phase_dist(sol, seed: int, ntt_logn: int = 27, msm_logn: int = 24,
                logn1: int = 13, device=None) -> tuple:
     """The sharded paths through their public entry points on the card, NCCL,
     every mesh of one rank (a group of one from make_mesh): batched K7/K9
@@ -1829,13 +1637,15 @@ def phase_dist(imad_rate: float, seed: int, ntt_logn: int = 27, msm_logn: int = 
     import torch
     import torch.distributed as dist
 
+    from blaze_tpu_torch.bench.profile import SPLIT, cuda_ms
+    from blaze_tpu_torch.bench.runners import pipeline_expected, pipeline_terms
     from blaze_tpu_torch.curves import CURVES, Curve
     from blaze_tpu_torch.dist import DistributedMSM, DistributedNTT, make_mesh
     from blaze_tpu_torch.fields import FIELDS, int_to_words
     from blaze_tpu_torch.msm import MSM, points_to_resident
-    from blaze_tpu_torch.oracle import ECOracle
-    from blaze_tpu_torch.oracle.gen import points_to_affine_words
-    from blaze_tpu_torch.pipeline import ProofPipeline, geometric_msm_oracle
+    from blaze_tpu_torch.oracle.gen import (points_to_affine_words, rand_words,
+                                            subgroup_msm_instance)
+    from blaze_tpu_torch.pipeline import ProofPipeline
 
     dev = device or torch.device("cuda", torch.cuda.current_device())
     spec = CURVES["bls12_381"]
@@ -1870,7 +1680,7 @@ def phase_dist(imad_rate: float, seed: int, ntt_logn: int = 27, msm_logn: int = 
         # ---- DistributedMSM at 2^msm_logn against MSM.__call__ and the oracle
         m = 1 << msm_logn
         t0 = time.perf_counter()
-        upoints, scal_np, want = tiled_arrays(spec, m, seed + 5)
+        upoints, scal_np, want = subgroup_msm_instance(spec, m, seed + 5)
         pts256 = torch.from_numpy(points_to_affine_words(spec, upoints).view(np.int32)).to(dev)
         resident = points_to_resident(cv, pts256).repeat(1, m // 256)
         scal = torch.from_numpy(scal_np.view(np.int32)).to(dev).t().contiguous()
@@ -1905,7 +1715,7 @@ def phase_dist(imad_rate: float, seed: int, ntt_logn: int = 27, msm_logn: int = 
         dntt = DistributedNTT(fr, ntt_logn, mesh_sp, axis="sp", logn1=logn1)
         torch.cuda.synchronize()
         plan_s = time.perf_counter() - t0
-        timing, kerr = four_step_timing(dntt, imad_rate, seed, dev)
+        timing, kerr = four_step_timing(dntt, sol, seed, dev)
         for k_, v in kerr.items():
             errs[k_] = max(errs[k_], v)
         emit({"phase": "dist_ntt_kernels", "kernels": timing})
@@ -1920,7 +1730,7 @@ def phase_dist(imad_rate: float, seed: int, ntt_logn: int = 27, msm_logn: int = 
         bad = {k_: run["launches"][k_] for k_, v in want_counts.items()
                if run["launches"][k_] != v}
         ntt_ms = cuda_ms(lambda: dntt.ntt(x), 3)
-        split = device_split(lambda: dntt.ntt(x))
+        split = fresh("dist_ntt_split", seed + 6, ntt_logn, logn1)
         nat = dntt.spectral_to_natural(xk)
         fused = FusedNTT(fr, ntt_logn, device=dev)
         ref = fused.ntt(x)
@@ -1937,13 +1747,8 @@ def phase_dist(imad_rate: float, seed: int, ntt_logn: int = 27, msm_logn: int = 
                        "fused_plan_transform_ms": fused_ms, "split": split,
                        "intt": run_inv, "equals_fused_ntt": equal, "roundtrip": roundtrip,
                        "launches_want": want_counts}
-        # late in a full run the profiler has recorded no device event at
-        # all (PERF.md §7): then the split is not measured, and the launch
-        # counts and CUDA event times stand alone
-        captured = split["device_ms"] > 0
-        info["ntt"]["split_captured"] = captured
         emit({"phase": "dist_ntt", **info["ntt"]})
-        split_bad = captured and {k_: split[f"{k_}_launches"] for k_ in SPLIT} != {
+        split_bad = {k_: split[f"{k_}_launches"] for k_ in SPLIT} != {
             **dict.fromkeys(SPLIT, 0), **want_counts}
         if bad or split_bad or not (equal and roundtrip):
             raise AssertionError(f"DistributedNTT 2^{ntt_logn}: launches {bad}, equal {equal}, "
@@ -1954,13 +1759,10 @@ def phase_dist(imad_rate: float, seed: int, ntt_logn: int = 27, msm_logn: int = 
         mesh2 = make_mesh({"dp": 1, "sp": 1}, device_type=dev.type)
         r = spec.fr.p
         terms = pipeline_terms(r, 1 << ntt_logn, seed + 7)[2]       # a e_j + b e_k'
-        up = upoints                                 # tiled_arrays' subgroup points
+        up = upoints                                 # the MSM instance's subgroup points
         U = len(up)
-        oracle = ECOracle(spec)
-        w = spec.fr.root_of_unity(ntt_logn)
         t0 = time.perf_counter()
-        want = oracle.msm([geometric_msm_oracle(spec, U, m, pow(w, row, r), up)
-                           for row, _ in terms], [v for _, v in terms])
+        want = pipeline_expected(spec, up, [terms], ntt_logn, m)[0]
         oracle_s = time.perf_counter() - t0
         pipe = ProofPipeline(cv, ntt_logn, msm_logn, mesh=mesh2)
         pts = torch.from_numpy(points_to_affine_words(spec, up).view(np.int32)).to(dev)
@@ -1985,6 +1787,30 @@ def phase_dist(imad_rate: float, seed: int, ntt_logn: int = 27, msm_logn: int = 
     return errs, launches, info
 
 
+def dist_ntt_split(seed: int, ntt_logn: int, logn1: int) -> dict:
+    """device_split of one warm DistributedNTT transform at 2^ntt_logn on
+    bls12_381_fr (logn1) on a mesh of one rank (NCCL), its input
+    rand_words(seed); run in a fresh process (`fresh`)."""
+    import torch
+    import torch.distributed as dist
+
+    from blaze_tpu_torch.bench.profile import device_split
+    from blaze_tpu_torch.dist import DistributedNTT, make_mesh
+    from blaze_tpu_torch.fields import FIELDS
+    from blaze_tpu_torch.oracle.gen import rand_words
+
+    fr = FIELDS["bls12_381_fr"]
+    dev = torch.device("cuda", torch.cuda.current_device())
+    try:
+        mesh = make_mesh({"sp": 1}, device_type=dev.type)
+        dntt = DistributedNTT(fr, ntt_logn, mesh, axis="sp", logn1=logn1)
+        x = rand_words(fr, (1 << ntt_logn, fr.nwords), seed, dev)
+        dntt.ntt(x)
+        return device_split(lambda: dntt.ntt(x))
+    finally:
+        dist.destroy_process_group()
+
+
 # ------------------------------------------------------- Poseidon phases
 POSEIDON_FIELD = "bls12_381_fr"
 
@@ -1997,6 +1823,7 @@ def near_p_states(spec, t: int, B: int, seed: int, device):
     import torch
 
     from blaze_tpu_torch.fields import int_to_words
+    from blaze_tpu_torch.oracle.gen import rand_words
 
     W = spec.nwords
     x = rand_words(spec, (t, W, B), seed, device)
@@ -2040,7 +1867,7 @@ def singular_block(params):
                                  params.round_constants, mds)
 
 
-def poseidon_main_timing(imad_rate: float, seed: int, device):
+def poseidon_main_timing(sol, seed: int, device):
     """K10 at the height-9 tree's shapes on bls12_381_fr — the leaf sponge
     (t = 12, B = 2^24, convert_in) and the first node level (t = 9,
     B = 2^21): one warm call whose first 2^10 states are held against the
@@ -2049,8 +1876,10 @@ def poseidon_main_timing(imad_rate: float, seed: int, device):
     rounds' (the TPU kernel's)."""
     import torch
 
+    from blaze_tpu_torch.bench.profile import cuda_ms, work_bound_ms
     from blaze_tpu_torch.fields import FIELDS
     from blaze_tpu_torch.hash import PoseidonKernels, generate_params
+    from blaze_tpu_torch.oracle.gen import rand_words
 
     spec = FIELDS[POSEIDON_FIELD]
     W, cut = spec.nwords, 1 << 10
@@ -2066,8 +1895,8 @@ def poseidon_main_timing(imad_rate: float, seed: int, device):
         _, plain_ms = once_ms(lambda: k.permute_lm_plain(x[:, :, :cut].contiguous(), conv))
         shape = {"t": t, "B": B, "r_f": params.r_f, "r_p": params.r_p, "convert_in": int(conv),
                  "sparse": int(k.sparse)}
-        bound, bound_by = work_bound_ms("poseidon_perm", shape, W, imad_rate)
-        dense, _ = work_bound_ms("poseidon_perm", {**shape, "sparse": 0}, W, imad_rate)
+        bound, bound_by = work_bound_ms("poseidon_perm", shape, W, sol)
+        dense, _ = work_bound_ms("poseidon_perm", {**shape, "sparse": 0}, W, sol)
         timing[key] = {"shape": shape, "ms": ms, "plain_ms": plain_ms,
                        "plain_shape": {**shape, "B": cut}, "bound_ms": bound, "bound_by": bound_by, "dense_bound_ms": dense,
                        "max_abs_err": e}
@@ -2082,7 +1911,7 @@ WIDE_POSEIDON = (("bls12_381_fq", 3), ("bls12_377_fq", 3), ("bn254_fr", 17),
                  ("bls12_381_fq", 17))
 
 
-def phase_poseidon_parity(imad_rate: float, seed: int, device):
+def phase_poseidon_parity(sol, seed: int, device):
     """K10 against its plain version, exact, on the three scalar fields (t =
     9 and 12, with and without convert_in, B = 1 and 1000; the sparse
     schedule, and on bls12_381_fr also the dense rounds of an
@@ -2145,30 +1974,12 @@ def phase_poseidon_parity(imad_rate: float, seed: int, device):
         raise AssertionError("K10 or the REDC twin differs from its plain version at W = 12 "
                              "or t = 17")
     err = max([err] + [c["max_abs_err"] for c in checked if c["kernel"] == "poseidon_perm"])
-    timing = poseidon_main_timing(imad_rate, seed, device)
+    timing = poseidon_main_timing(sol, seed, device)
     emit({"phase": "poseidon_parity", "field": POSEIDON_FIELD,
           "shape": "main path (height 9)", "kernels": timing})
     if any(t["max_abs_err"] for t in timing.values()):
         raise AssertionError("K10 differs from its plain version at the main shapes")
     return {"poseidon_perm": max([err] + [t["max_abs_err"] for t in timing.values()])}, timing
-
-
-def parse_records(raw: bytes):
-    """64 B result records -> (hashes (n, 32) uint8, layer ids, hash ids)."""
-    import numpy as np
-
-    rec = np.frombuffer(raw, dtype=np.uint8).reshape(-1, 64)
-    meta = np.ascontiguousarray(rec[:, 32:40]).view("<u8")[:, 0]
-    return rec[:, :32], meta >> np.uint64(30), meta & np.uint64(0x3FFFFFFF)
-
-
-def tree_ids(height: int):
-    """The (layer id, hash id) arrays a height's record stream must carry."""
-    import numpy as np
-
-    sizes = [8 ** (height - 1 - l) for l in range(height)]
-    return (np.repeat(np.arange(height, dtype=np.uint64), sizes),
-            np.concatenate([np.arange(n, dtype=np.uint64) for n in sizes]))
 
 
 def phase_poseidon_h4(seed: int) -> dict:
@@ -2178,6 +1989,7 @@ def phase_poseidon_h4(seed: int) -> dict:
     import numpy as np
 
     from blaze_tpu_torch import _build
+    from blaze_tpu_torch.bench.runners import parse_records
     from blaze_tpu_torch.fields import FIELDS
     from blaze_tpu_torch.hash import LEAF_ARITY, TreeMode, generate_params, num_tree_nodes
     from blaze_tpu_torch.oracle.poseidon_ref import merkle_tree_ref, poseidon_hash_ref
@@ -2242,9 +2054,10 @@ def phase_poseidon_h9(seed: int, height: int = 9) -> dict:
     import torch
 
     from blaze_tpu_torch import _build
+    from blaze_tpu_torch.bench.runners import check_tree
     from blaze_tpu_torch.fields import FIELDS
-    from blaze_tpu_torch.hash import LEAF_ARITY, generate_params, num_tree_nodes
-    from blaze_tpu_torch.oracle.poseidon_ref import poseidon_hash_ref
+    from blaze_tpu_torch.hash import LEAF_ARITY
+    from blaze_tpu_torch.oracle.gen import host_vector
     from blaze_tpu_torch.runtime import PoseidonClient, PoseidonInitializeParameters
 
     spec = FIELDS[POSEIDON_FIELD]
@@ -2278,48 +2091,15 @@ def phase_poseidon_h9(seed: int, height: int = 9) -> dict:
     peak = torch.cuda.max_memory_allocated()
     check_launches("poseidon_h9", counts, ("poseidon_perm", "mont_mul"))
 
-    raw = raws[0]
-    nodes = num_tree_nodes(h)
-    hashes, lids, hids = parse_records(raw)
-    want_l, want_h = tree_ids(h)
-    ids_ok = bool(np.array_equal(lids, want_l) and np.array_equal(hids, want_h))
     same = raws[0] == raws[1]
+    check = check_tree(raws[0], elems, h, spec, seed)
     raws = None
-    leaf_p, node_p = generate_params(spec, LEAF_ARITY + 1), generate_params(spec, 9)
-    starts = np.concatenate([[0], np.cumsum([8 ** (h - 1 - l) for l in range(h)])])
-    rng = np.random.default_rng(seed)
-    t0 = time.perf_counter()
-    bad = []
-    idx = rng.choice(n, min(n, 256), replace=False)
-    for i in idx:
-        col = word_ints(elems[LEAF_ARITY * i: LEAF_ARITY * (i + 1)])
-        if poseidon_hash_ref(leaf_p, col) != int.from_bytes(hashes[i].tobytes(), "little"):
-            bad.append((0, int(i)))
-    checked = {0: len(idx)}
-    root_ok = False
-    for l in range(1, h):
-        size = 8 ** (h - 1 - l)
-        sample = range(size) if size <= 64 else rng.choice(size, 64, replace=False)
-        for j in sample:
-            kids = [int.from_bytes(hashes[starts[l - 1] + 8 * j + c].tobytes(), "little")
-                    for c in range(8)]
-            ok = poseidon_hash_ref(node_p, kids) == int.from_bytes(
-                hashes[starts[l] + j].tobytes(), "little")
-            if not ok:
-                bad.append((l, int(j)))
-            if l == h - 1:
-                root_ok = ok
-        checked[l] = len(sample)
-    oracle_s = time.perf_counter() - t0
     info = {"height": h, "leaves": n, "elements": LEAF_ARITY * n,
             "wire_gib": LEAF_ARITY * n * spec.nbytes / 2**30, "input_gen_s": gen_s,
-            "set_data_s": set_s, "builds": builds, "records": len(hashes),
-            "record_count_ok": len(hashes) == nodes, "ids_ok": ids_ok,
-            "second_build_equal": same, "sampled_per_layer": checked,
-            "sampled_mismatches": bad, "root_ok": root_ok, "oracle_s": oracle_s,
+            "set_data_s": set_s, "builds": builds, "second_build_equal": same, **check,
             "max_memory_allocated_gib": peak / 2**30, "launches": counts}
     emit({"phase": "poseidon_h9", **info})
-    if bad or not (info["record_count_ok"] and ids_ok and same and root_ok):
+    if not (check["ok"] and same):
         raise AssertionError("poseidon height 9: a check failed")
     if counts["poseidon_perm"] != 2 * h:
         raise AssertionError(f"poseidon height 9: {counts['poseidon_perm']} K10 launches "
@@ -2337,7 +2117,9 @@ def phase_poseidon_stream(seed: int, height: int = 7, stream_leaves: int = 1 << 
     import numpy as np
 
     from blaze_tpu_torch import _build
+    from blaze_tpu_torch.bench.runners import parse_records
     from blaze_tpu_torch.hash import LEAF_ARITY, num_tree_nodes
+    from blaze_tpu_torch.oracle.gen import host_vector
     from blaze_tpu_torch.runtime import PoseidonClient, PoseidonInitializeParameters
 
     n = 8 ** (height - 1)
@@ -2402,6 +2184,53 @@ def phase_poseidon_stream(seed: int, height: int = 7, stream_leaves: int = 1 << 
     return counts
 
 
+# ---------------------------------------------------------- the bench phase
+BENCH_TIMEOUT_S = 600
+MICROBENCH = (("bls12_381_fq", 19), ("bls12_381_fr", 19))
+
+
+def phase_bench() -> dict:
+    """The benchmark module in child processes on the same card: python -m
+    blaze_tpu_torch.bench at its full sizes with BLZ_BENCH_ITERS=1 (MSM
+    2^24 resident, NTT 2^27, Poseidon over 2^24 leaves, the pipeline at
+    (2^27, 2^24)), then the microbench at each MICROBENCH (field, log2
+    batch): bls12_381_fq 2^19 is K1's main shape, bls12_381_fr 2^19 holds
+    K1 and K8 on the same operands.  Prints their lines; fails unless each
+    child exited 0, the bench printed four records, each oracle-exact, and
+    every spot check passed."""
+    import torch
+
+    torch.cuda.empty_cache()
+    env = {k: v for k, v in os.environ.items() if not k.startswith("BLZ_BENCH_")}
+    env.update(BLZ_BENCH_ITERS="1", PYTHONPATH=str(ROOT))
+
+    def child(*args):
+        out = subprocess.run([sys.executable, "-m", *args], cwd=ROOT, env=env,
+                             capture_output=True, text=True, timeout=BENCH_TIMEOUT_S)
+        if out.returncode != 0:
+            print(out.stderr[-4000:], file=sys.stderr, flush=True)
+        return out
+
+    out = child("blaze_tpu_torch.bench")
+    line = json.loads(out.stdout.strip().splitlines()[-1])
+    emit({"phase": "bench", "rc": out.returncode, **line})
+    records = [line, *line.get("extra", {}).values()]
+    ok = (out.returncode == 0 and "errors" not in line and len(records) == 4
+          and all(r.get("oracle") == "exact" for r in records))
+    micro = []
+    for field, logb in MICROBENCH:
+        m = child("blaze_tpu_torch.bench.microbench", field, str(logb))
+        lines = [json.loads(x) for x in m.stdout.splitlines() if x.startswith("{")]
+        for x in lines:
+            emit({"phase": "microbench", **x})
+        micro += lines
+        ok = ok and m.returncode == 0 and all(x.get("spot_check", True) for x in lines)
+    if not ok:
+        raise AssertionError("bench: a runner failed, a record is not oracle-exact, or a "
+                             "microbench spot check failed")
+    return {"bench": line, "microbench": micro}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2432,29 +2261,29 @@ def main() -> int:
         seconds[name] = time.perf_counter() - t0
         return out
 
-    card, imad_rate = timed_phase("device_and_build", phase_device)
-    errs, timing = timed_phase("msm_parity", phase_parity, imad_rate, dev)
+    card, sol = timed_phase("device_and_build", phase_device)
+    errs, timing = timed_phase("msm_parity", phase_parity, sol, dev)
     launches = timed_phase("msm_clients", phase_main_path, args.seed)
     for k, v in timed_phase("msm_2^24", phase_msm_2e24, args.seed).items():
         launches[k] += v
     if args.parent:
         timed_phase("msm_2^24_compare", phase_msm_2e24_compare, args.parent, args.seed)
-    timed_phase("msm_2^19_profile", profile_single_chunk, args.seed)
-    ntt_errs, ntt_timing = timed_phase("ntt_parity", phase_ntt_parity, imad_rate, args.seed, dev)
+    timed_phase("msm_2^19_profile", fresh, "profile_single_chunk", args.seed)
+    ntt_errs, ntt_timing = timed_phase("ntt_parity", phase_ntt_parity, sol, args.seed, dev)
     errs.update(ntt_errs)
     timing.update(ntt_timing)
     for counts in (timed_phase("ntt_2^27", phase_ntt_2e27, args.seed),
                    timed_phase("ntt_2^16_2^20_goldens", phase_ntt_small, args.seed)):
         for k, v in counts.items():
             launches[k] += v
-    dist_errs, dist_counts, _ = timed_phase("dist", phase_dist, imad_rate, args.seed)
+    dist_errs, dist_counts, _ = timed_phase("dist", phase_dist, sol, args.seed)
     for k, v in dist_errs.items():
         errs[k] = max(errs[k], v)
     for k, v in dist_counts.items():
         launches[k] += v
     for k, v in timed_phase("pipeline", phase_pipeline, args.seed).items():
         launches[k] += v
-    pos_errs, pos_timing = timed_phase("poseidon_parity", phase_poseidon_parity, imad_rate,
+    pos_errs, pos_timing = timed_phase("poseidon_parity", phase_poseidon_parity, sol,
                                        args.seed, dev)
     errs.update(pos_errs)
     timing.update(pos_timing)
@@ -2463,6 +2292,7 @@ def main() -> int:
                    timed_phase("poseidon_stream", phase_poseidon_stream, args.seed)):
         for k, v in counts.items():
             launches[k] += v
+    timed_phase("bench", phase_bench)
     emit({"phase_seconds": seconds})
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

@@ -83,9 +83,11 @@ def main() -> int:
         print("k8_probe: no CUDA device", file=sys.stderr)
         return 1
     import chip_smoke as cs
+    from blaze_tpu_torch.bench.profile import cuda_ms, smi, speed_of_light, work_bound_ms
     from blaze_tpu_torch.fields import FIELDS
     from blaze_tpu_torch.ntt import FusedNTT
     from blaze_tpu_torch.ntt.kernels import _ARGTYPES
+    from blaze_tpu_torch.oracle.gen import rand_words
 
     procs = {name: build(name, subs) for name, subs in VARIANTS.items()}
     libs, ptx = {}, {}
@@ -106,8 +108,8 @@ def main() -> int:
     plan = FusedNTT(spec, 16, device=dev)
     k, W, n = plan.kern, spec.nwords, plan.n
     rows = plan._twiddle_rows(0, False).view(n, W, 1)
-    x = cs.rand_words(spec, (n, W, 1), 1, dev)
-    z = cs.rand_words(spec, (n, W, 1), 2, dev)
+    x = rand_words(spec, (n, W, 1), 1, dev)
+    z = rand_words(spec, (n, W, 1), 2, dev)
     cases = {2: (x, rows, None, k.mul_lm_plain(x, rows)),
              3: (x, rows, z, k.mul_lm_plain(x, rows, z))}
     for name, lib in libs.items():
@@ -129,15 +131,13 @@ def main() -> int:
             torch.cuda.synchronize()
             if name != "empty" and not torch.equal(out, want):
                 raise SystemExit(f"{name}: {ops} operands differ from the plain version")
-            line[f"ms_{ops}_operands"] = [cs.cuda_ms(launch, args.reps) for _ in range(3)]
+            line[f"ms_{ops}_operands"] = [cuda_ms(launch, args.reps) for _ in range(3)]
         print(json.dumps(line), flush=True)
-    clock_mhz = float(cs.smi("clocks.max.sm").split()[0])
-    imad_rate = torch.cuda.get_device_properties(0).multi_processor_count \
-        * cs.IMAD_PER_CLK_PER_SM * clock_mhz * 1e6
+    sol = speed_of_light(torch.cuda.get_device_name(0))
     print(json.dumps({"bound_ms": {
-        f"{ops}_operands": cs.work_bound_ms("mul_lm", {"M": n, "N": 1, "operands": ops}, W,
-                                            imad_rate) for ops in (2, 3)}}))
-    print(cs.smi("name,power.limit"), flush=True)
+        f"{ops}_operands": work_bound_ms("mul_lm", {"M": n, "N": 1, "operands": ops}, W, sol)
+        for ops in (2, 3)}}))
+    print(smi("name,power.limit"), flush=True)
     return 0
 
 

@@ -42,12 +42,12 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("msm_host_profile: no CUDA device", file=sys.stderr)
         return 1
-    import chip_smoke as cs
     from blaze_tpu_torch import _build
+    from blaze_tpu_torch.bench.profile import smi
     from blaze_tpu_torch.curves import CURVES, Curve
     from blaze_tpu_torch.msm import points_to_resident
     from blaze_tpu_torch.oracle import ECOracle
-    from blaze_tpu_torch.oracle.gen import points_to_affine_words
+    from blaze_tpu_torch.oracle.gen import points_to_affine_words, rand_words
     from blaze_tpu_torch.pipeline import ProofPipeline
 
     _build.build_all(("montmul", "ec_kernels", "ntt_kernels"))
@@ -61,7 +61,7 @@ def main() -> int:
     upoints = [oracle.random_subgroup_point(rng) for _ in range(256)]
     pts = torch.from_numpy(points_to_affine_words(spec, upoints).view(np.int32)).to(dev)
     points = points_to_resident(cv, pts).repeat(1, n // 256)
-    words = cs.rand_words(spec.fr, (n, spec.fr.nwords), 1, dev)
+    words = rand_words(spec.fr, (n, spec.fr.nwords), 1, dev)
     scalars = (words.view(torch.int16).t().to(torch.int32) & 0xFFFF).contiguous()
     del words
     pipe = ProofPipeline(cv, args.logn + 3, args.logn)
@@ -95,7 +95,7 @@ def main() -> int:
         "top_own_time": [{"function": f"{Path(f).name}:{line}({name})", "calls": v[1],
                           "own_s": v[2], "cumulative_s": v[3]}
                          for (f, line, name), v in top]}), flush=True)
-    print(cs.smi("name,power.limit"), flush=True)
+    print(smi("name,power.limit"), flush=True)
     return 0
 
 

@@ -17,7 +17,9 @@ run; K7 and K9 at batched maps (FusedNTT.ntt_batch) against their plain
 versions, and the sharded paths over NCCL on a mesh of one rank
 (DistributedMSM against the plain MSM and the oracle, DistributedNTT
 against the CPU four-step and FusedNTT, run_dist against its geometric
-oracle).  chip_smoke.py runs the same checks at the main path's sizes.
+oracle); the benchmark's runners at reduced sizes, bench_kernel on K1
+against cuda_ms and the microbench's spot check.  chip_smoke.py runs the
+same checks at the main path's sizes.
 """
 import random
 from pathlib import Path
@@ -592,3 +594,49 @@ def test_run_dist_on_card_matches_oracle(one_rank):
     X, Y, Z = (words_to_int(v) for v in out.cpu().numpy().view(np.uint32))
     zi = pow(Z, -1, spec.fq.p)
     assert (X * zi % spec.fq.p, Y * zi % spec.fq.p) == want
+
+
+def test_bench_runners_on_card_at_reduced_sizes(dev):
+    """The benchmark's four runners on the card at reduced sizes (MSM 2^16,
+    NTT 2^18, a height-5 tree, the pipeline at (2^18, 2^16)), each exact
+    against its oracle, with the card's SOL_TABLE row (held against it)."""
+    from blaze_tpu_torch.bench import runners
+    from blaze_tpu_torch.bench.profile import check_card, speed_of_light
+
+    sol = speed_of_light(torch.cuda.get_device_name(0))
+    check_card(sol)
+    recs = [runners.bench_msm(16, "bls12_381", 2, sol, "cuda"),
+            runners.bench_ntt(18, 2, sol, "cuda"),
+            runners.bench_poseidon(12, 2, sol, "cuda"),
+            runners.bench_pipeline(18, 16, 2, sol, "cuda")]
+    assert [r["metric"] for r in recs] == ["bls12_381_msm_2^16", "ntt_2^18",
+                                           "poseidon_2^12_leaves", "pipeline_ntt2^18_msm2^16"]
+    for r in recs:
+        assert r["oracle"] == "exact" and 0 < r["ms"] <= r["median_ms"]
+        assert 0 < r["sol_fraction"] < 1 and 0 < r["imad_fraction"] < 1 and r["peak_gib"] > 0
+
+
+def test_bench_kernel_times_k1_as_cuda_ms_does(dev):
+    """bench_kernel on K1 (2^19 BLS12-381 base-field products) against
+    cuda_ms on the same launches: the same CUDA-event timing behind a spin,
+    so the best of its groups is within 25% of cuda_ms's mean."""
+    from blaze_tpu_torch.bench.profile import bench_kernel, cuda_ms, kernel_work
+    from blaze_tpu_torch.oracle.gen import rand_words
+
+    spec = FIELDS["bls12_381_fq"]
+    a = rand_words(spec, (1 << 19, 12), 1, dev)
+    b = rand_words(spec, (1 << 19, 12), 2, dev)
+    stats = bench_kernel(lambda x, y: mont_mul(spec, x, y), (a, b), name="K1", reps=50,
+                         work=kernel_work("mont_mul", {"M": 1 << 19}, 12))
+    ms = cuda_ms(lambda: mont_mul(spec, a, b), 50)
+    assert stats.best_s <= stats.median_s
+    assert abs(stats.best_s * 1e3 - ms) < 0.25 * ms
+    assert stats.bound_by == "bytes" and 0 < stats.bound_fraction < 1
+
+
+def test_microbench_on_card_spot_checks_k1_and_k8(dev):
+    from blaze_tpu_torch.bench import microbench
+
+    recs = microbench.run("bls12_381_fr", 16, "cuda", reps=20)
+    assert [r["kernel"] for r in recs] == ["mont_mul", "mul_lm"]
+    assert all(r["spot_check"] and r["ms"] > 0 for r in recs)
