@@ -36,10 +36,11 @@ GXX_FLAGS = ["-std=c++17", "-O3", "-shared", "-fPIC", "-Wall"]
 
 # Launches per kernel wrapper: each wrapper adds one where it launches its
 # kernel (never on the plain CPU path), so a run can show which kernels it
-# went through.
+# went through.  The NTT kernels' W = 12 builds count apart (name_w12).
 LAUNCHES = dict.fromkeys(
     ("mont_mul", "scan_mixed", "ec_add", "reduce_cols", "dbl_n", "fold_horner",
-     "ntt_base", "mul_lm", "twiddle_mul", "poseidon_perm"), 0
+     "ntt_base", "mul_lm", "twiddle_mul", "poseidon_perm",
+     "ntt_base_w12", "mul_lm_w12", "twiddle_mul_w12"), 0
 )
 
 _LIBS: dict[str, ctypes.CDLL] = {}

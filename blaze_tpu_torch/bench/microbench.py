@@ -9,8 +9,8 @@ package's one Montgomery product.  The port has two on the card:
   K1  fields/montmul.py mont_mul -> csrc/montmul.cu, on field.cuh's
       word-serial product, (n, W) words;
   K8  ntt/kernels.py mul_lm, two operands -> csrc/ntt_kernels.cu, on
-      carry.cuh's carry chain, (n, W, 1) element rows; built for 8-word
-      fields only, so a 12-word field gets a line that says so.
+      carry.cuh's carry chain, (n, W, 1) element rows (built at W = 8 and
+      12, so every field here has it).
 
 Each is timed through bench_kernel (CUDA events behind a spin of the
 card) on the same canonical operands from a seed, with its ms, Mmul/s,
@@ -43,11 +43,10 @@ def run(field: str, logb: int, device, reps: int = 50) -> list:
     W, n = spec.nwords, 1 << logb
     a = rand_words(spec, (n, W), 1, device)
     b = rand_words(spec, (n, W), 2, device)
-    cases = [("mont_mul", lambda x, y: mont_mul(spec, x, y), (a, b), {"M": n})]
-    if W == 8:
-        k8 = NTTKernels.for_spec(spec)
-        cases.append(("mul_lm", k8.mul_lm, (a.view(n, W, 1), b.view(n, W, 1)),
-                      {"M": n, "N": 1, "operands": 2}))
+    k8 = NTTKernels.for_spec(spec)
+    cases = [("mont_mul", lambda x, y: mont_mul(spec, x, y), (a, b), {"M": n}),
+             ("mul_lm", k8.mul_lm, (a.view(n, W, 1), b.view(n, W, 1)),
+              {"M": n, "N": 1, "operands": 2})]
     rinv = pow(1 << (32 * W), -1, spec.p)
     want = [words_to_int(a[i].cpu().numpy()) * words_to_int(b[i].cpu().numpy()) * rinv
             % spec.p for i in range(SPOT)]
@@ -62,9 +61,6 @@ def run(field: str, logb: int, device, reps: int = 50) -> list:
                      "sol_fraction": stats.sol_fraction, "imad_fraction": stats.imad_fraction,
                      "bound_ms": stats.bound_ms, "bound_by": stats.bound_by,
                      "spot_check": got == want, "summary": stats.summary()})
-    if W != 8:
-        recs.append({"kernel": "mul_lm", "field": field, "batch": n,
-                     "skipped": f"K8 is built for 8-word fields only ({field} has {W})"})
     return recs
 
 

@@ -22,6 +22,7 @@ them from here):
 from __future__ import annotations
 
 import dataclasses
+import re
 import statistics
 import subprocess
 import time
@@ -433,10 +434,21 @@ def dev_us(e) -> float:
 
 def launch_key(kernel_name: str) -> str | None:
     """The launch-counter key of a device kernel's name (mont_mul_kernel,
-    mul_lm_rows_kernel<8>, ...), or None for a kernel of another library."""
+    mul_lm_rows_kernel<8>, ...; an NTT kernel's W = 12 build, such as
+    ntt_base_kernel<12, 9>, under name_w12), or None for a kernel of
+    another library."""
     if "kernel" not in kernel_name:
         return None
-    return next((k for k in _build.LAUNCHES if k + "_" in kernel_name), None)
+    key = next((k for k in _build.LAUNCHES if k + "_" in kernel_name), None)
+    wide = f"{key}_w12"
+    if wide in _build.LAUNCHES and re.search(r"_kernel<12\b", kernel_name):
+        return wide
+    return key
+
+
+def kernel_of(key: str) -> str:
+    """The kernel of a launch-counter key, whatever its build's width."""
+    return key.removesuffix("_w12")
 
 
 def traced_launches(events) -> dict:
@@ -462,9 +474,10 @@ def check_trace(traced: dict, launched: dict, what: str) -> None:
 
 def device_split(fn: Callable) -> dict:
     """fn() once under torch.profiler: the device time and count of K7
-    (ntt_base_kernel), K8 (mul_lm_*kernel), K9 (twiddle_mul_kernel), NCCL's
-    collectives (kernels named nccl*) and every other device operation (a
-    copy, a fill, a gather, listed in other_ops), and the wall ms.  Raises
+    (ntt_base_kernel), K8 (mul_lm_*kernel), K9 (twiddle_mul_kernel) at
+    either width, NCCL's collectives (kernels named nccl*) and every other
+    device operation (a copy, a fill, a gather, listed in other_ops), and
+    the wall ms.  Raises
     TraceLost when the trace holds fewer events of a port kernel than its
     launch counter rose by in the window: on the H100 machine torch.profiler
     drops more of the card's events the older the process is, from about
@@ -488,6 +501,7 @@ def device_split(fn: Callable) -> dict:
     check_trace(traced_launches((e.key, e.count) for e in events), launched, "device_split")
     for e in events:
         lk = launch_key(e.key)
+        lk = lk and kernel_of(lk)
         key = lk if lk in SPLIT_KERNELS else ("nccl" if "nccl" in e.key.lower() else "other")
         split[key][0] += e.count
         split[key][1] += dev_us(e) / 1e3

@@ -1,8 +1,9 @@
 // K7's block schedule: whole K-point NTTs (K <= 512), one per lane, on
 // element-contiguous data, for Hopper (sm_90a).
 //
-// Layout.  An element is W = 8 consecutive 32-bit words, 32 bytes: one
-// sector of device memory.  Point k of lane l lies at element
+// Layout.  An element is W consecutive 32-bit words: 32 bytes, one sector
+// of device memory, at W = 8; 48 bytes at W = 12.  Point k of lane l lies
+// at element
 //   k * ks + sum_t ((l >> src_t) % 2^wid_t) << dst_t      (TileMap)
 // of its buffer, so a batch may be read through the strides of a
 // Cooley-Tukey level (fused.py) instead of a transposed copy, and every
@@ -37,10 +38,12 @@
 // Shared memory: the tile as W/4 planes of 16-byte words (plane h holds
 // words 4h .. 4h+3 of each element), element e = pos * NL + lane at
 // e + 4 (e / 32): with that padding the 8 threads of each quarter-warp
-// touch 8 different 16-byte bank groups in every stage.  72 KB per block,
-// three blocks per SM (24 warps; 76 registers a thread).  The twiddle pack (K entries, 16 KB at K = 512)
-// stays in device memory and is read through the read-only path; it is
-// the same for every block, so it stays in L1.
+// touch 8 different 16-byte bank groups in every stage.  At K = 512, 72 KB
+// per block at W = 8, three blocks per SM (24 warps; 76 registers a
+// thread), and 108 KB at W = 12, two blocks per SM (16 warps; 122
+// registers a thread, no spills).  The twiddle pack (K entries, 16 or 24
+// KB at K = 512) stays in device memory and is read through the read-only
+// path; it is the same for every block, so it stays in L1.
 //
 // Products are carry.cuh's canonical carry-chain product, adds and subs
 // its canonical carry-chain ones: the same words as field.cuh.

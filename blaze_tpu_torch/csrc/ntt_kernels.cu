@@ -1,10 +1,12 @@
 // K7-K9: the NTT's kernels, canonical.
 //
 // Every value stays canonical (< p): the scalar fields have R < 4p, so the
-// lazy < 2p discipline of the EC kernels is unsound here.  K7 and K9 work on
-// element-contiguous buffers (an element's W = 8 words are 32 consecutive
-// bytes, one sector of device memory); K8 on (M, W, N) lanes-major words,
-// which FusedNTT hands it as element rows, (n, W, 1).
+// lazy < 2p discipline of the EC kernels is unsound here.  Each kernel is
+// built at W = 8 (the scalar fields) and W = 12 (bls12_377_fq).  K7 and K9
+// work on element-contiguous buffers (an element's W words are 32 or 48
+// consecutive bytes, one or one and a half sectors of device memory); K8 on
+// (M, W, N) lanes-major words, which FusedNTT hands it as element rows,
+// (n, W, 1).
 //
 // Replaces (blaze_tpu/ntt/kernels.py, NTTKernels):
 //   K7 blz_ntt_base    <- _ntt_fn / ntt_base      (whole K-point DIT NTT per lane)
@@ -16,7 +18,8 @@
 // butterfly whose twiddle is W^0 needs none: all of stage 0, K/2^(s+1) of
 // stage s), K9 two per element, K8 one or two.  At the 2^27 transform each
 // K7 pass is about 7.4 ms of IMADs against 2.6 ms of bytes, each K9 pass
-// about 4.2 ms against 2.6 ms.
+// about 4.2 ms against 2.6 ms (W = 8); at W = 12 a product is 2.23 times
+// the IMADs (588 against 264) and an element 1.5 times the bytes.
 //
 // K7 (ntt.cuh): a block keeps NL lanes of K points in shared memory, each
 // thread owns 8 of them per pass and runs three radix-2 stages on them per
@@ -34,7 +37,7 @@
 // K8 is one thread per element.  Its element rows (N = 1, the plan's form)
 // are read and written as 16-byte words, y and z through the read-only
 // path, and multiplied on carry.cuh's canonical carry chain; bound by bytes
-// (3 elements of 32 B moved per product at two operands).  The design it
+// (3 elements moved per product at two operands).  The design it
 // replaces read each word at stride N (8 bytes apart for neighbouring
 // threads at N = 1) and multiplied on field.cuh's word-serial product.
 // Word-major batches (N > 1) keep one thread per element, their words read
@@ -42,7 +45,7 @@
 // it reads the element's twiddle row v and column j from bit fields of
 // its position (the plan's storage order), then its two factors straight
 // from the small split tables (T1/T2, 8 MiB each at 2^27, L2-resident;
-// each entry one 32-byte sector, as the data), where the TPU kernel
+// each entry one element, as the data), where the TPU kernel
 // needed an iota+where column pick.  K9 is
 // elementwise and may run in place.
 #include <cuda_runtime.h>
@@ -56,9 +59,15 @@ namespace {
 namespace nt = blz::ntt;
 
 // ------------------------------------------------------------------ K7
+// Blocks per SM that K7's registers must allow: as many as its shared tile
+// lets in at K = 512 (72 KB at W = 8: three, at most 85 registers a
+// thread; 108 KB at W = 12: two, at most 128, room for the 12-word
+// butterfly without spills).
+constexpr int ntt_min_blocks(int W) { return W == 8 ? 3 : 2; }
+
 // x and o may be the same buffer (one map): no __restrict__ on them.
 template <int W, int kLogK>
-__global__ void __launch_bounds__(nt::kThreads, 3)
+__global__ void __launch_bounds__(nt::kThreads, ntt_min_blocks(W))
 ntt_base_kernel(const uint32_t* x, const uint32_t* __restrict__ pack, uint32_t* o,
                 int64_t B, nt::TileMap in, nt::TileMap out, blz::FieldConsts<W> fc) {
   extern __shared__ uint4 ntt_smem[];
@@ -194,37 +203,50 @@ int launch_twiddle_mul(const uint32_t* consts, const void* y, const void* t1,
   return (int)cudaGetLastError();
 }
 
-}  // namespace
-
-// Only the 8-word scalar fields (bn254_fr, bls12_377_fr, bls12_381_fr) have
-// NTTs; any other W is refused.  in_map / out_map: the TileMaps of x and o
-// in host form (ntt.cuh BitFields: 1 + 3 kMaxFields int64).
-extern "C" int blz_ntt_base(int W, const uint32_t* consts, const void* x,
-                            const void* pack, void* o, int logK, int64_t B,
-                            const int64_t* in_map, const int64_t* out_map, void* stream) {
-  if (B <= 0) return 0;
-  if (W != 8) return (int)cudaErrorInvalidValue;
-  auto s = (cudaStream_t)stream;
+template <int W>
+int ntt_base_w(const uint32_t* consts, const void* x, const void* pack, void* o, int logK,
+               int64_t B, const int64_t* in, const int64_t* out, cudaStream_t s) {
   switch (logK) {
-    case 1: return launch_ntt_base<8, 1>(consts, x, pack, o, B, in_map, out_map, s);
-    case 2: return launch_ntt_base<8, 2>(consts, x, pack, o, B, in_map, out_map, s);
-    case 3: return launch_ntt_base<8, 3>(consts, x, pack, o, B, in_map, out_map, s);
-    case 4: return launch_ntt_base<8, 4>(consts, x, pack, o, B, in_map, out_map, s);
-    case 5: return launch_ntt_base<8, 5>(consts, x, pack, o, B, in_map, out_map, s);
-    case 6: return launch_ntt_base<8, 6>(consts, x, pack, o, B, in_map, out_map, s);
-    case 7: return launch_ntt_base<8, 7>(consts, x, pack, o, B, in_map, out_map, s);
-    case 8: return launch_ntt_base<8, 8>(consts, x, pack, o, B, in_map, out_map, s);
-    case 9: return launch_ntt_base<8, 9>(consts, x, pack, o, B, in_map, out_map, s);
+    case 1: return launch_ntt_base<W, 1>(consts, x, pack, o, B, in, out, s);
+    case 2: return launch_ntt_base<W, 2>(consts, x, pack, o, B, in, out, s);
+    case 3: return launch_ntt_base<W, 3>(consts, x, pack, o, B, in, out, s);
+    case 4: return launch_ntt_base<W, 4>(consts, x, pack, o, B, in, out, s);
+    case 5: return launch_ntt_base<W, 5>(consts, x, pack, o, B, in, out, s);
+    case 6: return launch_ntt_base<W, 6>(consts, x, pack, o, B, in, out, s);
+    case 7: return launch_ntt_base<W, 7>(consts, x, pack, o, B, in, out, s);
+    case 8: return launch_ntt_base<W, 8>(consts, x, pack, o, B, in, out, s);
+    case 9: return launch_ntt_base<W, 9>(consts, x, pack, o, B, in, out, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-// N = 1: element rows, every pointer 16-byte aligned.  o may be x.
+}  // namespace
+
+// Every field whose 2-adicity covers logn has NTTs: the 8-word scalar
+// fields (bn254_fr, bls12_377_fr, bls12_381_fr) and the 12-word
+// bls12_377_fq (2-adicity 46, the scalar field of BW6-761).  So each
+// kernel is built at W = 8 and W = 12; any other W is refused.  in_map /
+// out_map: the TileMaps of x and o in host form (ntt.cuh BitFields: 1 + 3
+// kMaxFields int64).
+extern "C" int blz_ntt_base(int W, const uint32_t* consts, const void* x,
+                            const void* pack, void* o, int logK, int64_t B,
+                            const int64_t* in_map, const int64_t* out_map, void* stream) {
+  if (B <= 0) return 0;
+  auto s = (cudaStream_t)stream;
+  if (W == 8) return ntt_base_w<8>(consts, x, pack, o, logK, B, in_map, out_map, s);
+  if (W == 12) return ntt_base_w<12>(consts, x, pack, o, logK, B, in_map, out_map, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// N = 1: element rows, every pointer 16-byte aligned (a row is 32 or 48
+// bytes, so every row starts 16-byte aligned too).  o may be x.
 extern "C" int blz_mul_lm(int W, const uint32_t* consts, const void* x, const void* y,
                           const void* z, void* o, int64_t M, int64_t N, void* stream) {
   if (M <= 0 || N <= 0) return 0;
-  if (W != 8) return (int)cudaErrorInvalidValue;
-  return launch_mul_lm<8>(consts, x, y, z, o, M, N, (cudaStream_t)stream);
+  auto s = (cudaStream_t)stream;
+  if (W == 8) return launch_mul_lm<8>(consts, x, y, z, o, M, N, s);
+  if (W == 12) return launch_mul_lm<12>(consts, x, y, z, o, M, N, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 // fields: the row map in host form (ntt.cuh BitFields, head = v's shift).
@@ -233,14 +255,16 @@ extern "C" int blz_twiddle_mul(int W, const uint32_t* consts, const void* y,
                                int logA, int logJ, int logS, const int64_t* fields,
                                void* stream) {
   if (N <= 0) return 0;
-  if (W != 8) return (int)cudaErrorInvalidValue;
-  return launch_twiddle_mul<8>(consts, y, t1, t2, o, N, logA, logJ, logS, fields,
-                               (cudaStream_t)stream);
+  auto s = (cudaStream_t)stream;
+  if (W == 8) return launch_twiddle_mul<8>(consts, y, t1, t2, o, N, logA, logJ, logS, fields, s);
+  if (W == 12)
+    return launch_twiddle_mul<12>(consts, y, t1, t2, o, N, logA, logJ, logS, fields, s);
+  return (int)cudaErrorInvalidValue;
 }
 
-// Threads that compute one lane of the named kernel as launched above (K7:
-// K/8 threads per lane for K >= 8, 64 at the main path's K = 512; K8, K9:
-// one thread per element), -1 for a name not in this library.
+// Threads that compute one lane of the named kernel as launched above, at
+// either W (K7: K/8 threads per lane for K >= 8, 64 at the main path's K =
+// 512; K8, K9: one thread per element), -1 for a name not in this library.
 extern "C" int blz_threads_per_lane(const char* kernel) {
   if (!strcmp(kernel, "ntt_base")) return nt::Shape<8, nt::kMaxLogK>::T;
   if (!strcmp(kernel, "mul_lm") || !strcmp(kernel, "twiddle_mul")) return 1;

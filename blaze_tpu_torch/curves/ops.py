@@ -76,6 +76,11 @@ class Curve:
     def nwords(self):
         return self.fq.nwords
 
+    @property
+    def nlimbs(self):
+        """16-bit limbs per base-field element (the JAX package's L = 2W)."""
+        return self.fq.spec.nlimbs
+
     @staticmethod
     def pack(x, y, z):
         return torch.stack([x, y, z], dim=-2)

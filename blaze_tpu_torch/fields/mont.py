@@ -51,6 +51,10 @@ class Field:
         """Boolean (...,) — true where the element is 0 (any domain)."""
         return (a == 0).all(dim=-1)
 
+    def eq(self, a, b):
+        """Boolean (...,) — true where a and b are the same words."""
+        return (a == b).all(dim=-1)
+
     @staticmethod
     def select(cond, a, b):
         """where(cond, a, b) with cond shaped (...,) broadcast over words."""
@@ -72,6 +76,9 @@ class Field:
         # if borrowed, add p back (cannot re-borrow since p - (b - a) > 0)
         fixed, _ = normalize(d + self.const(self.spec.p, d.device, wide=True), 32)
         return words_i32(torch.where((borrow > 0)[..., None], fixed, d))
+
+    def double(self, a):
+        return self.add(a, a)
 
     def neg(self, a):
         p = self.const(self.spec.p, a.device, wide=True)

@@ -49,6 +49,10 @@ class MSMConfig:
     # a conditional Y negation per scanned point.
     signed_digits: bool = False
 
+    def windows(self, scalar_bits: int) -> int:
+        """Windows of window_bits bits that cover scalar_bits."""
+        return -(-scalar_bits // self.window_bits)
+
 
 def default_window_bits(n: int) -> int:
     """Pick c so bucket work (~3*2^c) stays well below scan work (~n)."""

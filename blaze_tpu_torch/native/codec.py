@@ -15,9 +15,10 @@ import ctypes
 import numpy as np
 
 from .. import _build
-from ..utils.errors import DataError
+from ..utils.errors import DataError, LoadFailed
 
-__all__ = ["bytes_to_limbs", "limbs_to_bytes", "bank_split", "bank_merge", "transpose"]
+__all__ = ["have_native", "bytes_to_limbs", "limbs_to_bytes", "bank_split", "bank_merge",
+           "transpose"]
 
 _c = ctypes
 _ARGTYPES = {
@@ -35,6 +36,16 @@ def _fn(name: str):
         fn.argtypes = _ARGTYPES[name]
         fn.restype = None
     return fn
+
+
+def have_native() -> bool:
+    """Whether the host codec's library is built and loads (building it on
+    first use); False where it cannot be, instead of LoadFailed."""
+    try:
+        _build.load("codec")
+    except LoadFailed:
+        return False
+    return True
 
 
 def _u8(data) -> np.ndarray:

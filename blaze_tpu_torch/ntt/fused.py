@@ -28,8 +28,8 @@ the output's weight, whether it is still i_e or already k_e — so level d
 level the buffer is in natural order.  Level 0 reads the caller's input in
 natural order and writes the buffer (the input is left as it was).  The
 plan holds two buffers, the input and its own.  An (n, W) buffer of int32
-words keeps an element's 32 bytes together, so K7's strided reads and
-writes move whole sectors.
+words keeps an element's 4W bytes together (32 at W = 8, 48 at W = 12,
+bls12_377_fq), so K7's strided reads and writes move whole elements.
 
 Batches.  `ntt_batch` / `intt_batch` run B independent transforms of the
 plan's size in the same launches: one K7 launch per level over all B, one
@@ -50,8 +50,8 @@ take K9 at every level; the K8 fallback serves only the single transform.
 
 Left out from the JAX plan: the lane-expanded packs and u16 storage (Mosaic
 and TPU-tiling workarounds), the u16 donated entry points and the blocked
-layout (the TPU pads a (K, 16) u16 array 8x; (n, 8) int32 words already
-take exactly 32 B per element).
+layout (the TPU pads a (K, 16) u16 array 8x; (n, W) int32 words already
+take exactly 4W B per element).
 """
 from __future__ import annotations
 
@@ -64,18 +64,34 @@ from ..fields.mont import Field
 from ..fields.spec import FieldSpec, int_to_words
 from .kernels import MAX_FIELDS, MAX_LOGK, NTTKernels, TileMap, _log2, twiddle_cols
 
-__all__ = ["FusedNTT", "Level", "batch_level", "split_parts", "tables_from_reference"]
+__all__ = ["FusedNTT", "Level", "batch_level", "plan_parts", "split_parts",
+           "tables_from_reference"]
 
 KLOG = MAX_LOGK   # max log2 base-kernel size (K7's shared-memory tile)
+MAX_LEVELS = MAX_FIELDS + 1   # level 0's maps hold one lane field per later level
+
+
+def _balanced(logn: int, nparts: int) -> list[int]:
+    base, rem = divmod(logn, nparts)
+    return [base + 1] * rem + [base] * (nparts - rem)
 
 
 def split_parts(logn: int, klog: int = KLOG) -> list[int]:
     """Balanced decomposition of logn into parts each <= klog."""
     if logn <= klog:
         return [max(logn, 0)]
-    nparts = -(-logn // klog)
-    base, rem = divmod(logn, nparts)
-    return [base + 1] * rem + [base] * (nparts - rem)
+    return _balanced(logn, -(-logn // klog))
+
+
+def plan_parts(logn: int, klog: int = KLOG) -> list[int]:
+    """The parts a plan runs: split_parts(logn, klog), or, where that takes
+    more than MAX_LEVELS levels (klog 3 from logn 22, klog 2 from logn 15,
+    klog 1 from logn 8), the balanced split of logn into MAX_LEVELS parts,
+    the smallest parts K7's maps hold.  Every split gives the same
+    transform; at klog 9 every field's plan fits (6 levels at
+    bls12_377_fr's 2-adicity 47)."""
+    parts = split_parts(logn, klog)
+    return parts if len(parts) <= MAX_LEVELS else _balanced(logn, MAX_LEVELS)
 
 
 def _u16_to_words(a: np.ndarray) -> torch.Tensor:
@@ -173,16 +189,21 @@ class FusedNTT:
     `.intt` map (n, W) int32 canonical Montgomery words, natural order in
     and out, to a new (n, W) tensor; the input is left as it was.
 
-    klog caps the parts (KLOG = 9 on every client).  A plan of more than
-    MAX_FIELDS + 1 = 7 levels is refused, since level 0's maps hold one
-    lane field per later level: klog 3 from logn 22, klog 2 from logn 15
-    (blaze_tpu's FusedNTT builds those).  At klog 9 every field's plan
-    fits (6 levels at bls12_377_fr's 2-adicity 47)."""
+    klog caps the parts (KLOG = 9 on every client).  Where its balanced
+    split takes more levels than K7's maps hold (MAX_LEVELS = 7: level 0's
+    maps hold one lane field per later level), the plan runs logn split
+    into 7 parts instead (`plan_parts`; self.parts is the split that
+    runs): klog 3 from logn 22 runs parts [4, 3, 3, 3, 3, 3, 3], which
+    computes the same transform as blaze_tpu's 8 levels of 3 or fewer
+    points."""
 
     # Cells narrower than this many lanes take the K8 fallback on the
-    # twiddles in element order (only small plans, 2^10-2^19); tests may
-    # lower it to force K9 at small sizes.
+    # twiddles in element order, in plans of up to 2^_K8_MAX_LOGN points
+    # (its rows are n elements per depth and direction; at klog 9 only
+    # plans of 2^10-2^19 have such cells); tests may lower the width to
+    # force K9 at small sizes.
     _TWMUL_MIN_LANES = 128
+    _K8_MAX_LOGN = 19
 
     def __init__(self, spec: FieldSpec, logn: int, klog: int = KLOG, device="cuda"):
         if logn > spec.two_adicity:
@@ -195,11 +216,7 @@ class FusedNTT:
         self.field = Field(spec)
         self.logn = logn
         self.n = 1 << logn
-        self.parts = split_parts(logn, klog)
-        if len(self.parts) > MAX_FIELDS + 1:
-            # level 0's maps hold one lane field per later level
-            raise ValueError(f"{len(self.parts)} levels: K7's maps hold at most "
-                             f"{MAX_FIELDS + 1} (a larger klog cuts the count)")
+        self.parts = plan_parts(logn, klog)
         self.levels = plan_levels(self.parts) if logn else []
         self.device = torch.device(device)
         self.kern = NTTKernels.for_spec(spec)
@@ -275,7 +292,10 @@ class FusedNTT:
     # ------------------------------------------------------------ twiddle
     def _takes_k8(self, depth: int) -> bool:
         """Whether level `depth`'s twiddle cell is narrower than
-        _TWMUL_MIN_LANES (the K8 fallback)."""
+        _TWMUL_MIN_LANES in a plan of up to 2^_K8_MAX_LOGN points (the K8
+        fallback)."""
+        if self.logn > self._K8_MAX_LOGN:
+            return False
         lv = self.levels[depth]
         S = self._tabs[(depth, False)][1].shape[1]
         cell = S if lv.vshift == 0 else 1 << lv.vshift
@@ -286,7 +306,8 @@ class FusedNTT:
         order: row pos holds tab1[v, jo] * tab2[v, jl], one Montgomery product
         (K1; canonical products are associative mod p, so K8's y * rows
         equals y * tab1 * tab2 word for word).  Built with the plan for the
-        depths K8 serves, n x 32 B each (2 MiB at 2^16, 16 MiB at 2^19)."""
+        depths K8 serves, n x 4W B each (2 MiB at 2^16, 16 MiB at 2^19 on an
+        8-word field)."""
         key = (depth, inverse)
         rows = self._rows.get(key)
         if rows is None:

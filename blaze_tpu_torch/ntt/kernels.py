@@ -2,7 +2,8 @@
 
 Replaces blaze_tpu/ntt/kernels.py NTTKernels.  K7 and K9 take
 element-contiguous buffers, (N, W) int32 words (an element's W words
-together); K8 takes (M, W, N) lanes-major words, the JAX package's (R, L, B)
+together), W = 8 (the scalar fields) or 12 (bls12_377_fq, 2-adicity 46);
+K8 takes (M, W, N) lanes-major words, the JAX package's (R, L, B)
 with 32-bit words in place of 16-bit limbs, and FusedNTT hands it element
 rows, (n, W, 1).  Every value is canonical
 (< p): the scalar fields have R < 4p, so these kernels use the canonical
@@ -41,6 +42,7 @@ from ..fields.spec import FieldSpec
 
 __all__ = ["NTTKernels", "TileMap", "twiddle_cols"]
 
+NTT_WORDS = (8, 12)   # the element widths csrc/ntt_kernels.cu is built for
 MAX_LOGK = 9      # K7's shared-memory tile holds up to 2^9 points per lane
 MAX_FIELDS = 6    # bit fields of a TileMap or of K9's row map
 LANE_BITS = 31    # a field this wide holds any lane index whole
@@ -164,14 +166,20 @@ class NTTKernels:
         return inst
 
     def __init__(self, spec: FieldSpec):
-        if spec.nwords != 8:
-            raise ValueError(f"{spec.name}: the NTT kernels take 8-word fields only")
+        if spec.nwords not in NTT_WORDS:
+            raise ValueError(f"{spec.name}: the NTT kernels are built for {NTT_WORDS} "
+                             f"words, not {spec.nwords}")
         self.spec = spec
         self.W = spec.nwords
         self.ops = PlainFieldOps(spec, lazy=False)
         self._consts = consts_host(spec)
 
     # ------------------------------------------------------------ plumbing
+    def counter(self, name: str) -> str:
+        """The launch counter (_build.LAUNCHES) of kernel `name`'s build for
+        this field's width: the name itself at W = 8, name_w12 at W = 12."""
+        return name if self.W == 8 else f"{name}_w{self.W}"
+
     def _check(self, x: torch.Tensor, what: str) -> None:
         if x.dtype != torch.int32 or x.dim() != 3 or x.shape[1] != self.W:
             raise ValueError(
@@ -187,7 +195,7 @@ class NTTKernels:
             stream = torch.cuda.current_stream(dev).cuda_stream
             rc = _entry(name)(self.W, self._consts.ctypes.data, *args, stream)
         _build.check(rc, name)
-        _build.LAUNCHES[counter] += 1
+        _build.LAUNCHES[self.counter(counter)] += 1
 
     @staticmethod
     def _limbs(x: torch.Tensor) -> torch.Tensor:

@@ -136,14 +136,12 @@ def subgroup_msm_instance(spec: CurveSpec, n: int, seed: int, expected: bool = T
     return upoints, scal, want
 
 
-def host_vector(n: int, seed: int, parts: int = 8) -> np.ndarray:
-    """(n, 8) uint32 words of random values below 2^254 (below p of every
-    8-word field here): the raw 64-bit output of `parts` numpy generators
-    spawned from the seed, filled in threads (numpy releases the GIL there),
-    the top word masked as bench.py:156-157 does."""
+def _fill_raw(w: np.ndarray, seed: int, parts: int) -> None:
+    """Fill w (whole 64-bit words) with the raw output of `parts` numpy
+    generators spawned from the seed, in threads (numpy releases the GIL
+    there)."""
     from concurrent.futures import ThreadPoolExecutor
 
-    w = np.empty((n, 8), dtype=np.uint32)
     flat = w.reshape(-1).view(np.uint64)
     step = -(-flat.size // parts)
 
@@ -153,7 +151,28 @@ def host_vector(n: int, seed: int, parts: int = 8) -> np.ndarray:
 
     with ThreadPoolExecutor(parts) as ex:
         list(ex.map(fill, range(parts), np.random.SeedSequence(seed).spawn(parts)))
+
+
+def host_vector(n: int, seed: int, parts: int = 8) -> np.ndarray:
+    """(n, 8) uint32 words of random values below 2^254 (below p of every
+    8-word field here): the raw 64-bit output of `parts` numpy generators
+    spawned from the seed, filled in threads (numpy releases the GIL there),
+    the top word masked as bench.py:156-157 does."""
+    w = np.empty((n, 8), dtype=np.uint32)
+    _fill_raw(w, seed, parts)
     w[:, 7] &= 0x3FFFFFFF
+    return w
+
+
+def field_vector(spec, n: int, seed: int, parts: int = 8) -> np.ndarray:
+    """(n, W) uint32 words of random values below 2^(bits-1) < p of the
+    field `spec`, at any W (48-byte elements of bls12_377_fq, say): the raw
+    output of `parts` numpy generators spawned from the seed, filled in
+    threads as host_vector does, the top word masked."""
+    W = spec.nwords
+    w = np.empty((n, W), dtype=np.uint32)
+    _fill_raw(w, seed, parts)
+    w[:, W - 1] &= (1 << (spec.bits - 1 - 32 * (W - 1))) - 1
     return w
 
 

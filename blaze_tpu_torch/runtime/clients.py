@@ -494,7 +494,9 @@ class NTTInput:
 
 class NTTClient(DriverPrimitive):
     """Double-buffered NTT: two device slots, start/wait per slot — the
-    pipelined flow of integration_ntt.rs:103-136.
+    pipelined flow of integration_ntt.rs:103-136.  Wire elements are the
+    field's 4W bytes: 32 on the scalar fields, 48 on bls12_377_fq (6 GiB per
+    slot at 2^27).
 
     No Montgomery conversion pass runs, at any size: canonical bytes in give
     canonical bytes out.  The twiddles are Montgomery representatives, so the

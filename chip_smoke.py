@@ -11,8 +11,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    reads (the bounds below come from that row), then the kernels built
    from csrc/ with nvcc (seconds, registers, stack, spills) and the
    local-memory loads and stores (LDL, STL) in the EC, NTT and Poseidon
-   kernels' SASS, with the opcode mix of K2, K3, K4, K7 (at K = 512) and
-   K10 (cuobjdump);
+   kernels' SASS, with the opcode mix of K2, K3, K4, K7 (at K = 512, W = 8
+   and 12) and K10 (cuobjdump);
 2. kernel parity: K1-K6 against their plain PyTorch versions on the card,
    exact, on BN254, BLS12-377 and BLS12-381 at small shapes (K2 signed and
    unsigned) and at ragged shapes: K2 and K4 at lane counts B = 1, 33,
@@ -50,7 +50,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    oracle MSM of the 256 points with each point's coefficient sum mod r,
    and the result bytes must match it after z-normalisation.
 5. NTT kernel parity: K7-K9 against their plain versions, exact, on
-   bn254_fr, bls12_377_fr and bls12_381_fr at small shapes (K7 through
+   bn254_fr, bls12_377_fr, bls12_381_fr and (the W = 12 builds)
+   bls12_377_fq at small shapes (K7 through
    (K, B) rows in and out of place, a strided input into a transposed
    output and two levels of 2^10-point plans, ragged lane counts among
    them; K8 with 2 and 3 operands on word-major batches and on element
@@ -92,7 +93,7 @@ Phases, one JSON line each; any failure raises and exits non-zero:
 7c. (run before 7b) the sharded paths (dist/) on the card, NCCL, every
    mesh of one rank (make_mesh's group of one): K7 and K9 at batched maps (FusedNTT's
    ntt_batch levels, B transforms per launch) against their plain
-   versions, whole, on the three scalar fields, then at the 2^27
+   versions, whole, on the four NTT fields, then at the 2^27
    four-step's maps (K7 at each level of the 2^13 column and 2^14 row
    sub-plans, K9 at their twiddles and at the inter-pass twiddle) with
    times and bounds, each held against its plain version on a cut;
@@ -107,6 +108,21 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    full-width scalars against its geometric oracle.  Each prints wall
    seconds, device milliseconds (CUDA events), launches per kernel and
    peak memory; launch counts are zeroed before each run;
+7d. (run after 7, before 7c) ntt_377fq_2^27: NTTs over the 12-word
+   bls12_377_fq (48-byte elements, BW6-761's scalar field) at the
+   reference's 2^27: K7-K9's
+   W = 12 builds at the 2^27 plan's shapes with times and bounds, each
+   held against its plain version on a cut; one warm FusedNTT transform
+   (CUDA events) held by its inverse and by the input polynomial evaluated
+   at W^k at 8 indices (no NTT kernel), and split in a fresh child's
+   profile (K7 x3 and K9 x2, nothing else; the 2^16 plan's K7 x2 and K8
+   x1); NTTClient forward and inverse on two 6 GiB vectors, each output
+   equal to the plan's and each inverse back to its input bytes, with
+   set_data, start->wait and result seconds and the peak memory; the
+   client at 2^16 (K7 x2, K8 x1) against a host NTT in Python ints;
+   DistributedNTT at 2^24 on a mesh of one against FusedNTT, and back; a
+   plan past 7 levels (2^22 at klog 3) against the klog-9 plan.  Launch
+   counts are zeroed before each run and must be exactly the plan's;
 8. Poseidon kernel parity: K10 against its (dense) plain version, exact,
    on the three scalar fields (t = 9 and 12, with and without convert_in,
    B = 1 and 1000, inputs near p; the sparse schedule, and on bls12_381_fr
@@ -133,7 +149,7 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    records must arrive before the last feed and the closed tree must
    equal a staged build of the same elements.
    Launch counts are zeroed just before each client run of phases 3, 4,
-   4b, 6, 7, 9, 10 and 11, each serial batch of 7b and each run of 7c,
+   4b, 6, 7, 9, 10 and 11, each serial batch of 7b and each run of 7c and 7d,
    and read just after; every kernel of the run's path must have launched (K10 nine
    times per height-9 build; K2 once and K4 five times per 2^19 chunk at
    2^24; K6 once per MSM).
@@ -142,14 +158,16 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    (MSM 2^24, NTT 2^27, Poseidon over 2^24 leaves, the pipeline at (2^27,
    2^24)), every record oracle-exact, and the microbench (K1 and K8 on the
    same operands) at bls12_381_fq 2^19 and bls12_381_fr 2^19;
-13. the seconds each phase took, then the kernels line (K1-K10): launches
+13. the seconds each phase took, then the kernels line (K1-K10, and
+   K7-K9's W = 12 builds as ntt_base_w12, mul_lm_w12, twiddle_mul_w12,
+   their times at the W = 12 2^27 plan's shapes): launches
    in those runs, parity error, times, bounds, threads per lane, and K3's,
    K5's and K6's chain bound.  A kernel's `ms` is CUDA events around
    repeated launches queued behind a spin of the card, so a kernel shorter
    than its launch from Python (K1, K3, K8) is not timed at the host's
    pace.
 Every torch.profiler measurement (the 2^19 MSM profile, the NTT splits of
-phase 5 and 7c, the pipeline's trace) runs early in a child process of its
+phases 5, 7c and 7d, the pipeline's trace) runs early in a child process of its
 own (`fresh`): on the card's machine the profiler drops more of the card's
 events the older the process is, from about 40 s on (PERF.md §7).  A trace
 that holds fewer events of a kernel than its launch counter rose by in the
@@ -171,6 +189,7 @@ import re
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -189,16 +208,24 @@ KERNELS = {
     "twiddle_mul": ("blaze_tpu_torch/csrc/ntt_kernels.cu", "blaze_tpu/ntt/kernels.py:252"),
     "poseidon_perm": ("blaze_tpu_torch/csrc/poseidon_kernels.cu",
                       "blaze_tpu/hash/kernels.py:207"),
+    # K7-K9's W = 12 builds (bls12_377_fq), counted apart
+    "ntt_base_w12": ("blaze_tpu_torch/csrc/ntt_kernels.cu", "blaze_tpu/ntt/kernels.py:102"),
+    "mul_lm_w12": ("blaze_tpu_torch/csrc/ntt_kernels.cu", "blaze_tpu/ntt/kernels.py:168"),
+    "twiddle_mul_w12": ("blaze_tpu_torch/csrc/ntt_kernels.cu", "blaze_tpu/ntt/kernels.py:252"),
 }
-NTT_FIELDS = ("bn254_fr", "bls12_377_fr", "bls12_381_fr")
+SCALAR_FIELDS = ("bn254_fr", "bls12_377_fr", "bls12_381_fr")
+WIDE_NTT_FIELD = "bls12_377_fq"       # 12 words, 2-adicity 46: BW6-761's scalar field
+NTT_FIELDS = (*SCALAR_FIELDS, WIDE_NTT_FIELD)
 
 
 def threads_per_lane(name: str) -> int:
     """Threads that compute one lane of a kernel, as its built library
-    reports it (blz_threads_per_lane of the kernel's source)."""
+    reports it (blz_threads_per_lane of the kernel's source; a W = 12 build
+    as its kernel)."""
     from blaze_tpu_torch import _build
+    from blaze_tpu_torch.bench.profile import kernel_of
 
-    return _build.threads_per_lane(Path(KERNELS[name][0]).stem, name)
+    return _build.threads_per_lane(Path(KERNELS[name][0]).stem, kernel_of(name))
 
 
 def emit(obj) -> None:
@@ -312,7 +339,7 @@ def ptxas_summary(logs: dict) -> dict:
 
 def sass_summary(libs, mix_of=("scan_mixed_kernel<12>", "ec_add_kernel<12>",
                               "reduce_cols_kernel<12>", "ntt_base_kernel<8,9>",
-                              "poseidon_perm_kernel<8>")):
+                              "ntt_base_kernel<12,9>", "poseidon_perm_kernel<8>")):
     """From cuobjdump -sass of the built libraries: 'kernel<W>[s]' ->
     [LDL, STL], the local-memory loads and stores in its code, and for the
     kernels in `mix_of` the static count of each opcode (the most frequent
@@ -917,21 +944,22 @@ def ntt_kernel_cases(spec, seed: int, device):
 
 
 def ntt_main_timing(plan, sol, seed: int, device):
-    """K7-K9 at the shapes of the 2^27 bls12_381_fr transform (`plan`): K7
-    at each of its three levels (level 0 reads the input's rows and writes
-    the plan's buffer, levels 1 and 2 update it in place), K9 at depths 0
-    and 1, K8 at the 2^16 plan's twiddle call (two operands in place, its
-    only main-path use) and with three operands: time, bound, and the
-    kernel's output on a cut (K7 2^11 lanes, K9 2^20 rows) against the
-    plain version on the same cut."""
+    """K7-K9 at the shapes of a 2^27 transform (`plan`: bls12_381_fr, or
+    bls12_377_fq at W = 12): K7 at each of its three levels (level 0 reads
+    the input's rows and writes the plan's buffer, levels 1 and 2 update it
+    in place), K9 at depths 0 and 1, K8 at the 2^16 plan's twiddle call
+    (two operands in place, its only main-path use) and with three
+    operands: time, bound, and the kernel's output on a cut (K7 2^11 lanes,
+    K9 2^20 rows) against the plain version on the same cut.  Keyed by the
+    launch counter of the field's build ("ntt_base", "ntt_base_w12"), then
+    the level or depth; each entry names its counter ("kernel")."""
     import torch
 
     from blaze_tpu_torch.bench.profile import cuda_ms, work_bound_ms
-    from blaze_tpu_torch.fields import FIELDS
     from blaze_tpu_torch.ntt import FusedNTT
     from blaze_tpu_torch.oracle.gen import rand_words
 
-    spec = FIELDS["bls12_381_fr"]
+    spec = plan.spec
     W = spec.nwords
     k = plan.kern
     timing = {}
@@ -943,17 +971,18 @@ def ntt_main_timing(plan, sol, seed: int, device):
         want, plain_ms = once_ms(plain)
         e = max_abs_err(cut(check()), cut(want))
         bound, bound_by = work_bound_ms(name, shape, W, sol)
-        timing[key] = {"shape": shape, "ms": ms, "plain_ms": plain_ms,
-                       "plain_shape": plain_shape, "bound_ms": bound,
+        timing[key] = {"kernel": k.counter(name), "shape": shape, "ms": ms,
+                       "plain_ms": plain_ms, "plain_shape": plain_shape, "bound_ms": bound,
                        "bound_by": bound_by, "max_abs_err": e}
         del want
         torch.cuda.empty_cache()
 
-    n, lane_cut, row_cut = plan.n, 1 << 11, 1 << 20
+    n = plan.n
+    lane_cut, row_cut = min(1 << 11, n >> 9), min(1 << 20, n)
     x = rand_words(spec, (n, W), seed, device)
     buf = rand_words(spec, (n, W), seed + 1, device)
     for d, lv in enumerate(plan.levels):
-        key = "ntt_base" if d == 0 else f"ntt_base_level{d}"
+        key = k.counter("ntt_base") + ("" if d == 0 else f"_level{d}")
         pack, K = plan._packs[(lv.a, False)], 1 << lv.a
         src = x if d == 0 else buf.clone()
 
@@ -971,7 +1000,7 @@ def ntt_main_timing(plan, sol, seed: int, device):
         del src
     del x
     for d, lv in enumerate(plan.levels[:-1]):
-        key = "twiddle_mul" if d == 0 else f"twiddle_mul_depth{d}"
+        key = k.counter("twiddle_mul") + ("" if d == 0 else f"_depth{d}")
         t1, t2 = plan._tabs[(d, False)]
         J, S = t1.shape[1], t2.shape[1]
         y = buf[:row_cut].clone()               # rows 0.. of the buffer: the same v, j
@@ -990,7 +1019,8 @@ def ntt_main_timing(plan, sol, seed: int, device):
     rows = small._twiddle_rows(0, False).view(small.n, W, 1)
     y, z = (rand_words(spec, (small.n, W, 1), seed + 3 + i, device) for i in range(2))
     ybuf = y.clone()
-    for key, ops in (("mul_lm", (rows,)), ("mul_lm_3_operands", (rows, z))):
+    for key, ops in ((k.counter("mul_lm"), (rows,)),
+                     (k.counter("mul_lm") + "_3_operands", (rows, z))):
         shape = {"M": small.n, "N": 1, "operands": 1 + len(ops)}
         timed = ((lambda: k.mul_lm(ybuf, rows, out=ybuf)) if len(ops) == 1 else
                  (lambda ops=ops: k.mul_lm(y, *ops)))
@@ -1021,7 +1051,7 @@ def ntt_transform_split(plan, seed: int, device, want: dict) -> dict:
     info = {"n": plan.n, "parts": plan.parts, "transform_ms": ms, **split,
             "input_gib": plan.n * W * 4 / 2**30,
             "peak_gib": peak / 2**30, "peak_above_input_gib": (peak - base) / 2**30}
-    emit({"phase": f"ntt_2^{plan.logn}_split", **info})
+    emit({"phase": f"ntt_2^{plan.logn}_split", "field": plan.spec.name, **info})
     got = {k: split[f"{k}_launches"] for k in SPLIT}
     if got != {**dict.fromkeys(SPLIT, 0), **want}:
         raise AssertionError(f"ntt 2^{plan.logn}: device operations {got}, want {want} "
@@ -1033,16 +1063,16 @@ def phase_ntt_parity(sol, seed: int, device):
     import torch
 
     from blaze_tpu_torch.fields import FIELDS
-    from blaze_tpu_torch.ntt import FusedNTT
+    from blaze_tpu_torch.ntt import FusedNTT, NTTKernels
 
-    names = ("ntt_base", "mul_lm", "twiddle_mul")
-    errs = dict.fromkeys(names, 0)
+    errs = {}
     for field in NTT_FIELDS:
         checked = []
+        k = NTTKernels.for_spec(FIELDS[field])
         for name, kern, plain, shape in ntt_kernel_cases(FIELDS[field], seed, device):
             e = max_abs_err(kern(), plain())
-            errs[name] = max(errs[name], e)
-            checked.append({"kernel": name, **shape, "max_abs_err": e})
+            errs[k.counter(name)] = max(errs.get(k.counter(name), 0), e)
+            checked.append({"kernel": k.counter(name), **shape, "max_abs_err": e})
         torch.cuda.synchronize()
         emit({"phase": "ntt_parity", "field": field, "shape": "small", "cases": checked})
         if any(c["max_abs_err"] for c in checked):
@@ -1052,30 +1082,37 @@ def phase_ntt_parity(sol, seed: int, device):
     timing = ntt_main_timing(plan, sol, seed, dev)
     emit({"phase": "ntt_parity", "field": "bls12_381_fr", "shape": "main path (2^27)",
           "kernels": timing})
-    for key, t in timing.items():
-        name = next(nm for nm in names if key.startswith(nm))
-        errs[name] = max(errs[name], t["max_abs_err"])
+    for t in timing.values():
+        errs[t["kernel"]] = max(errs[t["kernel"]], t["max_abs_err"])
     if any(t["max_abs_err"] for t in timing.values()):
         raise AssertionError("NTT kernel differs from its plain version at the main shapes")
     del plan
     torch.cuda.empty_cache()
-    fresh("ntt_splits", seed)
+    ntt_splits(seed, "bls12_381_fr")
     return errs, timing
 
 
-def ntt_splits(seed: int) -> list:
+SPLIT_WANT = {27: {"ntt_base": 3, "twiddle_mul": 2}, 16: {"ntt_base": 2, "mul_lm": 1}}
+
+
+def ntt_splits(seed: int, field: str) -> list:
     """ntt_transform_split of the 2^27 plan (K7 x3, K9 x2) and the 2^16 plan
-    (K7 x2, K8 x1) on bls12_381_fr; run in a fresh process (`fresh`)."""
+    (K7 x2, K8 x1) on `field`, each in a fresh process of its own (the
+    profiler keeps every event only in a young one)."""
+    return [fresh("ntt_split", seed, field, logn) for logn in SPLIT_WANT]
+
+
+def ntt_split(seed: int, field: str, logn: int) -> dict:
+    """ntt_transform_split of the 2^logn plan on `field`, SPLIT_WANT's
+    launches and nothing else; run in a fresh process (`fresh`)."""
     import torch
 
     from blaze_tpu_torch.fields import FIELDS
     from blaze_tpu_torch.ntt import FusedNTT
 
     dev = torch.device("cuda", torch.cuda.current_device())
-    spec = FIELDS["bls12_381_fr"]
-    return [ntt_transform_split(FusedNTT(spec, logn, device=dev), seed, dev, want)
-            for logn, want in ((27, {"ntt_base": 3, "twiddle_mul": 2}),
-                               (16, {"ntt_base": 2, "mul_lm": 1}))]
+    return ntt_transform_split(FusedNTT(FIELDS[field], logn, device=dev), seed, dev,
+                               SPLIT_WANT[logn])
 
 
 # --------------------------------------------------------- phases 6 and 7
@@ -1274,6 +1311,171 @@ def phase_ntt_small(seed: int) -> dict:
     if not goldens or not all(goldens.values()):
         raise AssertionError(f"ntt goldens: {goldens}")
     return total
+
+
+# ------------------------------------------------------ the wide NTT phase
+def plan_launches(plan) -> dict:
+    """The launches of one plan.ntt: K7 per level, K9 per twiddle, or K8 where
+    the plan's twiddle cell takes the fallback; under the counters of the
+    plan's width."""
+    want = {plan.kern.counter("ntt_base"): len(plan.levels)}
+    for d in range(len(plan.levels) - 1):
+        key = plan.kern.counter("mul_lm" if plan._takes_k8(d) else "twiddle_mul")
+        want[key] = want.get(key, 0) + 1
+    return want
+
+
+def phase_ntt_wide(sol, seed: int, logn: int = 27, dist_logn: int = 24, small_logn: int = 16,
+                   past7: tuple = (22, 3), device=None) -> tuple:
+    """Phase 7d (ntt_377fq_2^27): NTTs over the 12-word bls12_377_fq
+    (48-byte elements) on the card.  K7-K9's W = 12 builds at the 2^logn
+    plan's shapes (ntt_main_timing); one warm transform (CUDA events; K7 x3
+    and K9 x2, nothing else, in a fresh child's profile, with the 2^16
+    plan's K7 x2 and K8 x1) held by its inverse and by the input polynomial
+    evaluated at W^k at 8 indices (evaluate_on_card: K1 products and integer
+    sums, no NTT kernel); NTTClient forward and inverse on two vectors
+    (field_vector from the seed), each output equal to the plan's on the
+    card and each inverse back to the input bytes, with set_data,
+    start->wait and result seconds and the peak memory; the client at 2^16
+    (the K8 fallback) against a host NTT in Python ints; DistributedNTT at
+    2^dist_logn on a mesh of one (NCCL) against FusedNTT, and back; a plan
+    past 7 levels at klog 3 against the klog-9 plan.  `device` (default:
+    the current card) and the sizes let the CPU rehearse the phase.
+    Returns (errors, timing, launches), keyed by the W = 12 counters."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from blaze_tpu_torch import _build
+    from blaze_tpu_torch.bench.profile import cuda_ms
+    from blaze_tpu_torch.bench.runners import evaluate_on_card, word_ints
+    from blaze_tpu_torch.dist import DistributedNTT, make_mesh
+    from blaze_tpu_torch.fields import FIELDS
+    from blaze_tpu_torch.ntt import FusedNTT
+    from blaze_tpu_torch.oracle.gen import field_vector, rand_words
+    from blaze_tpu_torch.runtime import NTTClient, NTTInit
+
+    spec = FIELDS[WIDE_NTT_FIELD]
+    W, n, p = spec.nwords, 1 << logn, spec.p
+    dev = device or torch.device("cuda", torch.cuda.current_device())
+    launches = {}
+
+    def counted(phase, counts, want):
+        """Add a run's counts to the launches; raise unless exactly `want`."""
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        got = {k: v for k, v in counts.items() if v}
+        if got != want:
+            raise AssertionError(f"{phase}: launches {got}, want {want}")
+
+    # ---- the kernels at the 2^logn plan's shapes
+    plan = FusedNTT(spec, logn, device=dev)
+    timing = ntt_main_timing(plan, sol, seed, dev)
+    emit({"phase": "ntt_parity", "field": spec.name, "shape": f"main path (2^{logn})",
+          "kernels": timing})
+    errs = {}
+    for t in timing.values():
+        errs[t["kernel"]] = max(errs.get(t["kernel"], 0), t["max_abs_err"])
+    if any(errs.values()):
+        raise AssertionError("a W = 12 NTT kernel differs from its plain version")
+    torch.cuda.empty_cache()
+    split = ntt_splits(seed, spec.name)
+
+    # ---- one transform: inverse, sampled evaluations, warm time
+    t0 = time.perf_counter()
+    vecs = [field_vector(spec, n, seed + i) for i in range(2)]
+    gen_s = time.perf_counter() - t0
+    x = torch.from_numpy(vecs[0].view(np.int32)).to(dev)
+    out, run = timed_run(lambda: plan.ntt(x))
+    counted("ntt_377fq transform", run["launches"], plan_launches(plan))
+    transform_ms = cuda_ms(lambda: plan.ntt(x), 3)
+    roundtrip = bool(torch.equal(plan.intt(out), x))
+    rng = np.random.default_rng(seed)
+    ks = [0, 1, n - 1] + [int(v) for v in rng.integers(2, n - 1, size=5)]
+    got = word_ints(out[ks].cpu().numpy().view(np.uint32))
+    evaluations = got == evaluate_on_card(spec, x, spec.root_of_unity(logn), ks)
+    del out, x
+    torch.cuda.empty_cache()
+    info = {"field": spec.name, "n": n, "element_bytes": spec.nbytes, "parts": plan.parts,
+            "transform_ms": transform_ms, "elements_per_s": n / transform_ms * 1e3,
+            "split": [{k: v for k, v in sp.items() if k != "other_ops"} for sp in split],
+            "once": run, "roundtrip": roundtrip, "evaluations_match": evaluations,
+            "input_gen_s": gen_s}
+
+    # ---- the client at 2^logn: two vectors, forward and inverse
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    fwd = NTTClient(NTTInit(field=spec.name, logn=logn))
+    inv = NTTClient(NTTInit(field=spec.name, logn=logn), inverse=True)
+    plan_s = time.perf_counter() - t0
+    runs = []
+    for i, v in enumerate(vecs):
+        _build.reset_launches()
+        o, secs = run_ntt_client(fwd, v)
+        counted(f"ntt_377fq client {i}", dict(_build.LAUNCHES), plan_launches(fwd.plan))
+        with warnings.catch_warnings():         # read-only bytes, only read here
+            warnings.simplefilter("ignore", UserWarning)
+            y = torch.frombuffer(o, dtype=torch.int32).view(n, W).to(dev)
+        equal = bool(torch.equal(y, plan.ntt(torch.from_numpy(v.view(np.int32)).to(dev))))
+        del y
+        back, secs_inv = run_ntt_client(inv, o)
+        del o
+        runs.append({"vector": i, "forward": secs, "inverse": secs_inv,
+                     "equals_plan": equal, "roundtrip": back == v.tobytes()})
+        del back
+    del vecs, plan
+    info["client"] = {"plan_s": plan_s, "runs": runs,
+                      "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30}
+    del fwd, inv
+    torch.cuda.empty_cache()
+
+    # ---- the 2^16 plan through the client (K7 x2, K8 x1) against a host NTT
+    v = field_vector(spec, 1 << small_logn, seed + 16)
+    small = NTTClient(NTTInit(field=spec.name, logn=small_logn))
+    _build.reset_launches()
+    o, secs = run_ntt_client(small, v)
+    counted("ntt_377fq 2^16", dict(_build.LAUNCHES), {"ntt_base_w12": 2, "mul_lm_w12": 1})
+    want = host_ntt(word_ints(v), spec.root_of_unity(small_logn), p)
+    back, _ = run_ntt_client(NTTClient(NTTInit(field=spec.name, logn=small_logn),
+                                       inverse=True), o)
+    info["2^16"] = {**secs, "host_ntt": o == b"".join(c.to_bytes(spec.nbytes, "little")
+                                                      for c in want),
+                    "roundtrip": back == v.tobytes()}
+
+    # ---- DistributedNTT on a mesh of one at 2^dist_logn, and back
+    try:
+        mesh = make_mesh({"sp": 1}, device_type=dev.type)
+        dntt = DistributedNTT(spec, dist_logn, mesh, axis="sp", logn1=dist_logn // 2)
+        x = rand_words(spec, (1 << dist_logn, W), seed + 7, dev)
+        xk, run = timed_run(lambda: dntt.ntt(x))
+        counted("ntt_377fq DistributedNTT", run["launches"],
+                {"ntt_base_w12": len(dntt.plan1.levels) + len(dntt.plan2.levels),
+                 "twiddle_mul_w12": len(dntt.plan1.levels) + len(dntt.plan2.levels) - 1})
+        equal = bool(torch.equal(dntt.spectral_to_natural(xk),
+                                 FusedNTT(spec, dist_logn, device=dev).ntt(x)))
+        info["dist"] = {"n": 1 << dist_logn, "logn1": dist_logn // 2, **run,
+                        "equals_fused_ntt": equal,
+                        "roundtrip": bool(torch.equal(dntt.intt(xk), x))}
+        del x, xk
+    finally:
+        dist.destroy_process_group()
+
+    # ---- a plan past 7 levels at klog 3 against the klog-9 plan
+    deep = FusedNTT(spec, past7[0], klog=past7[1], device=dev)
+    x = rand_words(spec, (deep.n, W), seed + 22, dev)
+    flat = FusedNTT(spec, deep.logn, device=dev)
+    info["deep_plan"] = {"n": deep.n, "parts": deep.parts, "klog9_parts": flat.parts,
+                         "equal": bool(torch.equal(deep.ntt(x), flat.ntt(x))
+                                       and torch.equal(deep.intt(x), flat.intt(x)))}
+    del x, deep, flat
+    torch.cuda.empty_cache()
+    emit({"phase": f"ntt_377fq_2^{logn}", **info})
+    oks = [roundtrip, evaluations, *(r["equals_plan"] and r["roundtrip"] for r in runs),
+           info["2^16"]["host_ntt"], info["2^16"]["roundtrip"], info["dist"]["equals_fused_ntt"],
+           info["dist"]["roundtrip"], info["deep_plan"]["equal"]]
+    if not all(oks):
+        raise AssertionError(f"ntt_377fq_2^{logn}: a check failed: {oks}")
+    return errs, timing, launches
 
 
 # ------------------------------------------------------- pipeline phase
@@ -1653,6 +1855,7 @@ def phase_dist(sol, seed: int, ntt_logn: int = 27, msm_logn: int = 24,
     fr = FIELDS["bls12_381_fr"]
     errs = {"ntt_base": 0, "twiddle_mul": 0}
     launches, info = {}, {}
+    from blaze_tpu_torch.ntt import NTTKernels
 
     def add_launches(counts):
         for k, v in counts.items():
@@ -1666,10 +1869,12 @@ def phase_dist(sol, seed: int, ntt_logn: int = 27, msm_logn: int = 24,
     # ---- batched K7 / K9 against their plain versions, whole
     checked = []
     for field in NTT_FIELDS:
+        counter = NTTKernels.for_spec(FIELDS[field]).counter
         for name, kern, plain, shape in batched_kernel_cases(FIELDS[field], seed, dev):
             e = max_abs_err(kern(), plain())
-            errs[name] = max(errs[name], e)
-            checked.append({"field": field, "kernel": name, **shape, "max_abs_err": e})
+            errs[counter(name)] = max(errs.get(counter(name), 0), e)
+            checked.append({"field": field, "kernel": counter(name), **shape,
+                            "max_abs_err": e})
     emit({"phase": "dist_batched_parity", "cases": checked})
     if any(c["max_abs_err"] for c in checked):
         raise AssertionError("a batched K7/K9 call differs from its plain version")
@@ -1925,7 +2130,7 @@ def phase_poseidon_parity(sol, seed: int, device):
     from blaze_tpu_torch.hash.kernels import sum_products, sum_products_plain
 
     err = 0
-    for field in NTT_FIELDS:
+    for field in SCALAR_FIELDS:
         spec = FIELDS[field]
         checked = []
         for t in (9, 12):
@@ -2276,6 +2481,13 @@ def main() -> int:
                    timed_phase("ntt_2^16_2^20_goldens", phase_ntt_small, args.seed)):
         for k, v in counts.items():
             launches[k] += v
+    wide_errs, wide_timing, wide_counts = timed_phase("ntt_377fq_2^27", phase_ntt_wide, sol,
+                                                      args.seed)
+    for k, v in wide_errs.items():
+        errs[k] = max(errs[k], v)
+    timing.update(wide_timing)
+    for k, v in wide_counts.items():
+        launches[k] += v
     dist_errs, dist_counts, _ = timed_phase("dist", phase_dist, sol, args.seed)
     for k, v in dist_errs.items():
         errs[k] = max(errs[k], v)

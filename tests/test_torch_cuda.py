@@ -7,7 +7,9 @@ exact, on all three curves (K2-K5 also at ragged lane counts, K6 at
 ragged window counts), and K7-K10 (with the multi-p REDC twin) on the three
 scalar fields (K7 through strided and transposed maps and at the 2^27
 plan's levels, K8's element rows at ragged lengths, in place and out of
-place), K10 also over the 12-word base fields and at t = 17; the MSM client on the card against the oracle with
+place), K7-K9 also at W = 12 on bls12_377_fq (a 2^20 transform against
+the CPU plan, too), plans past 7 levels against the klog-9 plan, K10
+also over the 12-word base fields and at t = 17; the MSM client on the card against the oracle with
 distinct scalars; the NTT client on the card against every committed golden
 pair, and at 2^16 (the K8 twiddle fallback: K7 twice and K8 once, nothing
 else on the card) against a host NTT in Python ints with an inverse
@@ -201,7 +203,7 @@ def ntt_layouts(K: int, B: int):
             (K * B, tr, K * B, tr, True)]
 
 
-@pytest.mark.parametrize("field", ["bn254_fr", "bls12_377_fr", "bls12_381_fr"])
+@pytest.mark.parametrize("field", ["bn254_fr", "bls12_377_fr", "bls12_381_fr", "bls12_377_fq"])
 def test_ntt_kernels_match_plain_versions(dev, field):
     spec = FIELDS[field]
     k, W = NTTKernels.for_spec(spec), spec.nwords
@@ -396,7 +398,7 @@ def test_poseidon_client_on_card_matches_oracle(dev):
     assert words_to_int(client.root) == poseidon_hash_ref(node_p, leaves)
 
 
-@pytest.mark.parametrize("field", ["bn254_fr", "bls12_377_fr", "bls12_381_fr"])
+@pytest.mark.parametrize("field", ["bn254_fr", "bls12_377_fr", "bls12_381_fr", "bls12_377_fq"])
 def test_mul_lm_element_rows_match_plain(dev, field):
     """K8's element rows (N = 1, the plan's form) at ragged lengths, two and
     three operands, into a new buffer and in place."""
@@ -442,6 +444,36 @@ def test_ntt_2e16_is_two_k7_and_one_k8(dev):
     assert torch.equal(out.cpu(), cpu.ntt(x.cpu()))
 
 
+def test_wide_2e20_transform_matches_the_cpu_plan(dev):
+    """FusedNTT(bls12_377_fq, 20) on the card (parts 7, 7, 6 of 48-byte
+    elements: K7 x3 and K9 x2 at W = 12, no W = 8 launch) equals the same
+    plan on the CPU, and its inverse comes back."""
+    spec = FIELDS["bls12_377_fq"]
+    plan = FusedNTT(spec, 20, device=torch.device("cuda", torch.cuda.current_device()))
+    x = canonical(spec, (plan.n, spec.nwords), 20, dev)
+    _build.reset_launches()
+    out = plan.ntt(x)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in _build.LAUNCHES.items() if v} == {"ntt_base_w12": 3,
+                                                              "twiddle_mul_w12": 2}
+    assert torch.equal(out.cpu(), FusedNTT(spec, 20, device="cpu").ntt(x.cpu()))
+    assert torch.equal(plan.intt(out), x)
+
+
+@pytest.mark.parametrize("field,logn,klog", [("bls12_377_fr", 22, 3),
+                                             ("bls12_377_fq", 15, 2)])
+def test_deep_plans_match_the_klog_9_plan(dev, field, logn, klog):
+    """Plans past 7 levels at their klog run as 7 levels (fused.plan_parts)
+    and equal the klog-9 plan on the card, both ways."""
+    spec = FIELDS[field]
+    card = torch.device("cuda", torch.cuda.current_device())
+    deep, flat = FusedNTT(spec, logn, klog=klog, device=card), FusedNTT(spec, logn, device=card)
+    assert len(deep.parts) == 7 and len(flat.parts) < 7
+    x = canonical(spec, (deep.n, spec.nwords), logn, dev)
+    assert torch.equal(deep.ntt(x), flat.ntt(x))
+    assert torch.equal(deep.intt(x), flat.intt(x))
+
+
 def test_pipeline_on_card_matches_its_cpu_run(dev):
     """ProofPipeline at (ntt_logn 12, msm_logn 10) on BLS12-381: three
     batches (one as 16-bit limbs) through run_batches on the card equal the
@@ -477,7 +509,7 @@ def one_rank(dev):
         dist.destroy_process_group()
 
 
-@pytest.mark.parametrize("field", ["bn254_fr", "bls12_377_fr", "bls12_381_fr"])
+@pytest.mark.parametrize("field", ["bn254_fr", "bls12_377_fr", "bls12_381_fr", "bls12_377_fq"])
 def test_batched_ntt_kernels_match_plain_versions(dev, field):
     """K7 and K9 at FusedNTT.ntt_batch's maps (B transforms per launch, the
     batch one more lane field): B = 8 transforms of 2^10 (three levels)
@@ -545,19 +577,23 @@ def test_distributed_msm_on_card_matches_cpu_and_oracle(one_rank):
                                                                           scalars)
 
 
-def test_distributed_ntt_on_card_matches_cpu(one_rank):
-    """DistributedNTT over NCCL on a mesh of one, bls12_381_fr at 2^12
-    (logn1 6): the k-matrix equals the CPU four-step's, spectral_to_natural
+@pytest.mark.parametrize("field", ["bls12_381_fr", "bls12_377_fq"])
+def test_distributed_ntt_on_card_matches_cpu(one_rank, field):
+    """DistributedNTT over NCCL on a mesh of one at 2^12 (logn1 6), at W = 8
+    and 12: the k-matrix equals the CPU four-step's, spectral_to_natural
     equals FusedNTT on the card, intt comes back; K7 x2, K9 x1 per ntt."""
     from blaze_tpu_torch.dist import DistributedNTT, make_mesh
 
     dev = one_rank
-    spec = FIELDS["bls12_381_fr"]
+    spec = FIELDS[field]
     x = canonical(spec, (1 << 12, spec.nwords), 77, dev)
     dntt = DistributedNTT(spec, 12, make_mesh({"sp": 1}), logn1=6)
     _build.reset_launches()
     xk = dntt.ntt(x)
-    assert (_build.LAUNCHES["ntt_base"], _build.LAUNCHES["twiddle_mul"]) == (2, 1)
+    k = NTTKernels.for_spec(spec)
+    assert (_build.LAUNCHES[k.counter("ntt_base")],
+            _build.LAUNCHES[k.counter("twiddle_mul")]) == (2, 1)
+    assert sum(_build.LAUNCHES.values()) == 3
     cpu = FourStepNTT(spec, 12, 6, device="cpu")
     nat = dntt.spectral_to_natural(xk)
     assert torch.equal(nat.cpu(), cpu.ntt(x.cpu()))

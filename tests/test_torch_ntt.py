@@ -33,7 +33,7 @@ from blaze_tpu.runtime import (
     NTTInit as RefNTTInit,
     NTTInput as RefNTTInput,
 )
-from blaze_tpu_torch.fields import FIELDS, Field, int_to_words
+from blaze_tpu_torch.fields import FIELDS, Field, FieldSpec, int_to_words
 from blaze_tpu_torch.ntt import (
     FusedNTT,
     NTTKernels,
@@ -41,7 +41,7 @@ from blaze_tpu_torch.ntt import (
     split_parts,
     tables_from_reference,
 )
-from blaze_tpu_torch.ntt.fused import plan_levels
+from blaze_tpu_torch.ntt.fused import plan_levels, plan_parts
 from blaze_tpu_torch.ntt.kernels import MAX_FIELDS, TileMap, twiddle_cols
 from blaze_tpu_torch.runtime import NTTClient, NTTInit, NTTInput
 from blaze_tpu_torch.utils import DataError, DeviceError, InvalidPrimitiveParam, NotReady
@@ -191,8 +191,9 @@ def test_kernel_wrappers_check_their_operands():
         k.twiddle_mul(x, t, t[:, :3].contiguous(), 0, ())           # S not a power of two
     with pytest.raises(ValueError):
         k.twiddle_mul(x, t, t, 0, ((0, 5, 0),))                     # j reaches past J*S
-    with pytest.raises(ValueError):
-        NTTKernels(FIELDS["bls12_381_fq"])
+    assert NTTKernels(FIELDS["bls12_381_fq"]).W == 12        # built at W = 8 and 12
+    with pytest.raises(ValueError, match="words"):
+        NTTKernels(FieldSpec("m61", (1 << 61) - 1))               # W = 2
 
 
 # ------------------------------------------------------------ field powers
@@ -321,23 +322,33 @@ def test_plan_factory_and_sizes():
 
 @pytest.mark.parametrize("logn,klog", [(8, 1), (15, 2), (22, 3)])
 def test_fused_refuses_plans_past_k7s_maps(logn, klog):
-    """A plan of more than MAX_FIELDS + 1 = 7 levels is refused (level 0's
-    maps hold one lane field per later level); one level less, 7 levels of
-    one point pair at logn 7 with K9 on all six of depth 0's fields, equals
-    the one-level plan.  At klog 9 the deepest plan, bls12_377_fr at its
-    2-adicity 47, has 6 levels."""
+    """Plans whose balanced split at klog takes more than MAX_FIELDS + 1 = 7
+    levels (level 0's maps hold one lane field per later level) are built,
+    no longer refused: they run logn split into 7 parts (plan_parts), whose
+    level 0 fills all six of its maps' lane fields.  (8, 1) equals
+    blaze_tpu's NTTPlan, forward and inverse; (15, 2) equals the port's
+    klog-9 plan of the same size; (22, 3), too large for the plain versions,
+    is held to the klog-9 plan on the card (tests/test_torch_cuda.py).  At
+    klog 9 the deepest plan, bls12_377_fr at its 2-adicity 47, has 6
+    levels."""
     spec = FIELDS["bls12_377_fr"]
-    assert len(split_parts(logn, klog)) == MAX_FIELDS + 2
-    with pytest.raises(ValueError, match="levels"):
-        FusedNTT(spec, logn, klog=klog, device="cpu")
+    assert len(split_parts(logn, klog)) == MAX_FIELDS + 2 == len(ref_split_parts(logn, klog))
+    deep = FusedNTT(spec, logn, klog=klog, device="cpu")
+    assert deep.parts == plan_parts(logn, klog) and len(deep.parts) == MAX_FIELDS + 1
+    assert sum(deep.parts) == logn and max(deep.parts) - min(deep.parts) <= 1
+    assert len(deep.levels) == 7 and len(deep.levels[0].omap.fields) == MAX_FIELDS
     assert len(split_parts(spec.two_adicity, 9)) == 6
+    x = rand_words(spec, (1 << logn,), logn)
+    xt = as_t(x)
     if klog == 1:
-        deep, flat = FusedNTT(spec, 7, klog=1, device="cpu"), FusedNTT(spec, 7, device="cpu")
-        deep._TWMUL_MIN_LANES = 1
-        assert len(deep.levels) == 7 and len(deep.levels[0].fields) == MAX_FIELDS
-        x = as_t(rand_words(spec, (128,), 7))
-        assert torch.equal(deep.ntt(x), flat.ntt(x))
-        assert torch.equal(deep.intt(x), flat.intt(x))
+        portable = NTTPlan(REF_FIELDS[spec.name], logn)
+        xl = jnp.asarray(limbs(x))
+        for got, want in ((deep.ntt(xt), portable.ntt(xl)), (deep.intt(xt), portable.intt(xl))):
+            assert np.array_equal(limbs(got.numpy().view(np.uint32)), np.asarray(want))
+    elif klog == 2:
+        flat = FusedNTT(spec, logn, device="cpu")
+        assert flat.parts == [8, 7]
+        assert torch.equal(deep.ntt(xt), flat.ntt(xt))
 
 
 # ------------------------------------------------------------------ client

@@ -5,7 +5,8 @@ the threads first to last and last to first (a thread that read another
 thread's output of the same pass, a race on the card, gives a different
 result in one of the two).  Its outputs must equal ntt_base_plain (held
 limb for limb against blaze_tpu's Pallas kernel in tests/test_torch_ntt.py)
-on the three NTT fields, at K = 2, 8, 16, 64, 128, 256 and 512 (each
+on the four NTT fields (three 8-word, and the 12-word bls12_377_fq: three
+16-byte planes per element), at K = 2, 8, 16, 64, 128, 256 and 512 (each
 count of stages in the last pass, after none, one and two full passes),
 at lane counts that leave the last block ragged, through three layouts:
 (K, B) rows, a strided input read into a transposed output, and a
@@ -40,36 +41,44 @@ namespace nt = blz::ntt;
 
 // One block: each pass (a barrier interval) run by every thread, in order
 // or in reverse.
-template <int kLogK>
+template <int W, int kLogK>
 void run(const uint32_t* consts, const uint32_t* x, const uint32_t* pack, uint32_t* o,
          int64_t B, const int64_t* hin, const int64_t* hout, int rev) {
-  using S = nt::Shape<8, kLogK>;
-  const auto fc = blz::load_consts<8>(consts);
+  using S = nt::Shape<W, kLogK>;
+  const auto fc = blz::load_consts<W>(consts);
   const nt::TileMap in = nt::bit_fields(hin), out = nt::bit_fields(hout);
   std::vector<uint4> sm(S::kSmemBytes / 16, uint4{0xA5A5A5A5u, 1u, 2u, 3u});
   for (int64_t block = 0; block * S::NL < B; ++block) {
     for (int pass = 0; pass < S::kPasses; ++pass) {
       for (int i = 0; i < nt::kThreads; ++i) {
         const int tid = rev ? nt::kThreads - 1 - i : i;
-        nt::run_pass<8, kLogK>(pass, tid, block, sm.data(), x, pack, o, B, in, out, fc);
+        nt::run_pass<W, kLogK>(pass, tid, block, sm.data(), x, pack, o, B, in, out, fc);
       }
     }
   }
 }
 
-extern "C" int ntt_host(int logK, const uint32_t* k, const uint32_t* x, const uint32_t* pack,
-                        uint32_t* o, int64_t B, const int64_t* in, const int64_t* out,
-                        int rev) {
+template <int W>
+int run_w(int logK, const uint32_t* k, const uint32_t* x, const uint32_t* pack, uint32_t* o,
+          int64_t B, const int64_t* in, const int64_t* out, int rev) {
   switch (logK) {
-    case 1: run<1>(k, x, pack, o, B, in, out, rev); return 0;
-    case 3: run<3>(k, x, pack, o, B, in, out, rev); return 0;
-    case 4: run<4>(k, x, pack, o, B, in, out, rev); return 0;
-    case 6: run<6>(k, x, pack, o, B, in, out, rev); return 0;
-    case 7: run<7>(k, x, pack, o, B, in, out, rev); return 0;
-    case 8: run<8>(k, x, pack, o, B, in, out, rev); return 0;
-    case 9: run<9>(k, x, pack, o, B, in, out, rev); return 0;
+    case 1: run<W, 1>(k, x, pack, o, B, in, out, rev); return 0;
+    case 3: run<W, 3>(k, x, pack, o, B, in, out, rev); return 0;
+    case 4: run<W, 4>(k, x, pack, o, B, in, out, rev); return 0;
+    case 6: run<W, 6>(k, x, pack, o, B, in, out, rev); return 0;
+    case 7: run<W, 7>(k, x, pack, o, B, in, out, rev); return 0;
+    case 8: run<W, 8>(k, x, pack, o, B, in, out, rev); return 0;
+    case 9: run<W, 9>(k, x, pack, o, B, in, out, rev); return 0;
     default: return 1;
   }
+}
+
+extern "C" int ntt_host(int W, int logK, const uint32_t* k, const uint32_t* x,
+                        const uint32_t* pack, uint32_t* o, int64_t B, const int64_t* in,
+                        const int64_t* out, int rev) {
+  if (W == 8) return run_w<8>(logK, k, x, pack, o, B, in, out, rev);
+  if (W == 12) return run_w<12>(logK, k, x, pack, o, B, in, out, rev);
+  return 1;
 }
 
 extern "C" int threads_per_lane(int logK) {
@@ -101,7 +110,8 @@ def lib(tmp_path_factory):
                     "-I", str(CSRC), "-o", str(so), str(d / "driver.cpp")], check=True)
     lib = ctypes.CDLL(str(so))
     p = ctypes.c_void_p
-    lib.ntt_host.argtypes = [ctypes.c_int, p, p, p, p, ctypes.c_int64, p, p, ctypes.c_int]
+    lib.ntt_host.argtypes = [ctypes.c_int, ctypes.c_int, p, p, p, p, ctypes.c_int64, p, p,
+                             ctypes.c_int]
     return lib
 
 
@@ -130,7 +140,7 @@ def test_threads_per_lane(lib):
 
 
 @pytest.mark.parametrize("K", sorted(LANES))
-@pytest.mark.parametrize("field", ["bn254_fr", "bls12_377_fr", "bls12_381_fr"])
+@pytest.mark.parametrize("field", ["bn254_fr", "bls12_377_fr", "bls12_381_fr", "bls12_377_fq"])
 def test_ntt_base_schedule_matches_plain(lib, field, K):
     spec = FIELDS[field]
     k = NTTKernels.for_spec(spec)
@@ -145,7 +155,8 @@ def test_ntt_base_schedule_matches_plain(lib, field, K):
             src = x.clone()
             out = src if in_place else torch.zeros((no, spec.nwords), dtype=torch.int32)
             hx, ho = xmap.host(), omap.host()
-            rc = lib.ntt_host(logK, k._consts.ctypes.data, src.data_ptr(), pack.data_ptr(),
-                              out.data_ptr(), B, hx.ctypes.data, ho.ctypes.data, rev)
+            rc = lib.ntt_host(spec.nwords, logK, k._consts.ctypes.data, src.data_ptr(),
+                              pack.data_ptr(), out.data_ptr(), B, hx.ctypes.data,
+                              ho.ctypes.data, rev)
             assert rc == 0
             assert torch.equal(out, want), (name, rev)

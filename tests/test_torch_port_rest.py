@@ -8,8 +8,10 @@ Curve inputs are order-r subgroup points of the port's oracle from a seed,
 in Montgomery words; the JAX package gets the same values as 16-bit limbs.
 The codec is held to blaze_tpu.native.codec (whichever path it takes) and
 to the committed goldens tests/fixtures/codec_*.bin, which
-scripts/gen_codec_goldens.py made outside both packages.  Every comparison
-is exact.
+scripts/gen_codec_goldens.py made outside both packages.  Then the public
+names that blaze_tpu has beside those modules: native.have_native,
+Field.double and Field.eq, Curve.nlimbs and MSMConfig.windows.  Every
+comparison is exact.
 """
 import random
 from pathlib import Path
@@ -23,13 +25,18 @@ from torch.distributed.tensor import Replicate, Shard, distribute_tensor
 import jax
 import jax.numpy as jnp
 
+import blaze_tpu.native as ref_native
 from blaze_tpu.curves import CURVES as REF_CURVES, Curve as RefCurve
+from blaze_tpu.fields import FIELDS as REF_FIELDS, Field as RefField
+from blaze_tpu.msm import MSMConfig as RefMSMConfig
 from blaze_tpu.native import codec as ref_codec
+import blaze_tpu_torch.native as native
 from blaze_tpu_torch import _build
 from blaze_tpu_torch.curves import CURVES, Curve
 from blaze_tpu_torch.dist import init_distributed, make_mesh, replicated, shard_leading
-from blaze_tpu_torch.fields import FIELDS
+from blaze_tpu_torch.fields import FIELDS, Field
 from blaze_tpu_torch.fields import codec as field_codec
+from blaze_tpu_torch.msm import MSMConfig
 from blaze_tpu_torch.native import codec
 from blaze_tpu_torch.oracle import ECOracle
 from blaze_tpu_torch.oracle.gen import points_to_affine_words
@@ -236,3 +243,53 @@ def test_a_failed_codec_build_raises(monkeypatch, tmp_path):
     with pytest.raises(LoadFailed, match="codec"):
         codec.bytes_to_limbs(bytes(64), 32)
     assert not list(tmp_path.rglob("libcodec.so"))
+
+
+# --------------------------------------------------------- public names
+def test_have_native_probes_the_build(monkeypatch, tmp_path):
+    """native.have_native, exported as blaze_tpu.native exports it: a bool,
+    True where g++ builds the codec, and False (not LoadFailed) where the
+    build fails."""
+    assert "have_native" in native.__all__ and "have_native" in ref_native.__all__
+    assert isinstance(ref_native.have_native(), bool)
+    assert native.have_native() is True
+    monkeypatch.setattr(_build, "BUILD_ROOT", tmp_path)
+    monkeypatch.setattr(_build, "_gxx", lambda: "false")
+    monkeypatch.delitem(_build._LIBS, "codec", raising=False)
+    assert native.have_native() is False
+
+
+@pytest.mark.parametrize("field", ["bn254_fr", "bls12_381_fq"])
+def test_field_double_and_eq_match_jax(field):
+    """Field.double and Field.eq against blaze_tpu's on the same values:
+    random ones, p - 1, 0 and pairs that differ in one word."""
+    spec = FIELDS[field]
+    rng = np.random.default_rng(5)
+    vals = [int(v) for v in rng.integers(0, 1 << 62, size=6)]
+    vals = [v * (spec.p // (1 << 62)) % spec.p for v in vals] + [spec.p - 1, 0]
+    a = np.stack([np.frombuffer(v.to_bytes(4 * spec.nwords, "little"), "<u4") for v in vals])
+    b = a.copy()
+    b[::2, 0] ^= 1
+    f, ref = Field(spec), RefField(REF_FIELDS[field])
+    ta, tb = (torch.from_numpy(x.view(np.int32)) for x in (a, b))
+    got = f.double(ta).numpy().view(np.uint32)
+    assert np.array_equal(limbs(got), np.asarray(ref.double(jnp.asarray(limbs(a)))))
+    assert [words_int(r) for r in got] == [2 * v % spec.p for v in vals]
+    want_eq = np.asarray(ref.eq(jnp.asarray(limbs(a)), jnp.asarray(limbs(b))))
+    assert f.eq(ta, tb).tolist() == want_eq.tolist() == [False, True] * 4
+
+
+def words_int(row) -> int:
+    return int.from_bytes(np.asarray(row, "<u4").tobytes(), "little")
+
+
+def test_curve_nlimbs_and_msm_windows_match_jax():
+    """Curve.nlimbs (16-bit limbs, 2 W) and MSMConfig.windows against
+    blaze_tpu's on every curve and at several window widths."""
+    for name in sorted(CURVES):
+        cv = Curve(CURVES[name])
+        assert cv.nlimbs == RefCurve(REF_CURVES[name]).nlimbs == 2 * cv.nwords
+    for c in (1, 4, 13, 16):
+        for bits in (1, 8, 253, 255, 377):
+            assert MSMConfig(window_bits=c).windows(bits) == \
+                RefMSMConfig(window_bits=c).windows(bits)
