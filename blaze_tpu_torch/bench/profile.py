@@ -267,7 +267,8 @@ def kernel_work(name: str, shape: dict, W: int) -> tuple:
     A K-point NTT needs (K/2) log2 K - (K - 1) products per lane: a
     butterfly whose twiddle is W^0 needs none (all of stage 0, K/2^(s+1) of
     stage s; K7 skips them).  K9 needs two per element, K8 one per operand
-    past the first."""
+    past the first.  KF (field_ew) makes no product: its carry chains are
+    a few instructions per word, so bytes bound it."""
     per_mul = product_imads(W)
     pt = 3 * W * 4                                # bytes of one projective point
     el = W * 4                                    # bytes of one field element
@@ -287,6 +288,8 @@ def kernel_work(name: str, shape: dict, W: int) -> tuple:
         muls, nbytes = (k - 1) * M * N, (k + 1) * M * N * el
     elif name == "mont_mul":
         muls, nbytes = shape["M"], field_mul_traffic_bytes(shape["M"], W)
+    elif name == "field_ew":
+        muls, nbytes = 0, (shape["operands"] + 1) * shape["M"] * el
     elif name == "scan_mixed":
         C, B = shape["C"], shape["B"]
         muls = 13 * C * B

@@ -17,7 +17,7 @@ Kogge-Stone prefix resolves the ripple in log2(K) vectorized rounds.
 
 Also here: `words_to_limbs16` / `limbs16_to_words` between the port's int32
 word tensors and these limbs, and `consts_host`, the constant block every
-kernel takes.
+kernel takes (`field_consts`: cached per field).
 """
 from __future__ import annotations
 
@@ -159,6 +159,17 @@ def consts_host(spec: FieldSpec, b3_mont: int = 0) -> np.ndarray:
         int_to_words(b3_mont, W),
         np.asarray([spec.n0inv32], dtype=np.uint32),
     ]).astype(np.uint32)
+
+
+_FIELD_CONSTS: dict = {}
+
+
+def field_consts(spec: FieldSpec) -> np.ndarray:
+    """consts_host(spec), cached per field: the block K1 and KF take."""
+    c = _FIELD_CONSTS.get(spec.name)
+    if c is None:
+        c = _FIELD_CONSTS[spec.name] = consts_host(spec)
+    return c
 
 
 class PlainFieldOps:

@@ -2,17 +2,18 @@
 
 All ops act on `int32[..., W]` tensors (little-endian uint32 words, value
 < p, Montgomery form) and are elementwise over every leading batch
-dimension.  `mul` is the K1 kernel (fields/montmul.py); add/sub/neg are
-plain torch ops on int64 copies of the words with carry-lookahead
-(fields/kernel_ops.py), as the JAX package's were XLA ops.  Every op keeps
-the canonical < p invariant, so results equal blaze_tpu's Field bit for bit.
+dimension.  `mul` is the K1 kernel (fields/montmul.py); add / sub / neg /
+double and the conditional subtraction of p are the KF kernel
+(fields/elementwise.py), where the JAX package's were XLA ops; on CPU
+tensors both run their plain versions.  Every op keeps the canonical < p
+invariant, so results equal blaze_tpu's Field bit for bit.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from .kernel_ops import cond_sub, normalize, sub_limbs, words_i32, words_u64
+from .elementwise import field_ew
 from .montmul import mont_mul
 from .spec import FieldSpec, int_to_words, words_to_int
 
@@ -28,14 +29,13 @@ class Field:
         self.nwords = spec.nwords
         self._consts: dict = {}
 
-    def const(self, value: int, device, wide: bool = False) -> torch.Tensor:
-        """(W,) word constant: int32 bit pattern, or int64 values if wide."""
-        key = (value, str(device), wide)
+    def const(self, value: int, device) -> torch.Tensor:
+        """(W,) int32 word constant, cached per device."""
+        key = (value, str(device))
         t = self._consts.get(key)
         if t is None:
-            w = int_to_words(value, self.nwords)
-            arr = w.astype(np.int64) if wide else w.view(np.int32)
-            t = self._consts[key] = torch.as_tensor(arr, device=device)
+            t = self._consts[key] = torch.as_tensor(
+                int_to_words(value, self.nwords).view(np.int32), device=device)
         return t
 
     # ------------------------------------------------------------------ util
@@ -60,30 +60,23 @@ class Field:
         """where(cond, a, b) with cond shaped (...,) broadcast over words."""
         return torch.where(cond[..., None], a, b)
 
-    def _cond_sub_p(self, x, top):
-        """x - p where top * 2^(32W) + x >= p (int32 words in and out)."""
-        p = self.const(self.spec.p, x.device, wide=True)
-        return words_i32(cond_sub(words_u64(x), top.to(torch.int64), p, 32))
+    def _cond_sub_p(self, x, top=None):
+        """x - p where top * 2^(32W) + x >= p (int32 words in and out; no
+        top: x < 2p, brought below p)."""
+        return field_ew(self.spec, "canon", x, top)
 
     # -------------------------------------------------------------- add/sub
     def add(self, a, b):
-        limbs, top = normalize(words_u64(a) + words_u64(b), 32)
-        p = self.const(self.spec.p, limbs.device, wide=True)
-        return words_i32(cond_sub(limbs, top, p, 32))
+        return field_ew(self.spec, "add", a, b)
 
     def sub(self, a, b):
-        d, borrow = sub_limbs(words_u64(a), words_u64(b), 32)
-        # if borrowed, add p back (cannot re-borrow since p - (b - a) > 0)
-        fixed, _ = normalize(d + self.const(self.spec.p, d.device, wide=True), 32)
-        return words_i32(torch.where((borrow > 0)[..., None], fixed, d))
+        return field_ew(self.spec, "sub", a, b)
 
     def double(self, a):
-        return self.add(a, a)
+        return field_ew(self.spec, "double", a)
 
     def neg(self, a):
-        p = self.const(self.spec.p, a.device, wide=True)
-        d, _ = sub_limbs(p, words_u64(a), 32)
-        return self.select(self.is_zero(a), a, words_i32(d))
+        return field_ew(self.spec, "neg", a)
 
     # ------------------------------------------------------------------ mul
     def mul(self, a, b):

@@ -12,22 +12,13 @@ from __future__ import annotations
 
 import ctypes
 
-import numpy as np
 import torch
 
 from .. import _build
-from .kernel_ops import PlainFieldOps, consts_host, limbs16_to_words, words_to_limbs16
+from .kernel_ops import PlainFieldOps, field_consts, limbs16_to_words, words_to_limbs16
 from .spec import FieldSpec
 
-_CONSTS: dict = {}
 _PLAIN: dict = {}
-
-
-def _consts(spec: FieldSpec) -> np.ndarray:
-    c = _CONSTS.get(spec.name)
-    if c is None:
-        c = _CONSTS[spec.name] = consts_host(spec)
-    return c
 
 
 def _entry():
@@ -69,7 +60,7 @@ def mont_mul(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     out = torch.empty_like(a)
     if a.shape[0] == 0:
         return out
-    consts = _consts(spec)
+    consts = field_consts(spec)
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
         rc = _entry()(W, consts.ctypes.data, a.data_ptr(), b.data_ptr(),

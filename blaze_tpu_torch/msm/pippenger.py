@@ -12,9 +12,13 @@ bucket method (blaze_tpu/msm/pippenger.py `_fused_chunk`), step for step:
   4. the lane totals' exclusive prefix by Kogge-Stone doubling on K3;
   5. by Abel summation sum_j j*B_j = (B-1)*T[e_{B-1}] - sum_{j<B-1} T[e_j]
      with T the prefix sum, gathered at the bounds: (B-1)*T on K5, the
-     sum over the bounds on K4;
+     sum over the bounds on K4, the three group ops between them on K3
+     and their negations and canonicalizations on KF (csrc/field_ew.cu);
   6. the Horner window fold on K6, of one chunk's window sums or of the
      streamed chunks' sums, accumulated per window on K3.
+
+On the card steps 1-5 of a chunk are one CUDA graph replay (`MSM._chunk`),
+as the JAX package compiles them into one program (`_msm_fused_jit`).
 
 Same defaults, digit order, lane counts, paddings and reduction disciplines
 as the JAX package, so on one input both produce the same projective limbs.
@@ -25,9 +29,11 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import threading
 
 import torch
 
+from .. import _build
 from ..curves.kernels import ECKernels
 from ..curves.ops import Curve
 from ..fields.spec import LIMB_BITS
@@ -61,6 +67,18 @@ def default_window_bits(n: int) -> int:
     return max(1, min(16, int(math.log2(max(n, 2))) - 3))
 
 
+@dataclasses.dataclass
+class _ChunkGraph:
+    """One captured chunk shape: the graph, its static inputs and output, and
+    the launches (counter key -> count) one replay makes."""
+
+    graph: object
+    pts: torch.Tensor
+    scalars: torch.Tensor
+    out: torch.Tensor
+    launches: dict
+
+
 class MSM:
     """Pippenger MSM engine for one curve."""
 
@@ -68,6 +86,15 @@ class MSM:
         self.curve = curve
         self.config = config or MSMConfig()
         self.kern = ECKernels.for_curve(curve.spec)
+        self._ident: dict = {}
+        # one CUDA graph per chunk shape (`_chunk`), all in one memory pool
+        # that lives as long as this engine; the lock keeps one replay at a
+        # time, the event orders a replay after the last one's clone
+        self._graphs: dict = {}
+        self._pool = None
+        self._graph_lock = threading.Lock()
+        self._replayed = None
+        self.graph_pool_bytes = 0       # device memory the captures reserved
 
     # ------------------------------------------------------------ digits
     @staticmethod
@@ -110,14 +137,18 @@ class MSM:
 
     # ---------------------------------------------------------- helpers
     def _canon(self, x: torch.Tensor) -> torch.Tensor:
-        """Reduce words (..., W) from the kernels' lazy < 2p range to < p."""
-        return self.curve.fq._cond_sub_p(
-            x, torch.zeros(x.shape[:-1], dtype=torch.int64, device=x.device)
-        )
+        """Reduce words (..., W) from the kernels' lazy < 2p range to < p
+        (KF's canon)."""
+        return self.curve.fq._cond_sub_p(x)
 
     def _ident_col(self, device) -> torch.Tensor:
-        """(3W, 1) lanes-major identity column."""
-        return self.curve.identity(device=device).reshape(-1, 1)
+        """(3W, 1) lanes-major identity column, made once per device (a
+        CUDA graph's capture reads it, and may not make it)."""
+        key = str(device)
+        col = self._ident.get(key)
+        if col is None:
+            col = self._ident[key] = self.curve.identity(device=device).reshape(-1, 1)
+        return col
 
     def _lm_to_pm(self, x: torch.Tensor) -> torch.Tensor:
         """(3W, G) lanes-major -> (G, 3, W) points-major."""
@@ -128,8 +159,14 @@ class MSM:
         """(G, 3, W) points-major -> (3W, G) lanes-major (contiguous)."""
         return x.reshape(x.shape[0], -1).t().contiguous()
 
+    def _neg_lm(self, x: torch.Tensor) -> torch.Tensor:
+        """-x of (3W, G) lanes-major lazy points: canonicalized, then Y
+        negated (KF), lanes-major again for K3."""
+        return self._pm_to_lm(self.curve.neg(self._canon(self._lm_to_pm(x))))
+
     def _fused_reduce_rows(self, pts: torch.Tensor) -> torch.Tensor:
-        """EC sum over axis 1 of (G, M, 3W) lazy points -> (G, 3, W) < p.
+        """EC sum over axis 1 of (G, M, 3W) lazy points -> (3W, G) lazy,
+        lanes-major.
 
         One big reduce_cols pass to R2 lane totals per window, then further
         reduce_cols rounds down to one point per window."""
@@ -151,7 +188,7 @@ class MSM:
             rows = tot.reshape(threeW, G, R3, C3).permute(3, 0, 1, 2)
             tot = self.kern.reduce_cols(rows.reshape(C3, threeW, G * R3).contiguous())
             R = R3
-        return self._canon(self._lm_to_pm(tot))
+        return tot
 
     def _ks_lane_prefix(self, tot: torch.Tensor, G: int, R: int) -> torch.Tensor:
         """Exclusive EC prefix over the R lanes of each window.
@@ -178,7 +215,6 @@ class MSM:
 
         pts: (2W, N) resident Montgomery points; scalars: (Ls, N) limbs."""
         cv, kern = self.curve, self.kern
-        W = cv.nwords
         dev = pts.device
         N = pts.shape[1]
         bits = scalar_bits or cv.spec.fr.bits
@@ -234,26 +270,28 @@ class MSM:
         local = emitted[col_idx, :, gidx * R + lane_idx]   # (G, B, 3W)
         carry = excl[gidx, lane_idx]                       # (G, B, 3W)
         valid = (bounds >= 0)[..., None]
-        ident = self._ident_col(dev).reshape(1, 1, 3 * W)
+        ident = self._ident_col(dev).reshape(1, 1, -1)
         local = torch.where(valid, local, ident)
         carry = torch.where(valid, carry, ident)
 
-        # ---- bucket phase (Abel summation).  Only the two B-1 columns
-        # enter Field-level group ops -> canonicalize them.
-        total = cv.add(self._canon(carry[:, B - 1].reshape(G, 3, W)),
-                       self._canon(local[:, B - 1].reshape(G, 3, W)))   # (G, 3, W)
+        # ---- bucket phase (Abel summation): the three group ops on K3 over
+        # the lanes-major window columns, the negations and the
+        # canonicalizations on KF.  K3 takes lazy operands, and a complete
+        # add's words mod p do not depend on the operands' representatives,
+        # so only the negated points and the result are canonicalized: the
+        # result's words equal the JAX package's Field-level group ops'.
+        total = kern.add(self._pm_to_lm(carry[:, B - 1]),
+                         self._pm_to_lm(local[:, B - 1]))          # (3W, G)
         # (B-1) * T: unsigned B-1 = 2^c - 1 doubles c times and subtracts
         # T; signed B-1 = 2^(c-1) is a pure doubling chain
-        tot_lm = self._pm_to_lm(total)
         if signed:
-            acc = self._canon(self._lm_to_pm(kern.dbl_n(tot_lm, c - 1)))
+            acc = kern.dbl_n(total, c - 1)
         else:
-            shifted = self._canon(self._lm_to_pm(kern.dbl_n(tot_lm, c)))
-            acc = cv.add(shifted, cv.neg(total))
+            acc = kern.add(kern.dbl_n(total, c), self._neg_lm(total))
         if B > 1:
             rest = torch.cat([carry[:, : B - 1], local[:, : B - 1]], dim=1)
-            acc = cv.add(acc, cv.neg(self._fused_reduce_rows(rest)))
-        return acc
+            acc = kern.add(acc, self._neg_lm(self._fused_reduce_rows(rest)))
+        return self._canon(self._lm_to_pm(acc))
 
     # ------------------------------------------------------------- driver
     def _as_resident(self, points, scalars):
@@ -267,7 +305,82 @@ class MSM:
     def msm_partial(self, points, scalars, c: int, scalar_bits: int | None = None):
         """Per-window sums (nwin, 3, W) of one resident chunk."""
         points, scalars = self._as_resident(points, scalars)
-        return self._fused_chunk(points, scalars, c, scalar_bits)
+        return self._chunk(points, scalars, c, scalar_bits)
+
+    # ------------------------------------------- one chunk, one dispatch
+    def _chunk(self, pts: torch.Tensor, scalars: torch.Tensor, c: int,
+               scalar_bits: int | None = None) -> torch.Tensor:
+        """`_fused_chunk` as one dispatch on the card, the counterpart of the
+        JAX package's one compiled program per chunk (`_msm_fused_jit`).
+
+        On the CPU the chunk runs eagerly.  On the card each chunk shape —
+        (device, N, scalar limbs, c, scalar bits; the curve and the digit
+        form are this engine's) — has one CUDA graph captured over
+        `_fused_chunk`: a chunk copies its operands into the graph's static
+        inputs, replays it on the current stream and clones the small
+        (nwin, 3, W) output, which the next replay overwrites.  The first
+        chunk of a shape runs eagerly on a side stream as the capture's
+        warm-up (it makes every constant the capture reads) and its result
+        is that chunk's.  A capture that fails raises: there is no eager
+        fallback.  The launch counters count what a replay launches (the
+        counts the capture recorded), not the capture itself."""
+        if pts.device.type != "cuda":
+            return self._fused_chunk(pts, scalars, c, scalar_bits)
+        bits = scalar_bits or self.curve.spec.fr.bits
+        key = (str(pts.device), pts.shape[1], scalars.shape[0], c, bits)
+        with self._graph_lock, torch.cuda.device(pts.device):
+            stream = torch.cuda.current_stream()
+            if self._replayed is not None:
+                # the last replay (on any stream) has read its inputs and
+                # its output has been cloned
+                stream.wait_event(self._replayed)
+            g = self._graphs.get(key)
+            if g is None:
+                return self._capture(key, pts, scalars, c, bits)
+            g.pts.copy_(pts)
+            g.scalars.copy_(scalars)
+            g.graph.replay()
+            out = g.out.clone()
+            self._replayed = torch.cuda.Event()
+            self._replayed.record(stream)
+            for k, v in g.launches.items():
+                _build.LAUNCHES[k] += v
+            return out
+
+    def _capture(self, key, pts, scalars, c: int, bits: int) -> torch.Tensor:
+        """Warm up, capture and keep the graph of one chunk shape; returns the
+        warm-up's result, the chunk's.  Caller holds the lock and the device."""
+        stream = torch.cuda.current_stream()
+        static_pts = torch.empty(pts.shape, dtype=pts.dtype, device=pts.device)
+        static_sc = torch.empty(scalars.shape, dtype=scalars.dtype, device=pts.device)
+        static_pts.copy_(pts)
+        static_sc.copy_(scalars)
+        side = torch.cuda.Stream()
+        side.wait_stream(stream)
+        with torch.cuda.stream(side):
+            out = self._fused_chunk(static_pts, static_sc, c, bits)
+        stream.wait_stream(side)
+        out.record_stream(stream)
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        graph = torch.cuda.CUDAGraph()
+        before = dict(_build.LAUNCHES)
+        # the capture empties the allocator's cache first; what it reserves
+        # past that is its pool's
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved()
+        try:
+            with torch.cuda.graph(graph, pool=self._pool, capture_error_mode="thread_local"):
+                static_out = self._fused_chunk(static_pts, static_sc, c, bits)
+        finally:
+            # a capture records launches; none of them ran
+            launches = {k: v - before[k] for k, v in _build.LAUNCHES.items() if v != before[k]}
+            for k, v in launches.items():
+                _build.LAUNCHES[k] -= v
+        self.graph_pool_bytes += torch.cuda.memory_reserved() - reserved
+        self._graphs[key] = _ChunkGraph(graph, static_pts, static_sc, static_out, launches)
+        return out
 
     def accumulate(self, wsums, part):
         """Running per-window accumulation across streamed chunks: one K3
@@ -311,12 +424,11 @@ class MSM:
         c = window_bits or min(self.config.window_bits, default_window_bits(n))
         chunk = 1 << self.config.chunk_log2
         if n <= chunk:
-            return self.finalize(self._fused_chunk(points, scalars, c, scalar_bits), c)
+            return self.finalize(self._chunk(points, scalars, c, scalar_bits), c)
         wsums = None
         for lo in range(0, n, chunk):
             hi = min(lo + chunk, n)
-            part = self._fused_chunk(points[:, lo:hi], scalars[:, lo:hi], c,
-                                     scalar_bits)
+            part = self._chunk(points[:, lo:hi], scalars[:, lo:hi], c, scalar_bits)
             wsums = self.accumulate(wsums, part)
         return self.finalize(wsums, c)
 

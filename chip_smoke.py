@@ -27,24 +27,36 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    chunk, K5 at (B 16, k 16) and K6 at (Wn 16, c 16) and (Wn 20, c 13);
    K3, K5 and K6 beside their chain bound (the products on the team's
    critical path times one product's latency, timed on one thread:
-   blz_product_chain);
+   blz_product_chain); then KF (the Field's add, sub, neg, double and
+   canon, fields/elementwise.py) against its plain version, exact, at W = 8
+   and 12 and 1, 33, 1000 and 2^19 x 16 elements, with its time and bytes
+   bound at the chunk's canon and at 2^23 elements;
 3. main path, streamed client: MSMClient(MSMInit("bls12_381")) over 2^20
    points in the reference's order initialize -> start_process -> four
    set_data chunks of wire bytes -> result();
 4. main path, single-chunk client: 2^19 points, set_data -> start_process
-   -> wait_result -> result();
+   -> wait_result -> result(); then the 2^19 chunk on one engine run
+   eagerly (`_fused_chunk`) and as a CUDA graph (the capture's warm-up,
+   then five replays): the same words, each replay's launches exactly one
+   chunk's (K2, K4 x5, K5, K3 x13, KF x5, no K1), the eager and replayed
+   times and the graph pool's bytes;
 4b. the headline shape (bench.py:10): 2^24 points resident, set_data once
    -> start_process -> wait_result -> result(), 32 chunks of 2^19, their
    window sums accumulated on K3 and folded on K6 (the fold's seconds
-   printed).  Phases 3, 4 and 4b each launch K6 exactly once.  With
+   printed), then five more start_process -> wait_result on the resident
+   operands (best, median and spread; each result's bytes the first's).
+   Each chunk is one CUDA graph replay but the first (the capture's
+   warm-up).  Phases 3, 4 and 4b each launch K6 exactly once.  With
    --parent DIR the
    same instance then runs in five pairs of fresh child processes on the
    same card, one from another tree of the package (the parent commit
    unpacked under build/) and one from this tree, the side that goes
    first alternating; all must give the same result bytes (a parent tree
-   whose fold ran on the Field prints it as field_fold_s).  After it, one warm
-   2^19 single-chunk MSM runs under torch.profiler (device busy time,
-   idle share).
+   whose fold ran on the Field prints it as field_fold_s).  After it, in a
+   fresh process, the eager 2^19 chunk (its device operations) and one
+   warm 2^19 single-chunk MSM, its chunk a graph replay, run under
+   torch.profiler (device operations, busy time, idle share; the trace
+   holds a replayed graph's kernels).
    Phases 3, 4 and 4b use 256 points of the order-r subgroup tiled and
    distinct scalars drawn uniformly from [0, r); the expected value is the
    oracle MSM of the 256 points with each point's coefficient sum mod r,
@@ -81,8 +93,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    the card; three coefficient batches made on the card from --seed (e_1,
    e_k for an odd k, a e_j + b e_k'), run serially (one batch at a time,
    synchronised, launch counts per batch: K7 x3, K9 x2, K2 x32, K6 x1, no
-   K8) and then through run_batches (the next batch's NTT on a side stream
-   while the host queues this batch's MSM); the results must be distinct,
+   K8, no K1) and then through run_batches (the next batch's NTT on a side
+   stream while the host queues this batch's MSM); the results must be distinct,
    equal byte for byte between the two runs and equal each batch's
    geometric oracle (pipeline.geometric_msm_oracle, by linearity for the
    third).  It prints the serial and pipelined walls per batch, proofs/s,
@@ -158,7 +170,7 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    (MSM 2^24, NTT 2^27, Poseidon over 2^24 leaves, the pipeline at (2^27,
    2^24)), every record oracle-exact, and the microbench (K1 and K8 on the
    same operands) at bls12_381_fq 2^19 and bls12_381_fr 2^19;
-13. the seconds each phase took, then the kernels line (K1-K10, and
+13. the seconds each phase took, then the kernels line (K1, KF, K2-K10, and
    K7-K9's W = 12 builds as ntt_base_w12, mul_lm_w12, twiddle_mul_w12,
    their times at the W = 12 2^27 plan's shapes): launches
    in those runs, parity error, times, bounds, threads per lane, and K3's,
@@ -195,9 +207,12 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 
 # launch-counter name -> (source, the TPU kernel's pallas_call it replaces);
-# in PERF.md's table these are K1-K10 in this order
+# in PERF.md's table these are K1, KF, K2-K10 in this order
 KERNELS = {
     "mont_mul": ("blaze_tpu_torch/csrc/montmul.cu", "blaze_tpu/fields/mxu.py:250"),
+    # KF, the port's own kernel: it stands for XLA's fused elementwise Field
+    # ops (Field._cond_sub_p / add / sub / neg / double), no pallas_call
+    "field_ew": ("blaze_tpu_torch/csrc/field_ew.cu", "blaze_tpu/fields/mont.py:149"),
     "scan_mixed": ("blaze_tpu_torch/csrc/ec_kernels.cu", "blaze_tpu/curves/kernels.py:248"),
     "ec_add": ("blaze_tpu_torch/csrc/ec_kernels.cu", "blaze_tpu/curves/kernels.py:563"),
     "reduce_cols": ("blaze_tpu_torch/csrc/ec_kernels.cu", "blaze_tpu/curves/kernels.py:343"),
@@ -584,6 +599,75 @@ def phase_parity(sol, device):
     return errs, timing
 
 
+# KF at the main path's shape (the chunk's canon of its (16, 3, 12) window
+# sums) and at 2^19 x 16 elements (a chunk's points times its windows)
+EW_FIELDS = ("bn254_fq", "bls12_381_fq")          # W = 8 and 12
+EW_SIZES = (1, 33, 1000, 1 << 23)
+EW_CHUNK = 16 * 3                                  # the chunk's window sums' words
+
+
+def phase_field_ew(sol, device):
+    """KF against its plain version, exact, at W = 8 and 12 and EW_SIZES
+    elements: every op on canonical values, canon on lazy values below 2p
+    (half of them) with and without a carry word; then its time (CUDA
+    events) beside its bytes bound and its plain version's time, at the
+    chunk's canon (the main path's launch) and at 2^23 elements (add and
+    canon).  Returns (max error, timing)."""
+    import torch
+
+    from blaze_tpu_torch.bench.profile import cuda_ms, work_bound_ms
+    from blaze_tpu_torch.fields import FIELDS
+    from blaze_tpu_torch.fields.elementwise import OPS, field_ew, field_ew_plain
+    from blaze_tpu_torch.fields.kernel_ops import (field_consts, normalize, words_i32,
+                                                   words_u64)
+    from blaze_tpu_torch.oracle.gen import rand_words
+
+    err, checked, timing = 0, [], {}
+    for field in EW_FIELDS:
+        spec = FIELDS[field]
+        W = spec.nwords
+        p = words_u64(torch.as_tensor(field_consts(spec)[:W].view("int32"), device=device))
+        for M in EW_SIZES:
+            a, b = rand_words(spec, (M, W), M, device), rand_words(spec, (M, W), M + 1, device)
+            coin = torch.randint(0, 2, (M, 1), device=device, dtype=torch.int32)
+            lazy = torch.where(coin > 0, words_i32(normalize(words_u64(a) + p, 32)[0]), a)
+            top = torch.randint(0, 2, (M,), device=device, dtype=torch.int32)
+            e = 0
+            for op in OPS:
+                args = (lazy,) if op == "canon" else (a, b)
+                e = max(e, max_abs_err(field_ew(spec, op, *args),
+                                       field_ew_plain(spec, op, *args)))
+            e = max(e, max_abs_err(field_ew(spec, "canon", lazy, top),
+                                   field_ew_plain(spec, "canon", lazy, top)))
+            checked.append({"field": field, "W": W, "M": M, "max_abs_err": e})
+            err = max(err, e)
+            del a, b, lazy, coin, top
+        torch.cuda.empty_cache()
+    spec = FIELDS["bls12_381_fq"]
+    W = spec.nwords
+    ws = rand_words(spec, (EW_CHUNK, W), 7, device)
+    big = [rand_words(spec, (1 << 23, W), 8 + i, device) for i in range(2)]
+    for key, op, args in (("field_ew", "canon", (ws,)), ("field_ew_2^23_add", "add", big),
+                          ("field_ew_2^23_canon", "canon", big[:1])):
+        M = args[0].shape[0]
+        ms = cuda_ms(lambda: field_ew(spec, op, *args), 20)
+        want, plain_ms = once_ms(lambda: field_ew_plain(spec, op, *args))
+        e = max_abs_err(field_ew(spec, op, *args), want)
+        err = max(err, e)
+        shape = {"M": M, "operands": len(args)}
+        bound, bound_by = work_bound_ms("field_ew", shape, W, sol)
+        timing[key] = {"shape": {**shape, "op": op, "W": W}, "ms": ms, "plain_ms": plain_ms,
+                       "bound_ms": bound, "bound_by": bound_by, "max_abs_err": e,
+                       "threads_per_lane": threads_per_lane("field_ew")}
+        del want
+    del big
+    torch.cuda.empty_cache()
+    emit({"phase": "field_ew_parity", "cases": checked, "kernels": timing})
+    if err:
+        raise AssertionError("KF differs from its plain version")
+    return err, timing
+
+
 # --------------------------------------------------------- phases 3 and 4
 def run_streamed(n: int, chunks: int, seed: int, device=None):
     """Phase 3: initialize -> start_process -> set_data chunks -> result()."""
@@ -648,14 +732,22 @@ def phase_main_path(seed: int):
     return launches
 
 
-def run_resident(n: int, seed: int, device=None, inputs: Path | None = None):
+def run_resident(n: int, seed: int, device=None, inputs: Path | None = None,
+                 repeats: int = 0):
     """The headline shape (bench.py:10, bls12_381_msm_2^24): set_data once
     with every point and scalar, start_process -> wait_result -> result(),
     n / 2^19 chunks on the card and the window fold (`finalize`, timed).  The
     instance is tiled_instance(n, seed), or the one save_instance wrote to
-    `inputs`.  Returns (ok, info)."""
+    `inputs`.  Then `repeats` more start_process -> wait_result on the
+    resident operands (MSM.__call__, the bench's headline record, each chunk
+    a graph replay), their best, median and spread; every result's bytes
+    must be the first's.  info["launches"] holds the launch counters after
+    the first run.  Returns (ok, info)."""
+    import statistics
+
     import torch
 
+    from blaze_tpu_torch import _build
     from blaze_tpu_torch.curves import CURVES
     from blaze_tpu_torch.runtime import MSMClient, MSMInit, MSMInput, MSMParams
 
@@ -691,25 +783,76 @@ def run_resident(n: int, seed: int, device=None, inputs: Path | None = None):
     t2 = time.perf_counter()
     raw = client.result().result
     ok = affine_of(raw, spec) == expected
-    return ok, {"n": n, "chunks": -(-n // (1 << client.engine.config.chunk_log2)),
-                "input_gen_s": gen_s, "set_data_s": t1 - t0, "start_to_wait_s": t2 - t1,
-                "points_per_s": n / (t2 - t1), "fold_s": fold.get("s"),
-                "chunks_queued_s": fold["enqueued"] - t1, "chunks_done_s": fold["done"] - t1,
-                "result_sha256": hashlib.sha256(raw).hexdigest()}
+    info = {"n": n, "chunks": -(-n // (1 << client.engine.config.chunk_log2)),
+            "input_gen_s": gen_s, "set_data_s": t1 - t0, "start_to_wait_s": t2 - t1,
+            "points_per_s": n / (t2 - t1), "fold_s": fold.get("s"),
+            "chunks_queued_s": fold["enqueued"] - t1, "chunks_done_s": fold["done"] - t1,
+            "result_sha256": hashlib.sha256(raw).hexdigest(),
+            "launches": dict(_build.LAUNCHES)}
+    pool = getattr(client.engine, "graph_pool_bytes", None)
+    if pool is not None:
+        info["graph_pool_gib"] = pool / 2**30
+    if repeats:
+        client.engine.finalize = engine_finalize
+        walls, same = [], True
+        for _ in range(repeats):
+            t0 = time.perf_counter()
+            client.start_process()
+            client.wait_result()
+            walls.append(time.perf_counter() - t0)
+            same = same and client.result().result == raw
+        med = statistics.median(walls)
+        ok = ok and same
+        info.update({"repeat_start_to_wait_s": walls, "repeat_best_s": min(walls),
+                     "repeat_median_s": med, "repeat_spread": (max(walls) - min(walls)) / med,
+                     "repeat_points_per_s": n / min(walls), "repeats_equal_first": same})
+    return ok, info
 
 
-def profile_single_chunk(seed: int, n: int = 1 << 19) -> dict:
-    """One warm single-chunk MSM (start_process -> wait_result) under
-    torch.profiler: the wall time, the device's busy time (the sum of the
-    device events' times: kernels and copies on one stream) and idle share,
-    their count, and the ones that took the most device time.  Raises
-    TraceLost when the trace misses a kernel launch of the run."""
+def device_profile(fn, what: str) -> dict:
+    """fn() once under torch.profiler: the wall time, the device's busy time
+    (the sum of the device events' times: kernels and copies on one
+    stream) and idle share, their count, and the ones that took the most
+    device time.  Raises TraceLost when the trace misses a kernel launch of
+    the run (a CUDA graph's kernels are in the trace, each launch counted
+    by its replay)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from blaze_tpu_torch import _build
     from blaze_tpu_torch.bench.profile import check_trace, dev_us, traced_launches
+
+    torch.cuda.synchronize()
+    before = dict(_build.LAUNCHES)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launched = {k: v - before[k] for k, v in _build.LAUNCHES.items()}
+    # the device's own events (kernels, copies): the aten ops above them
+    # report the same time again as theirs
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA and dev_us(e) > 0]
+    check_trace(traced_launches((e.key, e.count) for e in kernels), launched, what)
+    busy_ms = sum(dev_us(e) for e in kernels) / 1e3
+    top = sorted(kernels, key=dev_us, reverse=True)[:12]
+    return {"wall_ms": wall * 1e3, "device_busy_ms": busy_ms or None,
+            "idle_share": (1 - busy_ms / (wall * 1e3)) if busy_ms else None,
+            "device_ops": sum(e.count for e in kernels),
+            "top": [{"name": e.key[:60], "count": e.count, "ms": dev_us(e) / 1e3}
+                    for e in top]}
+
+
+def profile_single_chunk(seed: int, n: int = 1 << 19) -> dict:
+    """The 2^19 chunk under torch.profiler, early in a fresh process: the
+    eager `_fused_chunk` on the client's resident operands (its device
+    operations, busy time and idle share), then one warm single-chunk MSM
+    through the client (start_process -> wait_result), its chunk one graph
+    replay (the same, with K6's fold).  Every kernel launch of each run
+    must be in its trace."""
     from blaze_tpu_torch.curves import CURVES
+    from blaze_tpu_torch.msm import default_window_bits
     from blaze_tpu_torch.runtime import MSMClient, MSMInit, MSMInput, MSMParams
 
     spec = CURVES["bls12_381"]
@@ -717,36 +860,85 @@ def profile_single_chunk(seed: int, n: int = 1 << 19) -> dict:
     client = MSMClient(MSMInit(curve="bls12_381"))
     client.initialize(MSMParams(nof_elements=n))
     client.set_data(MSMInput(scalars=sraw, points=praw))
-    client.start_process()
+    client.start_process()                 # the capture
     client.wait_result()
     client.result()
-    torch.cuda.synchronize()
-    before = dict(_build.LAUNCHES)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+    eng = client.engine
+    c = min(eng.config.window_bits, default_window_bits(n))
+    eager = device_profile(lambda: eng._fused_chunk(client._points, client._scalars, c),
+                           "msm_2^19_eager_chunk")
+
+    def run():
         client.start_process()
         client.wait_result()
-        wall = time.perf_counter() - t0
-    launched = {k: v - before[k] for k, v in _build.LAUNCHES.items()}
-    client.result()
 
-    # the device's own events (kernels, copies): the aten ops above them
-    # report the same time again as theirs
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA and dev_us(e) > 0]
-    check_trace(traced_launches((e.key, e.count) for e in kernels), launched,
-                "msm_2^19_profile")
-    busy_ms = sum(dev_us(e) for e in kernels) / 1e3
-    top = sorted(kernels, key=dev_us, reverse=True)[:12]
-    info = {"n": n, "wall_ms": wall * 1e3, "device_busy_ms": busy_ms or None,
-            "idle_share": (1 - busy_ms / (wall * 1e3)) if busy_ms else None,
-            "device_ops": sum(e.count for e in kernels),
-            "top": [{"name": e.key[:60], "count": e.count, "ms": dev_us(e) / 1e3} for e in top]}
+    replayed = device_profile(run, "msm_2^19_profile")
+    client.result()
+    info = {"n": n, "eager_chunk": eager, "replayed_msm": replayed,
+            **{k: replayed[k] for k in ("wall_ms", "device_busy_ms", "idle_share",
+                                        "device_ops")}}
     emit({"phase": "msm_2^19_profile", **info})
     return info
 
 
-MSM_NEEDS = ("mont_mul", "scan_mixed", "ec_add", "reduce_cols", "dbl_n", "fold_horner")
+# one replayed 2^19 chunk (BLS12-381, c 16, unsigned: R = 1024 lanes): K2
+# once, K4 five rounds, K5 once, K3 for the 10 Kogge-Stone rounds and the
+# three group ops, KF for two negations (canon, neg) and the result's canon
+CHUNK_LAUNCHES = {"scan_mixed": 1, "reduce_cols": 5, "dbl_n": 1, "ec_add": 13,
+                  "field_ew": 5}
+
+
+def phase_chunk_graph(seed: int, n: int = 1 << 19) -> dict:
+    """The 2^19 chunk (BLS12-381) eager and as a CUDA graph on one engine:
+    `_fused_chunk` run eagerly, the first `msm_partial` (the capture's
+    warm-up, its result the chunk's) and five replays must give the same
+    words; each replay launches CHUNK_LAUNCHES and no K1.  Prints the host
+    and device times of an eager chunk and of a replay (CUDA events behind
+    a spin), the capture's seconds and the graph pool's bytes."""
+    import numpy as np
+    import torch
+
+    from blaze_tpu_torch import _build
+    from blaze_tpu_torch.bench.profile import cuda_ms
+    from blaze_tpu_torch.curves import CURVES, Curve
+    from blaze_tpu_torch.msm import MSM, points_to_resident
+    from blaze_tpu_torch.oracle.gen import points_to_affine_words, subgroup_msm_instance
+
+    spec = CURVES["bls12_381"]
+    cv = Curve(spec)
+    upoints, scal, _ = subgroup_msm_instance(spec, n, seed + 9, expected=False)
+    pts = torch.from_numpy(points_to_affine_words(spec, upoints).view(np.int32)).cuda()
+    res = points_to_resident(cv, pts).repeat(1, n // len(upoints)).contiguous()
+    sc = torch.from_numpy(scal.view(np.int32)).cuda().t().contiguous()
+    eng = MSM(cv)
+    c = 16
+    eager, eager_ms = once_ms(lambda: eng._fused_chunk(res, sc, c))
+    first, capture_ms = once_ms(lambda: eng.msm_partial(res, sc, c))
+    walls, outs, counts = [], [], []
+    for _ in range(5):
+        _build.reset_launches()
+        out, ms = once_ms(lambda: eng.msm_partial(res, sc, c))
+        walls.append(ms)
+        outs.append(out)
+        counts.append({k: v for k, v in _build.LAUNCHES.items() if v})
+    eager_dev = cuda_ms(lambda: eng._fused_chunk(res, sc, c), 3)
+    replay_dev = cuda_ms(lambda: eng.msm_partial(res, sc, c), 5)
+    same = all(torch.equal(x, eager) for x in (first, *outs))
+    info = {"n": n, "c": c, "graphs": len(eng._graphs),
+            "graph_pool_bytes": eng.graph_pool_bytes,
+            "graph_pool_gib": eng.graph_pool_bytes / 2**30,
+            "eager_chunk_wall_ms": eager_ms, "eager_chunk_device_ms": eager_dev,
+            "capture_wall_ms": capture_ms, "replay_wall_ms": walls,
+            "replay_device_ms": replay_dev, "launches_per_replay": counts[0],
+            "replays_equal_eager": same}
+    emit({"phase": "msm_2^19_chunk_graph", **info})
+    if not same or any(x != CHUNK_LAUNCHES for x in counts):
+        raise AssertionError(f"chunk graph: equal to the eager chunk {same}, launches per "
+                             f"replay {counts}, want {CHUNK_LAUNCHES}")
+    return info
+
+
+MSM_NEEDS = ("field_ew", "scan_mixed", "ec_add", "reduce_cols", "dbl_n", "fold_horner")
 
 
 def check_msm_launches(phase: str, counts: dict) -> None:
@@ -757,15 +949,16 @@ def check_msm_launches(phase: str, counts: dict) -> None:
 
 
 def phase_msm_2e24(seed: int, n: int = 1 << 24) -> dict:
-    """MSM 2^24 resident through MSMClient against the oracle; returns the
-    launch counts (every chunk runs K2 once and K4 five times)."""
+    """MSM 2^24 resident through MSMClient against the oracle, then five more
+    calls on the resident operands (best, median, spread); returns the
+    first run's launch counts (every chunk runs K2 once and K4 five times,
+    no K1 past set_data's)."""
     from blaze_tpu_torch import _build
 
     _build.reset_launches()
-    ok, info = run_resident(n, seed + 2)
-    counts = dict(_build.LAUNCHES)
-    emit({"phase": "msm_2^24_resident", "oracle": "match" if ok else "MISMATCH", **info,
-          "launches": counts})
+    ok, info = run_resident(n, seed + 2, repeats=5)
+    counts = info["launches"]
+    emit({"phase": "msm_2^24_resident", "oracle": "match" if ok else "MISMATCH", **info})
     if not ok:
         raise AssertionError("msm 2^24: result differs from the oracle")
     check_msm_launches("msm_2^24", counts)
@@ -1642,13 +1835,14 @@ def phase_pipeline(seed: int, ntt_logn: int = 27, msm_logn: int = 24) -> dict:
         got = None if zi is None else (X * zi % p, Y * zi % p)
         oracle_ok.append(got == want)
     # one batch's launches: K7 per level and K9 (or K8 for a narrow cell)
-    # per later level, K2 per chunk of the MSM, K6 once; at (2^27, 2^24):
-    # K7 x3, K9 x2, K2 x32, K6 x1 and no K8
+    # per later level, K2 per chunk of the MSM, K6 once, no K1 (the chunk's
+    # group ops are on K3 and KF); at (2^27, 2^24): K7 x3, K9 x2, K2 x32,
+    # K6 x1 and no K8
     k8 = sum(pipe.plan._takes_k8(d) for d in range(len(pipe.plan.levels) - 1))
     want = {"ntt_base": len(pipe.plan.levels), "mul_lm": k8,
             "twiddle_mul": len(pipe.plan.levels) - 1 - k8,
             "scan_mixed": -(-m // (1 << pipe.msm.config.chunk_log2)), "fold_horner": 1,
-            "poseidon_perm": 0}
+            "poseidon_perm": 0, "mont_mul": 0}
     per_batch = pipelined_s / len(terms)
     info = {"curve": "bls12_381", "ntt_logn": ntt_logn, "msm_logn": msm_logn,
             "unique_points": U, "batches": [[[row, str(v)] for row, v in t] for t in terms],
@@ -1908,6 +2102,9 @@ def phase_dist(sol, seed: int, ntt_logn: int = 27, msm_logn: int = 24,
         emit({"phase": "dist_msm", **info["msm"]})
         add_launches(run["launches"])
         check_msm_launches("dist_msm", run["launches"])
+        if run["launches"]["mont_mul"]:
+            raise AssertionError(f"DistributedMSM: {run['launches']['mont_mul']} K1 launches "
+                                 "on resident operands, want 0")
         if not all(ok.values()) or runs[3][1]["launches"] != run["launches"]:
             raise AssertionError(f"DistributedMSM 2^{msm_logn}: {ok}")
         del resident, scal, runs
@@ -2468,7 +2665,10 @@ def main() -> int:
 
     card, sol = timed_phase("device_and_build", phase_device)
     errs, timing = timed_phase("msm_parity", phase_parity, sol, dev)
+    errs["field_ew"], ew_timing = timed_phase("field_ew_parity", phase_field_ew, sol, dev)
+    timing.update(ew_timing)
     launches = timed_phase("msm_clients", phase_main_path, args.seed)
+    timed_phase("msm_2^19_chunk_graph", phase_chunk_graph, args.seed)
     for k, v in timed_phase("msm_2^24", phase_msm_2e24, args.seed).items():
         launches[k] += v
     if args.parent:

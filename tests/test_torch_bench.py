@@ -127,6 +127,15 @@ def test_bound_picks_the_larger_of_bytes_and_operations():
         kernel_work("no_such_kernel", {}, 8)
 
 
+def test_field_ew_is_bound_by_its_bytes():
+    """KF moves its operands and its result, W x 4 B each per element, and
+    makes no product."""
+    ms, by = work_bound_ms("field_ew", {"M": 1 << 23, "operands": 2}, 12, H100)
+    assert by == "bytes"
+    assert ms == pytest.approx(3 * (1 << 23) * 48 / H100.hbm_bytes_per_s * 1e3, rel=1e-12)
+    assert kernel_work("field_ew", {"M": 48, "operands": 1}, 12) == (2 * 48 * 48, 0)
+
+
 def test_work_counts():
     bls, fr = CURVES["bls12_381"], FIELDS["bls12_381_fr"]
     nbytes, imads = msm_work(bls, 1 << 24, 16)

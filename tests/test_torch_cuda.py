@@ -20,8 +20,13 @@ versions, and the sharded paths over NCCL on a mesh of one rank
 (DistributedMSM against the plain MSM and the oracle, DistributedNTT
 against the CPU four-step and FusedNTT, run_dist against its geometric
 oracle); the benchmark's runners at reduced sizes, bench_kernel on K1
-against cuda_ms and the microbench's spot check.  chip_smoke.py runs the
-same checks at the main path's sizes.
+against cuda_ms and the microbench's spot check; KF (the Field's
+elementwise kernel) against its plain version at both widths and ragged
+sizes; the MSM chunk as a CUDA graph: the capture's warm-up and its
+replays against the eager chunk and the oracle on the three curves, the
+launches a replay counts, one graph for the chunks of one MSM, and a
+capture that fails raising.  chip_smoke.py runs the same checks at the
+main path's sizes.
 """
 import random
 from pathlib import Path
@@ -676,3 +681,126 @@ def test_microbench_on_card_spot_checks_k1_and_k8(dev):
     recs = microbench.run("bls12_381_fr", 16, "cuda", reps=20)
     assert [r["kernel"] for r in recs] == ["mont_mul", "mul_lm"]
     assert all(r["spot_check"] and r["ms"] > 0 for r in recs)
+
+
+def any_words(spec, shape, seed, dev):
+    """int32 words of any value (KF equals its plain version on any input)."""
+    return torch.from_numpy(np.random.default_rng(seed).integers(
+        -2**31, 2**31, size=(*shape, spec.nwords), dtype=np.int32)).to(dev)
+
+
+@pytest.mark.parametrize("n", [1, 33, 1000])
+@pytest.mark.parametrize("field", ["bn254_fq", "bls12_381_fr", "bls12_381_fq", "bls12_377_fq"])
+def test_field_ew_matches_plain(dev, field, n):
+    """KF against its plain version, exact, at both widths and ragged sizes:
+    every op on canonical values and on any words, canon with and without
+    a carry word, and operands that broadcast."""
+    from blaze_tpu_torch.fields.elementwise import OPS, field_ew, field_ew_plain
+
+    spec = FIELDS[field]
+    W = spec.nwords
+    canon_a, canon_b = (canonical(spec, (n, W), n + i, dev) for i in range(2))
+    raw_a, raw_b = (any_words(spec, (n,), 2 * n + i, dev) for i in range(2))
+    top = torch.randint(0, 2, (n,), generator=torch.Generator().manual_seed(n)).to(dev)
+    before = _build.LAUNCHES["field_ew"]
+    for a, b in ((canon_a, canon_b), (raw_a, raw_b)):
+        for op in OPS:
+            y = None if op == "canon" else b
+            assert torch.equal(field_ew(spec, op, a, y), field_ew_plain(spec, op, a, y)), op
+        assert torch.equal(field_ew(spec, "canon", a, top), field_ew_plain(spec, "canon", a, top))
+    a3, b3 = canon_a[:, None], canon_b[: min(n, 3)][None]
+    for op in ("add", "sub"):
+        assert torch.equal(field_ew(spec, op, a3, b3), field_ew_plain(spec, op, a3, b3)), op
+    assert _build.LAUNCHES["field_ew"] - before == 2 * (len(OPS) + 1) + 2
+
+
+def msm_case(spec, n: int, seed: int, dev):
+    """(resident points, resident scalars, 16 subgroup points, scalars) of n
+    distinct full-width scalars over 16 subgroup points tiled, on `dev`."""
+    cv = Curve(spec)
+    oracle = ECOracle(spec)
+    rng = random.Random(seed)
+    upoints = [oracle.random_subgroup_point(rng) for _ in range(16)]
+    scalars = [rng.randrange(spec.fr.p) for _ in range(n)]
+    pts = torch.from_numpy(points_to_affine_words(spec, upoints).view(np.int32)).to(dev)
+    resident = points_to_resident(cv, pts).repeat(1, n // 16).contiguous()
+    scal = torch.from_numpy(scalars_to_limbs(spec, scalars).astype(np.int32)).t().contiguous()
+    return resident, scal.to(dev), upoints, scalars
+
+
+def affine_ints(spec, out):
+    X, Y, Z = (words_to_int(v) for v in out.cpu().numpy().view(np.uint32))
+    zi = pow(Z, -1, spec.fq.p)
+    return (X * zi % spec.fq.p, Y * zi % spec.fq.p)
+
+
+@pytest.mark.parametrize("name", sorted(CURVES))
+def test_replayed_chunk_matches_eager_and_oracle(dev, name):
+    """A chunk shape's first chunk (the capture's eager warm-up) and its
+    replays equal `_fused_chunk` run eagerly word for word, and a second
+    input of the same shape replays the same graph into an MSM equal to
+    the oracle.  A replay adds the launches its capture recorded: one K2,
+    no K1, the K3 rounds and group ops, the KF ops."""
+    from blaze_tpu_torch.msm import MSM
+
+    spec = CURVES[name]
+    cv = Curve(spec)
+    msm = MSM(cv)
+    n, c = 1 << 12, 8
+    res, scal, _, _ = msm_case(spec, n, 31, dev)
+    eager = msm._fused_chunk(res, scal, c)
+    first = msm.msm_partial(res, scal, c)
+    assert len(msm._graphs) == 1 and msm.graph_pool_bytes > 0
+    (graph,) = msm._graphs.values()
+    _build.reset_launches()
+    replayed = msm.msm_partial(res, scal, c)
+    counts = {k: v for k, v in _build.LAUNCHES.items() if v}
+    assert torch.equal(first, eager) and torch.equal(replayed, eager)
+    assert counts == graph.launches
+    R = 1 << 6                                          # sqrt(2^12) lanes per window
+    assert counts["scan_mixed"] == 1 and counts["dbl_n"] == 1 and "mont_mul" not in counts
+    assert counts["ec_add"] == R.bit_length() - 1 + 3 and counts["field_ew"] >= 5
+    res2, scal2, upoints, scalars = msm_case(spec, n, 32, dev)
+    out = msm(res2, scal2, window_bits=c)
+    assert len(msm._graphs) == 1
+    assert affine_ints(spec, out) == class_sum_expected(spec, upoints, scalars)
+
+
+def test_chunks_of_one_msm_replay_one_graph(dev):
+    """An MSM of four chunks (chunk_log2 10): one capture, its result the
+    same point as the one-chunk MSM's (the projective words differ with
+    the order of the adds) and the oracle's; K2 once per chunk, K6 once."""
+    from blaze_tpu_torch.msm import MSM, MSMConfig
+
+    spec = CURVES["bls12_381"]
+    cv = Curve(spec)
+    res, scal, upoints, scalars = msm_case(spec, 1 << 12, 33, dev)
+    chunked = MSM(cv, MSMConfig(chunk_log2=10))
+    _build.reset_launches()
+    out = chunked(res, scal, window_bits=8)
+    assert _build.LAUNCHES["scan_mixed"] == 4 and _build.LAUNCHES["fold_horner"] == 1
+    assert len(chunked._graphs) == 1
+    want = class_sum_expected(spec, upoints, scalars)
+    assert affine_ints(spec, out) == affine_ints(spec, MSM(cv)(res, scal, window_bits=8)) == want
+
+
+def test_failed_capture_raises(dev, monkeypatch):
+    """A chunk that syncs with the host cannot be captured: the call
+    raises, and no graph is kept."""
+    from blaze_tpu_torch.msm import MSM
+
+    spec = CURVES["bn254"]
+    msm = MSM(Curve(spec))
+    res, scal, _, _ = msm_case(spec, 1 << 10, 34, dev)
+    chunk = msm._fused_chunk
+
+    def syncing(*args):
+        out = chunk(*args)
+        out.sum().item()                  # a host sync: not allowed in a capture
+        return out
+
+    monkeypatch.setattr(msm, "_fused_chunk", syncing)
+    with pytest.raises(RuntimeError):
+        msm.msm_partial(res, scal, 8)
+    assert not msm._graphs
+    torch.cuda.synchronize()
