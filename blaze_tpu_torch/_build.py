@@ -26,7 +26,8 @@ from .utils.errors import DeviceError, LoadFailed
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "build" / "blaze_tpu_torch"
-SOURCES = ("montmul", "field_ew", "ec_kernels", "ntt_kernels", "poseidon_kernels")
+SOURCES = ("montmul", "field_ew", "ec_kernels", "ntt_kernels", "poseidon_kernels",
+           "probe_chain", "mont_tc")
 HOST_SOURCES = ("codec",)
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -36,11 +37,12 @@ GXX_FLAGS = ["-std=c++17", "-O3", "-shared", "-fPIC", "-Wall"]
 
 # Launches per kernel wrapper: each wrapper adds one where it launches its
 # kernel (never on the plain CPU path), so a run can show which kernels it
-# went through.  The NTT kernels' W = 12 builds count apart (name_w12).
+# went through.  The NTT kernels' W = 12 builds count apart (name_w12); the
+# probe kernels of experiments/ count under their sources' names.
 LAUNCHES = dict.fromkeys(
     ("mont_mul", "field_ew", "scan_mixed", "ec_add", "reduce_cols", "dbl_n", "fold_horner",
      "ntt_base", "mul_lm", "twiddle_mul", "poseidon_perm",
-     "ntt_base_w12", "mul_lm_w12", "twiddle_mul_w12"), 0
+     "ntt_base_w12", "mul_lm_w12", "twiddle_mul_w12", "probe_chain", "mont_tc"), 0
 )
 
 _LIBS: dict[str, ctypes.CDLL] = {}

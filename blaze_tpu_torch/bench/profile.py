@@ -43,6 +43,7 @@ class SpeedOfLight:
     sms: int
     max_sm_clock_mhz: float
     smem_per_sm_kib: float       # shared memory per SM
+    int8_tc_ops_per_s: float = 0.0   # dense int8 tensor-core rate (0: none)
 
     @property
     def imad_per_s(self) -> float:
@@ -50,13 +51,14 @@ class SpeedOfLight:
 
 
 # Key: torch.cuda.get_device_name().  The H100 SXM's data sheet (3.35 TB/s,
-# 132 SMs, 228 KiB of shared memory per SM), compute capability 9.0's IMAD
-# rate, and the max SM clock nvidia-smi reads on the card (1980 MHz).  The
+# 132 SMs, 228 KiB of shared memory per SM, 1,979 dense int8 TOP/s on the
+# tensor cores), compute capability 9.0's IMAD rate, and the max SM clock
+# nvidia-smi reads on the card (1980 MHz).  The
 # "cpu" row is nominal, for tests: no device metric comes from it.
 SOL_TABLE: dict[str, SpeedOfLight] = {
     "NVIDIA H100 80GB HBM3": SpeedOfLight(hbm_bytes_per_s=3.35e12, imad_per_clk_per_sm=64,
                                           sms=132, max_sm_clock_mhz=1980.0,
-                                          smem_per_sm_kib=228.0),
+                                          smem_per_sm_kib=228.0, int8_tc_ops_per_s=1.979e15),
     "cpu": SpeedOfLight(hbm_bytes_per_s=20e9, imad_per_clk_per_sm=4, sms=1,
                         max_sm_clock_mhz=3000.0, smem_per_sm_kib=0.0),
 }

@@ -165,14 +165,24 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    and read just after; every kernel of the run's path must have launched (K10 nine
    times per height-9 build; K2 once and K4 five times per 2^19 chunk at
    2^24; K6 once per MSM).
+11b. the probes of experiments/ (blaze_tpu_torch.experiments, E1-E5) at
+   a cut size (2^16 lanes, chains of at most 9 steps): every lane of every
+   body (the field product's parts on csrc/probe_chain.cu, the product
+   whose REDC runs on the int8 tensor cores and its two matrix products on
+   csrc/mont_tc.cu, E5's mixed-add body on K2's team of six) against its
+   plain version, limit 0, with one line of times; launch counts zeroed
+   before and read after (probe_chain and mont_tc must launch); then
+   probe_chain (E2's mont body, W = 12, M = 9) and mont_tc (E1's one
+   product, W = 12) at 2^16 timed beside their plain versions and bounds;
 12. the benchmark module (blaze_tpu_torch.bench) in child processes:
    python -m blaze_tpu_torch.bench at its full sizes, one timed run each
    (MSM 2^24, NTT 2^27, Poseidon over 2^24 leaves, the pipeline at (2^27,
    2^24)), every record oracle-exact, and the microbench (K1 and K8 on the
    same operands) at bls12_381_fq 2^19 and bls12_381_fr 2^19;
-13. the seconds each phase took, then the kernels line (K1, KF, K2-K10, and
+13. the seconds each phase took, then the kernels line (K1, KF, K2-K10,
    K7-K9's W = 12 builds as ntt_base_w12, mul_lm_w12, twiddle_mul_w12,
-   their times at the W = 12 2^27 plan's shapes): launches
+   their times at the W = 12 2^27 plan's shapes, and the probe kernels
+   probe_chain and mont_tc, their launches those of phase 11b): launches
    in those runs, parity error, times, bounds, threads per lane, and K3's,
    K5's and K6's chain bound.  A kernel's `ms` is CUDA events around
    repeated launches queued behind a spin of the card, so a kernel shorter
@@ -207,7 +217,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 
 # launch-counter name -> (source, the TPU kernel's pallas_call it replaces);
-# in PERF.md's table these are K1, KF, K2-K10 in this order
+# in PERF.md's table these are K1, KF, K2-K10, then E2-E5 and E1 in this order
 KERNELS = {
     "mont_mul": ("blaze_tpu_torch/csrc/montmul.cu", "blaze_tpu/fields/mxu.py:250"),
     # KF, the port's own kernel: it stands for XLA's fused elementwise Field
@@ -227,6 +237,11 @@ KERNELS = {
     "ntt_base_w12": ("blaze_tpu_torch/csrc/ntt_kernels.cu", "blaze_tpu/ntt/kernels.py:102"),
     "mul_lm_w12": ("blaze_tpu_torch/csrc/ntt_kernels.cu", "blaze_tpu/ntt/kernels.py:168"),
     "twiddle_mul_w12": ("blaze_tpu_torch/csrc/ntt_kernels.cu", "blaze_tpu/ntt/kernels.py:252"),
+    # E1-E5: the pallas_calls of the probe scripts under experiments/
+    "probe_chain": ("blaze_tpu_torch/csrc/probe_chain.cu",
+                    "experiments/redc_probe.py:66, experiments/vpu_mul_probe.py:81, "
+                    "experiments/mul_kernel_bench.py:83, experiments/kernel_variants.py:46"),
+    "mont_tc": ("blaze_tpu_torch/csrc/mont_tc.cu", "experiments/pallas_mul.py:146"),
 }
 SCALAR_FIELDS = ("bn254_fr", "bls12_377_fr", "bls12_381_fr")
 WIDE_NTT_FIELD = "bls12_377_fq"       # 12 words, 2-adicity 46: BW6-761's scalar field
@@ -2586,6 +2601,67 @@ def phase_poseidon_stream(seed: int, height: int = 7, stream_leaves: int = 1 << 
     return counts
 
 
+# ------------------------------------------------------- the experiments phase
+EXPERIMENT_KERNELS = ("probe_chain", "mont_tc")
+
+
+def phase_experiments(sol, device):
+    """The five probes of experiments/ (blaze_tpu_torch.experiments, E1-E5)
+    at the cut size (experiments.CUT: 2^16 lanes, chains of at most 9
+    steps), every lane of every body held against its plain version, limit
+    0, with the launch counts zeroed before and read after (probe_chain and
+    mont_tc must both launch); one line of times.  Then the kernels line's
+    numbers: probe_chain as E2's mont body (W = 12, 2^16 lanes, M = 9) and
+    mont_tc as E1's one product (W = 12, 2^16), each timed (CUDA events)
+    beside its plain version and its bound (chain.work_bound: bytes, IMADs
+    and int8 tensor-core operations).  Returns (errors, timing, launches)."""
+    import torch
+
+    from blaze_tpu_torch import _build
+    from blaze_tpu_torch.bench.profile import cuda_ms, product_imads
+    from blaze_tpu_torch.experiments import failures, run_all
+    from blaze_tpu_torch.experiments.chain import (mont_tc, mont_tc_plain, probe_chain,
+                                                   probe_chain_plain, tc_work, work_bound)
+    from blaze_tpu_torch.fields import FIELDS
+    from blaze_tpu_torch.oracle.gen import rand_words
+
+    _build.reset_launches()
+    recs = run_all(device, cut=True)
+    torch.cuda.synchronize()
+    counts = {k: _build.LAUNCHES[k] for k in EXPERIMENT_KERNELS}
+    keep = ("probe", "body", "field", "S", "M", "ms", "step_ms", "ns_per_elem_op",
+            "imad_fraction", "fma_pipe_fraction", "tc_fraction", "max_abs_err")
+    emit({"phase": "experiments", "launches": counts,
+          "records": [{k: r[k] for k in keep if k in r} for r in recs]})
+    check_launches("experiments", counts, EXPERIMENT_KERNELS)
+    if failures(recs):
+        raise AssertionError(f"experiments: kernels differ from their plain versions: "
+                             f"{[(r['probe'], r['body'], r['field']) for r in failures(recs)]}")
+    spec = FIELDS["bls12_381_fq"]
+    W, n, M = spec.nwords, 1 << 16, 9
+    a, b = rand_words(spec, (n, W), 21, device), rand_words(spec, (n, W), 22, device)
+    cases = {
+        "probe_chain": (lambda: probe_chain(spec, "mont", a, b, M),
+                        lambda: probe_chain_plain(spec, "mont", a, b, M),
+                        (3 * n * W * 4, M * n * product_imads(W), 0),
+                        {"body": "mont", "W": W, "lanes": n, "M": M}),
+        "mont_tc": (lambda: mont_tc(spec, "mont", a, b), lambda: mont_tc_plain(spec, "mont", a, b),
+                    tc_work(spec, n), {"mode": "mont", "W": W, "lanes": n, "M": 1}),
+    }
+    errs, timing = {}, {}
+    for name, (kern, plain, work, shape) in cases.items():
+        ms = cuda_ms(kern, 20)
+        want, plain_ms = once_ms(plain)
+        errs[name] = max_abs_err(kern(), want)
+        bound, bound_by = work_bound(work, sol)
+        timing[name] = {"shape": shape, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                        "bound_by": bound_by, "max_abs_err": errs[name]}
+    emit({"phase": "experiments_kernels", "kernels": timing})
+    if any(errs.values()):
+        raise AssertionError(f"experiments: kernels differ from their plain versions: {errs}")
+    return errs, timing, counts
+
+
 # ---------------------------------------------------------- the bench phase
 BENCH_TIMEOUT_S = 600
 MICROBENCH = (("bls12_381_fq", 19), ("bls12_381_fr", 19))
@@ -2704,6 +2780,11 @@ def main() -> int:
                    timed_phase("poseidon_stream", phase_poseidon_stream, args.seed)):
         for k, v in counts.items():
             launches[k] += v
+    exp_errs, exp_timing, exp_counts = timed_phase("experiments", phase_experiments, sol, dev)
+    errs.update(exp_errs)
+    timing.update(exp_timing)
+    for k, v in exp_counts.items():
+        launches[k] += v
     timed_phase("bench", phase_bench)
     emit({"phase_seconds": seconds})
     emit({"kernels": [

@@ -804,3 +804,61 @@ def test_failed_capture_raises(dev, monkeypatch):
         msm.msm_partial(res, scal, 8)
     assert not msm._graphs
     torch.cuda.synchronize()
+
+
+# ------------------------------------------------ the probes of experiments/
+PROBE_FIELDS = ("bls12_381_fr", "bls12_381_fq")      # W = 8 and 12
+
+
+@pytest.mark.parametrize("field", PROBE_FIELDS)
+def test_probe_chain_matches_plain(dev, field):
+    """csrc/probe_chain.cu: every body (E2-E5's) at S = 1 and the stream
+    bodies at S = 4, chained 3 steps on ragged lane counts, exact."""
+    from blaze_tpu_torch.experiments.chain import (BODIES, STREAM_BODIES, probe_chain,
+                                                   probe_chain_plain)
+    from blaze_tpu_torch.oracle.gen import rand_words
+
+    spec = FIELDS[field]
+    W = spec.nwords
+    for n in (1, 33, 1000):
+        b = rand_words(spec, (n, W), n, dev)
+        for S in (1, 4):
+            x = rand_words(spec, (S * n, W), n + S, dev)
+            for body in BODIES if S == 1 else STREAM_BODIES:
+                before = _build.LAUNCHES["probe_chain"]
+                got = probe_chain(spec, body, x, b, 3, S)
+                assert _build.LAUNCHES["probe_chain"] == before + 1
+                assert torch.equal(got, probe_chain_plain(spec, body, x, b, 3, S)), (body, n, S)
+
+
+def test_probe_mixed_matches_plain(dev):
+    """E5's mixed-add body on the team of six (probe_chain.cu), twice per
+    lane, at ragged lane counts, exact."""
+    from blaze_tpu_torch.experiments.chain import probe_mixed, probe_mixed_plain
+    from blaze_tpu_torch.oracle.gen import rand_words
+
+    curve = CURVES["bls12_381"]
+    spec = curve.fq
+    W = spec.nwords
+    for B in (1, 33, 1000):
+        p = rand_words(spec, (3, W, B), B, dev).reshape(3 * W, B)
+        q = rand_words(spec, (2, W, B), B + 1, dev).reshape(2 * W, B)
+        assert torch.equal(probe_mixed(curve, p, q, 2), probe_mixed_plain(curve, p, q, 2))
+
+
+@pytest.mark.parametrize("field", PROBE_FIELDS)
+def test_mont_tc_matches_plain(dev, field):
+    """csrc/mont_tc.cu (E1 and E2's mm_i8 / qmm_i8): each mode chained 3
+    steps at ragged lane counts (a warp's 32 elements cut short), exact;
+    one product equal to K1's."""
+    from blaze_tpu_torch.experiments.chain import TC_MODES, mont_tc, mont_tc_plain
+    from blaze_tpu_torch.oracle.gen import rand_words
+
+    spec = FIELDS[field]
+    W = spec.nwords
+    for n in (1, 33, 1000):
+        a, b = rand_words(spec, (n, W), n, dev), rand_words(spec, (n, W), n + 1, dev)
+        for mode in TC_MODES:
+            bb = b if mode == "mont" else None
+            assert torch.equal(mont_tc(spec, mode, a, bb, 3), mont_tc_plain(spec, mode, a, bb, 3))
+        assert torch.equal(mont_tc(spec, "mont", a, b), mont_mul(spec, a, b))
