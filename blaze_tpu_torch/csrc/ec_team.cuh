@@ -31,11 +31,11 @@
 // The tables are data, so each step's code holds one product, one add and
 // one sub, all inlined (no call frame, no local memory).
 //
-// The product is carry.cuh's mont_mul_cc<W, true>, the CIOS of field.cuh
-// mont_mul<W, true> in PTX carry chains.  Without __CUDA_ARCH__ (a host
-// build with g++) every carry instruction is emulated (carry.cuh), so the
-// same schedule can be run role by role on the host against the plain
-// versions.
+// The product is carry.cuh's mont_mul_cc<W, true>, K0's one product (its
+// word products on IMAD.WIDE); adds and subs are PTX carry chains.
+// Without __CUDA_ARCH__ (a host build with g++) every carry instruction is
+// emulated (carry.cuh), so the same schedule can be run role by role on
+// the host against the plain versions.
 #pragma once
 
 #include "carry.cuh"

@@ -3,16 +3,18 @@
 // Replaces blaze_tpu/fields/mxu.py MXUMont.mul2d (kernel body _kernel),
 // reached through mont_mul_mxu from Field.mul.
 //
-// Bound on the H100: integer multiply-adds (2 * (2W^2 + W) 32-bit IMADs per
-// product) for large batches; for the small batches of the curve glue
-// (tens of elements) the launch itself.  Design: one thread per product,
-// operands and the CIOS accumulator in registers; each thread reads its two
-// rows of W contiguous words, so a warp reads 32 * 4W contiguous bytes.
+// Bound on the H100: for large batches the FMA pipe's slots of K0's
+// product (carry.cuh mont_mul_cc, 744 at W = 12) or the bytes
+// (two operands read, one written), whichever is longer; for the small
+// batches of the curve glue (tens of elements)
+// the launch itself.  Design: one thread per product, operands and the
+// CIOS accumulator in registers; each thread reads its two rows of W
+// contiguous words, so a warp reads 32 * 4W contiguous bytes.
 #include <cuda_runtime.h>
 
 #include <cstring>
 
-#include "field.cuh"
+#include "carry.cuh"
 
 namespace {
 
@@ -30,7 +32,7 @@ mont_mul_kernel(const uint32_t* __restrict__ a, const uint32_t* __restrict__ b,
     x[k] = a[i * W + k];
     y[k] = b[i * W + k];
   }
-  blz::mont_mul<W, false>(r, x, y, fc);
+  blz::mont_mul_cc<W, false>(r, x, y, fc);
 #pragma unroll
   for (int k = 0; k < W; ++k) o[i * W + k] = r[k];
 }

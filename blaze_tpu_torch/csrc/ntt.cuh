@@ -45,8 +45,8 @@
 // KB at K = 512) stays in device memory and is read through the read-only
 // path; it is the same for every block, so it stays in L1.
 //
-// Products are carry.cuh's canonical carry-chain product, adds and subs
-// its canonical carry-chain ones: the same words as field.cuh.
+// Products are K0's canonical product (carry.cuh mont_mul_cc), adds and
+// subs carry.cuh's canonical carry-chain ones.
 //
 // Without __CUDA_ARCH__ (g++, BLZ_DEVICE defined as inline) the carry
 // instructions are emulated and each pass is a function of one thread,

@@ -13,8 +13,9 @@
 //   K8 blz_mul_lm      <- _mul_fn / mul_lm        (elementwise x*y[*z])
 //   K9 blz_twiddle_mul <- _twmul_fn / twiddle_mul (y * T1[v, jo] * T2[v, jl])
 //
-// Bound on the H100: integer multiply-adds.  A W-word product is 4W^2 + W
-// IMADs; K7 does (K/2) log2 K - (K - 1) products per K points (a
+// Bound on the H100: the FMA pipe's slots of K0's product (carry.cuh
+// mont_mul_cc, the one product of every kernel), counted as 4W^2 + W
+// IMADs a product (its SASS takes 744 slots at W = 12); K7 does (K/2) log2 K - (K - 1) products per K points (a
 // butterfly whose twiddle is W^0 needs none: all of stage 0, K/2^(s+1) of
 // stage s), K9 two per element, K8 one or two.  At the 2^27 transform each
 // K7 pass is about 7.4 ms of IMADs against 2.6 ms of bytes, each K9 pass
@@ -39,7 +40,7 @@
 // path, and multiplied on carry.cuh's canonical carry chain; bound by bytes
 // (3 elements moved per product at two operands).  The design it
 // replaces read each word at stride N (8 bytes apart for neighbouring
-// threads at N = 1) and multiplied on field.cuh's word-serial product.
+// threads at N = 1) and multiplied on a word-serial product in 64-bit C.
 // Word-major batches (N > 1) keep one thread per element, their words read
 // at stride N.  K9 is one thread per element position:
 // it reads the element's twiddle row v and column j from bit fields of
@@ -47,7 +48,8 @@
 // from the small split tables (T1/T2, 8 MiB each at 2^27, L2-resident;
 // each entry one element, as the data), where the TPU kernel
 // needed an iota+where column pick.  K9 is
-// elementwise and may run in place.
+// elementwise and may run in place; its two products are K0's, as K7's
+// and K8's.
 #include <cuda_runtime.h>
 
 #include <cstring>
@@ -151,9 +153,9 @@ twiddle_mul_kernel(const uint32_t* y, const uint32_t* __restrict__ t1,
   uint32_t a[W], b[W];
   nt::load_el<W>(a, y + pos * W);
   nt::ldg_el<W>(b, t1 + (((int64_t)v << logJ) + jo) * W);
-  blz::mont_mul<W, false>(a, b, a, fc);
+  blz::mont_mul_cc<W, false>(a, b, a, fc);
   nt::ldg_el<W>(b, t2 + (((int64_t)v << logS) + jl) * W);
-  blz::mont_mul<W, false>(a, a, b, fc);
+  blz::mont_mul_cc<W, false>(a, a, b, fc);
   nt::store_el<W>(o + pos * W, a);
 }
 

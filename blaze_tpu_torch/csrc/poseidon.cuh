@@ -16,7 +16,7 @@
 //     (t-1) x (t-1) block, where the sparse form does not exist.
 //
 // A dense mix is one sum of t unreduced products and one multi-p REDC per
-// row (carry.cuh mul_acc_cc, field.cuh redc_sum).  It reads every old
+// row (carry.cuh mul_acc_cc, redc_sum).  It reads every old
 // element while it writes the new ones, so it writes a second column and
 // the two swap.  Rounds, elements and rows stay rolled loops, so the code
 // holds a few inlined products and no unrolled round body (an unrolled,

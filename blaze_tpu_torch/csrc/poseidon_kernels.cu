@@ -88,7 +88,7 @@ int launch(const uint32_t* consts, const void* pc, const blz::PoseidonShape& sh,
 
 // The multi-p REDC on its own, for checks: o[:, b] = (sum_j a[j, :, b] *
 // c[j, :, b]) / R mod p for t pairs of canonical (t, W, B) inputs — one MDS
-// row's work (carry.cuh mul_acc_cc + field.cuh redc_sum).
+// row's work (carry.cuh mul_acc_cc + redc_sum).
 template <int W>
 __global__ void __launch_bounds__(256)
 sum_products_kernel(const uint32_t* __restrict__ a, const uint32_t* __restrict__ c,

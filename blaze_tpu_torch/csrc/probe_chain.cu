@@ -145,6 +145,12 @@ int chain_w(int body, int S, const uint32_t* consts, const void* x, const void* 
     BLZ_CHAIN(kConvF32)
     BLZ_CHAIN(kMont11)
     BLZ_CHAIN(kGlue15)
+    BLZ_CHAIN(kMontHi)
+    BLZ_CHAIN(kMontRz)
+    BLZ_CHAIN(kMontComba)
+    BLZ_CHAIN(kMontSplit)
+    BLZ_CHAIN(kMontWide)
+    BLZ_CHAIN(kMontPair64)
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -50,7 +50,12 @@ from ..fields.spec import FieldSpec
 
 # csrc/probe.cuh's Body enum, in order
 BODIES = ("mont", "conv", "carry", "redc", "add_f", "sub_f", "mul_lo", "mul_hi",
-          "mul_wide", "conv_f32", "mont11", "glue15")
+          "mul_wide", "conv_f32", "mont11", "glue15", "mont_hi", "mont_rz", "mont_comba",
+          "mont_split", "mont_wide", "mont_pair64")
+# the forms of the canonical product x b / R mod p: K0's (mont) and the others
+# probe.cuh keeps beside it
+PRODUCT_BODIES = ("mont", "mont_hi", "mont_rz", "mont_comba", "mont_split", "mont_wide",
+                  "mont_pair64")
 # the bodies built with S = 4 streams per thread too (probe_chain.cu chain_w)
 STREAM_BODIES = ("mont", "conv", "redc", "add_f", "mul_lo", "mul_hi", "mul_wide")
 TC_MODES = ("mont", "mm", "qmm")          # csrc/mont_tc.cu's Mode enum
@@ -136,7 +141,7 @@ def plain_step(spec: FieldSpec, body: str, x: torch.Tensor, b: torch.Tensor) -> 
     csrc/probe.cuh's body computes, value for value."""
     L = spec.nlimbs
     ops = _ops(spec)
-    if body == "mont":
+    if body in PRODUCT_BODIES:
         return ops.mul(x, b)
     if body in ("conv", "conv_f32"):
         t = _full_product(x, b)
@@ -488,10 +493,16 @@ def registers(key: tuple) -> int | None:
     return None
 
 
+# the integer ALU pipe's opcodes (IADD3 and IADD3.X, LOP3, SEL, ISETP,
+# shifts, MOV); IMAD.MOV goes to the FMA pipe, uniform (U*) ops to neither
+ALU_OPS = ("IADD3", "LOP3", "SEL", "ISETP", "SHF", "LEA", "MOV", "IMNMX", "PLOP3")
+
+
 def op_summary(ops: collections.Counter) -> dict:
     """The families of a step's opcodes that its records read: every IMAD
     form (the FMA pipe's integer issue, IMAD.MOV included), the FMA pipe's
-    slots, the three multiply forms, IMMA, FFMA, IADD3 and the total."""
+    slots, the three multiply forms, IMMA, FFMA, IADD3, the ALU pipe's
+    operations (ALU_OPS) and the total."""
     def count(pred):
         return sum(v for k, v in ops.items() if pred(k))
 
@@ -509,6 +520,7 @@ def op_summary(ops: collections.Counter) -> dict:
             "imma": count(lambda k: k.startswith("IMMA")),
             "ffma": count(lambda k: k.startswith("FFMA")),
             "iadd3": count(lambda k: k.startswith("IADD3")),
+            "alu": count(lambda k: k.split(".")[0] in ALU_OPS),
             "total": sum(ops.values())}
 
 

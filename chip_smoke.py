@@ -170,7 +170,11 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    body (the field product's parts on csrc/probe_chain.cu, the product
    whose REDC runs on the int8 tensor cores and its two matrix products on
    csrc/mont_tc.cu, E5's mixed-add body on K2's team of six) against its
-   plain version, limit 0, with one line of times; launch counts zeroed
+   plain version, limit 0, with one line of times; one line of E2's
+   product forms (K0's mont beside mont_hi, the lo / hi form, and the
+   other forms, at W = 8 and 12): per product the step loop's FMA-pipe
+   slots, ALU-pipe operations and instructions, registers, ns per product
+   and one product's latency on one warp; launch counts zeroed
    before and read after (probe_chain and mont_tc must launch); then
    probe_chain (E2's mont body, W = 12, M = 9) and mont_tc (E1's one
    product, W = 12) at 2^16 timed beside their plain versions and bounds;
@@ -2605,6 +2609,32 @@ def phase_poseidon_stream(seed: int, height: int = 7, stream_leaves: int = 1 << 
 EXPERIMENT_KERNELS = ("probe_chain", "mont_tc")
 
 
+def product_counts(recs: list) -> list:
+    """Per product, for each form of the Montgomery product among E2's
+    records (K0's mont beside mont_hi and the other forms, W = 8 and 12):
+    the step loop's FMA-pipe slots, ALU-pipe operations and instructions
+    (SASS, chain.op_summary), the kernel's registers, ns per product and
+    one product's latency on one warp (E2's latency records)."""
+    from blaze_tpu_torch.experiments.chain import PRODUCT_BODIES
+
+    forms = [r for r in recs if r["probe"] == "E2" and r["port_body"] in PRODUCT_BODIES]
+    latency = {(r["port_body"], r["W"]): r["step_ms"] for r in forms
+               if r["body"].endswith(" latency")}
+    out = []
+    for r in forms:
+        if r["body"] != r["port_body"]:
+            continue
+        ops = r.get("sass") or {}
+        lat = latency.get((r["port_body"], r["W"]))
+        out.append({"body": r["body"], "field": r["field"], "W": r["W"],
+                    "fma_slots": ops.get("fma_slots"), "alu": ops.get("alu"),
+                    "instructions": ops.get("total"), "imad_wide": ops.get("imad_wide"),
+                    "imad_mov": ops.get("imad_mov"), "imad_x": ops.get("imad_x"),
+                    "registers": r.get("registers"), "ns_per_elem_op": r.get("ns_per_elem_op"),
+                    "latency_us": None if lat is None else lat * 1e3})
+    return out
+
+
 def phase_experiments(sol, device):
     """The five probes of experiments/ (blaze_tpu_torch.experiments, E1-E5)
     at the cut size (experiments.CUT: 2^16 lanes, chains of at most 9
@@ -2633,6 +2663,7 @@ def phase_experiments(sol, device):
             "imad_fraction", "fma_pipe_fraction", "tc_fraction", "max_abs_err")
     emit({"phase": "experiments", "launches": counts,
           "records": [{k: r[k] for k in keep if k in r} for r in recs]})
+    emit({"phase": "experiments_products", "products": product_counts(recs)})
     check_launches("experiments", counts, EXPERIMENT_KERNELS)
     if failures(recs):
         raise AssertionError(f"experiments: kernels differ from their plain versions: "

@@ -7,8 +7,9 @@ Variants: the kernel as committed (element rows, one element per thread,
 16-byte loads and stores, carry.cuh's canonical product); elems_2 and
 elems_4, two and four elements per thread; strided_words, the element rows
 sent through the word-major kernel (each word a 4-byte load at stride N = 1,
-as before the redesign, on the same product); word_serial_product, the
-element rows on field.cuh's word-serial product.  Each variant is the
+as before the redesign, on the same product); lo_hi_product, the element
+rows on the lo / hi form of the product (IMAD + IMAD.HI per word product,
+csrc/probe.cuh mont_rows, the E2 body mont_hi).  Each variant is the
 kernel's source with a text substitution, built with nvcc into
 build/k8_probe/<variant>/ (all builds started together) and loaded with
 ctypes.  threads_128 and threads_512 change the block size; empty returns
@@ -45,10 +46,11 @@ VARIANTS = {
     "threads_512": [("constexpr int kThreads = 256;", "constexpr int kThreads = 512;")],
     "empty": [("  const int64_t first = (int64_t)blockIdx.x * (kThreads * kMulElems)",
                "  if (M > 0) return;\n  const int64_t first = (int64_t)blockIdx.x * (kThreads * kMulElems)")],
-    "word_serial_product": [
-        (ROWS_PRODUCT, ROWS_PRODUCT.replace("mont_mul_cc", "mont_mul")),
+    "lo_hi_product": [
+        ('#include "ntt.cuh"', '#include "ntt.cuh"\n#include "probe.cuh"'),
+        (ROWS_PRODUCT, ROWS_PRODUCT.replace("mont_mul_cc<W, false>", "probe::mont_rows<W, 0>")),
         ("      blz::mont_mul_cc<W, false>(a, a, b, fc);\n    }\n    nt::store_el",
-         "      blz::mont_mul<W, false>(a, a, b, fc);\n    }\n    nt::store_el"),
+         "      blz::probe::mont_rows<W, 0>(a, a, b, fc);\n    }\n    nt::store_el"),
     ],
 }
 

@@ -862,3 +862,26 @@ def test_mont_tc_matches_plain(dev, field):
             bb = b if mode == "mont" else None
             assert torch.equal(mont_tc(spec, mode, a, bb, 3), mont_tc_plain(spec, mode, a, bb, 3))
         assert torch.equal(mont_tc(spec, "mont", a, b), mont_mul(spec, a, b))
+
+
+@pytest.mark.parametrize("field", PROBE_FIELDS)
+def test_product_forms_equal_k0_on_the_card(dev, field):
+    """Every form of the product among the probe bodies (K0's mont, the lo /
+    hi form mont_hi and the others) equals K0's product and K1 word for
+    word, on random operands and operands near p, chained 1 and 3 steps."""
+    from blaze_tpu_torch.experiments.chain import PRODUCT_BODIES, probe_chain
+    from blaze_tpu_torch.oracle.gen import rand_words
+
+    spec = FIELDS[field]
+    W = spec.nwords
+    n = 1000
+    x = rand_words(spec, (n, W), 5, dev)
+    b = rand_words(spec, (n, W), 6, dev)
+    near = torch.as_tensor(np.stack([int_to_words(spec.p - 1 - k, W) for k in range(8)])
+                           .view(np.int32), device=dev)
+    x[:8], b[:8], b[8:16] = near, near, near
+    assert torch.equal(probe_chain(spec, "mont", x, b, 1), mont_mul(spec, x, b))
+    for M in (1, 3):
+        want = probe_chain(spec, "mont", x, b, M)
+        for body in PRODUCT_BODIES:
+            assert torch.equal(probe_chain(spec, body, x, b, M), want), (body, M)

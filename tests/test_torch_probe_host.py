@@ -45,7 +45,9 @@ int run_w(int body, const uint32_t* consts, uint32_t* x, const uint32_t* b, int 
 #define BLZ_CASE(k) case pb::k: run<W, pb::k>(consts, x, b, n, M); return 0;
     BLZ_CASE(kMont) BLZ_CASE(kConv) BLZ_CASE(kCarry) BLZ_CASE(kRedc) BLZ_CASE(kAddF)
     BLZ_CASE(kSubF) BLZ_CASE(kMulLo) BLZ_CASE(kMulHi) BLZ_CASE(kMulWide)
-    BLZ_CASE(kConvF32) BLZ_CASE(kMont11) BLZ_CASE(kGlue15)
+    BLZ_CASE(kConvF32) BLZ_CASE(kMont11) BLZ_CASE(kGlue15) BLZ_CASE(kMontHi)
+    BLZ_CASE(kMontRz) BLZ_CASE(kMontComba) BLZ_CASE(kMontSplit)
+    BLZ_CASE(kMontWide) BLZ_CASE(kMontPair64)
 #undef BLZ_CASE
     default: return -1;
   }
