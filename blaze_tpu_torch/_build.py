@@ -27,7 +27,7 @@ from .utils.errors import DeviceError, LoadFailed
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "build" / "blaze_tpu_torch"
 SOURCES = ("montmul", "field_ew", "ec_kernels", "ntt_kernels", "poseidon_kernels",
-           "probe_chain", "mont_tc")
+           "probe_chain", "mont_tc", "trace_marks")
 HOST_SOURCES = ("codec",)
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -38,11 +38,14 @@ GXX_FLAGS = ["-std=c++17", "-O3", "-shared", "-fPIC", "-Wall"]
 # Launches per kernel wrapper: each wrapper adds one where it launches its
 # kernel (never on the plain CPU path), so a run can show which kernels it
 # went through.  The NTT kernels' W = 12 builds count apart (name_w12); the
-# probe kernels of experiments/ count under their sources' names.
+# probe kernels of experiments/ count under their sources' names, the stage
+# marks (trace.py) as mark_<stage>.
 LAUNCHES = dict.fromkeys(
     ("mont_mul", "field_ew", "scan_mixed", "ec_add", "reduce_cols", "dbl_n", "fold_horner",
      "ntt_base", "mul_lm", "twiddle_mul", "poseidon_perm",
-     "ntt_base_w12", "mul_lm_w12", "twiddle_mul_w12", "probe_chain", "mont_tc"), 0
+     "ntt_base_w12", "mul_lm_w12", "twiddle_mul_w12", "probe_chain", "mont_tc",
+     "mark_msm_sort", "mark_msm_layout", "mark_msm_scan", "mark_msm_bucket",
+     "mark_msm_stream", "mark_msm_done"), 0
 )
 
 _LIBS: dict[str, ctypes.CDLL] = {}

@@ -16,13 +16,13 @@ them from here):
     of each primitive (`msm_work`, `ntt_work`, `poseidon_work`,
     `pipeline_work`), all as (bytes, IMADs);
   * `device_split`: one call under torch.profiler, its device time split
-    by kernel and checked against the port's launch counters;
+    by kernel and checked against the port's launch counters (trace.py's
+    checks);
   * `scaling_efficiency`: throughput(N devices) / (N * throughput(1)).
 """
 from __future__ import annotations
 
 import dataclasses
-import re
 import statistics
 import subprocess
 import time
@@ -32,6 +32,7 @@ import torch
 
 from .. import _build
 from ..hash.tree import LEAF_ARITY
+from ..trace import check_trace, dev_us, device_ops, launch_key, traced_launches
 
 
 @dataclasses.dataclass(frozen=True)
@@ -424,57 +425,9 @@ SPLIT_KERNELS = ("ntt_base", "mul_lm", "twiddle_mul")
 SPLIT = (*SPLIT_KERNELS, "nccl", "other")
 
 
-class TraceLost(RuntimeError):
-    """The profiler recorded fewer device events of a kernel than the
-    port's launch counters say were launched in the traced window.  On the
-    H100 machine torch.profiler drops device events as out of its window in
-    a process older than about 40 s, and all of a short window's from about
-    100 s on (scripts/profiler_probe.py, PERF.md §7)."""
-
-
-def dev_us(e) -> float:
-    """A profiler event's own device time (us), across torch versions."""
-    return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
-
-
-def launch_key(kernel_name: str) -> str | None:
-    """The launch-counter key of a device kernel's name (mont_mul_kernel,
-    mul_lm_rows_kernel<8>, ...; an NTT kernel's W = 12 build, such as
-    ntt_base_kernel<12, 9>, under name_w12), or None for a kernel of
-    another library."""
-    if "kernel" not in kernel_name:
-        return None
-    key = next((k for k in _build.LAUNCHES if k + "_" in kernel_name), None)
-    wide = f"{key}_w12"
-    if wide in _build.LAUNCHES and re.search(r"_kernel<12\b", kernel_name):
-        return wide
-    return key
-
-
 def kernel_of(key: str) -> str:
     """The kernel of a launch-counter key, whatever its build's width."""
     return key.removesuffix("_w12")
-
-
-def traced_launches(events) -> dict:
-    """{launch-counter key: count} of a trace's (device kernel name, count)
-    pairs."""
-    out = {}
-    for name, count in events:
-        key = launch_key(name)
-        if key:
-            out[key] = out.get(key, 0) + count
-    return out
-
-
-def check_trace(traced: dict, launched: dict, what: str) -> None:
-    """Raise TraceLost unless the trace holds a device event for every
-    launch the counters saw: `traced` and `launched` map launch-counter
-    keys to counts."""
-    lost = {k: [v, traced.get(k, 0)] for k, v in launched.items() if v > traced.get(k, 0)}
-    if lost:
-        raise TraceLost(f"{what}: the profiler lost device events, kernel: "
-                        f"[launched, traced] {lost}")
 
 
 def device_split(fn: Callable) -> dict:
@@ -501,8 +454,7 @@ def device_split(fn: Callable) -> dict:
     split = {k: [0, 0.0] for k in SPLIT}
     others = []
     # the device's own events: the aten ops above them report the same time
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA and dev_us(e) > 0]
+    events = device_ops(prof)
     check_trace(traced_launches((e.key, e.count) for e in events), launched, "device_split")
     for e in events:
         lk = launch_key(e.key)

@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from ..fields.spec import FieldSpec, int_to_words
+from ..trace import span
 from .params import PoseidonParams, generate_params
 from .poseidon import Poseidon
 
@@ -59,13 +60,15 @@ class TreeResult:
     streaming engine that emits internal layers while leaves are still
     being fed (integration_poseidon.rs:81-119).  `layers`, `records()` and
     `root` convert (K1) and transfer; `block_until_ready()` is the
-    wait_result hook.
+    wait_result hook.  `task_label`, where a client sets it, labels the
+    root's span.
     """
 
     def __init__(self, layers_lm_mont: list, field):
         self._lm = layers_lm_mont
         self._field = field
         self._layers: Optional[list] = None
+        self.task_label = None
 
     @property
     def layers(self) -> list:
@@ -91,7 +94,8 @@ class TreeResult:
 
     @property
     def root(self) -> np.ndarray:
-        return self.layers[-1][0].cpu().numpy().view(np.uint32)
+        with span("blaze.tree.root", self.task_label):
+            return self.layers[-1][0].cpu().numpy().view(np.uint32)
 
     def __len__(self) -> int:
         return sum(l.shape[1] for l in self._lm)
@@ -135,9 +139,10 @@ class MerkleTreeBuilder:
         if A != LEAF_ARITY or W != self.spec.nwords:
             raise ValueError(f"want ({LEAF_ARITY}, {self.spec.nwords}, B), got "
                              f"{tuple(cols_lm.shape)}")
-        state = torch.cat([self._tag(False, Bc, cols_lm.device), cols_lm])
-        self.leaf_hasher.kern.permute_lm(state, convert_in=True, out=state)
-        return state[1].clone()
+        with span("blaze.tree.leaves"):
+            state = torch.cat([self._tag(False, Bc, cols_lm.device), cols_lm])
+            self.leaf_hasher.kern.permute_lm(state, convert_in=True, out=state)
+            return state[1].clone()
 
     def close_staged(self, leaf_lm: torch.Tensor, height: int) -> TreeResult:
         """Node levels over a complete (W, B) Montgomery leaf layer."""
@@ -147,11 +152,12 @@ class MerkleTreeBuilder:
         layer, layers = leaf_lm, [leaf_lm]
         knode = self.node_hasher.kern
         while layer.shape[1] > 1:
-            Bc = layer.shape[1] // ARITY
-            grouped = layer.reshape(W, Bc, ARITY).permute(2, 0, 1)   # (8, W, Bc)
-            state = torch.cat([self._tag(True, Bc, layer.device), grouped])
-            knode.permute_lm(state, out=state)
-            layer = state[1].clone()
+            with span("blaze.tree.level"):
+                Bc = layer.shape[1] // ARITY
+                grouped = layer.reshape(W, Bc, ARITY).permute(2, 0, 1)   # (8, W, Bc)
+                state = torch.cat([self._tag(True, Bc, layer.device), grouped])
+                knode.permute_lm(state, out=state)
+                layer = state[1].clone()
             layers.append(layer)
         return TreeResult(layers, self.field)
 

@@ -19,6 +19,11 @@ bucket method (blaze_tpu/msm/pippenger.py `_fused_chunk`), step for step:
 
 On the card steps 1-5 of a chunk are one CUDA graph replay (`MSM._chunk`),
 as the JAX package compiles them into one program (`_msm_fused_jit`).
+Stage marks (trace.py) between the steps ride in the graph: msm_sort (steps
+1-2), msm_layout (the sorted rows for K2), msm_scan (K2), msm_bucket (steps
+4-5), msm_stream (the chunk's output, `accumulate`, the next chunk's
+operands, `finalize`), msm_done after the fold; `MSM.stage_ms()` reads
+their device clock.
 
 Same defaults, digit order, lane counts, paddings and reduction disciplines
 as the JAX package, so on one input both produce the same projective limbs.
@@ -37,6 +42,7 @@ from .. import _build
 from ..curves.kernels import ECKernels
 from ..curves.ops import Curve
 from ..fields.spec import LIMB_BITS
+from ..trace import StageClock, span
 from .residency import points_to_resident, scalars_to_resident
 
 
@@ -95,6 +101,7 @@ class MSM:
         self._graph_lock = threading.Lock()
         self._replayed = None
         self.graph_pool_bytes = 0       # device memory the captures reserved
+        self._clock = StageClock()
 
     # ------------------------------------------------------------ digits
     @staticmethod
@@ -219,6 +226,7 @@ class MSM:
         N = pts.shape[1]
         bits = scalar_bits or cv.spec.fr.bits
         nwin = -(-bits // c)
+        self._clock.mark("msm_sort", pts)
         digits = self._digits_lm(scalars, c, nwin)
         G = nwin
 
@@ -245,6 +253,7 @@ class MSM:
         hist.scatter_add_(1, digits, torch.ones_like(digits))
         bounds = torch.cumsum(hist[:, :B], dim=-1) - 1             # (G, B)
 
+        self._clock.mark("msm_layout", pts)
         R = min(self.config.scan_lanes or _ceil_pow2(int(math.sqrt(N))), N)
         C = -(-N // R)
         pad = R * C - N
@@ -259,8 +268,11 @@ class MSM:
             sp = torch.cat([sp, sp[:, :, -1:].expand(nr, G, pad)], dim=2)
         # (nr, G, R, C) -> rows (C, nr, G*R); point n = r*C + c of window g
         rows = sp.reshape(nr, G, R, C).permute(3, 0, 1, 2).reshape(C, nr, G * R)
-        emitted, tot = kern.scan_mixed(rows.contiguous())  # (C, 3W, GR), (3W, GR)
+        rows = rows.contiguous()
+        self._clock.mark("msm_scan", pts)
+        emitted, tot = kern.scan_mixed(rows)               # (C, 3W, GR), (3W, GR)
 
+        self._clock.mark("msm_bucket", pts)
         excl = self._ks_lane_prefix(tot, G, R)             # (G, R, 3W)
 
         safe = bounds.clamp(min=0)
@@ -291,7 +303,9 @@ class MSM:
         if B > 1:
             rest = torch.cat([carry[:, : B - 1], local[:, : B - 1]], dim=1)
             acc = kern.add(acc, self._neg_lm(self._fused_reduce_rows(rest)))
-        return self._canon(self._lm_to_pm(acc))
+        out = self._canon(self._lm_to_pm(acc))
+        self._clock.mark("msm_stream", pts)
+        return out
 
     # ------------------------------------------------------------- driver
     def _as_resident(self, points, scalars):
@@ -324,8 +338,12 @@ class MSM:
         is that chunk's.  A capture that fails raises: there is no eager
         fallback.  The launch counters count what a replay launches (the
         counts the capture recorded), not the capture itself."""
-        if pts.device.type != "cuda":
-            return self._fused_chunk(pts, scalars, c, scalar_bits)
+        with span("blaze.msm.chunk"):
+            if pts.device.type != "cuda":
+                return self._fused_chunk(pts, scalars, c, scalar_bits)
+            return self._replay(pts, scalars, c, scalar_bits)
+
+    def _replay(self, pts, scalars, c: int, scalar_bits: int | None) -> torch.Tensor:
         bits = scalar_bits or self.curve.spec.fr.bits
         key = (str(pts.device), pts.shape[1], scalars.shape[0], c, bits)
         with self._graph_lock, torch.cuda.device(pts.device):
@@ -336,7 +354,8 @@ class MSM:
                 stream.wait_event(self._replayed)
             g = self._graphs.get(key)
             if g is None:
-                return self._capture(key, pts, scalars, c, bits)
+                with span("blaze.msm.capture"):
+                    return self._capture(key, pts, scalars, c, bits)
             g.pts.copy_(pts)
             g.scalars.copy_(scalars)
             g.graph.replay()
@@ -387,8 +406,9 @@ class MSM:
         launch over the windows' sums, canonicalized."""
         if wsums is None:
             return part
-        out = self.kern.add(self._pm_to_lm(wsums), self._pm_to_lm(part))
-        return self._canon(self._lm_to_pm(out))
+        with span("blaze.msm.accumulate"):
+            out = self.kern.add(self._pm_to_lm(wsums), self._pm_to_lm(part))
+            return self._canon(self._lm_to_pm(out))
 
     def fold_windows(self, wsums, c: int):
         """Horner fold sum_w 2^(c*w) * wsums[w] on the Field (alg 9
@@ -404,11 +424,16 @@ class MSM:
 
     def finalize(self, wsums, c: int):
         """Horner window fold of the (nwin, 3, W) window sums -> (3, W) mont,
-        canonical: one K6 launch (lazy), canonicalized."""
-        if wsums.shape[0] == 1:
-            return wsums[0]
-        res = self.kern.fold_horner(self._pm_to_lm(wsums), c)
-        return self._canon(res.reshape(3, self.curve.nwords))
+        canonical: one K6 launch (lazy), canonicalized.  Its msm_done mark
+        ends the MSM's stages."""
+        with span("blaze.msm.finalize"):
+            if wsums.shape[0] == 1:
+                out = wsums[0]
+            else:
+                res = self.kern.fold_horner(self._pm_to_lm(wsums), c)
+                out = self._canon(res.reshape(3, self.curve.nwords))
+            self._clock.mark("msm_done", out)
+            return out
 
     def __call__(self, points, scalars, window_bits: int | None = None,
                  scalar_bits: int | None = None):
@@ -419,18 +444,31 @@ class MSM:
         Inputs up to 2^chunk_log2 points run as one chunk; larger ones stream
         in chunks whose window sums are accumulated (K3) and folded once on
         K6 (the reference's DMA chunking analog, msm_api.rs:156)."""
-        points, scalars = self._as_resident(points, scalars)
-        n = points.shape[1]
-        c = window_bits or min(self.config.window_bits, default_window_bits(n))
-        chunk = 1 << self.config.chunk_log2
-        if n <= chunk:
-            return self.finalize(self._chunk(points, scalars, c, scalar_bits), c)
-        wsums = None
-        for lo in range(0, n, chunk):
-            hi = min(lo + chunk, n)
-            part = self._chunk(points[:, lo:hi], scalars[:, lo:hi], c, scalar_bits)
-            wsums = self.accumulate(wsums, part)
-        return self.finalize(wsums, c)
+        with span("blaze.msm.call"):
+            points, scalars = self._as_resident(points, scalars)
+            n = points.shape[1]
+            c = window_bits or min(self.config.window_bits, default_window_bits(n))
+            chunk = 1 << self.config.chunk_log2
+            self._clock.mark("msm_stream", points)      # the first chunk's operands
+            if n <= chunk:
+                return self.finalize(self._chunk(points, scalars, c, scalar_bits), c)
+            wsums = None
+            for lo in range(0, n, chunk):
+                hi = min(lo + chunk, n)
+                part = self._chunk(points[:, lo:hi], scalars[:, lo:hi], c, scalar_bits)
+                wsums = self.accumulate(wsums, part)
+            return self.finalize(wsums, c)
+
+    def stage_ms(self) -> dict:
+        """Device ms per stage of this engine's MSMs on the card, summed since
+        it was made, and the calls measured: {"sort", "layout", "scan",
+        "bucket", "stream": ms, "calls": msm_done marks}, from its stage
+        marks' clock (one small copy from the card).  A stage runs from its
+        mark to the next; from a call's msm_done to the next call's first
+        mark is no stage's.  Divide by "calls" for a per-MSM split; read it
+        before and after a window for the window's.  Marks of one caller at
+        a time: calls from two streams at once mix their stages."""
+        return self._clock.ms()
 
     def msm_precomputed(self, expanded_points, scalars, factor: int,
                         window_bits: int | None = None):

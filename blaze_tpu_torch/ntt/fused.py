@@ -62,6 +62,7 @@ import torch
 
 from ..fields.mont import Field
 from ..fields.spec import FieldSpec, int_to_words
+from ..trace import span
 from .kernels import MAX_FIELDS, MAX_LOGK, NTTKernels, TileMap, _log2, twiddle_cols
 
 __all__ = ["FusedNTT", "Level", "batch_level", "plan_parts", "split_parts",
@@ -325,13 +326,14 @@ class FusedNTT:
         place: on K9 from the split tables, or for a narrow cell of the
         single transform (lv is self.levels[depth]) on K8 with the plan's
         element-order twiddles (two operands, one launch)."""
-        if lv is not self.levels[depth] or not self._takes_k8(depth):
-            tab1, tab2 = self._tabs[(depth, inverse)]
-            return self.kern.twiddle_mul(y, tab1, tab2, lv.vshift, lv.fields, out=y)
-        n, W = y.shape
-        rows = y.view(n, W, 1)
-        self.kern.mul_lm(rows, self._twiddle_rows(depth, inverse).view(n, W, 1), out=rows)
-        return y
+        with span("blaze.ntt.twiddle"):
+            if lv is not self.levels[depth] or not self._takes_k8(depth):
+                tab1, tab2 = self._tabs[(depth, inverse)]
+                return self.kern.twiddle_mul(y, tab1, tab2, lv.vshift, lv.fields, out=y)
+            n, W = y.shape
+            rows = y.view(n, W, 1)
+            self.kern.mul_lm(rows, self._twiddle_rows(depth, inverse).view(n, W, 1), out=rows)
+            return y
 
     # ---------------------------------------------------------- recursion
     def _rec(self, x: torch.Tensor, inverse: bool, levels: list, rows: int) -> torch.Tensor:
@@ -344,10 +346,12 @@ class FusedNTT:
         GiB each at 2^27) and moves no data between levels."""
         if not levels:
             return x.clone()
-        y = torch.empty((rows, x.shape[1]), dtype=x.dtype, device=x.device)
+        with span("blaze.ntt.alloc"):
+            y = torch.empty((rows, x.shape[1]), dtype=x.dtype, device=x.device)
         for d, lv in enumerate(levels):
-            self.kern.ntt_base(x if d == 0 else y, self._packs[(lv.a, inverse)], lv.lanes,
-                               lv.xmap, out=y, omap=lv.omap)
+            with span("blaze.ntt.level"):
+                self.kern.ntt_base(x if d == 0 else y, self._packs[(lv.a, inverse)], lv.lanes,
+                                   lv.xmap, out=y, omap=lv.omap)
             if d + 1 < len(levels):
                 y = self._apply_twiddle(y, d, inverse, lv)
         return y
@@ -388,16 +392,18 @@ class FusedNTT:
     def ntt(self, x: torch.Tensor) -> torch.Tensor:
         """Forward NTT: (n, W) int32 Montgomery words -> same."""
         self._check(x)
-        return self._rec(x.contiguous(), False, self.levels, self.n)
+        with span("blaze.ntt.transform"):
+            return self._rec(x.contiguous(), False, self.levels, self.n)
 
     def intt(self, x: torch.Tensor) -> torch.Tensor:
         """Inverse NTT (n^-1 folded into the depth-0 T1 of multi-level
         plans, one K1 pass otherwise)."""
         self._check(x)
-        out = self._rec(x.contiguous(), True, self.levels, self.n)
-        if len(self.parts) == 1:
-            out = self.field.mul(out, self._ninv_mont)
-        return out
+        with span("blaze.ntt.transform"):
+            out = self._rec(x.contiguous(), True, self.levels, self.n)
+            if len(self.parts) == 1:
+                out = self.field.mul(out, self._ninv_mont)
+            return out
 
     def ntt_batch(self, x: torch.Tensor, count: int, stride: int = 1,
                   batch_stride: int | None = None, minor: bool = False) -> torch.Tensor:

@@ -58,7 +58,8 @@ from ..msm import (
 )
 from ..ntt import make_ntt
 from .device import DeviceContext
-from .primitive import DriverPrimitive, ImageParams, timed
+from .primitive import DriverPrimitive, ImageParams
+from ..trace import span
 from ..utils.errors import (
     BlazeError,
     DataError,
@@ -171,6 +172,8 @@ class MSMResult:
 
 
 class MSMClient(DriverPrimitive):
+    trace_name = "msm"
+
     def __init__(self, init: MSMInit, ctx: Optional[DeviceContext] = None,
                  config: Optional[MSMConfig] = None, device: Optional[str] = None):
         super().__init__()
@@ -293,7 +296,7 @@ class MSMClient(DriverPrimitive):
             return self._set_data_staged(input)
 
     def _set_data_staged(self, input: MSMInput) -> None:
-        with timed(self._timings, "set_data_s"):
+        with self._timed("set_data_s"):
             params = input.params or self._params
             if params is None:
                 raise NotReady("initialize() first (no MSMParams)")
@@ -324,7 +327,7 @@ class MSMClient(DriverPrimitive):
                 "a streamed chunk cannot carry params: the open task's were "
                 "fixed by initialize()"
             )
-        with timed(self._timings, "set_data_s"):
+        with self._timed("set_data_s", self._stream["label"]):
             st = self._stream
             params = self._params
             nchunk, sdev, scalar_bits = self._stage_scalars(input.scalars)
@@ -378,7 +381,7 @@ class MSMClient(DriverPrimitive):
         if self._points is None or self._scalars is None:
             if self._params is None:
                 raise NotReady("set_data() first")
-            with timed(self._timings, "start_s"):
+            with self._timed("start_s"):
                 n = self._params.nof_elements
                 c = min(self.engine.config.window_bits, default_window_bits(n))
                 self._stream = {
@@ -388,7 +391,7 @@ class MSMClient(DriverPrimitive):
                     "c": c,
                 }
             return
-        with timed(self._timings, "start_s"):
+        with self._timed("start_s"):
             label = self._push_task()
             out = self.engine(
                 self._points, self._scalars, scalar_bits=self._scalar_bits
@@ -409,7 +412,7 @@ class MSMClient(DriverPrimitive):
             n = self._params.nof_elements
             if st["consumed"] < n:
                 raise NotReady(f"streamed {st['consumed']} of {n} elements")
-            with timed(self._timings, "wait_s"):
+            with self._timed("wait_s", st["label"]):
                 out = self.engine.finalize(st["wsums"], st["c"])
                 self._inflight.append((st["label"], out))
                 self._stream = None
@@ -417,7 +420,7 @@ class MSMClient(DriverPrimitive):
             return
         if not self._inflight:
             return
-        with timed(self._timings, "wait_s"):
+        with self._timed("wait_s", self._inflight[0][0]):
             hard_sync(self._inflight[0][1])
 
     def result(self, param=None) -> Optional[MSMResult]:
@@ -514,6 +517,8 @@ class NTTClient(DriverPrimitive):
     the other slot keeps computing.
     """
 
+    trace_name = "ntt"
+
     NOF_BUFFERS = 2
 
     def __init__(self, init: NTTInit, ctx: Optional[DeviceContext] = None,
@@ -577,7 +582,7 @@ class NTTClient(DriverPrimitive):
 
     def set_data(self, input: NTTInput) -> None:
         """Stage one input vector in a slot (ntt_api.rs:72-87)."""
-        with timed(self._timings, "set_data_s"):
+        with self._timed("set_data_s"):
             buf = input.buf_host
             words = self._words(input.data)
             if not self._cuda:
@@ -601,7 +606,7 @@ class NTTClient(DriverPrimitive):
         if slot is None:
             raise NotReady(f"buffer {buf_kernel} empty")
         self._slots[buf_kernel] = None
-        with timed(self._timings, "start_s"):
+        with self._timed("start_s"):
             self._push_task()
             x, uploaded = slot
             fn = self.plan.intt if self.inverse else self.plan.ntt
@@ -621,7 +626,7 @@ class NTTClient(DriverPrimitive):
         waits only for that buffer — the other slot keeps computing, which
         is the point of the double-buffered overlap
         (integration_ntt.rs:103-136)."""
-        with timed(self._timings, "wait_s"):
+        with self._timed("wait_s"):
             targets = (
                 self._results if buf_kernel is None else [self._results[buf_kernel]]
             )
@@ -711,6 +716,8 @@ class PoseidonClient(DriverPrimitive):
     hash_id in the low 30 bits and layer_id above (poseidon_api.rs:42-71).
     """
 
+    trace_name = "poseidon"
+
     def __init__(self, field="bls12_381_fr", ctx: Optional[DeviceContext] = None,
                  device: Optional[str] = None):
         super().__init__()
@@ -773,7 +780,7 @@ class PoseidonClient(DriverPrimitive):
         11 elements per leaf (integration_poseidon.rs:151-155).  Accepts
         one element or ANY number of elements per call — wire bytes (kept
         as a zero-copy view) or a (k, L) 16-bit limb array."""
-        with timed(self._timings, "set_data_s"):
+        with self._timed("set_data_s"):
             if isinstance(data, (bytes, bytearray, memoryview)):
                 raw = np.frombuffer(data, dtype=np.uint8)
                 if raw.size % self.spec.nbytes:
@@ -882,8 +889,8 @@ class PoseidonClient(DriverPrimitive):
             want = nleaves * (LEAF_ARITY if mode == TreeMode.TREE_C else 1)
             if self._count < want:
                 raise NotReady(f"need {want} elements for height {h}, have {self._count}")
-            with timed(self._timings, "start_s"):
-                self._push_task()
+            with self._timed("start_s"):
+                label = self._push_task()
                 if self._param.stream_leaves > 0 and mode == TreeMode.TREE_C:
                     # streaming build: leaves were hashed as they arrived;
                     # hash the tail block and close the tree over the
@@ -907,6 +914,7 @@ class PoseidonClient(DriverPrimitive):
                 else:
                     leaves = self._to_device(self._elements(want))
                     self._tree = self._builder.build(leaves, h, TreeMode.TREE_D)
+                self._tree.task_label = label
 
     def _sync(self) -> None:
         if self.ctx.device.type == "cuda":
@@ -916,7 +924,7 @@ class PoseidonClient(DriverPrimitive):
         """Block until the tree build completes (result-drain poll analog,
         poseidon_api.rs:128-145: the launches are in flight on the CUDA
         stream)."""
-        with timed(self._timings, "wait_s"):
+        with self._timed("wait_s"):
             if self._tree is not None:
                 self._tree.block_until_ready()
 
@@ -934,30 +942,36 @@ class PoseidonClient(DriverPrimitive):
         16-bit limbs)] per tree layer, leaf layer first — the reference's
         streaming drain (poseidon_api.rs:128-145) at client scale, no
         per-node Python objects."""
-        layers = self._drain()
-        if layers is None:
-            return None
-        return [(lid, w.view("<u2").astype(np.uint32)) for lid, w in layers]
+        with self._result_span():
+            layers = self._drain()
+            if layers is None:
+                return None
+            return [(lid, w.view("<u2").astype(np.uint32)) for lid, w in layers]
+
+    def _result_span(self):
+        return span("blaze.poseidon.result",
+                    None if self._tree is None else self._tree.task_label)
 
     def result_raw(self) -> Optional[bytes]:
         """Wire-format drain: the reference's 64 B record stream — 32 B
         LE hash + packed meta with hash_id in the low 30 bits and
         layer_id above (PoseidonResult::parse_poseidon_hash_results,
         poseidon_api.rs:42-71) — built with array ops."""
-        layers = self._drain()
-        if layers is None:
-            return None
-        nbytes = self.spec.nbytes
-        parts = []
-        for lid, arr in layers:
-            n = arr.shape[0]
-            rec = np.zeros((n, 64), np.uint8)
-            rec[:, :nbytes] = arr.view(np.uint8).reshape(n, nbytes)
-            meta = ((np.arange(n, dtype=np.uint64) & np.uint64(0x3FFFFFFF))
-                    | (np.uint64(lid) << np.uint64(30)))
-            rec[:, 32:40] = meta.astype("<u8")[:, None].view(np.uint8)
-            parts.append(rec.tobytes())
-        return b"".join(parts)
+        with self._result_span():
+            layers = self._drain()
+            if layers is None:
+                return None
+            nbytes = self.spec.nbytes
+            parts = []
+            for lid, arr in layers:
+                n = arr.shape[0]
+                rec = np.zeros((n, 64), np.uint8)
+                rec[:, :nbytes] = arr.view(np.uint8).reshape(n, nbytes)
+                meta = ((np.arange(n, dtype=np.uint64) & np.uint64(0x3FFFFFFF))
+                        | (np.uint64(lid) << np.uint64(30)))
+                rec[:, 32:40] = meta.astype("<u8")[:, None].view(np.uint8)
+                parts.append(rec.tobytes())
+            return b"".join(parts)
 
     def result(self, expected_count: Optional[int] = None):
         """Drain records (poseidon_api.rs:128-145)."""

@@ -12,7 +12,9 @@ stream: `start_process` issues the MSM's kernels on the current stream,
 `wait_result` synchronizes the device, `result` marshals back to wire
 format.  Task labels and the pending queue
 mirror msm_hw_code.rs:19-25; phase timings mirror the HW perf-counter
-surface (msm_hw_code.rs:35-54).
+surface (msm_hw_code.rs:35-54), and each timed phase is a span
+`blaze.<client>.<phase>` on a running torch profiler's timeline
+(trace.span), labelled with its task's label.
 """
 from __future__ import annotations
 
@@ -21,6 +23,8 @@ import collections
 import dataclasses
 import time
 from typing import Any, Optional
+
+from ..trace import span
 
 
 @dataclasses.dataclass
@@ -57,6 +61,8 @@ class PhaseTimings:
 class DriverPrimitive(abc.ABC):
     """Uniform lifecycle every primitive client implements."""
 
+    trace_name = "client"          # the <client> of its spans' names
+
     def __init__(self):
         self._task_labels = collections.deque()
         self._next_label = 0
@@ -88,6 +94,15 @@ class DriverPrimitive(abc.ABC):
     def timings(self) -> PhaseTimings:
         return self._timings
 
+    def _timed(self, field: str, label: Optional[int] = None) -> "timed":
+        """`timed` for this client's phase `field`, its span labelled with
+        the task the phase serves: by default the one set_data and
+        start_process queue next (task_label) and the last one queued for
+        wait_result."""
+        if label is None:
+            label = self._next_label - (field == "wait_s")
+        return timed(self._timings, field, self.trace_name, label)
+
     # ----------------------------------------------------------- lifecycle
     @abc.abstractmethod
     def loaded_binary_parameters(self) -> ImageParams:
@@ -115,13 +130,17 @@ class DriverPrimitive(abc.ABC):
 
 
 class timed:
-    """Context manager accumulating wall time into a PhaseTimings field."""
+    """Context manager accumulating wall time into a PhaseTimings field,
+    inside the span `blaze.<client>.<phase>` (the field less its `_s`,
+    labelled `label`) while a torch profiler runs."""
 
-    def __init__(self, timings: PhaseTimings, field: str):
+    def __init__(self, timings: PhaseTimings, field: str, client: str, label=None):
         self.timings = timings
         self.field = field
+        self.span = span(f"blaze.{client}.{field.removesuffix('_s')}", label)
 
     def __enter__(self):
+        self.span.__enter__()
         self.t0 = time.perf_counter()
         return self
 
@@ -131,4 +150,5 @@ class timed:
             self.field,
             getattr(self.timings, self.field) + time.perf_counter() - self.t0,
         )
+        self.span.__exit__(*exc)
         return False

@@ -197,7 +197,7 @@ phases 5, 7c and 7d, the pipeline's trace) runs early in a child process of its
 own (`fresh`): on the card's machine the profiler drops more of the card's
 events the older the process is, from about 40 s on (PERF.md §7).  A trace
 that holds fewer events of a kernel than its launch counter rose by in the
-window fails the phase (bench.profile.TraceLost).
+window fails the phase (trace.TraceLost).
 
 The last line is {"ok": true, "device": {...}}; the line before it is the
 card's name and power limit as nvidia-smi prints them.  Without a CUDA
@@ -839,7 +839,7 @@ def device_profile(fn, what: str) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     from blaze_tpu_torch import _build
-    from blaze_tpu_torch.bench.profile import check_trace, dev_us, traced_launches
+    from blaze_tpu_torch.trace import check_trace, dev_us, device_ops, traced_launches
 
     torch.cuda.synchronize()
     before = dict(_build.LAUNCHES)
@@ -851,8 +851,7 @@ def device_profile(fn, what: str) -> dict:
     launched = {k: v - before[k] for k, v in _build.LAUNCHES.items()}
     # the device's own events (kernels, copies): the aten ops above them
     # report the same time again as theirs
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA and dev_us(e) > 0]
+    kernels = device_ops(prof)
     check_trace(traced_launches((e.key, e.count) for e in kernels), launched, what)
     busy_ms = sum(dev_us(e) for e in kernels) / 1e3
     top = sorted(kernels, key=dev_us, reverse=True)[:12]
@@ -902,9 +901,11 @@ def profile_single_chunk(seed: int, n: int = 1 << 19) -> dict:
 
 # one replayed 2^19 chunk (BLS12-381, c 16, unsigned: R = 1024 lanes): K2
 # once, K4 five rounds, K5 once, K3 for the 10 Kogge-Stone rounds and the
-# three group ops, KF for two negations (canon, neg) and the result's canon
+# three group ops, KF for two negations (canon, neg) and the result's canon,
+# and the chunk's five stage marks (trace.py)
 CHUNK_LAUNCHES = {"scan_mixed": 1, "reduce_cols": 5, "dbl_n": 1, "ec_add": 13,
-                  "field_ew": 5}
+                  "field_ew": 5, "mark_msm_sort": 1, "mark_msm_layout": 1,
+                  "mark_msm_scan": 1, "mark_msm_bucket": 1, "mark_msm_stream": 1}
 
 
 def phase_chunk_graph(seed: int, n: int = 1 << 19) -> dict:
@@ -1701,7 +1702,7 @@ def pipeline_trace_split(trace: Path, wall_s: float, launched: dict) -> dict:
     operations and milliseconds.  Raises TraceLost when the trace holds
     fewer events of a kernel than `launched` (launch-counter key -> count
     in the traced window)."""
-    from blaze_tpu_torch.bench.profile import check_trace, traced_launches
+    from blaze_tpu_torch.trace import check_trace, traced_launches
 
     events = [e for e in json.loads(trace.read_text()).get("traceEvents", [])
               if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]

@@ -51,17 +51,12 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def kernel_key(name: str):
-    from blaze_tpu_torch import _build
-
-    return next((k for k in _build.LAUNCHES if k + "_" in name and "kernel" in name), None)
-
-
 def session(tag: str, fn, lead_s: float) -> dict:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from blaze_tpu_torch import _build
+    from blaze_tpu_torch.trace import traced_launches
 
     torch.cuda.synchronize()
     before = dict(_build.LAUNCHES)
@@ -71,12 +66,8 @@ def session(tag: str, fn, lead_s: float) -> dict:
         torch.cuda.synchronize()
         time.sleep(lead_s)
     launched = {k: v - before[k] for k, v in _build.LAUNCHES.items() if v > before[k]}
-    traced = {}
-    for e in prof.key_averages():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            k = kernel_key(e.key)
-            if k:
-                traced[k] = traced.get(k, 0) + e.count
+    traced = traced_launches((e.key, e.count) for e in prof.key_averages()
+                             if e.device_type == torch.autograd.DeviceType.CUDA)
     with tempfile.TemporaryDirectory() as d:
         path = Path(d) / "trace.json"
         prof.export_chrome_trace(str(path))

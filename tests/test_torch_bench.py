@@ -4,9 +4,8 @@ scaling_efficiency against blaze_tpu's; bench_kernel's CPU timing and its
 summary; speed_of_light refusing a card it does not know; the bound column
 of PERF.md's kernel table reproduced from the H100's SOL_TABLE row at each
 kernel's main shape (and equal to the values chip_smoke.py printed before
-the bounds moved to bench/profile.py); the work counts; the trace check;
-the four runners at small sizes on the plain versions, each exact against
-its oracle; `python -m blaze_tpu_torch.bench` without a card, and with
+the bounds moved to bench/profile.py); the work counts; the four runners
+at small sizes on the plain versions, each exact against its oracle; `python -m blaze_tpu_torch.bench` without a card, and with
 BLZ_BENCH_DEVICE=cpu loading no jax; the microbench's spot check; the
 instance generator and ECOracle.mul against their slow forms.
 """
@@ -26,19 +25,15 @@ from blaze_tpu.bench import profile as jax_profile
 from blaze_tpu_torch.bench import microbench, runners
 from blaze_tpu_torch.bench.profile import (
     SOL_TABLE,
-    TraceLost,
     bench_kernel,
-    check_trace,
     field_mul_traffic_bytes,
     kernel_work,
-    launch_key,
     msm_work,
     ntt_work,
     pipeline_work,
     poseidon_work,
     scaling_efficiency,
     speed_of_light,
-    traced_launches,
     work_bound_ms,
 )
 from blaze_tpu_torch.curves import CURVES
@@ -154,29 +149,6 @@ def test_work_counts():
     assert field_mul_traffic_bytes(1 << 10, 12) == 3 * (1 << 10) * 12 * 4
     assert jax_profile.field_mul_traffic_bytes(1 << 10, 24) == 2 * field_mul_traffic_bytes(
         1 << 10, 12)
-
-
-def test_check_trace_raises_when_events_are_lost():
-    assert launch_key("void mont_mul_kernel<12>(unsigned int const*)") == "mont_mul"
-    assert launch_key("void (anonymous namespace)::mul_lm_rows_kernel<8>()") == "mul_lm"
-    assert launch_key("ncclDevKernel_AllGather_RING_LL") is None
-    # the NTT kernels' W = 12 builds count apart; K1 and K10 do not
-    assert launch_key("void (anonymous namespace)::ntt_base_kernel<12, 9>(...)") == \
-        "ntt_base_w12"
-    assert launch_key("void (anonymous namespace)::mul_lm_rows_kernel<12>()") == "mul_lm_w12"
-    assert launch_key("void (anonymous namespace)::poseidon_perm_kernel<12>()") == \
-        "poseidon_perm"
-    assert traced_launches([("void ntt_base_kernel<12, 9>(...)", 3),
-                            ("void twiddle_mul_kernel<12>(...)", 2)]) == {
-        "ntt_base_w12": 3, "twiddle_mul_w12": 2}
-    assert traced_launches([("void ntt_base_kernel<8, 9>(...)", 2), ("Memcpy DtoD", 4),
-                            ("void ntt_base_kernel<8, 7>(...)", 1),
-                            ("void twiddle_mul_kernel<8>(...)", 2)]) == {"ntt_base": 3,
-                                                                        "twiddle_mul": 2}
-    check_trace({"ntt_base": 3, "twiddle_mul": 2}, {"ntt_base": 3, "twiddle_mul": 2}, "ok")
-    check_trace({}, {"ntt_base": 0}, "nothing launched")
-    with pytest.raises(TraceLost, match="ntt_base"):
-        check_trace({"twiddle_mul": 2}, {"ntt_base": 3, "twiddle_mul": 2}, "lost")
 
 
 # ------------------------------------------------------------------ runners

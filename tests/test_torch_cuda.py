@@ -25,8 +25,9 @@ elementwise kernel) against its plain version at both widths and ragged
 sizes; the MSM chunk as a CUDA graph: the capture's warm-up and its
 replays against the eager chunk and the oracle on the three curves, the
 launches a replay counts, one graph for the chunks of one MSM, and a
-capture that fails raising.  chip_smoke.py runs the same checks at the
-main path's sizes.
+capture that fails raising; a traced replay split by its stage marks
+(trace.py), in a fresh process.  chip_smoke.py runs the same checks at
+the main path's sizes.
 """
 import random
 from pathlib import Path
@@ -74,6 +75,7 @@ from blaze_tpu_torch.runtime import (
     PoseidonClient,
     PoseidonInitializeParameters,
 )
+from blaze_tpu_torch.trace import device_ops
 
 pytestmark = pytest.mark.cuda
 
@@ -440,10 +442,7 @@ def test_ntt_2e16_is_two_k7_and_one_k8(dev):
     assert (counts["ntt_base"], counts["mul_lm"]) == (2, 1)
     assert sum(counts.values()) == 3
     assert plan._twiddle_rows(0, False) is rows
-    names = {e.key for e in prof.key_averages()
-             if e.device_type == torch.autograd.DeviceType.CUDA
-             and (getattr(e, "self_device_time_total", None)
-                  or getattr(e, "self_cuda_time_total", 0)) > 0}
+    names = {e.key for e in device_ops(prof)}
     assert names and all("ntt_base_kernel" in n or "mul_lm_rows_kernel" in n for n in names), names
     cpu = FusedNTT(spec, 16, device="cpu")
     assert torch.equal(out.cpu(), cpu.ntt(x.cpu()))
@@ -804,6 +803,84 @@ def test_failed_capture_raises(dev, monkeypatch):
         msm.msm_partial(res, scal, 8)
     assert not msm._graphs
     torch.cuda.synchronize()
+
+
+def _stage_trace(path: str) -> None:
+    """The traced MSM of test_stage_marks_split_a_traced_chunk_replay, in a
+    process of its own (torch.profiler loses the card's events in a process
+    older than ~40 s): writes to `path` the mark launches counted, the
+    launches traced, each stage's device us (its mark's operations up to
+    the next mark) and mark-to-mark us in the trace, and MSM.stage_ms()'s
+    change over the call."""
+    import json
+    import re
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from blaze_tpu_torch.msm import MSM
+    from blaze_tpu_torch.trace import traced_launches
+
+    spec = CURVES["bls12_381"]
+    msm = MSM(Curve(spec))
+    res, scal, _, _ = msm_case(spec, 1 << 19, 35, torch.device("cuda"))
+    msm(res, scal)                                          # the capture
+    torch.cuda.synchronize()
+    before, counts = msm.stage_ms(), dict(_build.LAUNCHES)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        msm(res, scal)
+        torch.cuda.synchronize()
+    after = msm.stage_ms()
+    trace = Path(path).with_suffix(".trace.json")
+    prof.export_chrome_trace(str(trace))
+    device = sorted((e["ts"], e["dur"], e["name"]) for e in json.loads(
+        trace.read_text())["traceEvents"]
+        if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    busy, spans, stage, opened = {}, {}, "none", 0.0
+    for ts, dur, name in device:
+        m = re.search(r"\bmark_(\w+?)_kernel\b", name)
+        if m:
+            spans[stage] = spans.get(stage, 0.0) + ts - opened
+            stage, opened = m[1], ts
+        busy[stage] = busy.get(stage, 0.0) + dur
+    Path(path).write_text(json.dumps({
+        "launched": {k: v - counts[k] for k, v in _build.LAUNCHES.items() if v != counts[k]},
+        "traced": traced_launches((n, 1) for _, _, n in device),
+        "busy_us": busy, "mark_to_mark_us": spans,
+        "clock_ms": {k: after[k] - before[k] for k in after}}))
+
+
+def test_stage_marks_split_a_traced_chunk_replay(dev, tmp_path):
+    """One traced 2^19 MSM (BLS12-381, c 16: one chunk, its graph replayed),
+    in a fresh process: every mark is in the device trace; the five
+    stages' device ms (each mark's operations up to the next mark) sum to
+    the call's device ms within 2%; and MSM.stage_ms() gives each stage's
+    mark-to-mark time in the trace within 2%."""
+    import json
+    import subprocess
+    import sys
+
+    from blaze_tpu_torch.trace import MSM_STAGES, check_trace
+
+    path = tmp_path / "split.json"
+    code = (f"import sys; sys.path.insert(0, {str(Path(__file__).parent)!r}); "
+            f"import test_torch_cuda as t; t._stage_trace({str(path)!r})")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=Path(__file__).resolve().parents[1],
+                          capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    r = json.loads(path.read_text())
+    launched = r["launched"]
+    assert {k: v for k, v in launched.items() if k.startswith("mark_")} == {
+        "mark_msm_stream": 2, "mark_msm_sort": 1, "mark_msm_layout": 1, "mark_msm_scan": 1,
+        "mark_msm_bucket": 1, "mark_msm_done": 1}
+    check_trace(r["traced"], launched, "chunk replay")
+    busy = r["busy_us"]
+    assert sum(busy.get(s, 0.0) for s in MSM_STAGES) == pytest.approx(
+        sum(busy.values()), rel=0.02)
+    clock = r["clock_ms"]
+    assert clock["calls"] == 1
+    for s in MSM_STAGES:
+        assert clock[s.removeprefix("msm_")] == pytest.approx(
+            r["mark_to_mark_us"][s] / 1e3, rel=0.02, abs=0.005), s
 
 
 # ------------------------------------------------ the probes of experiments/
