@@ -297,6 +297,12 @@ def kernel_work(name: str, shape: dict, W: int) -> tuple:
         C, B = shape["C"], shape["B"]
         muls = 13 * C * B
         nbytes = C * B * (2 * W * 4 + 4 * shape.get("signed", 0)) + C * B * pt + B * pt
+    elif name == "scan_gathered":
+        # the chunk's N points, and its G windows' order (and sort keys) of
+        # int64, read once
+        C, B, N, G = shape["C"], shape["B"], shape["N"], shape["G"]
+        muls = 13 * C * B
+        nbytes = N * 2 * W * 4 + G * N * 8 * (1 + shape.get("signed", 0)) + C * B * pt + B * pt
     elif name == "ec_add":
         muls, nbytes = 14 * shape["B"], 3 * shape["B"] * pt
     elif name == "reduce_cols":

@@ -6,7 +6,8 @@
 // coalesced 128-byte line.  All values stay in the lazy < 2p range.
 //
 // Replaces (blaze_tpu/curves/kernels.py, ECKernels):
-//   K2 blz_scan_mixed  <- _scan_fn / scan_mixed   (per-lane prefix of mixed adds)
+//   K2 blz_scan_mixed  <- _scan_fn / scan_mixed   (per-lane prefix of mixed adds;
+//      blz_scan_gathered, the same kernel reading its points through a sort)
 //   K3 blz_ec_add      <- _add_fn / add           (batched complete add)
 //   K4 blz_reduce_cols <- _reduce_fn / reduce_cols (lane-wise sum over rows)
 //   K5 blz_dbl_n       <- _dbl_fn / dbl_n         (k doublings per lane)
@@ -106,14 +107,92 @@ __device__ __forceinline__ void team_init(int member,
   }
 }
 
-// rows (C, 2W [+1 sign row], B) affine Montgomery -> emitted (C, 3W, B)
-// inclusive prefixes, tot (3W, B) the last prefix.  Member 0 fetches X,
-// member 1 Y and the sign, one row ahead (the loads of row c + 1 are in
-// flight during row c's last products).
-template <int W, bool kSigned>
-__global__ void __launch_bounds__(kTeamLanes * kTeam)
-scan_mixed_kernel(const uint32_t* __restrict__ rows, uint32_t* __restrict__ emitted,
-                  uint32_t* __restrict__ tot, int C, int64_t B, blz::FieldConsts<W> fc) {
+// K2's two operand sources.  A source gives lane `lane`'s point of step c:
+// member 0 its X words, member 1 its Y words and (signed) its sign.  The
+// source is the kernel's constant parameter; what a thread keeps of it
+// between steps is its Cursor, made by start().  The type's name is in the
+// kernel's name, and the gathered form's carries its launch counter's key
+// (scan_gathered, msm/pippenger.py's main path), so a device trace tells
+// the forms apart.
+//
+// Rows form: row c of (C, 2W [+1 sign row], B) affine Montgomery rows laid
+// out by the caller, lane b at column b (coalesced).
+struct scan_rows_fetch {
+  const uint32_t* rows;
+
+  struct Cursor {};
+
+  __device__ __forceinline__ Cursor start(int64_t, int) const { return {}; }
+
+  template <int W, bool kSigned>
+  __device__ __forceinline__ void fetch(Cursor&, uint32_t* pf, uint32_t& sign, int member, int c,
+                                        int, int64_t lane, int64_t B) const {
+    const uint32_t* row = rows + (int64_t)c * (2 * W + (kSigned ? 1 : 0)) * B + lane;
+#pragma unroll
+    for (int w = 0; w < W; ++w) pf[w] = __ldg(row + (int64_t)(member * W + w) * B);
+    if (kSigned && member == 1) sign = __ldg(row + (int64_t)2 * W * B);
+  }
+};
+
+// Gathered form: the points read in place through the chunk's sort, so no
+// sorted copy is made.  Lane g R + r at step c takes position pos = r C + c
+// of window g's sorted order (a pad, pos >= N, repeats position N - 1):
+// point i = order[g][pos] of the resident (2W, N) points, its sign bit 0 of
+// sortkey[g][i].  Each word is a 4-byte load at column i: 12 32-byte
+// sectors a coordinate, against 2 from a points-major (N, 2W) copy; such a
+// copy, staged by a transpose kernel in 0.04 ms a 2^19 chunk, took K2 from
+// 8.37 to 8.21 ms on the H100 (rows form 8.30), too little for a kernel
+// more.  Index i is read one step before its point's words, so those loads
+// (issued a step ahead, like the rows form's) never wait on it.
+// Positions and indices are 32-bit (G N + R C < 2^31).
+struct scan_gathered_fetch {
+  const uint32_t* pts;          // (2W, N) lanes-major
+  const long long* order;       // (G, N): sorted position -> point
+  const long long* sortkey;     // (G, N): the sort keys (read when signed)
+  int N;
+  int R;
+
+  struct Cursor {
+    int first;                  // g N + r C: the lane's first position
+    int last;                   // its last real one, g N + N - 1
+    int next;                   // the next step's point index
+  };
+
+  __device__ __forceinline__ int index(const Cursor& cur, int c) const {
+    const int pos = cur.first + c;
+    return (int)__ldg(order + (pos < cur.last ? pos : cur.last));
+  }
+
+  __device__ __forceinline__ Cursor start(int64_t lane, int C) const {
+    const int g = (int)(lane / R);
+    Cursor cur{g * N + (int)(lane % R) * C, g * N + N - 1, 0};
+    cur.next = index(cur, 0);
+    return cur;
+  }
+
+  template <int W, bool kSigned>
+  __device__ __forceinline__ void fetch(Cursor& cur, uint32_t* pf, uint32_t& sign, int member,
+                                        int c, int C, int64_t, int64_t) const {
+    const int i = cur.next;
+    if (c + 1 < C) cur.next = index(cur, c + 1);
+#pragma unroll
+    for (int w = 0; w < W; ++w) pf[w] = __ldg(pts + (int64_t)(member * W + w) * N + i);
+    if (kSigned && member == 1)
+      sign = (uint32_t)(__ldg(sortkey + (cur.last - (N - 1)) + i) & 1);
+  }
+};
+
+// One source's points (Fetch) -> emitted (C, 3W, B) inclusive prefixes, tot
+// (3W, B) the last prefix.  Member 0 fetches X, member 1 Y and the sign,
+// one row ahead (the loads of row c + 1 are in flight during row c's last
+// products).  Four blocks per SM (80 registers), as the MSM's 16384 lanes
+// run: so bounded, ptxas compiles the group ops of both forms alike; left
+// free, it gave the gathered form's products 15% more instructions (adds
+// of the modulus from uniform registers) and K2 8% more time.
+template <int W, bool kSigned, class Fetch>
+__global__ void __launch_bounds__(kTeamLanes * kTeam, 4)
+scan_mixed_kernel(const Fetch src, uint32_t* __restrict__ emitted, uint32_t* __restrict__ tot,
+                  int C, int64_t B, blz::FieldConsts<W> fc) {
   namespace tm = blz::team;
   extern __shared__ uint4 team_smem[];
   const int member = threadIdx.x / kTeamLanes;
@@ -121,18 +200,15 @@ scan_mixed_kernel(const uint32_t* __restrict__ rows, uint32_t* __restrict__ emit
   const int64_t lane = (int64_t)blockIdx.x * kTeamLanes + l;
   const bool live = lane < B;
   const tm::Slots<W, kTeamLanes> sl{team_smem + l};
-  constexpr int kRows = 2 * W + (kSigned ? 1 : 0);
   uint32_t pf[W], sign = 0;
 #pragma unroll
   for (int w = 0; w < W; ++w) pf[w] = 0;
 
+  typename Fetch::Cursor cur{};
+  if (member < 2 && live) cur = src.start(lane, C);
   auto fetch = [&](int c) {
-    if (member < 2 && live && c < C) {
-      const uint32_t* row = rows + (int64_t)c * kRows * B + lane;
-#pragma unroll
-      for (int w = 0; w < W; ++w) pf[w] = row[(int64_t)(member * W + w) * B];
-      if (kSigned && member == 1) sign = row[(int64_t)2 * W * B];
-    }
+    if (member < 2 && live && c < C)
+      src.template fetch<W, kSigned>(cur, pf, sign, member, c, C, lane, B);
   };
   auto put = [&]() {
     if (member < 2) {
@@ -346,19 +422,18 @@ __global__ void product_chain_kernel(const uint32_t* __restrict__ x,
 
 unsigned team_blocks(int64_t B) { return (unsigned)((B + kTeamLanes - 1) / kTeamLanes); }
 
-template <int W>
-int scan(int is_signed, const uint32_t* consts, const void* rows, void* emitted,
-         void* tot, int C, int64_t B, cudaStream_t s) {
+template <int W, class Fetch>
+int scan(int is_signed, const uint32_t* consts, const Fetch& src, void* emitted, void* tot,
+         int C, int64_t B, cudaStream_t s) {
   const auto fc = blz::load_consts<W>(consts);
-  const auto r = (const uint32_t*)rows;
   const auto e = (uint32_t*)emitted;
   const auto t = (uint32_t*)tot;
   if (is_signed) {
-    scan_mixed_kernel<W, true><<<team_blocks(B), kTeamLanes * kTeam, team_smem_bytes<W>(), s>>>(
-        r, e, t, C, B, fc);
+    scan_mixed_kernel<W, true, Fetch>
+        <<<team_blocks(B), kTeamLanes * kTeam, team_smem_bytes<W>(), s>>>(src, e, t, C, B, fc);
   } else {
-    scan_mixed_kernel<W, false><<<team_blocks(B), kTeamLanes * kTeam, team_smem_bytes<W>(), s>>>(
-        r, e, t, C, B, fc);
+    scan_mixed_kernel<W, false, Fetch>
+        <<<team_blocks(B), kTeamLanes * kTeam, team_smem_bytes<W>(), s>>>(src, e, t, C, B, fc);
   }
   return (int)cudaGetLastError();
 }
@@ -418,9 +493,32 @@ extern "C" int blz_scan_mixed(int W, const uint32_t* consts, int is_signed,
                               int64_t B, void* stream) {
   if (B <= 0 || C <= 0) return 0;
   auto s = (cudaStream_t)stream;
+  const scan_rows_fetch src{(const uint32_t*)rows};
   switch (W) {
-    case 8: return scan<8>(is_signed, consts, rows, emitted, tot, C, B, s);
-    case 12: return scan<12>(is_signed, consts, rows, emitted, tot, C, B, s);
+    case 8: return scan<8>(is_signed, consts, src, emitted, tot, C, B, s);
+    case 12: return scan<12>(is_signed, consts, src, emitted, tot, C, B, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// K2 on points read through a sort: lane g R + r (G R lanes) scans
+// positions r C .. r C + C - 1 of window g's order (G, N), int64, of the
+// resident points (2W, N); signed: sign bit 0 of sortkey (G, N), int64.
+// Needs R C >= N (positions past N - 1 repeat it) and G N + R C < 2^31.
+extern "C" int blz_scan_gathered(int W, const uint32_t* consts, int is_signed, const void* pts,
+                                 const void* order, const void* sortkey, void* emitted,
+                                 void* tot, int64_t N, int G, int R, int C, void* stream) {
+  if (G <= 0 || R <= 0 || C <= 0) return 0;
+  if (N <= 0 || (int64_t)R * C < N || (int64_t)G * N + (int64_t)R * C >= (int64_t(1) << 31) ||
+      (is_signed && sortkey == nullptr))
+    return (int)cudaErrorInvalidValue;
+  auto s = (cudaStream_t)stream;
+  const scan_gathered_fetch src{(const uint32_t*)pts, (const long long*)order,
+                                (const long long*)sortkey, (int)N, R};
+  const int64_t B = (int64_t)G * R;
+  switch (W) {
+    case 8: return scan<8>(is_signed, consts, src, emitted, tot, C, B, s);
+    case 12: return scan<12>(is_signed, consts, src, emitted, tot, C, B, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -484,9 +582,9 @@ extern "C" int blz_product_chain(int W, const uint32_t* consts, const void* x, c
 // Threads that compute one lane of the named kernel as launched above, -1
 // for a name not in this library.
 extern "C" int blz_threads_per_lane(const char* kernel) {
-  if (!strcmp(kernel, "scan_mixed") || !strcmp(kernel, "ec_add") ||
-      !strcmp(kernel, "reduce_cols") || !strcmp(kernel, "dbl_n") ||
-      !strcmp(kernel, "fold_horner"))
+  if (!strcmp(kernel, "scan_mixed") || !strcmp(kernel, "scan_gathered") ||
+      !strcmp(kernel, "ec_add") || !strcmp(kernel, "reduce_cols") ||
+      !strcmp(kernel, "dbl_n") || !strcmp(kernel, "fold_horner"))
     return kTeam;
   return -1;
 }

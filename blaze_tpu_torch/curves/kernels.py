@@ -34,6 +34,9 @@ _c = ctypes
 _ARGTYPES = {
     "blz_scan_mixed": [_c.c_int, _c.c_void_p, _c.c_int, _c.c_void_p, _c.c_void_p,
                        _c.c_void_p, _c.c_int, _c.c_int64, _c.c_void_p],
+    "blz_scan_gathered": [_c.c_int, _c.c_void_p, _c.c_int, _c.c_void_p, _c.c_void_p,
+                          _c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_int64, _c.c_int,
+                          _c.c_int, _c.c_int, _c.c_void_p],
     "blz_ec_add": [_c.c_int, _c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_void_p,
                    _c.c_int64, _c.c_void_p],
     "blz_reduce_cols": [_c.c_int, _c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_int,
@@ -147,6 +150,77 @@ class ECKernels:
             self._launch("blz_scan_mixed", "scan_mixed", rows.device,
                          int(nrows == 2 * self.W + 1), rows.data_ptr(),
                          emitted.data_ptr(), tot.data_ptr(), C, B)
+        return emitted, tot
+
+    def gathered_rows(self, pts: torch.Tensor, order: torch.Tensor, R: int, C: int,
+                      sortkey: torch.Tensor | None = None) -> torch.Tensor:
+        """`scan_mixed`'s rows of a sorted chunk, made: (C, 2W [+1], G R),
+        lane g R + r of row c the point at position r C + c of window g's
+        order (positions past N - 1 repeat it), with its sign row
+        (`sortkey` & 1 at that point) when `sortkey` is given."""
+        G, N = order.shape
+        sp = pts[:, order]                                         # (2W, G, N)
+        if sortkey is not None:
+            sgn_sorted = torch.gather(sortkey, 1, order) & 1
+            sp = torch.cat([sp, sgn_sorted.to(torch.int32)[None]], dim=0)
+        nr = sp.shape[0]
+        pad = R * C - N
+        if pad:
+            # repeat the last sorted point; pads sort past every bucket so
+            # no bound ever reaches them
+            sp = torch.cat([sp, sp[:, :, -1:].expand(nr, G, pad)], dim=2)
+        # (nr, G, R, C) -> rows (C, nr, G*R); point n = r*C + c of window g
+        rows = sp.reshape(nr, G, R, C).permute(3, 0, 1, 2).reshape(C, nr, G * R)
+        return rows.contiguous()
+
+    def scan_gathered_plain(self, pts: torch.Tensor, order: torch.Tensor, R: int, C: int,
+                            sortkey: torch.Tensor | None = None):
+        """Plain PyTorch version of `scan_gathered`: the rows made
+        (`gathered_rows`), then `scan_mixed_plain`."""
+        return self.scan_mixed_plain(self.gathered_rows(pts, order, R, C, sortkey))
+
+    def scan_gathered(self, pts: torch.Tensor, order: torch.Tensor, R: int, C: int,
+                      sortkey: torch.Tensor | None = None):
+        """`scan_mixed` of a sorted chunk, reading each point in place
+        through the sort: no rows are made.
+
+        pts: (2W, N) int32 resident affine Montgomery points; order: (G, N)
+        int64, window g's sorted position -> point; R lanes per window of C
+        steps each, R C >= N.  Lane g R + r scans positions r C .. r C + C
+        - 1 of window g (a position past N - 1 repeats it); with `sortkey`
+        (G, N) int64, a point whose key has bit 0 set enters negated.
+        Returns `scan_mixed(gathered_rows(...))`'s (emitted (C, 3W, G R),
+        tot (3W, G R))."""
+        if pts.dtype != torch.int32 or pts.dim() != 2 or pts.shape[0] != 2 * self.W:
+            raise ValueError(f"pts: want int32 with {2 * self.W} rows, "
+                             f"got {tuple(pts.shape)} {pts.dtype}")
+        N = pts.shape[1]
+        if order.dtype != torch.int64 or order.dim() != 2 or order.shape[1] != N:
+            raise ValueError(f"order: want int64 (G, {N}), "
+                             f"got {tuple(order.shape)} {order.dtype}")
+        if sortkey is not None and (sortkey.dtype != torch.int64 or sortkey.shape != order.shape):
+            raise ValueError(f"sortkey: want int64 {tuple(order.shape)}, "
+                             f"got {tuple(sortkey.shape)} {sortkey.dtype}")
+        if N < 1 or R < 1 or C < 1 or R * C < N or order.shape[0] * N + R * C >= 1 << 31:
+            raise ValueError(f"scan_gathered: want R C >= N >= 1 and G N + R C < 2^31, "
+                             f"got R={R}, C={C}, N={N}, G={order.shape[0]}")
+        ops = (pts, order) if sortkey is None else (pts, order, sortkey)
+        if any(x.device != pts.device for x in ops):
+            raise ValueError("pts, order and sortkey: on different devices")
+        if pts.device.type == "cpu":       # any strides: a streamed chunk is a slice
+            return self.scan_gathered_plain(pts, order, R, C, sortkey)
+        if pts.device.type != "cuda" or not all(x.is_contiguous() for x in ops):
+            raise ValueError(f"pts, order and sortkey: want contiguous CUDA tensors "
+                             f"(got {pts.device})")
+        G = order.shape[0]
+        B = G * R
+        emitted = torch.empty((C, 3 * self.W, B), dtype=torch.int32, device=pts.device)
+        tot = torch.empty((3 * self.W, B), dtype=torch.int32, device=pts.device)
+        if B:
+            self._launch("blz_scan_gathered", "scan_gathered", pts.device,
+                         int(sortkey is not None), pts.data_ptr(), order.data_ptr(),
+                         None if sortkey is None else sortkey.data_ptr(),
+                         emitted.data_ptr(), tot.data_ptr(), N, G, R, C)
         return emitted, tot
 
     # ----------------------------------------------------------------- K3

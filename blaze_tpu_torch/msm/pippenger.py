@@ -7,8 +7,9 @@ bucket method (blaze_tpu/msm/pippenger.py `_fused_chunk`), step for step:
   1. c-bit digits of the 16-bit scalar limbs (optionally balanced/signed);
   2. per window, a stable sort of the point indices by digit, and the
      bucket bounds e_j = #(digit <= j) - 1 from a histogram and a cumsum;
-  3. the sorted points laid out as C rows of G*R lanes and scanned by the
-     K2 kernel: every lane's inclusive EC prefix (~N adds per window);
+  3. the sorted points scanned by the K2 kernel in G*R lanes of C points,
+     each read in place through the sort (`scan_gathered`): every lane's
+     inclusive EC prefix (~N adds per window);
   4. the lane totals' exclusive prefix by Kogge-Stone doubling on K3;
   5. by Abel summation sum_j j*B_j = (B-1)*T[e_{B-1}] - sum_{j<B-1} T[e_j]
      with T the prefix sum, gathered at the bounds: (B-1)*T on K5, the
@@ -20,10 +21,10 @@ bucket method (blaze_tpu/msm/pippenger.py `_fused_chunk`), step for step:
 On the card steps 1-5 of a chunk are one CUDA graph replay (`MSM._chunk`),
 as the JAX package compiles them into one program (`_msm_fused_jit`).
 Stage marks (trace.py) between the steps ride in the graph: msm_sort (steps
-1-2), msm_layout (the sorted rows for K2), msm_scan (K2), msm_bucket (steps
-4-5), msm_stream (the chunk's output, `accumulate`, the next chunk's
-operands, `finalize`), msm_done after the fold; `MSM.stage_ms()` reads
-their device clock.
+1-2), msm_layout (nothing on the device since K2 reads through the sort),
+msm_scan (K2), msm_bucket (steps 4-5), msm_stream (the chunk's output,
+`accumulate`, the next chunk's operands, `finalize`), msm_done after the
+fold; `MSM.stage_ms()` reads their device clock.
 
 Same defaults, digit order, lane counts, paddings and reduction disciplines
 as the JAX package, so on one input both produce the same projective limbs.
@@ -253,24 +254,16 @@ class MSM:
         hist.scatter_add_(1, digits, torch.ones_like(digits))
         bounds = torch.cumsum(hist[:, :B], dim=-1) - 1             # (G, B)
 
+        # R lanes per window, C points each: lane g*R + r scans sorted
+        # positions r*C .. r*C + C - 1 of window g, read through `order`
+        # (the last position repeated past N - 1: the pads sort past every
+        # bucket, so no bound ever reaches them)
         self._clock.mark("msm_layout", pts)
         R = min(self.config.scan_lanes or _ceil_pow2(int(math.sqrt(N))), N)
         C = -(-N // R)
-        pad = R * C - N
-        sp = pts[:, order]                                         # (2W, G, N)
-        if signed:
-            sgn_sorted = torch.gather(sortkey, 1, order) & 1
-            sp = torch.cat([sp, sgn_sorted.to(torch.int32)[None]], dim=0)
-        nr = sp.shape[0]
-        if pad:
-            # repeat the last sorted point; pads sort past every bucket so
-            # no bound ever reaches them
-            sp = torch.cat([sp, sp[:, :, -1:].expand(nr, G, pad)], dim=2)
-        # (nr, G, R, C) -> rows (C, nr, G*R); point n = r*C + c of window g
-        rows = sp.reshape(nr, G, R, C).permute(3, 0, 1, 2).reshape(C, nr, G * R)
-        rows = rows.contiguous()
         self._clock.mark("msm_scan", pts)
-        emitted, tot = kern.scan_mixed(rows)               # (C, 3W, GR), (3W, GR)
+        emitted, tot = kern.scan_gathered(pts, order, R, C,
+                                          sortkey if signed else None)  # (C, 3W, GR), (3W, GR)
 
         self._clock.mark("msm_bucket", pts)
         excl = self._ks_lane_prefix(tot, G, R)             # (G, R, 3W)

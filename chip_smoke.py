@@ -11,8 +11,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    reads (the bounds below come from that row), then the kernels built
    from csrc/ with nvcc (seconds, registers, stack, spills) and the
    local-memory loads and stores (LDL, STL) in the EC, NTT and Poseidon
-   kernels' SASS, with the opcode mix of K2, K3, K4, K7 (at K = 512, W = 8
-   and 12) and K10 (cuobjdump);
+   kernels' SASS, with the opcode mix of K2 (both forms), K3, K4, K7 (at K
+   = 512, W = 8 and 12) and K10 (cuobjdump);
 2. kernel parity: K1-K6 against their plain PyTorch versions on the card,
    exact, on BN254, BLS12-377 and BLS12-381 at small shapes (K2 signed and
    unsigned) and at ragged shapes: K2 and K4 at lane counts B = 1, 33,
@@ -21,8 +21,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    1000 (k 15), K6 at Wn = 1, 2, 20 (c 13) and, on the 12-word curves, at
    Wn = 128 (c 2, past 48 KB of shared memory); then at the main path's
    shapes for BLS12-381 with each kernel's time (CUDA events), its plain
-   version's time and its bound: K2 at a 2^19 chunk (C 512, B 16384) and a
-   streamed 2^18 chunk (B 8192), K3 at a lane-prefix round (B 16384) and
+   version's time and its bound: K2 at a 2^19 chunk (C 512, B 16384; its
+   rows and its gathered form) and a streamed 2^18 chunk (B 8192), K3 at a lane-prefix round (B 16384) and
    at the window sums' accumulation (B 16), K4's five rounds at a 2^19
    chunk, K5 at (B 16, k 16) and K6 at (Wn 16, c 16) and (Wn 20, c 13);
    K3, K5 and K6 beside their chain bound (the products on the team's
@@ -228,6 +228,8 @@ KERNELS = {
     # ops (Field._cond_sub_p / add / sub / neg / double), no pallas_call
     "field_ew": ("blaze_tpu_torch/csrc/field_ew.cu", "blaze_tpu/fields/mont.py:149"),
     "scan_mixed": ("blaze_tpu_torch/csrc/ec_kernels.cu", "blaze_tpu/curves/kernels.py:248"),
+    # K2's gathered form (the MSM's): the same kernel reading through the sort
+    "scan_gathered": ("blaze_tpu_torch/csrc/ec_kernels.cu", "blaze_tpu/curves/kernels.py:248"),
     "ec_add": ("blaze_tpu_torch/csrc/ec_kernels.cu", "blaze_tpu/curves/kernels.py:563"),
     "reduce_cols": ("blaze_tpu_torch/csrc/ec_kernels.cu", "blaze_tpu/curves/kernels.py:343"),
     "dbl_n": ("blaze_tpu_torch/csrc/ec_kernels.cu", "blaze_tpu/curves/kernels.py:508"),
@@ -343,14 +345,15 @@ KERNEL_NAME = re.compile(r"([a-z_]+_kernel)ILi(\d+)E(?:Li(\d+)E)?(?:Lb(\d))?")
 
 
 def kernel_key(mangled: str):
-    """'scan_mixed_kernel<12>s' for a mangled kernel name (s: signed),
-    'ntt_base_kernel<8,9>' for two int parameters, or None for other
-    functions."""
+    """'scan_mixed_kernel<12>s' for a mangled kernel name (s: signed; g:
+    K2's gathered form, 'scan_mixed_kernel<12>g'), 'ntt_base_kernel<8,9>'
+    for two int parameters, or None for other functions."""
     m = KERNEL_NAME.search(mangled)
     if not m:
         return None
     args = m.group(2) + ("," + m.group(3) if m.group(3) else "")
-    return f"{m.group(1)}<{args}>" + ("s" if m.group(4) == "1" else "")
+    return (f"{m.group(1)}<{args}>" + ("s" if m.group(4) == "1" else "")
+            + ("g" if "scan_gathered_fetch" in mangled else ""))
 
 
 def ptxas_summary(logs: dict) -> dict:
@@ -371,9 +374,10 @@ def ptxas_summary(logs: dict) -> dict:
     return out
 
 
-def sass_summary(libs, mix_of=("scan_mixed_kernel<12>", "ec_add_kernel<12>",
-                              "reduce_cols_kernel<12>", "ntt_base_kernel<8,9>",
-                              "ntt_base_kernel<12,9>", "poseidon_perm_kernel<8>")):
+def sass_summary(libs, mix_of=("scan_mixed_kernel<12>", "scan_mixed_kernel<12>g",
+                              "ec_add_kernel<12>", "reduce_cols_kernel<12>",
+                              "ntt_base_kernel<8,9>", "ntt_base_kernel<12,9>",
+                              "poseidon_perm_kernel<8>")):
     """From cuobjdump -sass of the built libraries: 'kernel<W>[s]' ->
     [LDL, STL], the local-memory loads and stores in its code, and for the
     kernels in `mix_of` the static count of each opcode (the most frequent
@@ -450,8 +454,10 @@ def curve_inputs(spec, C: int, B: int, seed: int, device):
 
 def kernel_cases(spec, C: int, B: int, seed: int, device, main: bool):
     """(key, kernel, kernel call, plain call, shape) for K1-K6 on one curve's
-    inputs; at the main shapes also K2 at the streamed chunk's lanes and
-    K4's later rounds (keys scan_mixed_streamed, reduce_cols_r2..r5)."""
+    inputs; at the main shapes also K2 at the streamed chunk's lanes, K2's
+    gathered form at the 2^19 chunk (N 2^19 resident points read through
+    16 windows' sort of random 16-bit digits, R = B / 16, C) and K4's later
+    rounds (keys scan_mixed_streamed, scan_gathered, reduce_cols_r2..r5)."""
     import torch
 
     from blaze_tpu_torch.curves.kernels import ECKernels
@@ -492,6 +498,17 @@ def kernel_cases(spec, C: int, B: int, seed: int, device, main: bool):
     half = rows[:, :, : B // 2].contiguous()
     cases.append(("scan_mixed_streamed", "scan_mixed", lambda: k.scan_mixed(half),
                   lambda: k.scan_mixed_plain(half), {"C": C, "B": B // 2}))
+    G = 16
+    N, R = (B // G) * C, B // G
+    g = torch.Generator().manual_seed(seed)
+    resident = aff[torch.randint(0, aff.shape[0], (N,), generator=g).to(device)]
+    resident = resident.reshape(N, -1).t().contiguous()                  # (2W, N)
+    digits = torch.randint(0, 1 << 16, (G, N), generator=g).to(device)
+    order = torch.argsort(digits, dim=-1, stable=True)
+    cases.append(("scan_gathered", "scan_gathered",
+                  lambda: k.scan_gathered(resident, order, R, C),
+                  lambda: k.scan_gathered_plain(resident, order, R, C),
+                  {"C": C, "B": B, "N": N, "G": G}))
     cases.append(("fold_horner_c13", "fold_horner", lambda: k.fold_horner(ws20, 13),
                   lambda: k.fold_horner_plain(ws20, 13), {"Wn": 20, "c": 13}))
     # K3 at the accumulation of the chunks' window sums: one lane per window
@@ -903,7 +920,7 @@ def profile_single_chunk(seed: int, n: int = 1 << 19) -> dict:
 # once, K4 five rounds, K5 once, K3 for the 10 Kogge-Stone rounds and the
 # three group ops, KF for two negations (canon, neg) and the result's canon,
 # and the chunk's five stage marks (trace.py)
-CHUNK_LAUNCHES = {"scan_mixed": 1, "reduce_cols": 5, "dbl_n": 1, "ec_add": 13,
+CHUNK_LAUNCHES = {"scan_gathered": 1, "reduce_cols": 5, "dbl_n": 1, "ec_add": 13,
                   "field_ew": 5, "mark_msm_sort": 1, "mark_msm_layout": 1,
                   "mark_msm_scan": 1, "mark_msm_bucket": 1, "mark_msm_stream": 1}
 
@@ -958,7 +975,7 @@ def phase_chunk_graph(seed: int, n: int = 1 << 19) -> dict:
     return info
 
 
-MSM_NEEDS = ("field_ew", "scan_mixed", "ec_add", "reduce_cols", "dbl_n", "fold_horner")
+MSM_NEEDS = ("field_ew", "scan_gathered", "ec_add", "reduce_cols", "dbl_n", "fold_horner")
 
 
 def check_msm_launches(phase: str, counts: dict) -> None:
@@ -983,8 +1000,10 @@ def phase_msm_2e24(seed: int, n: int = 1 << 24) -> dict:
         raise AssertionError("msm 2^24: result differs from the oracle")
     check_msm_launches("msm_2^24", counts)
     chunks = info["chunks"]
-    if counts["scan_mixed"] != chunks or counts["reduce_cols"] != 5 * chunks:
-        raise AssertionError(f"msm 2^24: {counts['scan_mixed']} K2 and "
+    if (counts["scan_gathered"] != chunks or counts["scan_mixed"]
+            or counts["reduce_cols"] != 5 * chunks):
+        raise AssertionError(f"msm 2^24: {counts['scan_gathered']} gathered K2, "
+                             f"{counts['scan_mixed']} rows-form K2 and "
                              f"{counts['reduce_cols']} K4 launches for {chunks} chunks")
     return counts
 
@@ -1861,8 +1880,8 @@ def phase_pipeline(seed: int, ntt_logn: int = 27, msm_logn: int = 24) -> dict:
     k8 = sum(pipe.plan._takes_k8(d) for d in range(len(pipe.plan.levels) - 1))
     want = {"ntt_base": len(pipe.plan.levels), "mul_lm": k8,
             "twiddle_mul": len(pipe.plan.levels) - 1 - k8,
-            "scan_mixed": -(-m // (1 << pipe.msm.config.chunk_log2)), "fold_horner": 1,
-            "poseidon_perm": 0, "mont_mul": 0}
+            "scan_gathered": -(-m // (1 << pipe.msm.config.chunk_log2)), "fold_horner": 1,
+            "scan_mixed": 0, "poseidon_perm": 0, "mont_mul": 0}
     per_batch = pipelined_s / len(terms)
     info = {"curve": "bls12_381", "ntt_logn": ntt_logn, "msm_logn": msm_logn,
             "unique_points": U, "batches": [[[row, str(v)] for row, v in t] for t in terms],

@@ -11,7 +11,10 @@ a package imported from elsewhere), builds that tree's kernels, and times
 with that tree's bench.profile.cuda_ms (CUDA events behind a spin of the
 card):
   ec        K1 and K2-K6 at the 2^19 chunk's shapes on BLS12-381
-            (chip_smoke.kernel_cases, main=True; no plain version runs);
+            (chip_smoke.kernel_cases, main=True; no plain version runs),
+            K2 in both forms: rows (scan_mixed) and read through 16
+            windows' sort of 2^19 points (scan_gathered), so one tree
+            compares them;
   ntt8      K7 at each level and K9 at each depth of the 2^27 plan on
             bls12_381_fr, K8 at the 2^16 plan's call (chip_smoke
             ntt_main_timing, whose plain versions run on a cut);
@@ -22,7 +25,8 @@ Every kernel's output is held against its plain version where those
 functions do (a cut), and the child fails on any difference.  Prints one
 JSON line per child ({"tree", "round", "ms": {key: ms}}), then one line per
 key with each tree's median and the ratio of each tree's median to the
-first tree's, then the card's name and power limit.  Exits non-zero
+first tree's (a key only some trees time: theirs), then the card's name
+and power limit.  Exits non-zero
 without a card or when a child fails.
 """
 from __future__ import annotations
@@ -113,10 +117,11 @@ def main() -> int:
             runs[str(tree)].append(ms)
             print(json.dumps({"tree": str(tree), "round": r, "ms": ms}), flush=True)
     first = str(args.trees[0])
-    for key in runs[first][0]:
-        med = {t: statistics.median(m[key] for m in ms) for t, ms in runs.items()}
-        print(json.dumps({"key": key, "median_ms": med,
-                          "vs_first": {t: v / med[first] for t, v in med.items()}}), flush=True)
+    for key in dict.fromkeys(k for ms in runs.values() for k in ms[0]):
+        med = {t: statistics.median(m[key] for m in ms) for t, ms in runs.items()
+               if key in ms[0]}
+        vs = {t: v / med[first] for t, v in med.items()} if first in med else None
+        print(json.dumps({"key": key, "median_ms": med, "vs_first": vs}), flush=True)
     sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
     from blaze_tpu_torch.bench.profile import smi
 

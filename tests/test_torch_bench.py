@@ -90,6 +90,8 @@ def test_speed_of_light_refuses_a_card_it_does_not_know():
 BOUNDS = [
     ("K1", "mont_mul", {"M": 1 << 19}, 12, 0.0225, 0.02253655880597015),
     ("K2", "scan_mixed", {"C": 512, "B": 16384}, 12, 3.833, 3.8334648301193757),
+    ("K2", "scan_gathered", {"C": 512, "B": 16384, "N": 1 << 19, "G": 16}, 12, 3.833,
+     3.8334648301193757),
     ("K3", "ec_add", {"B": 16384}, 12, 0.00806, 0.00806317722681359),
     ("K4", "reduce_cols", {"C": 256, "B": 8192}, 12, 1.032, 1.0320866850321395),
     ("K5", "dbl_n", {"B": 16, "k": 16}, 12, 0.000126, 0.00012598714416896234),
@@ -118,6 +120,11 @@ def test_bounds_reproduce_the_perf_table(kid, name, shape, W, table, printed):
 def test_bound_picks_the_larger_of_bytes_and_operations():
     assert work_bound_ms("mont_mul", {"M": 1 << 19}, 12, H100)[1] == "bytes"
     assert work_bound_ms("scan_mixed", {"C": 512, "B": 16384}, 12, H100)[1] == "operations"
+    gathered = {"C": 512, "B": 16384, "N": 1 << 19, "G": 16}
+    assert work_bound_ms("scan_gathered", gathered, 12, H100)[1] == "operations"
+    # the points and the int64 order read once, the prefixes written once
+    assert kernel_work("scan_gathered", gathered, 12)[0] == (
+        (1 << 19) * 96 + 16 * (1 << 19) * 8 + 512 * 16384 * 144 + 16384 * 144)
     with pytest.raises(ValueError):
         kernel_work("no_such_kernel", {}, 8)
 

@@ -4,7 +4,7 @@
 
 K1-K6 against their plain PyTorch versions on the same device inputs,
 exact, on all three curves (K2-K5 also at ragged lane counts, K6 at
-ragged window counts), and K7-K10 (with the multi-p REDC twin) on the three
+ragged window counts, K2's gathered form against its rows form), and K7-K10 (with the multi-p REDC twin) on the three
 scalar fields (K7 through strided and transposed maps and at the 2^27
 plan's levels, K8's element rows at ragged lengths, in place and out of
 place), K7-K9 also at W = 12 on bls12_377_fq (a 2^20 transform against
@@ -143,6 +143,37 @@ def test_team_kernels_match_plain_at_ragged_shapes(dev, name, B):
     for C in (1, 4):
         x = em[:C].contiguous()
         assert torch.equal(k.reduce_cols(x), k.reduce_cols_plain(x)), C
+
+
+@pytest.mark.parametrize("name", sorted(CURVES))
+def test_scan_gathered_matches_rows_form(dev, name):
+    """K2 reading its points through the sort (scan_gathered) equals K2 on
+    the rows made from them (scan_mixed of gathered_rows), word for word,
+    unsigned and signed: at N = 1000 with R = 32 lanes of C = 32 (24 pads),
+    and at N = 4096 with R C = N; the plain version at the small shape.
+    Each call launches the gathered form once and the rows form not at
+    all."""
+    spec = CURVES[name]
+    W = spec.fq.nwords
+    k = ECKernels.for_curve(spec)
+    from blaze_tpu_torch.oracle.gen import rand_words
+
+    for N, R, G in ((1000, 32, 3), (4096, 64, 4)):
+        C = -(-N // R)
+        pts = rand_words(spec.fq, (2, W, N), N, dev).reshape(2 * W, N)
+        g = torch.Generator(device=dev).manual_seed(N)
+        key = torch.randint(0, 1 << 9, (G, N), generator=g, dtype=torch.int64, device=dev)
+        order = torch.argsort(key, dim=-1, stable=True)
+        for sk in (None, key):
+            before = dict(_build.LAUNCHES)
+            got = k.scan_gathered(pts, order, R, C, sk)
+            assert (_build.LAUNCHES["scan_gathered"] - before["scan_gathered"],
+                    _build.LAUNCHES["scan_mixed"] - before["scan_mixed"]) == (1, 0)
+            want = k.scan_mixed(k.gathered_rows(pts, order, R, C, sk))
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), (N, sk is None)
+            if N == 1000:
+                plain = k.scan_gathered_plain(pts, order, R, C, sk)
+                assert torch.equal(got[0], plain[0]) and torch.equal(got[1], plain[1])
 
 
 @pytest.mark.parametrize("name", sorted(CURVES))
@@ -738,8 +769,9 @@ def test_replayed_chunk_matches_eager_and_oracle(dev, name):
     """A chunk shape's first chunk (the capture's eager warm-up) and its
     replays equal `_fused_chunk` run eagerly word for word, and a second
     input of the same shape replays the same graph into an MSM equal to
-    the oracle.  A replay adds the launches its capture recorded: one K2,
-    no K1, the K3 rounds and group ops, the KF ops."""
+    the oracle.  A replay adds the launches its capture recorded: one K2
+    (its gathered form; the rows form none), no K1, the K3 rounds and group
+    ops, the KF ops."""
     from blaze_tpu_torch.msm import MSM
 
     spec = CURVES[name]
@@ -757,7 +789,8 @@ def test_replayed_chunk_matches_eager_and_oracle(dev, name):
     assert torch.equal(first, eager) and torch.equal(replayed, eager)
     assert counts == graph.launches
     R = 1 << 6                                          # sqrt(2^12) lanes per window
-    assert counts["scan_mixed"] == 1 and counts["dbl_n"] == 1 and "mont_mul" not in counts
+    assert counts["scan_gathered"] == 1 and "scan_mixed" not in counts
+    assert counts["dbl_n"] == 1 and "mont_mul" not in counts
     assert counts["ec_add"] == R.bit_length() - 1 + 3 and counts["field_ew"] >= 5
     res2, scal2, upoints, scalars = msm_case(spec, n, 32, dev)
     out = msm(res2, scal2, window_bits=c)
@@ -777,7 +810,7 @@ def test_chunks_of_one_msm_replay_one_graph(dev):
     chunked = MSM(cv, MSMConfig(chunk_log2=10))
     _build.reset_launches()
     out = chunked(res, scal, window_bits=8)
-    assert _build.LAUNCHES["scan_mixed"] == 4 and _build.LAUNCHES["fold_horner"] == 1
+    assert _build.LAUNCHES["scan_gathered"] == 4 and _build.LAUNCHES["fold_horner"] == 1
     assert len(chunked._graphs) == 1
     want = class_sum_expected(spec, upoints, scalars)
     assert affine_ints(spec, out) == affine_ints(spec, MSM(cv)(res, scal, window_bits=8)) == want

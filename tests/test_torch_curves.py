@@ -175,3 +175,60 @@ def test_point_codecs_round_trip(name):
     assert res[: spec.fq.nbytes] == raw[2 * spec.fq.nbytes: 3 * spec.fq.nbytes]  # z first
     assert np.array_equal(decode_projective_result(res, spec),
                           np.stack([arr[0, 0], arr[0, 1], arr[1, 0]]))
+
+
+def sorted_chunk(name: str, N: int, G: int, signed: bool, seed: int):
+    """A chunk as the MSM sorts it: (2W, N) resident words (distinct values
+    below p), (G, N) int64 sort keys of random digits (bit 0 the sign when
+    `signed`) and their stable argsort."""
+    from blaze_tpu_torch.oracle.gen import rand_words
+
+    spec = CURVES[name]
+    W = spec.fq.nwords
+    pts = rand_words(spec.fq, (2, W, N), seed, "cpu").reshape(2 * W, N)
+    g = torch.Generator().manual_seed(seed)
+    key = torch.randint(0, 1 << 6, (G, N), generator=g, dtype=torch.int64)
+    if signed:
+        key = (key << 1) | torch.randint(0, 2, (G, N), generator=g, dtype=torch.int64)
+    return pts, key, torch.argsort(key, dim=-1, stable=True)
+
+
+@pytest.mark.parametrize("name,N,R,signed", [
+    ("bls12_381", 256, 16, False),         # W = 12, R C = N
+    ("bls12_381", 256, 16, True),          # W = 12, the sign read through the sort
+    ("bn254", 1000, 32, False),            # W = 8, R C = 1024: 24 pads
+])
+def test_scan_gathered_plain_matches_rows(name, N, R, signed):
+    """K2's gathered entry (its plain version on the CPU) equals
+    scan_mixed_plain on rows made lane by lane: lane g R + r of row c the
+    point at sorted position min(r C + c, N - 1) of window g, its sign
+    bit 0 of that point's key."""
+    G = 3
+    k = ECKernels.for_curve(CURVES[name])
+    pts, key, order = sorted_chunk(name, N, G, signed, seed=N + signed)
+    C = -(-N // R)
+    pos = (torch.arange(R)[:, None] * C + torch.arange(C)).clamp(max=N - 1)   # (R, C)
+    idx = torch.gather(order, 1, pos.reshape(1, -1).expand(G, -1))         # (G, R C)
+    rows = pts[:, idx].reshape(-1, G, R, C).permute(3, 0, 1, 2)           # (C, 2W, G, R)
+    if signed:
+        sgn = (torch.gather(key, 1, idx) & 1).to(torch.int32).reshape(1, G, R, C)
+        rows = torch.cat([rows, sgn.permute(3, 0, 1, 2)], dim=1)
+    rows = rows.reshape(C, -1, G * R).contiguous()
+    emitted, tot = k.scan_gathered(pts, order, R, C, key if signed else None)
+    want_e, want_t = k.scan_mixed_plain(rows)
+    assert emitted.shape == (C, 3 * k.W, G * R)
+    assert torch.equal(emitted, want_e) and torch.equal(tot, want_t)
+
+
+def test_scan_gathered_refuses_bad_operands():
+    """Too few lanes for the points, an int32 order, a sort key of another
+    shape and points of the wrong width or points-major raise before any
+    scan."""
+    k = ECKernels.for_curve(CURVES["bn254"])
+    pts, key, order = sorted_chunk("bn254", 64, 2, True, seed=1)
+    for args in [(pts, order, 7, 9), (pts, order.to(torch.int32), 8, 8),
+                 (pts[:-1], order, 8, 8), (pts.t().contiguous(), order, 8, 8)]:
+        with pytest.raises(ValueError):
+            k.scan_gathered(*args)
+    with pytest.raises(ValueError):
+        k.scan_gathered(pts, order, 8, 8, key[:, :-1])

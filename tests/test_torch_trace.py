@@ -104,12 +104,12 @@ def test_msm_call_span_holds_its_chunk_spans(monkeypatch):
     msm = MSM(cv, MSMConfig(chunk_log2=9))
     threeW = 3 * cv.nwords
 
-    def scan(rows):
-        C, _, lanes = rows.shape
+    def scan(pts, order, R, C, sortkey=None):
+        lanes = order.shape[0] * R
         return (torch.zeros(C, threeW, lanes, dtype=torch.int32),
                 torch.zeros(threeW, lanes, dtype=torch.int32))
 
-    for name, fake in [("scan_mixed", scan), ("add", lambda x, y: x),
+    for name, fake in [("scan_gathered", scan), ("add", lambda x, y: x),
                        ("dbl_n", lambda x, k: x), ("reduce_cols", lambda rows: rows[0]),
                        ("fold_horner", lambda x, c: x[:, 0])]:
         monkeypatch.setattr(msm.kern, name, fake)
