@@ -1,5 +1,11 @@
 from .pippenger import MSM, MSMConfig, default_window_bits
-from .precompute import precompute_points, shift_bits_for, split_scalars
+from .precompute import (
+    precompute_points,
+    precompute_resident,
+    scalar_rows,
+    shift_bits_for,
+    split_scalars,
+)
 from .residency import (
     from_reference_resident,
     points_from_resident,
@@ -13,6 +19,8 @@ __all__ = [
     "MSMConfig",
     "default_window_bits",
     "precompute_points",
+    "precompute_resident",
+    "scalar_rows",
     "shift_bits_for",
     "split_scalars",
     "from_reference_resident",

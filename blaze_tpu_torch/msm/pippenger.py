@@ -439,18 +439,20 @@ class MSM:
         K6 (the reference's DMA chunking analog, msm_api.rs:156)."""
         with span("blaze.msm.call"):
             points, scalars = self._as_resident(points, scalars)
-            n = points.shape[1]
-            c = window_bits or min(self.config.window_bits, default_window_bits(n))
-            chunk = 1 << self.config.chunk_log2
+            c = window_bits or min(self.config.window_bits, default_window_bits(points.shape[1]))
             self._clock.mark("msm_stream", points)      # the first chunk's operands
-            if n <= chunk:
-                return self.finalize(self._chunk(points, scalars, c, scalar_bits), c)
-            wsums = None
-            for lo in range(0, n, chunk):
-                hi = min(lo + chunk, n)
-                part = self._chunk(points[:, lo:hi], scalars[:, lo:hi], c, scalar_bits)
-                wsums = self.accumulate(wsums, part)
-            return self.finalize(wsums, c)
+            return self.finalize(self._stream(None, points, scalars, c, scalar_bits), c)
+
+    def _stream(self, wsums, points, scalars, c: int, scalar_bits: int | None):
+        """The chunks of resident (2W, n) points and (Ls, n) scalars, each
+        chunk's window sums accumulated onto `wsums` (None: the first
+        chunk's)."""
+        chunk = 1 << self.config.chunk_log2
+        for lo in range(0, points.shape[1], chunk):
+            part = self._chunk(points[:, lo:lo + chunk], scalars[:, lo:lo + chunk], c,
+                               scalar_bits)
+            wsums = self.accumulate(wsums, part)
+        return wsums
 
     def stage_ms(self) -> dict:
         """Device ms per stage of this engine's MSMs on the card, summed since
@@ -465,12 +467,28 @@ class MSM:
 
     def msm_precomputed(self, expanded_points, scalars, factor: int,
                         window_bits: int | None = None):
-        """MSM with precomputed multiples (the reference's 8x mode).
+        """MSM with precomputed multiples (the reference's 8x mode):
+        `expanded_points` (2W, factor*N) resident multiple-major columns
+        (msm.precompute_resident) or their points-major (factor*N, 2, W)
+        form (msm.precompute_points), `scalars` the unsliced (Ls, N)
+        resident limbs or their (N, Ls) form, following the points.
+        Multiple i's chunks read its limb rows of the scalars in place
+        (msm.precompute.scalar_rows) and its columns of the bases; no chunk
+        straddles two multiples.  The window, the chunk and the lanes are
+        planned as for factor*N points of shift-bit scalars."""
+        from .precompute import scalar_rows
 
-        `expanded_points`: (factor*N, 2, W) from msm.precompute_points
-        (multiple-major); `scalars`: (N, Ls) canonical limbs."""
-        from .precompute import split_scalars
-
-        sliced, bits = split_scalars(scalars, factor, self.curve.spec.fr.bits)
-        return self(expanded_points, sliced, window_bits=window_bits,
-                    scalar_bits=bits)
+        with span("blaze.msm.call"):
+            expanded, scalars = self._as_resident(expanded_points, scalars)
+            n = scalars.shape[1]
+            if expanded.shape[1] != factor * n:
+                raise ValueError(f"{expanded.shape[1]} multiples, want "
+                                 f"factor {factor} x {n} scalars")
+            blocks, bits = scalar_rows(scalars, factor, self.curve.spec.fr.bits)
+            c = window_bits or min(self.config.window_bits, default_window_bits(factor * n))
+            self._clock.mark("msm_stream", expanded)
+            wsums = None
+            for i, rows in enumerate(blocks):
+                with span("blaze.msm.multiple"):
+                    wsums = self._stream(wsums, expanded[:, i * n:(i + 1) * n], rows, c, bits)
+            return self.finalize(wsums, c)

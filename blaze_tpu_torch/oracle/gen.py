@@ -188,3 +188,36 @@ def rand_words(spec, shape, seed: int, device):
     top = spec.bits - 1 - 32 * (spec.nwords - 1)
     x.select(1, spec.nwords - 1).bitwise_and_((1 << top) - 1)
     return x
+
+
+def distinct_resident_points(spec: CurveSpec, n: int, seed: int, device,
+                             block: int = 1 << 20):
+    """(2W, n) resident Montgomery words of n curve points, distinct with
+    overwhelming probability, made on `device`: point i is A[i mod a] +
+    B[i div a] for two sets of a = 2^ceil(log2(n)/2) oracle points
+    (ECOracle.random_point: of order r where the cofactor is 1, as on
+    BN254), summed on K3 and normalised to affine (Fermat on K1), `block`
+    points at a time."""
+    import torch
+
+    from ..curves.kernels import ECKernels
+    from ..curves.ops import Curve
+
+    cv, kern = Curve(spec), ECKernels.for_curve(spec)
+    W = spec.fq.nwords
+    a = 1 << -(-(max(n, 2) - 1).bit_length() // 2)          # a * a >= n
+    rng = random.Random(seed)
+    oracle = ECOracle(spec)
+    pts = [oracle.random_point(rng) for _ in range(2 * a)]
+    words = np.ascontiguousarray(points_to_affine_words(spec, pts)).view(np.int32)
+    aff = cv.fq.to_mont(torch.from_numpy(words).to(device))            # (2a, 2, W)
+    proj = torch.cat([aff, cv.fq.one((2 * a, 1), device)], dim=1)      # (2a, 3, W)
+    out = torch.empty((2 * W, n), dtype=torch.int32, device=device)
+    for lo in range(0, n, block):
+        i = torch.arange(lo, min(lo + block, n), device=device)
+        lhs = proj[i % a].reshape(-1, 3 * W).t().contiguous()
+        rhs = proj[a + i // a].reshape(-1, 3 * W).t().contiguous()
+        s = kern.add(lhs, rhs).t().reshape(-1, 3, W)
+        aff = cv.to_affine(cv.fq._cond_sub_p(s.contiguous()))         # (B, 2, W)
+        out[:, lo:lo + len(i)] = aff.reshape(-1, 2 * W).t()
+    return out

@@ -53,8 +53,8 @@ from ..msm import (
     default_window_bits,
     points_from_resident,
     points_to_resident,
+    scalar_rows,
     scalars_to_resident,
-    split_scalars,
 )
 from ..ntt import make_ntt
 from .device import DeviceContext
@@ -186,7 +186,6 @@ class MSMClient(DriverPrimitive):
         # (2W, N) int32 Montgomery words, scalars (Ls, N) int32 limbs.
         self._points = None
         self._scalars = None
-        self._scalar_bits = None       # < fr.bits in precompute mode
         # In-flight result queue: (label, device tensor) FIFO — the
         # reference's multi-deep task queue (msm_hw_code.rs:19-25), where a
         # new start_process never clobbers an unpopped result.
@@ -223,9 +222,9 @@ class MSMClient(DriverPrimitive):
 
     # ------------------------------------------------------ operand staging
     def _stage_scalars(self, scalars):
-        """Wire bytes or limbs -> (host limb count, resident device scalars,
-        scalar_bits or None), sliced per precomputed multiple when k > 1
-        (msm_api.rs:39-40 windowing)."""
+        """Wire bytes or limbs -> (host limb count, resident device scalars),
+        unsliced: with k > 1 multiples each multiple's chunks read their
+        limb rows in place (msm_api.rs:39-40 windowing, msm/precompute.py)."""
         spec = self.curve.spec
         if isinstance(scalars, (bytes, bytearray, memoryview)):
             scal = decode_scalars(scalars, spec)
@@ -234,13 +233,7 @@ class MSMClient(DriverPrimitive):
             if scal.ndim != 2 or scal.shape[1] != spec.fr.nlimbs:
                 raise DataError(f"scalars: want (n, {spec.fr.nlimbs}) 16-bit limbs, "
                                 f"got shape {scal.shape}")
-        n = scal.shape[0]
-        st = _as_i32(scal)
-        bits = None
-        k = self.init.precompute_factor
-        if k > 1:
-            st, bits = split_scalars(st, k, spec.fr.bits)
-        return n, _device_put(scalars_to_resident(st), self.ctx), bits
+        return scal.shape[0], _device_put(scalars_to_resident(_as_i32(scal)), self.ctx)
 
     def _stage_points(self, points, n: Optional[int] = None) -> torch.Tensor:
         """Wire bytes, limbs or words for n bases (k*n points; any multiple
@@ -303,12 +296,12 @@ class MSMClient(DriverPrimitive):
             self._params = params
             log.debug("set_data scalars=%s points=%s",
                       elide_payload(input.scalars), elide_payload(input.points))
-            n, sdev, bits = self._stage_scalars(input.scalars)
+            n, sdev = self._stage_scalars(input.scalars)
             if n != params.nof_elements:
                 raise InvalidPrimitiveParam(
                     f"scalars {n} != nof_elements {params.nof_elements}"
                 )
-            self._scalars, self._scalar_bits = sdev, bits
+            self._scalars = sdev
             key = params.hbm_point_addr
             if input.points is not None:
                 dev = self._stage_points(input.points, n)
@@ -330,34 +323,30 @@ class MSMClient(DriverPrimitive):
         with self._timed("set_data_s", self._stream["label"]):
             st = self._stream
             params = self._params
-            nchunk, sdev, scalar_bits = self._stage_scalars(input.scalars)
+            nchunk, sdev = self._stage_scalars(input.scalars)
             if st["consumed"] + nchunk > params.nof_elements:
                 raise InvalidPrimitiveParam(
                     f"stream overflow: {st['consumed']} + {nchunk} > "
                     f"{params.nof_elements}"
                 )
+            # each multiple's columns of the bases (multiple-major: over the
+            # chunk when it brings its points, over the FULL base set in the
+            # cache) and its limb rows of the scalars
+            k = self.init.precompute_factor
             if input.points is not None:
                 pdev = self._stage_points(input.points, nchunk)
+                cols = [pdev[:, m * nchunk:(m + 1) * nchunk] for m in range(k)]
             else:
                 cache = self._cached_points(params.hbm_point_addr, params.nof_elements)
-                lo, hi = st["consumed"], st["consumed"] + nchunk
-                k = self.init.precompute_factor
-                if k > 1:
-                    # cache is multiple-major over the FULL base set:
-                    # gather this chunk's columns for every multiple
-                    nb = params.nof_elements
-                    idx = torch.as_tensor(np.concatenate(
-                        [m * nb + np.arange(lo, hi) for m in range(k)]
-                    ), device=cache.device)
-                    pdev = cache[:, idx]
-                else:
-                    pdev = cache[:, lo:hi]
-
+                nb, lo = params.nof_elements, st["consumed"]
+                cols = [cache[:, m * nb + lo:m * nb + lo + nchunk] for m in range(k)]
+            rows, bits = scalar_rows(sdev, k, self.curve.spec.fr.bits)
             step = 1 << self.engine.config.chunk_log2
-            for a in range(0, pdev.shape[1], step):
-                part = self.engine.msm_partial(pdev[:, a:a + step], sdev[:, a:a + step],
-                                               st["c"], scalar_bits)
-                st["wsums"] = self.engine.accumulate(st["wsums"], part)
+            for pts, sc in zip(cols, rows):
+                for a in range(0, nchunk, step):
+                    part = self.engine.msm_partial(pts[:, a:a + step], sc[:, a:a + step],
+                                                   st["c"], bits)
+                    st["wsums"] = self.engine.accumulate(st["wsums"], part)
             st["consumed"] += nchunk
 
     # ------------------------------------------------------------ lifecycle
@@ -393,9 +382,11 @@ class MSMClient(DriverPrimitive):
             return
         with self._timed("start_s"):
             label = self._push_task()
-            out = self.engine(
-                self._points, self._scalars, scalar_bits=self._scalar_bits
-            )
+            k = self.init.precompute_factor
+            if k > 1:
+                out = self.engine.msm_precomputed(self._points, self._scalars, k)
+            else:
+                out = self.engine(self._points, self._scalars)
             self._inflight.append((label, out))
 
     def wait_result(self) -> None:

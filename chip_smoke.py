@@ -25,6 +25,10 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    rows and its gathered form) and a streamed 2^18 chunk (B 8192), K3 at a lane-prefix round (B 16384) and
    at the window sums' accumulation (B 16), K4's five rounds at a 2^19
    chunk, K5 at (B 16, k 16) and K6 at (Wn 16, c 16) and (Wn 20, c 13);
+   the same for BN254 at the 8x precompute mode's chunk (G = 2 windows:
+   K2 at C 512, B 2048, gathered from N 2^19; K4's first pass at C 256,
+   B 1024 and its later rounds; K3 at B 2) and K5 at k 32 over a 2^20
+   block of precompute_resident;
    K3, K5 and K6 beside their chain bound (the products on the team's
    critical path times one product's latency, timed on one thread:
    blz_product_chain); then KF (the Field's add, sub, neg, double and
@@ -452,12 +456,15 @@ def curve_inputs(spec, C: int, B: int, seed: int, device):
     return cv, aff, rows, torch.cat([rows, sgn], dim=1).contiguous()
 
 
-def kernel_cases(spec, C: int, B: int, seed: int, device, main: bool):
+def kernel_cases(spec, C: int, B: int, seed: int, device, main: bool, G: int = 16):
     """(key, kernel, kernel call, plain call, shape) for K1-K6 on one curve's
-    inputs; at the main shapes also K2 at the streamed chunk's lanes, K2's
-    gathered form at the 2^19 chunk (N 2^19 resident points read through
-    16 windows' sort of random 16-bit digits, R = B / 16, C) and K4's later
-    rounds (keys scan_mixed_streamed, scan_gathered, reduce_cols_r2..r5)."""
+    inputs; at the main shapes (a chunk of G windows of c = 16, R = B / G
+    lanes each) also K2 at the streamed chunk's lanes, K2's gathered form
+    at the 2^19 chunk (N = R C resident points read through G windows' sort
+    of random 16-bit digits), K4's later rounds (keys scan_mixed_streamed,
+    scan_gathered, reduce_cols_r2..r5) and, at G = 2 (the 8x precompute
+    mode's 32-bit slices), K5's 32 doublings over a 2^20 block of
+    precompute_resident (key dbl_n_precompute)."""
     import torch
 
     from blaze_tpu_torch.curves.kernels import ECKernels
@@ -494,11 +501,10 @@ def kernel_cases(spec, C: int, B: int, seed: int, device, main: bool):
                       lambda: k.scan_mixed_plain(rows_s), {"C": C, "B": B, "signed": 1}))
         return cases
     # a streamed 2^18 chunk scans the same C rows over half the lanes; the
-    # bucket sum's later reduce_cols rounds at a 2^19 chunk (G = 16 windows)
+    # bucket sum's later reduce_cols rounds at a 2^19 chunk (G windows)
     half = rows[:, :, : B // 2].contiguous()
     cases.append(("scan_mixed_streamed", "scan_mixed", lambda: k.scan_mixed(half),
                   lambda: k.scan_mixed_plain(half), {"C": C, "B": B // 2}))
-    G = 16
     N, R = (B // G) * C, B // G
     g = torch.Generator().manual_seed(seed)
     resident = aff[torch.randint(0, aff.shape[0], (N,), generator=g).to(device)]
@@ -512,13 +518,23 @@ def kernel_cases(spec, C: int, B: int, seed: int, device, main: bool):
     cases.append(("fold_horner_c13", "fold_horner", lambda: k.fold_horner(ws20, 13),
                   lambda: k.fold_horner_plain(ws20, 13), {"Wn": 20, "c": 13}))
     # K3 at the accumulation of the chunks' window sums: one lane per window
-    pw, qw = p[:, :16].contiguous(), q[:, :16].contiguous()
+    pw, qw = p[:, :G].contiguous(), q[:, :G].contiguous()
     cases.append(("ec_add_windows", "ec_add", lambda: k.add(pw, qw),
-                  lambda: k.add_plain(pw, qw), {"B": 16}))
-    for r, (Cr, Br) in enumerate(((16, 512), (4, 128), (2, 64), (4, 16)), start=2):
+                  lambda: k.add_plain(pw, qw), {"B": G}))
+    # the bucket sum's first reduce_cols pass is the (C / 2, B / 2) case
+    # above (C2 = 256 rows of G * R2 = G * 512 lanes); its later rounds:
+    for r, (Cr, Br) in enumerate(((16, 32 * G), (4, 8 * G), (2, 4 * G), (4, G)), start=2):
         rr = emitted[:Cr, :, :Br].contiguous()
         cases.append((f"reduce_cols_r{r}", "reduce_cols", lambda rr=rr: k.reduce_cols(rr),
                       lambda rr=rr: k.reduce_cols_plain(rr), {"C": Cr, "B": Br}))
+    if G == 2:
+        # precompute_resident's block: 2^20 affine bases with Z = 1, each
+        # doubled 32 times (one multiple's shift)
+        blk = aff[torch.randint(0, aff.shape[0], (1 << 20,), generator=g).to(device)]
+        one = cv.fq.one((1 << 20,), device).t()
+        cur = torch.cat([blk.reshape(1 << 20, -1).t(), one]).contiguous()    # (3W, 2^20)
+        cases.append(("dbl_n_precompute", "dbl_n", lambda: k.dbl_n(cur, 32),
+                      lambda: k.dbl_n_plain(cur, 32), {"B": 1 << 20, "k": 32}))
     return cases
 
 
@@ -584,8 +600,6 @@ def output_err(got, want) -> int:
 def phase_parity(sol, device):
     import torch
 
-    from blaze_tpu_torch.bench.profile import (CHAINED, chain_bound_ms, cuda_ms,
-                                               product_latency_us, work_bound_ms)
     from blaze_tpu_torch.curves import CURVES
 
     errs = {name: 0 for name in KERNELS}
@@ -610,14 +624,41 @@ def phase_parity(sol, device):
     # the main path's shapes: BLS12-381 at a 2^19 chunk (16 windows of
     # c = 16, R = 1024 lanes, C = 512 rows; the bucket sum's first
     # reduce_cols pass is C = 256 rows of G * R2 = 8192 lanes)
-    spec = CURVES["bls12_381"]
+    timing = main_shape_parity("bls12_381", 16, 2, sol, errs, device)
+    emit({"phase": "parity", "curve": "bls12_381", "shape": "main path", "kernels": timing})
+    if any(t["max_abs_err"] for t in timing.values()):
+        raise AssertionError("kernel differs from its plain version at the main shapes")
+    # the 8x precompute mode's shapes: BN254 at a 2^19 chunk of 32-bit
+    # slices (2 windows of c = 16, R = 1024 lanes, C = 512 rows; the bucket
+    # sum's first reduce_cols pass is C = 256 rows of 2 * 512 lanes)
+    pre = main_shape_parity("bn254", 2, 3, sol, errs, device)
+    emit({"phase": "parity", "curve": "bn254", "shape": "main path, 8x precompute (G = 2)",
+          "kernels": pre})
+    if any(t["max_abs_err"] for t in pre.values()):
+        raise AssertionError("kernel differs from its plain version at the 8x mode's shapes")
+    return errs, timing
+
+
+def main_shape_parity(curve: str, G: int, seed: int, sol, errs: dict, device) -> dict:
+    """kernel_cases at a 2^19 chunk of G windows (C = 512 rows of 1024 G
+    lanes) on `curve`: each kernel against its plain version (its error
+    raised into `errs`), with its time (CUDA events), its plain version's
+    time and its bounds, by key."""
+    import torch
+
+    from blaze_tpu_torch.bench.profile import (CHAINED, chain_bound_ms, cuda_ms,
+                                               product_latency_us, work_bound_ms)
+    from blaze_tpu_torch.curves import CURVES
+
+    spec = CURVES[curve]
     W = spec.fq.nwords
     latency_us = product_latency_us(spec, device)
-    emit({"phase": "product_latency", "curve": "bls12_381", "W": W, "us": latency_us})
+    emit({"phase": "product_latency", "curve": curve, "W": W, "us": latency_us})
     timing = {}
-    for key, name, kern, plain, shape in kernel_cases(spec, 512, 16384, 2, device, main=True):
-        reps = 3 if shape.get("C", 0) >= 256 else 20
-        ms = cuda_ms(kern, reps)
+    for key, name, kern, plain, shape in kernel_cases(spec, 512, 1024 * G, seed, device,
+                                                      main=True, G=G):
+        big = shape.get("C", 0) >= 256 or shape.get("B", 0) >= 1 << 20
+        ms = cuda_ms(kern, 3 if big else 20)
         want, plain_ms = once_ms(plain)
         e = output_err(kern(), want)
         errs[name] = max(errs[name], e)
@@ -629,10 +670,7 @@ def phase_parity(sol, device):
             timing[key]["chain_bound_ms"] = chain_bound_ms(name, shape, latency_us)
         del want
         torch.cuda.empty_cache()
-    emit({"phase": "parity", "curve": "bls12_381", "shape": "main path", "kernels": timing})
-    if any(t["max_abs_err"] for t in timing.values()):
-        raise AssertionError("kernel differs from its plain version at the main shapes")
-    return errs, timing
+    return timing
 
 
 # KF at the main path's shape (the chunk's canon of its (16, 3, 12) window

@@ -26,7 +26,10 @@ sizes; the MSM chunk as a CUDA graph: the capture's warm-up and its
 replays against the eager chunk and the oracle on the three curves, the
 launches a replay counts, one graph for the chunks of one MSM, and a
 capture that fails raising; a traced replay split by its stage marks
-(trace.py), in a fresh process.  chip_smoke.py runs the same checks at
+(trace.py), in a fresh process; the precompute mode on resident
+operands: the 8x MSM of 2^20 BN254 bases against the class sums and the
+plain MSM, and precompute_resident over 2^22 distinct bases against
+precompute_points.  chip_smoke.py runs the same checks at
 the main path's sizes.
 """
 import random
@@ -836,6 +839,53 @@ def test_failed_capture_raises(dev, monkeypatch):
         msm.msm_partial(res, scal, 8)
     assert not msm._graphs
     torch.cuda.synchronize()
+
+
+def test_resident_precomputed_msm_2e20_bn254_matches_class_sums(dev):
+    """blaze's 8x mode on resident operands at 2^20 BN254 bases: 16
+    oracle points expanded on the card (precompute_resident), tiled
+    multiple-major to 2^23 columns, and 2^20 distinct full-width scalars
+    left unsliced.  The result equals the class sums and the plain MSM of
+    the same scalars; two chunks per multiple, K2 once per chunk, K6
+    once."""
+    from blaze_tpu_torch.msm import MSM, precompute_resident
+
+    spec = CURVES["bn254"]
+    cv = Curve(spec)
+    n, k, W = 1 << 20, 8, cv.nwords
+    res, _, upoints, _ = msm_case(spec, 16, 35, dev)
+    mult = precompute_resident(cv, res, k)
+    bases = mult.reshape(2 * W, k, 1, 16).expand(2 * W, k, n // 16, 16).reshape(2 * W, k * n)
+    g = torch.Generator(device=dev).manual_seed(35)
+    low = torch.randint(0, 1 << 16, (15, n), dtype=torch.int32, device=dev, generator=g)
+    top = torch.randint(0, spec.fr.p >> 240, (1, n), dtype=torch.int32, device=dev, generator=g)
+    scalars = torch.cat([low, top])
+    msm = MSM(cv)
+    _build.reset_launches()
+    out = msm.msm_precomputed(bases, scalars, k)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["fold_horner"] == 1 and _build.LAUNCHES["scan_gathered"] == 2 * k
+    assert len(msm._graphs) == 1
+    want = class_sum_expected(spec, upoints, scalars.t().cpu().numpy().astype(np.uint32))
+    plain = MSM(cv)(res.repeat(1, n // 16), scalars)
+    assert affine_ints(spec, out) == affine_ints(spec, plain) == want
+
+
+def test_precompute_resident_2e22_distinct_bases_matches_the_plain_expansion(dev):
+    """precompute_resident over 2^22 distinct BN254 bases, 2^20 a block,
+    equals precompute_points (the Field's doublings, multiple by
+    multiple) followed by points_to_resident word for word."""
+    from blaze_tpu_torch.msm import points_to_resident, precompute_points, precompute_resident
+    from blaze_tpu_torch.msm.residency import points_from_resident
+    from blaze_tpu_torch.oracle.gen import distinct_resident_points
+
+    spec = CURVES["bn254"]
+    cv = Curve(spec)
+    res = distinct_resident_points(spec, 1 << 22, 36, dev)
+    got = precompute_resident(cv, res, 8, block=1 << 20)
+    want = points_to_resident(cv, precompute_points(cv, points_from_resident(cv, res), 8),
+                              mont=True)
+    assert got.shape == (2 * cv.nwords, 8 << 22) and torch.equal(got, want)
 
 
 def _stage_trace(path: str) -> None:

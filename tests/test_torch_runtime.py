@@ -198,6 +198,26 @@ def test_precompute_factor_8_matches_oracle():
     assert affine(client.result().result) == expected
 
 
+def test_precompute_task_hands_the_engine_unsliced_resident_scalars():
+    """With precompute_factor 8 a scalars-only task over cached points
+    stages the (Ls, N) scalars as they are, with no slicing on the host,
+    and runs the engine's resident precomputed form on the (2W, 8N)
+    cache."""
+    spec = CURVES[CURVE]
+    praw, sraw, _ = wire_input(n=32)
+    client = cpu_client(precompute_factor=8)
+    client.load_data_to_hbm("bank", praw)
+    client.initialize(MSMParams(nof_elements=4, hbm_point_addr="bank"))
+    seen = []
+    client.engine.msm_precomputed = lambda pts, sc, k: seen.append((pts, sc, k)) or pts[:3, :1]
+    client.set_data(MSMInput(scalars=sraw[:4 * spec.scalar_bytes]))
+    client.start_process()
+    ((pts, sc, k),) = seen
+    assert k == 8 and pts is client._hbm_cache["bank"] and pts.shape == (16, 32)
+    want = np.frombuffer(sraw[:4 * spec.scalar_bytes], dtype="<u2").reshape(4, 16)
+    assert sc.shape == (16, 4) and np.array_equal(sc.numpy().T, want.astype(np.int32))
+
+
 def test_error_paths():
     praw, sraw, _ = wire_input()
     spec = CURVES[CURVE]

@@ -2,7 +2,8 @@
 
 The trace checks (launch keys, lost launches); span as a shared no-op with
 no profiler running and a mark on a CPU tensor as nothing; under a CPU
-torch.profiler the spans of an MSM (call around its chunks), of a height-3
+torch.profiler the spans of an MSM (call around its chunks), of the
+precompute mode (the expansion; the multiples inside a call), of a height-3
 PoseidonClient lifecycle (one task label on its phases and root, one level
 span per node level, PhaseTimings still accumulating) and of a FusedNTT
 (its levels and twiddles).
@@ -21,7 +22,7 @@ from blaze_tpu_torch import _build, trace
 from blaze_tpu_torch.curves import CURVES, Curve
 from blaze_tpu_torch.fields import FIELDS
 from blaze_tpu_torch.hash import PoseidonKernels
-from blaze_tpu_torch.msm import MSM, MSMConfig
+from blaze_tpu_torch.msm import MSM, MSMConfig, precompute_resident
 from blaze_tpu_torch.ntt import FusedNTT
 from blaze_tpu_torch.oracle import tiled_msm_instance
 from blaze_tpu_torch.runtime import PoseidonClient, PoseidonInitializeParameters
@@ -122,6 +123,40 @@ def test_msm_call_span_holds_its_chunk_spans(monkeypatch):
     assert len(chunks) == 2 and len(inner) == 4
     assert all(call[1] <= s[1] and s[2] <= call[2] for s in inner)
     assert not named(found, "blaze.msm.capture")          # no graph on the CPU
+
+
+def test_precompute_and_multiple_spans(monkeypatch):
+    """precompute_resident runs under blaze.msm.precompute; a precomputed
+    MSM on resident operands holds one blaze.msm.multiple span per
+    multiple inside its blaze.msm.call, each around its own chunks."""
+    spec = CURVES["bn254"]
+    cv = Curve(spec)
+    W = cv.nwords
+    msm = MSM(cv, MSMConfig(chunk_log2=3))
+    threeW = 3 * W
+
+    def scan(pts, order, R, C, sortkey=None):
+        lanes = order.shape[0] * R
+        return (torch.zeros(C, threeW, lanes, dtype=torch.int32),
+                torch.zeros(threeW, lanes, dtype=torch.int32))
+
+    for name, fake in [("scan_gathered", scan), ("add", lambda x, y: x),
+                       ("dbl_n", lambda x, k: x), ("reduce_cols", lambda rows: rows[0]),
+                       ("fold_horner", lambda x, c: x[:, 0])]:
+        monkeypatch.setattr(msm.kern, name, fake)
+    monkeypatch.setattr(cv, "to_affine", lambda p: p[..., :2, :])
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        expanded = precompute_resident(cv, torch.zeros((2 * W, 16), dtype=torch.int32), 4)
+        msm.msm_precomputed(expanded, torch.zeros((16, 16), dtype=torch.int32), 4,
+                            window_bits=6)
+    found = spans(prof)
+    (pre,) = named(found, "blaze.msm.precompute")
+    (call,) = named(found, "blaze.msm.call")
+    multiples, chunks = named(found, "blaze.msm.multiple"), named(found, "blaze.msm.chunk")
+    assert expanded.shape == (2 * W, 64) and pre[2] <= call[1]
+    assert len(multiples) == 4 and len(chunks) == 8
+    assert all(call[1] <= m[1] and m[2] <= call[2] for m in multiples)
+    assert all(sum(m[1] <= c[1] and c[2] <= m[2] for c in chunks) == 2 for m in multiples)
 
 
 def _same_state(self, state, *a, out=None, **k):
