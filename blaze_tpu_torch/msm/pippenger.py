@@ -9,7 +9,9 @@ bucket method (blaze_tpu/msm/pippenger.py `_fused_chunk`), step for step:
      bucket bounds e_j = #(digit <= j) - 1 from a histogram and a cumsum;
   3. the sorted points scanned by the K2 kernel in G*R lanes of C points,
      each read in place through the sort (`scan_gathered`): every lane's
-     inclusive EC prefix (~N adds per window);
+     inclusive EC prefix (~N adds per window).  `MSM.plan` sizes the chunk
+     (N) and its lanes (R) by the chunk's window count G, so that G*N and
+     G*R stay a 16-window chunk's;
   4. the lane totals' exclusive prefix by Kogge-Stone doubling on K3;
   5. by Abel summation sum_j j*B_j = (B-1)*T[e_{B-1}] - sum_{j<B-1} T[e_j]
      with T the prefix sum, gathered at the bounds: (B-1)*T on K5, the
@@ -26,8 +28,12 @@ msm_scan (K2), msm_bucket (steps 4-5), msm_stream (the chunk's output,
 `accumulate`, the next chunk's operands, `finalize`), msm_done after the
 fold; `MSM.stage_ms()` reads their device clock.
 
-Same defaults, digit order, lane counts, paddings and reduction disciplines
-as the JAX package, so on one input both produce the same projective limbs.
+Same defaults, digit order, paddings and reduction disciplines as the JAX
+package, and its chunks and lane counts at 16 windows a chunk or more, so on
+one input both produce the same projective limbs.  Below 16 windows the JAX
+engine needs the port's plan given to it: the planned lanes as its
+`scan_lanes`, and, for inputs of more than one chunk, `chunk_log2` + log2 k
+as its `chunk_log2` (k of `MSM.plan`).
 CUDA tensors go through the kernels; CPU tensors through their plain
 versions.
 """
@@ -36,6 +42,7 @@ from __future__ import annotations
 import dataclasses
 import math
 import threading
+from typing import NamedTuple
 
 import torch
 
@@ -51,13 +58,27 @@ def _ceil_pow2(x: int) -> int:
     return 1 << max(0, (x - 1).bit_length())
 
 
+# chunk_log2 and the lanes' sqrt rule are sized for chunks of this many
+# windows: a 256-bit scalar in 16-bit windows
+_PLAN_WINDOWS = 16
+
+
+class ChunkPlan(NamedTuple):
+    """A chunk's shape: its windows G, its points N and its scan lanes R
+    a window."""
+
+    windows: int
+    points: int
+    lanes: int
+
+
 @dataclasses.dataclass(frozen=True)
 class MSMConfig:
     """Planning knobs that change which windows, chunks and lanes run."""
 
     window_bits: int = 16          # c; buckets per window B = 2^c
-    chunk_log2: int = 19           # points per device pass
-    scan_lanes: int = 0            # 0 = auto (~sqrt of padded chunk)
+    chunk_log2: int = 19           # points per device pass at 16 windows (MSM.plan)
+    scan_lanes: int = 0            # 0 = auto (MSM.plan: ~sqrt of the chunk)
     # Balanced (signed) digits: buckets halve to 2^(c-1)+1 at the cost of
     # a conditional Y negation per scanned point.
     signed_digits: bool = False
@@ -102,7 +123,27 @@ class MSM:
         self._graph_lock = threading.Lock()
         self._replayed = None
         self.graph_pool_bytes = 0       # device memory the captures reserved
+        self.chunk_plans: dict = {}     # ChunkPlan -> chunks run
         self._clock = StageClock()
+
+    # ------------------------------------------------------------- plan
+    def plan(self, n: int, c: int, scalar_bits: int | None = None) -> ChunkPlan:
+        """The ChunkPlan of the first chunk of n points at c-bit windows:
+        G windows of the scalars' bits, the chunk's points (what a stream
+        slices, at least one) and its scan lanes a window.
+
+        chunk_log2 and the lanes' rule R = ceil_pow2(sqrt(N)) are sized for
+        a chunk of 16 windows.  Fewer windows grow both by k =
+        2^floor(log2(16 / G)), so that G N and G R stay a 16-window
+        chunk's: N = min(max(n, 1), 2^chunk_log2 k), R = k ceil_pow2(sqrt(N / k))
+        (`scan_lanes` if set), at most N.  At 16 windows or more k = 1.  A
+        chunk of more than the planned points (a caller's own slice) scans
+        on the plan's lanes, C = ceil(n / R) steps each."""
+        G = -(-(scalar_bits or self.curve.spec.fr.bits) // c)
+        k = 1 << max(0, (_PLAN_WINDOWS // G).bit_length() - 1)
+        N = min(max(n, 1), k << self.config.chunk_log2)
+        R = self.config.scan_lanes or k * _ceil_pow2(int(math.sqrt(N // k)))
+        return ChunkPlan(G, N, min(R, N))
 
     # ------------------------------------------------------------ digits
     @staticmethod
@@ -259,7 +300,7 @@ class MSM:
         # (the last position repeated past N - 1: the pads sort past every
         # bucket, so no bound ever reaches them)
         self._clock.mark("msm_layout", pts)
-        R = min(self.config.scan_lanes or _ceil_pow2(int(math.sqrt(N))), N)
+        R = self.plan(N, c, bits).lanes
         C = -(-N // R)
         self._clock.mark("msm_scan", pts)
         emitted, tot = kern.scan_gathered(pts, order, R, C,
@@ -332,6 +373,8 @@ class MSM:
         fallback.  The launch counters count what a replay launches (the
         counts the capture recorded), not the capture itself."""
         with span("blaze.msm.chunk"):
+            plan = self.plan(pts.shape[1], c, scalar_bits)
+            self.chunk_plans[plan] = self.chunk_plans.get(plan, 0) + 1
             if pts.device.type != "cuda":
                 return self._fused_chunk(pts, scalars, c, scalar_bits)
             return self._replay(pts, scalars, c, scalar_bits)
@@ -434,9 +477,10 @@ class MSM:
         resident — with canonical scalar limbs, (N, Ls) or (Ls, N).  Returns
         one projective point (3, W), Montgomery form.
 
-        Inputs up to 2^chunk_log2 points run as one chunk; larger ones stream
-        in chunks whose window sums are accumulated (K3) and folded once on
-        K6 (the reference's DMA chunking analog, msm_api.rs:156)."""
+        Inputs up to a chunk's planned points (`plan`) run as one chunk;
+        larger ones stream in chunks whose window sums are accumulated (K3)
+        and folded once on K6 (the reference's DMA chunking analog,
+        msm_api.rs:156)."""
         with span("blaze.msm.call"):
             points, scalars = self._as_resident(points, scalars)
             c = window_bits or min(self.config.window_bits, default_window_bits(points.shape[1]))
@@ -446,8 +490,8 @@ class MSM:
     def _stream(self, wsums, points, scalars, c: int, scalar_bits: int | None):
         """The chunks of resident (2W, n) points and (Ls, n) scalars, each
         chunk's window sums accumulated onto `wsums` (None: the first
-        chunk's)."""
-        chunk = 1 << self.config.chunk_log2
+        chunk's), each chunk of the planned points."""
+        chunk = self.plan(points.shape[1], c, scalar_bits).points
         for lo in range(0, points.shape[1], chunk):
             part = self._chunk(points[:, lo:lo + chunk], scalars[:, lo:lo + chunk], c,
                                scalar_bits)

@@ -313,8 +313,9 @@ class MSMClient(DriverPrimitive):
 
     def _set_data_stream(self, input: MSMInput) -> None:
         """One streamed chunk: stage it, then compute and accumulate the
-        window partials of each 2^chunk_log2 slice of it, as MSM.__call__
-        slices a large input.  Caller holds the lock."""
+        window partials of each slice of it of the engine's planned points
+        (MSM.plan), as MSM.__call__ slices a large input.  Caller holds the
+        lock."""
         if input.params is not None:
             raise InvalidPrimitiveParam(
                 "a streamed chunk cannot carry params: the open task's were "
@@ -341,7 +342,7 @@ class MSMClient(DriverPrimitive):
                 nb, lo = params.nof_elements, st["consumed"]
                 cols = [cache[:, m * nb + lo:m * nb + lo + nchunk] for m in range(k)]
             rows, bits = scalar_rows(sdev, k, self.curve.spec.fr.bits)
-            step = 1 << self.engine.config.chunk_log2
+            step = self.engine.plan(nchunk, st["c"], bits).points
             for pts, sc in zip(cols, rows):
                 for a in range(0, nchunk, step):
                     part = self.engine.msm_partial(pts[:, a:a + step], sc[:, a:a + step],

@@ -25,10 +25,10 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    rows and its gathered form) and a streamed 2^18 chunk (B 8192), K3 at a lane-prefix round (B 16384) and
    at the window sums' accumulation (B 16), K4's five rounds at a 2^19
    chunk, K5 at (B 16, k 16) and K6 at (Wn 16, c 16) and (Wn 20, c 13);
-   the same for BN254 at the 8x precompute mode's chunk (G = 2 windows:
-   K2 at C 512, B 2048, gathered from N 2^19; K4's first pass at C 256,
-   B 1024 and its later rounds; K3 at B 2) and K5 at k 32 over a 2^20
-   block of precompute_resident;
+   the same for BN254 at the 8x precompute mode's chunk as MSM.plan
+   makes it (G = 2 windows: K2 at C 512, B 16384, gathered from N 2^22;
+   K3 at B 16384 and 2; K4's first pass at C 256, B 1024 and its later
+   rounds) and K5 at k 32 over a 2^20 block of precompute_resident;
    K3, K5 and K6 beside their chain bound (the products on the team's
    critical path times one product's latency, timed on one thread:
    blz_product_chain); then KF (the Field's add, sub, neg, double and
@@ -458,13 +458,16 @@ def curve_inputs(spec, C: int, B: int, seed: int, device):
 
 def kernel_cases(spec, C: int, B: int, seed: int, device, main: bool, G: int = 16):
     """(key, kernel, kernel call, plain call, shape) for K1-K6 on one curve's
-    inputs; at the main shapes (a chunk of G windows of c = 16, R = B / G
-    lanes each) also K2 at the streamed chunk's lanes, K2's gathered form
-    at the 2^19 chunk (N = R C resident points read through G windows' sort
-    of random 16-bit digits), K4's later rounds (keys scan_mixed_streamed,
-    scan_gathered, reduce_cols_r2..r5) and, at G = 2 (the 8x precompute
-    mode's 32-bit slices), K5's 32 doublings over a 2^20 block of
-    precompute_resident (key dbl_n_precompute)."""
+    inputs: K2 at C rows of B lanes, K3 at B lanes, K4 at (C / 2, B / 2).
+    At the main shapes (a chunk of G windows of c = 16, R = B / G lanes
+    each) K4's first pass is instead the bucket sum's (C 256 rows of 512 G
+    lanes: G windows of 2^17 bucket points, whatever R), and the cases add
+    K2 at the streamed chunk's lanes, K2's gathered form at the chunk (N =
+    R C resident points read through G windows' sort of random 16-bit
+    digits), K4's later rounds (keys scan_mixed_streamed, scan_gathered,
+    reduce_cols_r2..r5) and, at G = 2 (the 8x precompute mode's 32-bit
+    slices), K5's 32 doublings over a 2^20 block of precompute_resident
+    (key dbl_n_precompute)."""
     import torch
 
     from blaze_tpu_torch.curves.kernels import ECKernels
@@ -478,7 +481,8 @@ def kernel_cases(spec, C: int, B: int, seed: int, device, main: bool, G: int = 1
     m = (1 << 19) if main else 512
     a = aff[torch.arange(m, device=device) % aff.shape[0]].reshape(-1, W)[:m].contiguous()
     b = a.flip(0).contiguous()
-    red_rows = emitted[: C // 2, :, : B // 2].contiguous()
+    red_rows = emitted[:256, :, : 512 * G] if main else emitted[: C // 2, :, : B // 2]
+    red_rows = red_rows.contiguous()
     ws = emitted[-1, :, :16].contiguous()
     ws20 = emitted[-1, :, 16:36].contiguous()
     pts = p[:, :16].contiguous() if main else p
@@ -489,7 +493,7 @@ def kernel_cases(spec, C: int, B: int, seed: int, device, main: bool, G: int = 1
          {"C": C, "B": B}),
         ("ec_add", lambda: k.add(p, q), lambda: k.add_plain(p, q), {"B": B}),
         ("reduce_cols", lambda: k.reduce_cols(red_rows), lambda: k.reduce_cols_plain(red_rows),
-         {"C": C // 2, "B": B // 2}),
+         {"C": red_rows.shape[0], "B": red_rows.shape[2]}),
         ("dbl_n", lambda: k.dbl_n(pts, 16), lambda: k.dbl_n_plain(pts, 16),
          {"B": pts.shape[1], "k": 16}),
         ("fold_horner", lambda: k.fold_horner(ws, 16), lambda: k.fold_horner_plain(ws, 16),
@@ -521,8 +525,8 @@ def kernel_cases(spec, C: int, B: int, seed: int, device, main: bool, G: int = 1
     pw, qw = p[:, :G].contiguous(), q[:, :G].contiguous()
     cases.append(("ec_add_windows", "ec_add", lambda: k.add(pw, qw),
                   lambda: k.add_plain(pw, qw), {"B": G}))
-    # the bucket sum's first reduce_cols pass is the (C / 2, B / 2) case
-    # above (C2 = 256 rows of G * R2 = G * 512 lanes); its later rounds:
+    # the bucket sum's first reduce_cols pass is the reduce_cols case above
+    # (C2 = 256 rows of G * R2 = G * 512 lanes); its later rounds:
     for r, (Cr, Br) in enumerate(((16, 32 * G), (4, 8 * G), (2, 4 * G), (4, G)), start=2):
         rr = emitted[:Cr, :, :Br].contiguous()
         cases.append((f"reduce_cols_r{r}", "reduce_cols", lambda rr=rr: k.reduce_cols(rr),
@@ -624,14 +628,14 @@ def phase_parity(sol, device):
     # the main path's shapes: BLS12-381 at a 2^19 chunk (16 windows of
     # c = 16, R = 1024 lanes, C = 512 rows; the bucket sum's first
     # reduce_cols pass is C = 256 rows of G * R2 = 8192 lanes)
-    timing = main_shape_parity("bls12_381", 16, 2, sol, errs, device)
+    timing = main_shape_parity("bls12_381", 1 << 24, None, 2, sol, errs, device)
     emit({"phase": "parity", "curve": "bls12_381", "shape": "main path", "kernels": timing})
     if any(t["max_abs_err"] for t in timing.values()):
         raise AssertionError("kernel differs from its plain version at the main shapes")
-    # the 8x precompute mode's shapes: BN254 at a 2^19 chunk of 32-bit
-    # slices (2 windows of c = 16, R = 1024 lanes, C = 512 rows; the bucket
+    # the 8x precompute mode's shapes: BN254 at a 2^22 chunk of 32-bit
+    # slices (2 windows of c = 16, R = 8192 lanes, C = 512 rows; the bucket
     # sum's first reduce_cols pass is C = 256 rows of 2 * 512 lanes)
-    pre = main_shape_parity("bn254", 2, 3, sol, errs, device)
+    pre = main_shape_parity("bn254", 1 << 25, 32, 3, sol, errs, device)
     emit({"phase": "parity", "curve": "bn254", "shape": "main path, 8x precompute (G = 2)",
           "kernels": pre})
     if any(t["max_abs_err"] for t in pre.values()):
@@ -639,23 +643,26 @@ def phase_parity(sol, device):
     return errs, timing
 
 
-def main_shape_parity(curve: str, G: int, seed: int, sol, errs: dict, device) -> dict:
-    """kernel_cases at a 2^19 chunk of G windows (C = 512 rows of 1024 G
-    lanes) on `curve`: each kernel against its plain version (its error
-    raised into `errs`), with its time (CUDA events), its plain version's
-    time and its bounds, by key."""
+def main_shape_parity(curve: str, n: int, bits, seed: int, sol, errs: dict, device) -> dict:
+    """kernel_cases at the chunk that MSM.plan makes of n points of
+    `bits`-bit scalars (None: the field's) at c = 16 on `curve` (G windows,
+    N points, C = N / R rows of G R lanes): each kernel against its plain
+    version (its error raised into `errs`), with its time (CUDA events),
+    its plain version's time and its bounds, by key."""
     import torch
 
     from blaze_tpu_torch.bench.profile import (CHAINED, chain_bound_ms, cuda_ms,
                                                product_latency_us, work_bound_ms)
-    from blaze_tpu_torch.curves import CURVES
+    from blaze_tpu_torch.curves import CURVES, Curve
+    from blaze_tpu_torch.msm import MSM
 
     spec = CURVES[curve]
     W = spec.fq.nwords
+    G, N, R = MSM(Curve(spec)).plan(n, 16, bits)
     latency_us = product_latency_us(spec, device)
     emit({"phase": "product_latency", "curve": curve, "W": W, "us": latency_us})
     timing = {}
-    for key, name, kern, plain, shape in kernel_cases(spec, 512, 1024 * G, seed, device,
+    for key, name, kern, plain, shape in kernel_cases(spec, -(-N // R), G * R, seed, device,
                                                       main=True, G=G):
         big = shape.get("C", 0) >= 256 or shape.get("B", 0) >= 1 << 20
         ms = cuda_ms(kern, 3 if big else 20)

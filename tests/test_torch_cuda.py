@@ -846,9 +846,9 @@ def test_resident_precomputed_msm_2e20_bn254_matches_class_sums(dev):
     oracle points expanded on the card (precompute_resident), tiled
     multiple-major to 2^23 columns, and 2^20 distinct full-width scalars
     left unsliced.  The result equals the class sums and the plain MSM of
-    the same scalars; two chunks per multiple, K2 once per chunk, K6
-    once."""
-    from blaze_tpu_torch.msm import MSM, precompute_resident
+    the same scalars; two chunks per multiple (chunk_log2 16: the plan's
+    2^19 points at two windows), K2 once per chunk, K6 once."""
+    from blaze_tpu_torch.msm import MSM, MSMConfig, precompute_resident
 
     spec = CURVES["bn254"]
     cv = Curve(spec)
@@ -860,15 +860,47 @@ def test_resident_precomputed_msm_2e20_bn254_matches_class_sums(dev):
     low = torch.randint(0, 1 << 16, (15, n), dtype=torch.int32, device=dev, generator=g)
     top = torch.randint(0, spec.fr.p >> 240, (1, n), dtype=torch.int32, device=dev, generator=g)
     scalars = torch.cat([low, top])
-    msm = MSM(cv)
+    msm = MSM(cv, MSMConfig(chunk_log2=16))
     _build.reset_launches()
     out = msm.msm_precomputed(bases, scalars, k)
     torch.cuda.synchronize()
     assert _build.LAUNCHES["fold_horner"] == 1 and _build.LAUNCHES["scan_gathered"] == 2 * k
-    assert len(msm._graphs) == 1
+    assert len(msm._graphs) == 1 and msm.chunk_plans == {(2, 1 << 19, 2048): 2 * k}
     want = class_sum_expected(spec, upoints, scalars.t().cpu().numpy().astype(np.uint32))
     plain = MSM(cv)(res.repeat(1, n // 16), scalars)
     assert affine_ints(spec, out) == affine_ints(spec, plain) == want
+
+
+def test_widened_two_window_plan_matches_cpu_and_oracle(dev):
+    """A precomputed MSM at two windows a chunk (BN254, 16 multiples of
+    16-bit slices, c = 8: the 8x mode's G at buckets the CPU sums in
+    seconds) with chunk_log2 7: the plan widens a chunk 8x to 2^10 points
+    on 128 lanes a window, and 2^11 bases make two chunks in each
+    multiple.  The card's MSM (one graph, replayed) equals the CPU's eager
+    MSM word for word and the class sums."""
+    from blaze_tpu_torch.msm import MSM, MSMConfig, precompute_resident
+
+    spec = CURVES["bn254"]
+    cv = Curve(spec)
+    n, k, W = 1 << 11, 16, cv.nwords
+    res, _, upoints, _ = msm_case(spec, 16, 37, dev)
+    mult = precompute_resident(cv, res, k)
+    bases = mult.reshape(2 * W, k, 1, 16).expand(2 * W, k, n // 16, 16).reshape(2 * W, k * n)
+    g = torch.Generator(device=dev).manual_seed(37)
+    low = torch.randint(0, 1 << 16, (15, n), dtype=torch.int32, device=dev, generator=g)
+    top = torch.randint(0, spec.fr.p >> 240, (1, n), dtype=torch.int32, device=dev, generator=g)
+    scalars = torch.cat([low, top])
+    msm = MSM(cv, MSMConfig(chunk_log2=7))
+    _build.reset_launches()
+    out = msm.msm_precomputed(bases, scalars, k, window_bits=8)
+    torch.cuda.synchronize()
+    assert msm.chunk_plans == {(2, 1 << 10, 128): 2 * k} and len(msm._graphs) == 1
+    assert _build.LAUNCHES["scan_gathered"] == 2 * k and _build.LAUNCHES["fold_horner"] == 1
+    eager = MSM(cv, MSMConfig(chunk_log2=7)).msm_precomputed(bases.cpu(), scalars.cpu(), k,
+                                                              window_bits=8)
+    assert torch.equal(out.cpu(), eager)
+    want = class_sum_expected(spec, upoints, scalars.t().cpu().numpy().astype(np.uint32))
+    assert affine_ints(spec, out) == want
 
 
 def test_precompute_resident_2e22_distinct_bases_matches_the_plain_expansion(dev):

@@ -6,7 +6,7 @@ Pallas kernels run in interpret mode — on one seeded input: per-window sums
 and the folded result must be equal limb for limb, through both the
 points-major input and the JAX package's own resident layout.  Full-width
 scalars, signed digits, several chunks and precomputed multiples are held
-to the python oracle.
+to the python oracle; the chunk plan (`MSM.plan`) to its rule.
 """
 import random
 
@@ -72,7 +72,9 @@ def affine(cv: Curve, out: torch.Tensor):
 
 @pytest.fixture(scope="module")
 def fused_case():
-    """One BN254 input (12-bit scalars) through both packages' fused MSM."""
+    """One BN254 input (12-bit scalars) through both packages' fused MSM:
+    two windows, on which the port plans its lanes wider than the JAX
+    package's rule, so the JAX engine is given the port's lanes."""
     spec = CURVES["bn254"]
     cv = Curve(spec)
     points, scalars, _, _ = tiled_msm_instance(spec, N, seed=31)
@@ -81,7 +83,9 @@ def fused_case():
     scal[:, 1:] = 0
     pts = cv.fq.to_mont(as_i32(points))                       # (N, 2, W)
     rcv = RefCurve(REF_CURVES["bn254"])
-    rmsm = RefMSM(rcv, RefMSMConfig(fused="on", interpret=True, kernel_tile=128))
+    lanes = MSM(cv).plan(N, C_BITS, SCALAR_BITS).lanes
+    rmsm = RefMSM(rcv, RefMSMConfig(fused="on", interpret=True, kernel_tile=128,
+                                    scan_lanes=lanes))
     rpts = jnp.asarray(pm_to_ref(pts))
     rws = rmsm._fused_chunk(rpts, jnp.asarray(scal), C_BITS, SCALAR_BITS)
     kern = RefECKernels.for_curve(rcv.spec, tile=128, interpret=True)
@@ -149,6 +153,59 @@ def test_chunked_accumulate_and_finalize_match_oracle():
     msm = MSM(cv, MSMConfig(chunk_log2=4))
     out = msm(cv.fq.to_mont(as_i32(points)), as_i32(scalars), window_bits=6)
     assert affine(cv, out) == expected
+
+
+@pytest.mark.parametrize("name, n, c, bits, lanes, want", [
+    # 16 windows or more: 2^chunk_log2 points on ceil_pow2(sqrt(N)) lanes
+    ("bls12_381", 1 << 24, 16, None, 0, (16, 1 << 19, 1024)),
+    ("bn254", 1 << 24, 16, None, 0, (16, 1 << 19, 1024)),
+    ("bn254", 3000, 16, None, 0, (16, 3000, 64)),
+    ("bls12_381", 100, 16, None, 0, (16, 100, 16)),
+    ("bls12_381", 2, 16, None, 0, (16, 2, 1)),
+    ("bn254", 1 << 24, 13, None, 0, (20, 1 << 19, 1024)),
+    # fewer windows G: chunk and lanes grow by k = 2^floor(log2(16 / G))
+    ("bn254", 1 << 25, 16, 32, 0, (2, 1 << 22, 8192)),     # the 8x mode: k = 8
+    ("bn254", 1 << 25, 16, 64, 0, (4, 1 << 21, 4096)),
+    ("bn254", 1 << 25, 16, 48, 0, (3, 1 << 21, 4096)),     # 16 / 3: k = 4
+    ("bls12_381", 1 << 25, 16, 128, 0, (8, 1 << 20, 2048)),
+    # the lanes at most the chunk's points; a set scan_lanes as given
+    ("bn254", 100, 16, 32, 0, (2, 100, 32)),
+    ("bn254", 5, 16, 32, 0, (2, 5, 5)),
+    ("bn254", 100, 16, 32, 4096, (2, 100, 100)),
+    ("bn254", 1 << 25, 16, 32, 64, (2, 1 << 22, 64)),
+    # no points: a chunk of one, so a stream's step is never 0
+    ("bn254", 0, 16, 32, 0, (2, 1, 1)),
+])
+def test_chunk_plan_follows_the_window_count(name, n, c, bits, lanes, want):
+    """MSM.plan's (G, points, lanes): G N and G R stay a 16-window
+    chunk's (2^19 points on 1,024 lanes)."""
+    assert MSM(Curve(CURVES[name]), MSMConfig(scan_lanes=lanes)).plan(n, c, bits) == want
+
+
+def test_a_stream_of_no_points_runs_no_chunk():
+    """A stream over 0 points leaves the window sums as they were."""
+    cv = Curve(CURVES["bn254"])
+    msm = MSM(cv)
+    W = cv.spec.fq.nwords
+    pts = torch.zeros((2 * W, 0), dtype=torch.int32)
+    scal = torch.zeros((8, 0), dtype=torch.int32)
+    assert msm._stream(None, pts, scal, 16, 32) is None and msm.chunk_plans == {}
+
+
+def test_chunk_plans_count_the_chunks_of_an_msm():
+    """40 points of 12-bit scalars at c = 6 (two windows, k = 8) with
+    chunk_log2 1: chunks of 16, 16 and 8 points, counted by plan, and the
+    oracle's result."""
+    spec = CURVES["bn254"]
+    cv = Curve(spec)
+    points, scalars, _, dbg = random_msm_instance(spec, 40, seed=9)
+    scal = np.asarray(scalars).copy()
+    scal[:, 0] &= 0xFFF
+    scal[:, 1:] = 0
+    msm = MSM(cv, MSMConfig(chunk_log2=1))
+    out = msm(cv.fq.to_mont(as_i32(points)), as_i32(scal), window_bits=6, scalar_bits=12)
+    assert msm.chunk_plans == {(2, 16, 8): 2, (2, 8, 8): 1}
+    assert affine(cv, out) == ECOracle(spec).msm(dbg["points"], [int(s) for s in scal[:, 0]])
 
 
 def test_zero_and_duplicate_scalars_match_oracle():

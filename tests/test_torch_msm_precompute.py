@@ -49,10 +49,13 @@ def resident_points(cv: Curve, points) -> torch.Tensor:
     return points_to_resident(cv, as_i32(points_to_affine_words(cv.spec, points)))
 
 
+# at c = 8 the plan grows a chunk of 64-bit slices (G = 8) by k = 2 and one
+# of 32-bit slices (G = 4) by k = 4: chunk_log2 is log2 k lower where the
+# chunks are to cross within a multiple
 @pytest.mark.parametrize("name, factor, chunk_log2, n", [
     ("bn254", 8, 19, 16),          # one chunk per multiple
-    ("bn254", 4, 2, 10),           # three chunks per multiple, the last ragged
-    ("bls12_381", 8, 3, 16),       # two whole chunks per multiple
+    ("bn254", 4, 1, 10),           # three chunks per multiple, the last ragged
+    ("bls12_381", 8, 1, 16),       # two whole chunks per multiple
     ("bls12_381", 4, 19, 6),
 ])
 def test_resident_precomputed_msm_matches_oracle_and_plain_msm(name, factor, chunk_log2, n):
@@ -89,9 +92,11 @@ def test_resident_precomputed_msm_matches_oracle_and_plain_msm(name, factor, chu
     plain = MSM(cv)(resident_points(cv, points), sc, window_bits=8)
     assert affine(cv, plain) == want
 
-    step = 1 << chunk_log2
-    starts = [i * n + lo for i in range(factor) for lo in range(0, n, step)]
+    plan = msm.plan(n, 8, shift)
+    starts = [i * n + lo for i in range(factor) for lo in range(0, n, plan.points)]
     assert [s[2] for s in seen] == starts
+    assert sum(msm.chunk_plans.values()) == len(starts)
+    assert all(p.windows == plan.windows and p.points <= plan.points for p in msm.chunk_plans)
     assert all(s[0] == bases.untyped_storage().data_ptr() for s in seen)
     assert all(s[1] == sc.untyped_storage().data_ptr() for s in seen)
     assert all(s[3][0] == shift // 16 and s[4] == shift for s in seen)

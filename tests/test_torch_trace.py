@@ -102,7 +102,7 @@ def test_msm_call_span_holds_its_chunk_spans(monkeypatch):
     scal = np.tile(scalars, (64, 1))
     scal[:, 0] &= 0xFFF
     scal[:, 1:] = 0
-    msm = MSM(cv, MSMConfig(chunk_log2=9))
+    msm = MSM(cv, MSMConfig(chunk_log2=6))     # two windows: 2^(6 + 3) points a chunk
     threeW = 3 * cv.nwords
 
     def scan(pts, order, R, C, sortkey=None):
