@@ -17,13 +17,12 @@ card) on the same canonical operands from a seed, with its ms, Mmul/s,
 HBM and IMAD attainment and bound, and 4 products are held against
 Python ints (a b R^-1 mod p) or the run fails.  One JSON line per kernel,
 then the card's name and power limit.  Defaults: bls12_381_fq, 2^16.
-BLZ_BENCH_DEVICE=cpu runs the plain versions; without a card the run
-exits non-zero otherwise.
+Without a card it exits non-zero; `run(field, logb, "cpu")` times the
+plain versions.
 """
 from __future__ import annotations
 
 import json
-import os
 import sys
 
 import torch
@@ -68,15 +67,13 @@ def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     field = argv[0] if argv else "bls12_381_fq"
     logb = int(argv[1]) if len(argv) > 1 else 16
-    device = os.environ.get("BLZ_BENCH_DEVICE", "cuda")
-    if device == "cuda" and not torch.cuda.is_available():
-        print("microbench: no CUDA device (BLZ_BENCH_DEVICE=cpu runs the plain versions)",
-              file=sys.stderr)
+    if not torch.cuda.is_available():
+        print("microbench: no CUDA device", file=sys.stderr)
         return 1
-    recs = run(field, logb, device, reps=50 if device == "cuda" else 3)
+    recs = run(field, logb, "cuda")
     for r in recs:
         print(json.dumps(r), flush=True)
-    print(smi("name,power.limit") if device == "cuda" else "cpu", flush=True)
+    print(smi("name,power.limit"), flush=True)
     bad = [r["kernel"] for r in recs if r.get("spot_check") is False]
     if bad:
         print(f"microbench: {bad} differ from Python ints", file=sys.stderr)

@@ -1,7 +1,7 @@
 """Kernel timing, speed of light and work accounting on the card.
 
 The counterpart of blaze_tpu/bench/profile.py, and the one home of the
-port's bounds, timers and work counts (chip_smoke.py and the runners import
+port's bounds, timers and work counts (chip_smoke.py and the scripts import
 them from here):
 
   * `SpeedOfLight` / `SOL_TABLE` / `speed_of_light`: the card's limits,

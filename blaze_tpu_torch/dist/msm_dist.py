@@ -2,12 +2,12 @@
 
 Port of blaze_tpu/dist/msm_dist.py.  Points and scalars are split over the
 axis ('dp'); each rank runs the port's chunked Pippenger on its rows (the
-per-card task of the reference, which has no multi-card story): per chunk
-of the engine's planned points (MSM.plan) the window sums (MSM.msm_partial,
-K1-K5), added across chunks on K3 (MSM.accumulate).  The (nwin, 3, W)
-window sums, a few KB, are then gathered from every rank
-(`all_gather_single`), reduced by a log-depth tree of batched complete adds
-on K3, and folded on K6 (MSM.finalize).  Every rank computes the same reduction of the same
+per-card task of the reference, which has no multi-card story): the
+engine's chunk loop (MSM.window_sums: per chunk of its planned points the
+window sums, added across chunks on K3).  The (nwin, 3, W) window sums, a
+few KB, are then gathered from every rank (`all_gather_single`), reduced
+by a log-depth tree of batched complete adds on K3, and folded on K6
+(MSM.finalize).  Every rank computes the same reduction of the same
 gathered sums, so the result is replicated.  Communication is O(nwin)
 points: the reduce-side analog of the reference's final-accumulation phase
 (msm_hw_code.rs:27,33-34).
@@ -80,10 +80,6 @@ class DistributedMSM:
         else:
             pts = points_to_resident(self.curve, points[lo:lo + per], mont=True)
             scal = scalars_to_resident(scalars[lo:lo + per])
-        chunk = eng.plan(per, c, scalar_bits).points
-        wsums = None
-        for a in range(0, per, chunk):
-            part = eng.msm_partial(pts[:, a:a + chunk], scal[:, a:a + chunk], c, scalar_bits)
-            wsums = eng.accumulate(wsums, part)
+        wsums = eng.window_sums(pts, scal, c, scalar_bits)
         gathered = all_gather(wsums, self.group, D)       # (D, nwin, 3, W)
         return eng.finalize(self._reduce_wsums(gathered), c)

@@ -485,17 +485,36 @@ class MSM:
             points, scalars = self._as_resident(points, scalars)
             c = window_bits or min(self.config.window_bits, default_window_bits(points.shape[1]))
             self._clock.mark("msm_stream", points)      # the first chunk's operands
-            return self.finalize(self._stream(None, points, scalars, c, scalar_bits), c)
+            return self.finalize(self.window_sums(points, scalars, c, scalar_bits), c)
 
-    def _stream(self, wsums, points, scalars, c: int, scalar_bits: int | None):
-        """The chunks of resident (2W, n) points and (Ls, n) scalars, each
-        chunk's window sums accumulated onto `wsums` (None: the first
-        chunk's), each chunk of the planned points."""
+    def window_sums(self, points, scalars, c: int, scalar_bits: int | None = None,
+                    wsums=None):
+        """The engine's one chunk loop: the (nwin, 3, W) window sums of
+        resident (2W, n) points and (Ls, n) scalars, sliced into chunks of
+        the planned points (`plan(n, c, scalar_bits).points`), each chunk
+        one `_chunk`, its sums accumulated (K3) onto `wsums` (None: the
+        first chunk's).  No points leave `wsums` as it was."""
         chunk = self.plan(points.shape[1], c, scalar_bits).points
         for lo in range(0, points.shape[1], chunk):
             part = self._chunk(points[:, lo:lo + chunk], scalars[:, lo:lo + chunk], c,
                                scalar_bits)
             wsums = self.accumulate(wsums, part)
+        return wsums
+
+    def precomputed_window_sums(self, columns, scalars, c: int, wsums=None):
+        """The precompute mode's window sums: `columns` the factor (2W, n)
+        column views of the bases' multiples (multiple i: each base times
+        2^(shift i)), `scalars` the unsliced (Ls, n) limbs.  Multiple i's
+        chunks read its limb rows of the scalars in place
+        (msm.precompute.scalar_rows) as shift-bit scalars, so no chunk
+        straddles two multiples; accumulated onto `wsums` as in
+        `window_sums`."""
+        from .precompute import scalar_rows
+
+        blocks, bits = scalar_rows(scalars, len(columns), self.curve.spec.fr.bits)
+        for cols, rows in zip(columns, blocks):
+            with span("blaze.msm.multiple"):
+                wsums = self.window_sums(cols, rows, c, bits, wsums)
         return wsums
 
     def stage_ms(self) -> dict:
@@ -516,23 +535,16 @@ class MSM:
         (msm.precompute_resident) or their points-major (factor*N, 2, W)
         form (msm.precompute_points), `scalars` the unsliced (Ls, N)
         resident limbs or their (N, Ls) form, following the points.
-        Multiple i's chunks read its limb rows of the scalars in place
-        (msm.precompute.scalar_rows) and its columns of the bases; no chunk
-        straddles two multiples.  The window, the chunk and the lanes are
-        planned as for factor*N points of shift-bit scalars."""
-        from .precompute import scalar_rows
-
+        Multiple i's chunks read its columns of the bases and its limb rows
+        of the scalars (`precomputed_window_sums`).  The window is chosen as
+        for factor*N points."""
         with span("blaze.msm.call"):
             expanded, scalars = self._as_resident(expanded_points, scalars)
             n = scalars.shape[1]
             if expanded.shape[1] != factor * n:
                 raise ValueError(f"{expanded.shape[1]} multiples, want "
                                  f"factor {factor} x {n} scalars")
-            blocks, bits = scalar_rows(scalars, factor, self.curve.spec.fr.bits)
             c = window_bits or min(self.config.window_bits, default_window_bits(factor * n))
             self._clock.mark("msm_stream", expanded)
-            wsums = None
-            for i, rows in enumerate(blocks):
-                with span("blaze.msm.multiple"):
-                    wsums = self._stream(wsums, expanded[:, i * n:(i + 1) * n], rows, c, bits)
-            return self.finalize(wsums, c)
+            columns = [expanded[:, i * n:(i + 1) * n] for i in range(factor)]
+            return self.finalize(self.precomputed_window_sums(columns, scalars, c), c)

@@ -53,7 +53,6 @@ from ..msm import (
     default_window_bits,
     points_from_resident,
     points_to_resident,
-    scalar_rows,
     scalars_to_resident,
 )
 from ..ntt import make_ntt
@@ -312,10 +311,10 @@ class MSMClient(DriverPrimitive):
                 self._points = self._cached_points(key, n)  # mode 3: reuse
 
     def _set_data_stream(self, input: MSMInput) -> None:
-        """One streamed chunk: stage it, then compute and accumulate the
-        window partials of each slice of it of the engine's planned points
-        (MSM.plan), as MSM.__call__ slices a large input.  Caller holds the
-        lock."""
+        """One streamed chunk: stage it, then accumulate its window sums
+        onto the task's (MSM.precomputed_window_sums: each multiple's
+        columns in chunks of the engine's planned points, as MSM.__call__
+        slices a large input).  Caller holds the lock."""
         if input.params is not None:
             raise InvalidPrimitiveParam(
                 "a streamed chunk cannot carry params: the open task's were "
@@ -332,7 +331,7 @@ class MSMClient(DriverPrimitive):
                 )
             # each multiple's columns of the bases (multiple-major: over the
             # chunk when it brings its points, over the FULL base set in the
-            # cache) and its limb rows of the scalars
+            # cache)
             k = self.init.precompute_factor
             if input.points is not None:
                 pdev = self._stage_points(input.points, nchunk)
@@ -341,13 +340,8 @@ class MSMClient(DriverPrimitive):
                 cache = self._cached_points(params.hbm_point_addr, params.nof_elements)
                 nb, lo = params.nof_elements, st["consumed"]
                 cols = [cache[:, m * nb + lo:m * nb + lo + nchunk] for m in range(k)]
-            rows, bits = scalar_rows(sdev, k, self.curve.spec.fr.bits)
-            step = self.engine.plan(nchunk, st["c"], bits).points
-            for pts, sc in zip(cols, rows):
-                for a in range(0, nchunk, step):
-                    part = self.engine.msm_partial(pts[:, a:a + step], sc[:, a:a + step],
-                                                   st["c"], bits)
-                    st["wsums"] = self.engine.accumulate(st["wsums"], part)
+            st["wsums"] = self.engine.precomputed_window_sums(cols, sdev, st["c"],
+                                                              st["wsums"])
             st["consumed"] += nchunk
 
     # ------------------------------------------------------------ lifecycle

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (blaze_tpu_torch) end to end on one GPU.
 
-    python3 chip_smoke.py [--seed N] [--parent DIR]
+    python3 chip_smoke.py [--seed N]
 
 Phases, one JSON line each; any failure raises and exits non-zero:
 
@@ -50,15 +50,9 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    printed), then five more start_process -> wait_result on the resident
    operands (best, median and spread; each result's bytes the first's).
    Each chunk is one CUDA graph replay but the first (the capture's
-   warm-up).  Phases 3, 4 and 4b each launch K6 exactly once.  With
-   --parent DIR the
-   same instance then runs in five pairs of fresh child processes on the
-   same card, one from another tree of the package (the parent commit
-   unpacked under build/) and one from this tree, the side that goes
-   first alternating; all must give the same result bytes (a parent tree
-   whose fold ran on the Field prints it as field_fold_s).  After it, in a
-   fresh process, the eager 2^19 chunk (its device operations) and one
-   warm 2^19 single-chunk MSM, its chunk a graph replay, run under
+   warm-up).  Phases 3, 4 and 4b each launch K6 exactly once.  After it,
+   in a fresh process, the eager 2^19 chunk (its device operations) and
+   one warm 2^19 single-chunk MSM, its chunk a graph replay, run under
    torch.profiler (device operations, busy time, idle share; the trace
    holds a replayed graph's kernels).
    Phases 3, 4 and 4b use 256 points of the order-r subgroup tiled and
@@ -182,12 +176,7 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    before and read after (probe_chain and mont_tc must launch); then
    probe_chain (E2's mont body, W = 12, M = 9) and mont_tc (E1's one
    product, W = 12) at 2^16 timed beside their plain versions and bounds;
-12. the benchmark module (blaze_tpu_torch.bench) in child processes:
-   python -m blaze_tpu_torch.bench at its full sizes, one timed run each
-   (MSM 2^24, NTT 2^27, Poseidon over 2^24 leaves, the pipeline at (2^27,
-   2^24)), every record oracle-exact, and the microbench (K1 and K8 on the
-   same operands) at bls12_381_fq 2^19 and bls12_381_fr 2^19;
-13. the seconds each phase took, then the kernels line (K1, KF, K2-K10,
+12. the seconds each phase took, then the kernels line (K1, KF, K2-K10,
    K7-K9's W = 12 builds as ntt_base_w12, mul_lm_w12, twiddle_mul_w12,
    their times at the W = 12 2^27 plan's shapes, and the probe kernels
    probe_chain and mont_tc, their launches those of phase 11b): launches
@@ -813,16 +802,14 @@ def phase_main_path(seed: int):
     return launches
 
 
-def run_resident(n: int, seed: int, device=None, inputs: Path | None = None,
-                 repeats: int = 0):
+def run_resident(n: int, seed: int, device=None, repeats: int = 0):
     """The headline shape (bench.py:10, bls12_381_msm_2^24): set_data once
     with every point and scalar, start_process -> wait_result -> result(),
-    n / 2^19 chunks on the card and the window fold (`finalize`, timed).  The
-    instance is tiled_instance(n, seed), or the one save_instance wrote to
-    `inputs`.  Then `repeats` more start_process -> wait_result on the
-    resident operands (MSM.__call__, the bench's headline record, each chunk
-    a graph replay), their best, median and spread; every result's bytes
-    must be the first's.  info["launches"] holds the launch counters after
+    n / 2^19 chunks on the card and the window fold (`finalize`, timed) on
+    tiled_instance(n, seed).  Then `repeats` more start_process ->
+    wait_result on the resident operands (MSM.__call__, each chunk a graph
+    replay), their best, median and spread; every result's bytes must be
+    the first's.  info["launches"] holds the launch counters after
     the first run.  Returns (ok, info)."""
     import statistics
 
@@ -834,11 +821,7 @@ def run_resident(n: int, seed: int, device=None, inputs: Path | None = None,
 
     spec = CURVES["bls12_381"]
     t0 = time.perf_counter()
-    if inputs is None:
-        praw, sraw, expected = tiled_instance(spec, n, seed)
-    else:
-        praw, sraw = ((inputs / f).read_bytes() for f in ("points.bin", "scalars.bin"))
-        expected = tuple(json.loads((inputs / "expected.json").read_text()))
+    praw, sraw, expected = tiled_instance(spec, n, seed)
     gen_s = time.perf_counter() - t0
     client = MSMClient(MSMInit(curve="bls12_381"), device=device)
     client.initialize(MSMParams(nof_elements=n))
@@ -868,11 +851,8 @@ def run_resident(n: int, seed: int, device=None, inputs: Path | None = None,
             "input_gen_s": gen_s, "set_data_s": t1 - t0, "start_to_wait_s": t2 - t1,
             "points_per_s": n / (t2 - t1), "fold_s": fold.get("s"),
             "chunks_queued_s": fold["enqueued"] - t1, "chunks_done_s": fold["done"] - t1,
-            "result_sha256": hashlib.sha256(raw).hexdigest(),
-            "launches": dict(_build.LAUNCHES)}
-    pool = getattr(client.engine, "graph_pool_bytes", None)
-    if pool is not None:
-        info["graph_pool_gib"] = pool / 2**30
+            "launches": dict(_build.LAUNCHES),
+            "graph_pool_gib": client.engine.graph_pool_bytes / 2**30}
     if repeats:
         client.engine.finalize = engine_finalize
         walls, same = [], True
@@ -1051,91 +1031,6 @@ def phase_msm_2e24(seed: int, n: int = 1 << 24) -> dict:
                              f"{counts['scan_mixed']} rows-form K2 and "
                              f"{counts['reduce_cols']} K4 launches for {chunks} chunks")
     return counts
-
-
-def save_instance(d: Path, n: int, seed: int) -> Path:
-    """tiled_instance(n, seed) on BLS12-381 as files under `d`, for
-    run_resident(inputs=d)."""
-    from blaze_tpu_torch.curves import CURVES
-
-    praw, sraw, expected = tiled_instance(CURVES["bls12_381"], n, seed)
-    d.mkdir(parents=True, exist_ok=True)
-    (d / "points.bin").write_bytes(praw)
-    (d / "scalars.bin").write_bytes(sraw)
-    (d / "expected.json").write_text(json.dumps(list(expected)))
-    return d
-
-
-def resident_in_child(tree: Path, n: int, inputs: Path) -> dict:
-    """run_resident on the instance in `inputs`, in a fresh child process
-    that imports the blaze_tpu_torch of `tree` (this checkout, or another
-    tree of the package such as the parent commit unpacked under build/; its
-    kernels are built there first).  Raises unless the child's package came
-    from `tree` and its result matched the oracle; returns the child's line
-    (with its launch counts)."""
-    tree = tree.resolve()
-    code = (
-        "import importlib.util, json, sys\n"
-        "from pathlib import Path\n"
-        f"sys.path.insert(0, {str(tree)!r})\n"
-        "from blaze_tpu_torch import _build\n"
-        f"if Path(_build.__file__).resolve().parents[1] != Path({str(tree)!r}):\n"
-        "    raise SystemExit(f'imported {_build.__file__}, not the tree asked for')\n"
-        "b = _build.build_all(('montmul', 'ec_kernels'))\n"
-        f"spec = importlib.util.spec_from_file_location('smoke', {str(ROOT / 'chip_smoke.py')!r})\n"
-        "cs = importlib.util.module_from_spec(spec); spec.loader.exec_module(cs)\n"
-        "_build.reset_launches()\n"
-        f"ok, info = cs.run_resident({n}, 0, inputs=Path({str(inputs.resolve())!r}))\n"
-        "print(json.dumps({'tree': str(Path(_build.__file__).resolve().parents[1]),\n"
-        "                  'build_s': b, 'oracle': ok, **info,\n"
-        "                  'launches': dict(_build.LAUNCHES)}))\n"
-    )
-    # -P: no working directory on the child's path, so only `tree` provides
-    # the package
-    out = subprocess.run([sys.executable, "-P", "-c", code], cwd=tree, capture_output=True,
-                         text=True, timeout=600)
-    if out.returncode != 0:
-        raise AssertionError(f"msm 2^24 from {tree} failed:\n{out.stderr[-4000:]}")
-    line = json.loads(out.stdout.strip().splitlines()[-1])
-    if Path(line["tree"]) != tree or not line["oracle"]:
-        raise AssertionError(f"msm 2^24 from {tree}: tree {line['tree']}, "
-                             f"oracle {line['oracle']}")
-    return line
-
-
-COMPARE_PAIRS = 5
-
-
-def phase_msm_2e24_compare(parent: Path, seed: int, n: int = 1 << 24) -> dict:
-    """The end-to-end comparison at the headline shape: the 2^24 phase's
-    instance, made once, run from the parent's tree and from this one, each
-    run in a fresh child process on the same card, COMPARE_PAIRS pairs with
-    the side that goes first alternating (parent, change, change, parent,
-    ...).  Every run must match the oracle and give the same result bytes.
-    Prints one line per run and one with both sides' lists."""
-    import shutil
-
-    inputs = save_instance(ROOT / "build" / "msm_2e24_instance", n, seed + 2)
-    runs = []
-    try:
-        for i in range(2 * COMPARE_PAIRS):
-            side = "parent" if (i % 4) in (0, 3) else "change"
-            line = resident_in_child(parent if side == "parent" else ROOT, n, inputs)
-            emit({"phase": "msm_2^24_compare", "run": i, "side": side, **line})
-            runs.append((side, line))
-    finally:
-        shutil.rmtree(inputs, ignore_errors=True)
-    if len({line["result_sha256"] for _, line in runs}) != 1:
-        raise AssertionError("msm 2^24: parent and change give different result bytes")
-    # a parent tree whose fold ran on the Field names its time field_fold_s
-    for _, line in runs:
-        line.setdefault("fold_s", line.get("field_fold_s"))
-    summary = {side: {key: [line[key] for s, line in runs if s == side]
-                      for key in ("points_per_s", "start_to_wait_s", "set_data_s",
-                                  "chunks_done_s", "fold_s")}
-               for side in ("parent", "change")}
-    emit({"phase": "msm_2^24_compare_summary", "order": [s for s, _ in runs], **summary})
-    return summary
 
 
 # ------------------------------------------------------------ phase 5
@@ -1444,7 +1339,7 @@ def phase_ntt_2e27(seed: int, logn: int = 27) -> dict:
     import torch
 
     from blaze_tpu_torch import _build
-    from blaze_tpu_torch.bench.runners import evaluate_on_card, word_ints
+    from blaze_tpu_torch.oracle.checks import evaluate_on_card, word_ints
     from blaze_tpu_torch.fields import FIELDS, int_to_words
     from blaze_tpu_torch.oracle.gen import host_vector
     from blaze_tpu_torch.runtime import NTTClient, NTTInit, NTTInput
@@ -1549,7 +1444,7 @@ def phase_ntt_small(seed: int) -> dict:
     import numpy as np
 
     from blaze_tpu_torch import _build
-    from blaze_tpu_torch.bench.runners import word_ints
+    from blaze_tpu_torch.oracle.checks import word_ints
     from blaze_tpu_torch.fields import FIELDS
     from blaze_tpu_torch.oracle.gen import host_vector
     from blaze_tpu_torch.runtime import NTTClient, NTTInit
@@ -1625,7 +1520,7 @@ def phase_ntt_wide(sol, seed: int, logn: int = 27, dist_logn: int = 24, small_lo
 
     from blaze_tpu_torch import _build
     from blaze_tpu_torch.bench.profile import cuda_ms
-    from blaze_tpu_torch.bench.runners import evaluate_on_card, word_ints
+    from blaze_tpu_torch.oracle.checks import evaluate_on_card, word_ints
     from blaze_tpu_torch.dist import DistributedNTT, make_mesh
     from blaze_tpu_torch.fields import FIELDS
     from blaze_tpu_torch.ntt import FusedNTT
@@ -1799,7 +1694,7 @@ def pipeline_setup(seed: int, ntt_logn: int, msm_logn: int):
     import numpy as np
     import torch
 
-    from blaze_tpu_torch.bench.runners import coeff_batch, pipeline_terms
+    from blaze_tpu_torch.oracle.checks import coeff_batch, pipeline_terms
     from blaze_tpu_torch.curves import CURVES, Curve
     from blaze_tpu_torch.msm import points_to_resident
     from blaze_tpu_torch.oracle import ECOracle
@@ -1866,7 +1761,7 @@ def phase_pipeline(seed: int, ntt_logn: int = 27, msm_logn: int = 24) -> dict:
 
     from blaze_tpu_torch import _build
     from blaze_tpu_torch.bench.profile import cuda_ms
-    from blaze_tpu_torch.bench.runners import pipeline_expected
+    from blaze_tpu_torch.oracle.checks import pipeline_expected
     from blaze_tpu_torch.curves import CURVES
 
     spec = CURVES["bls12_381"]
@@ -2118,7 +2013,7 @@ def phase_dist(sol, seed: int, ntt_logn: int = 27, msm_logn: int = 24,
     import torch.distributed as dist
 
     from blaze_tpu_torch.bench.profile import SPLIT, cuda_ms
-    from blaze_tpu_torch.bench.runners import pipeline_expected, pipeline_terms
+    from blaze_tpu_torch.oracle.checks import pipeline_expected, pipeline_terms
     from blaze_tpu_torch.curves import CURVES, Curve
     from blaze_tpu_torch.dist import DistributedMSM, DistributedNTT, make_mesh
     from blaze_tpu_torch.fields import FIELDS, int_to_words
@@ -2475,7 +2370,7 @@ def phase_poseidon_h4(seed: int) -> dict:
     import numpy as np
 
     from blaze_tpu_torch import _build
-    from blaze_tpu_torch.bench.runners import parse_records
+    from blaze_tpu_torch.oracle.checks import parse_records
     from blaze_tpu_torch.fields import FIELDS
     from blaze_tpu_torch.hash import LEAF_ARITY, TreeMode, generate_params, num_tree_nodes
     from blaze_tpu_torch.oracle.poseidon_ref import merkle_tree_ref, poseidon_hash_ref
@@ -2540,7 +2435,7 @@ def phase_poseidon_h9(seed: int, height: int = 9) -> dict:
     import torch
 
     from blaze_tpu_torch import _build
-    from blaze_tpu_torch.bench.runners import check_tree
+    from blaze_tpu_torch.oracle.checks import check_tree
     from blaze_tpu_torch.fields import FIELDS
     from blaze_tpu_torch.hash import LEAF_ARITY
     from blaze_tpu_torch.oracle.gen import host_vector
@@ -2603,7 +2498,7 @@ def phase_poseidon_stream(seed: int, height: int = 7, stream_leaves: int = 1 << 
     import numpy as np
 
     from blaze_tpu_torch import _build
-    from blaze_tpu_torch.bench.runners import parse_records
+    from blaze_tpu_torch.oracle.checks import parse_records
     from blaze_tpu_torch.hash import LEAF_ARITY, num_tree_nodes
     from blaze_tpu_torch.oracle.gen import host_vector
     from blaze_tpu_torch.runtime import PoseidonClient, PoseidonInitializeParameters
@@ -2758,61 +2653,9 @@ def phase_experiments(sol, device):
     return errs, timing, counts
 
 
-# ---------------------------------------------------------- the bench phase
-BENCH_TIMEOUT_S = 600
-MICROBENCH = (("bls12_381_fq", 19), ("bls12_381_fr", 19))
-
-
-def phase_bench() -> dict:
-    """The benchmark module in child processes on the same card: python -m
-    blaze_tpu_torch.bench at its full sizes with BLZ_BENCH_ITERS=1 (MSM
-    2^24 resident, NTT 2^27, Poseidon over 2^24 leaves, the pipeline at
-    (2^27, 2^24)), then the microbench at each MICROBENCH (field, log2
-    batch): bls12_381_fq 2^19 is K1's main shape, bls12_381_fr 2^19 holds
-    K1 and K8 on the same operands.  Prints their lines; fails unless each
-    child exited 0, the bench printed four records, each oracle-exact, and
-    every spot check passed."""
-    import torch
-
-    torch.cuda.empty_cache()
-    env = {k: v for k, v in os.environ.items() if not k.startswith("BLZ_BENCH_")}
-    env.update(BLZ_BENCH_ITERS="1", PYTHONPATH=str(ROOT))
-
-    def child(*args):
-        out = subprocess.run([sys.executable, "-m", *args], cwd=ROOT, env=env,
-                             capture_output=True, text=True, timeout=BENCH_TIMEOUT_S)
-        if out.returncode != 0:
-            print(out.stderr[-4000:], file=sys.stderr, flush=True)
-        return out
-
-    out = child("blaze_tpu_torch.bench")
-    line = json.loads(out.stdout.strip().splitlines()[-1])
-    emit({"phase": "bench", "rc": out.returncode, **line})
-    records = [line, *line.get("extra", {}).values()]
-    ok = (out.returncode == 0 and "errors" not in line and len(records) == 4
-          and all(r.get("oracle") == "exact" for r in records))
-    micro = []
-    for field, logb in MICROBENCH:
-        m = child("blaze_tpu_torch.bench.microbench", field, str(logb))
-        lines = [json.loads(x) for x in m.stdout.splitlines() if x.startswith("{")]
-        for x in lines:
-            emit({"phase": "microbench", **x})
-        micro += lines
-        ok = ok and m.returncode == 0 and all(x.get("spot_check", True) for x in lines)
-    if not ok:
-        raise AssertionError("bench: a runner failed, a record is not oracle-exact, or a "
-                             "microbench spot check failed")
-    return {"bench": line, "microbench": micro}
-
-
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--parent", type=Path, default=None,
-                    help="another tree of the package (e.g. the parent commit unpacked "
-                         "under build/): also run the MSM 2^24 phase from it and from "
-                         "this tree, each run in a fresh process, in alternating pairs, "
-                         "for the end-to-end comparison")
     args = ap.parse_args()
 
     import torch
@@ -2843,8 +2686,6 @@ def main() -> int:
     timed_phase("msm_2^19_chunk_graph", phase_chunk_graph, args.seed)
     for k, v in timed_phase("msm_2^24", phase_msm_2e24, args.seed).items():
         launches[k] += v
-    if args.parent:
-        timed_phase("msm_2^24_compare", phase_msm_2e24_compare, args.parent, args.seed)
     timed_phase("msm_2^19_profile", fresh, "profile_single_chunk", args.seed)
     ntt_errs, ntt_timing = timed_phase("ntt_parity", phase_ntt_parity, sol, args.seed, dev)
     errs.update(ntt_errs)
@@ -2881,7 +2722,6 @@ def main() -> int:
     timing.update(exp_timing)
     for k, v in exp_counts.items():
         launches[k] += v
-    timed_phase("bench", phase_bench)
     emit({"phase_seconds": seconds})
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

@@ -4,25 +4,20 @@ scaling_efficiency against blaze_tpu's; bench_kernel's CPU timing and its
 summary; speed_of_light refusing a card it does not know; the bound column
 of PERF.md's kernel table reproduced from the H100's SOL_TABLE row at each
 kernel's main shape (and equal to the values chip_smoke.py printed before
-the bounds moved to bench/profile.py); the work counts; the four runners
-at small sizes on the plain versions, each exact against its oracle; `python -m blaze_tpu_torch.bench` without a card, and with
-BLZ_BENCH_DEVICE=cpu loading no jax; the microbench's spot check; the
-instance generator and ECOracle.mul against their slow forms.
+the bounds moved to bench/profile.py); the work counts; the microbench's
+spot check; the instance generator and ECOracle.mul against their slow
+forms.
 """
 import math
-import os
 import random
 import re
-import subprocess
-import sys
-from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
 from blaze_tpu.bench import profile as jax_profile
-from blaze_tpu_torch.bench import microbench, runners
+from blaze_tpu_torch.bench import microbench
 from blaze_tpu_torch.bench.profile import (
     SOL_TABLE,
     bench_kernel,
@@ -42,7 +37,6 @@ from blaze_tpu_torch.hash import generate_params
 from blaze_tpu_torch.oracle import ECOracle, class_sum_expected
 from blaze_tpu_torch.oracle.gen import subgroup_msm_instance
 
-REPO = Path(__file__).resolve().parents[1]
 H100 = SOL_TABLE["NVIDIA H100 80GB HBM3"]
 CPU = SOL_TABLE["cpu"]
 
@@ -158,88 +152,7 @@ def test_work_counts():
         1 << 10, 12)
 
 
-# ------------------------------------------------------------------ runners
-def _check_record(rec, metric, unit):
-    assert rec["metric"] == metric and rec["unit"] == unit and rec["oracle"] == "exact"
-    assert rec["value"] > 0 and 0 < rec["ms"] <= rec["median_ms"]
-    assert rec["sol_fraction"] > 0 and rec["imad_fraction"] > 0
-
-
-def test_msm_runner_is_exact_on_the_cpu():
-    rec = runners.bench_msm(8, "bn254", 1, CPU, "cpu")
-    _check_record(rec, "bn254_msm_2^8", "points/sec")
-    assert rec["n"] == 256 and rec["value"] == pytest.approx(256 / (rec["ms"] / 1e3))
-
-
-def test_ntt_runner_is_exact_on_the_cpu():
-    _check_record(runners.bench_ntt(10, 2, CPU, "cpu"), "ntt_2^10", "elems/sec")
-
-
-def test_ntt_runner_fails_on_a_wrong_transform(monkeypatch):
-    from blaze_tpu_torch.ntt import FusedNTT
-
-    ntt = FusedNTT.ntt
-    monkeypatch.setattr(FusedNTT, "ntt", lambda self, x: ntt(self, x).roll(1, 0))
-    with pytest.raises(AssertionError, match="ntt 2\\^10"):
-        runners.bench_ntt(10, 1, CPU, "cpu")
-
-
-def test_poseidon_runner_is_exact_on_the_cpu():
-    rec = runners.bench_poseidon(6, 1, CPU, "cpu")
-    _check_record(rec, "poseidon_2^6_leaves", "leaves/sec")
-    assert rec["height"] == 3 and rec["sampled_per_layer"] == {0: 64, 1: 8, 2: 1}
-    with pytest.raises(ValueError, match="power of 8"):
-        runners.bench_poseidon(7, 1, CPU, "cpu")
-
-
-def test_pipeline_runner_is_exact_on_the_cpu():
-    rec = runners.bench_pipeline(10, 8, 1, CPU, "cpu")
-    _check_record(rec, "pipeline_ntt2^10_msm2^8", "proofs/sec")
-    assert rec["batches"] == 3
-    assert rec["value"] == pytest.approx(1e3 / rec["mean_ms"])
-
-
-def _bench_env(**kw):
-    env = {k: v for k, v in os.environ.items() if not k.startswith("BLZ_BENCH_")}
-    env.update(PYTHONPATH=str(REPO), OMP_NUM_THREADS="1", **kw)
-    return env
-
-
-def test_bench_without_a_card_exits_nonzero_and_prints_no_record():
-    if torch.cuda.is_available():
-        pytest.skip("this host has a card")
-    out = subprocess.run([sys.executable, "-m", "blaze_tpu_torch.bench"], env=_bench_env(),
-                         cwd=REPO, capture_output=True, text=True, timeout=300)
-    assert out.returncode != 0 and out.stdout == ""
-    assert "no CUDA device" in out.stderr
-    out = subprocess.run([sys.executable, "-m", "blaze_tpu_torch.bench"],
-                         env=_bench_env(BLZ_BENCH_DEVICE="tpu"), cwd=REPO,
-                         capture_output=True, text=True, timeout=300)
-    assert out.returncode != 0 and out.stdout == ""
-
-
-def test_bench_on_the_cpu_loads_no_jax():
-    code = (
-        "import json, runpy, sys\n"
-        "try:\n"
-        "    runpy.run_module('blaze_tpu_torch.bench', run_name='__main__')\n"
-        "except SystemExit as e:\n"
-        "    rc = e.code\n"
-        "assert 'jax' not in sys.modules and 'blaze_tpu' not in sys.modules\n"
-        "sys.exit(rc)\n"
-    )
-    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
-                         text=True, timeout=300,
-                         env=_bench_env(BLZ_BENCH_DEVICE="cpu", BLZ_BENCH_ONLY="ntt",
-                                        BLZ_BENCH_ITERS="1"))
-    assert out.returncode == 0, out.stderr[-2000:]
-    import json
-
-    line = json.loads(out.stdout.strip().splitlines()[-1])
-    assert line["metric"] == "ntt_2^10" and line["oracle"] == "exact"
-    assert line["device"] == "cpu" and line["vs_baseline"] == 1.0 and "errors" not in line
-
-
+# ------------------------------------------------------------- microbench
 @pytest.mark.parametrize("field", ["bls12_381_fr", "bls12_381_fq"])
 def test_microbench_spot_check(field):
     recs = microbench.run(field, 6, "cpu", reps=2)

@@ -19,18 +19,17 @@ run; K7 and K9 at batched maps (FusedNTT.ntt_batch) against their plain
 versions, and the sharded paths over NCCL on a mesh of one rank
 (DistributedMSM against the plain MSM and the oracle, DistributedNTT
 against the CPU four-step and FusedNTT, run_dist against its geometric
-oracle); the benchmark's runners at reduced sizes, bench_kernel on K1
-against cuda_ms and the microbench's spot check; KF (the Field's
-elementwise kernel) against its plain version at both widths and ragged
-sizes; the MSM chunk as a CUDA graph: the capture's warm-up and its
-replays against the eager chunk and the oracle on the three curves, the
-launches a replay counts, one graph for the chunks of one MSM, and a
-capture that fails raising; a traced replay split by its stage marks
-(trace.py), in a fresh process; the precompute mode on resident
-operands: the 8x MSM of 2^20 BN254 bases against the class sums and the
-plain MSM, and precompute_resident over 2^22 distinct bases against
-precompute_points.  chip_smoke.py runs the same checks at
-the main path's sizes.
+oracle); bench_kernel on K1 against cuda_ms and the microbench's spot
+check; KF (the Field's elementwise kernel) against its plain version at
+both widths and ragged sizes; the MSM chunk as a CUDA graph: the
+capture's warm-up and its replays against the eager chunk and the
+oracle on the three curves, the launches a replay counts, one graph for
+the chunks of one MSM, and a capture that fails raising; a traced
+replay split by its stage marks (trace.py), in a fresh process; the
+precompute mode on resident operands: the 8x MSM of 2^20 BN254 bases
+against the class sums and the plain MSM, and precompute_resident over
+2^22 distinct bases against precompute_points.  chip_smoke.py runs the
+same checks at the main path's sizes.
 """
 import random
 from pathlib import Path
@@ -668,26 +667,6 @@ def test_run_dist_on_card_matches_oracle(one_rank):
     X, Y, Z = (words_to_int(v) for v in out.cpu().numpy().view(np.uint32))
     zi = pow(Z, -1, spec.fq.p)
     assert (X * zi % spec.fq.p, Y * zi % spec.fq.p) == want
-
-
-def test_bench_runners_on_card_at_reduced_sizes(dev):
-    """The benchmark's four runners on the card at reduced sizes (MSM 2^16,
-    NTT 2^18, a height-5 tree, the pipeline at (2^18, 2^16)), each exact
-    against its oracle, with the card's SOL_TABLE row (held against it)."""
-    from blaze_tpu_torch.bench import runners
-    from blaze_tpu_torch.bench.profile import check_card, speed_of_light
-
-    sol = speed_of_light(torch.cuda.get_device_name(0))
-    check_card(sol)
-    recs = [runners.bench_msm(16, "bls12_381", 2, sol, "cuda"),
-            runners.bench_ntt(18, 2, sol, "cuda"),
-            runners.bench_poseidon(12, 2, sol, "cuda"),
-            runners.bench_pipeline(18, 16, 2, sol, "cuda")]
-    assert [r["metric"] for r in recs] == ["bls12_381_msm_2^16", "ntt_2^18",
-                                           "poseidon_2^12_leaves", "pipeline_ntt2^18_msm2^16"]
-    for r in recs:
-        assert r["oracle"] == "exact" and 0 < r["ms"] <= r["median_ms"]
-        assert 0 < r["sol_fraction"] < 1 and 0 < r["imad_fraction"] < 1 and r["peak_gib"] > 0
 
 
 def test_bench_kernel_times_k1_as_cuda_ms_does(dev):

@@ -189,7 +189,7 @@ def test_a_stream_of_no_points_runs_no_chunk():
     W = cv.spec.fq.nwords
     pts = torch.zeros((2 * W, 0), dtype=torch.int32)
     scal = torch.zeros((8, 0), dtype=torch.int32)
-    assert msm._stream(None, pts, scal, 16, 32) is None and msm.chunk_plans == {}
+    assert msm.window_sums(pts, scal, 16, 32) is None and msm.chunk_plans == {}
 
 
 def test_chunk_plans_count_the_chunks_of_an_msm():

@@ -331,8 +331,8 @@ def test_streamed_chunk_is_split_by_chunk_log2():
     for chunks in (N, step):
         client = MSMClient(MSMInit(curve=CURVE), config=MSMConfig(chunk_log2=3), device="cpu")
         calls = []
-        partial = client.engine.msm_partial
-        client.engine.msm_partial = lambda *a, **k: calls.append(a[0].shape[1]) or partial(*a, **k)
+        chunk = client.engine._chunk
+        client.engine._chunk = lambda *a, **k: calls.append(a[0].shape[1]) or chunk(*a, **k)
         client.initialize(MSMParams(nof_elements=N))
         client.start_process()
         for lo in range(0, N, chunks):
@@ -383,6 +383,49 @@ def test_precompute_cache_from_load_data_to_hbm_matches_oracle():
         client.set_data(MSMInput(scalars=sraw))
     with pytest.raises(InvalidPrimitiveParam):
         client.load_data_to_hbm("ragged", praw[: 7 * spec.point_bytes])
+
+
+def test_streamed_precompute_task_equals_the_staged_one_byte_for_byte():
+    """A streamed 8x task fed in one set_data, with its points or with
+    scalars over points cached by load_data_to_hbm, runs each multiple in
+    several chunks (chunk_log2 4: 32 bases in 2 chunks a multiple) in the
+    staged task's order, so its result bytes are the staged task's; all
+    are the oracle's.  window_bits 2 keeps c the same for the streamed
+    task's 32 bases and the staged task's 256 multiples."""
+    spec = CURVES[CURVE]
+    oracle = ECOracle(spec)
+    n = 32
+    points, scalars, expected, dbg = random_msm_instance(spec, n, seed=13)
+    expanded = []
+    for pt in dbg["points"]:                   # point-major wire order
+        for _ in range(8):
+            expanded.append(pt)
+            pt = oracle.mul(pt, 1 << 32)
+    praw = encode_affine_points(points_to_affine_words(spec, expanded), spec)
+    sraw = encode_scalars(scalars, spec)
+
+    def run(mode):
+        cl = MSMClient(MSMInit(curve=CURVE, precompute_factor=8),
+                       config=MSMConfig(window_bits=2, chunk_log2=4), device="cpu")
+        chunks = []
+        chunk = cl.engine._chunk
+        cl.engine._chunk = lambda *a, **k: chunks.append(a[0].shape[1]) or chunk(*a, **k)
+        key = "bank" if mode == "cache" else None
+        if key:
+            cl.load_data_to_hbm(key, praw)
+        cl.initialize(MSMParams(nof_elements=n, hbm_point_addr=key))
+        if mode == "staged":
+            cl.set_data(MSMInput(scalars=sraw, points=praw))
+            cl.start_process()
+        else:
+            cl.start_process()
+            cl.set_data(MSMInput(scalars=sraw, points=None if key else praw))
+        assert chunks == [16] * 16
+        return cl.result().result
+
+    want = run("staged")
+    assert run("points") == run("cache") == want
+    assert affine(want) == expected
 
 
 def test_concurrent_set_data_and_result_give_the_oracle_result():
