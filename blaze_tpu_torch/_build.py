@@ -42,10 +42,11 @@ GXX_FLAGS = ["-std=c++17", "-O3", "-shared", "-fPIC", "-Wall"]
 # marks (trace.py) as mark_<stage>.  A device kernel's name maps to the first
 # key whose `key_` it holds (trace.launch_key), so scan_gathered, whose
 # kernel is scan_mixed_kernel<W, s, scan_gathered_fetch>, comes before
-# scan_mixed.
+# scan_mixed, and reduce_buckets (reduce_cols_kernel<W,
+# reduce_buckets_fetch>) before reduce_cols.
 LAUNCHES = dict.fromkeys(
-    ("mont_mul", "field_ew", "scan_gathered", "scan_mixed", "ec_add", "reduce_cols",
-     "dbl_n", "fold_horner", "ntt_base", "mul_lm", "twiddle_mul", "poseidon_perm",
+    ("mont_mul", "field_ew", "scan_gathered", "scan_mixed", "ec_add", "reduce_buckets",
+     "reduce_cols", "dbl_n", "fold_horner", "ntt_base", "mul_lm", "twiddle_mul", "poseidon_perm",
      "ntt_base_w12", "mul_lm_w12", "twiddle_mul_w12", "probe_chain", "mont_tc",
      "mark_msm_sort", "mark_msm_layout", "mark_msm_scan", "mark_msm_bucket",
      "mark_msm_stream", "mark_msm_done"), 0

@@ -308,6 +308,12 @@ def kernel_work(name: str, shape: dict, W: int) -> tuple:
     elif name == "reduce_cols":
         C, B = shape["C"], shape["B"]
         muls, nbytes = 14 * C * B, (C + 1) * B * pt
+    elif name == "reduce_buckets":
+        # each operand (a bucket's carry or local; the pads none) and its
+        # window's int64 bound read once
+        C, B, G, nb = shape["C"], shape["B"], shape["G"], shape["buckets"]
+        muls = 14 * C * B
+        nbytes = 2 * G * (nb - 1) * pt + G * nb * 8 + B * pt
     elif name == "dbl_n":
         muls, nbytes = 14 * shape["k"] * shape["B"], 2 * shape["B"] * pt
     elif name == "fold_horner":

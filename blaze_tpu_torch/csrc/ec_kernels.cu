@@ -9,7 +9,8 @@
 //   K2 blz_scan_mixed  <- _scan_fn / scan_mixed   (per-lane prefix of mixed adds;
 //      blz_scan_gathered, the same kernel reading its points through a sort)
 //   K3 blz_ec_add      <- _add_fn / add           (batched complete add)
-//   K4 blz_reduce_cols <- _reduce_fn / reduce_cols (lane-wise sum over rows)
+//   K4 blz_reduce_cols <- _reduce_fn / reduce_cols (lane-wise sum over rows;
+//      blz_reduce_buckets, the same kernel reading the MSM's bucket sum in place)
 //   K5 blz_dbl_n       <- _dbl_fn / dbl_n         (k doublings per lane)
 //   K6 blz_fold_horner <- _fold_fn / fold_horner  (Horner window fold)
 //
@@ -239,12 +240,105 @@ scan_mixed_kernel(const Fetch src, uint32_t* __restrict__ emitted, uint32_t* __r
   store_coords<W>(tot + lane, member, sl, live, B);
 }
 
-// rows (C, 3W, B) -> tot (3W, B): identity + row 0 + ... + row C-1.
-// Coordinate k of each row is fetched by member k, one row ahead.
-template <int W>
+// K4's two operand sources.  A source gives lane `lane`'s point of step c:
+// member k < 3 its coordinate k.  As K2's, the source is the kernel's
+// constant parameter, a thread's Cursor what it keeps of it between steps,
+// and the type's name is in the kernel's name: the gathered form's holds
+// its launch counter's key (reduce_buckets, msm/pippenger.py's main path).
+//
+// Rows form: row c of (C, 3W, B) projective rows laid out by the caller,
+// lane b at column b (coalesced).
+struct reduce_rows_fetch {
+  const uint32_t* rows;
+
+  struct Cursor {};
+
+  template <int W>
+  __device__ __forceinline__ Cursor start(int64_t, int) const { return {}; }
+
+  template <int W>
+  __device__ __forceinline__ void fetch(Cursor&, uint32_t* pf, int member, int c, int,
+                                        int64_t lane, int64_t B,
+                                        const blz::FieldConsts<W>&) const {
+    const uint32_t* src = rows + ((int64_t)c * 3 * W + member * W) * B + lane;
+#pragma unroll
+    for (int w = 0; w < W; ++w) pf[w] = __ldg(src + (int64_t)w * B);
+  }
+};
+
+// Gathered form: the MSM chunk's bucket sum read in place, so no rows are
+// made.  Window g's list is [carry 0..B-2, local 0..B-2, identity pads]:
+// bucket j's local is K2's emitted prefix at its bound b = bounds[g][j]
+// (step b % C of lane g R + b / C), its carry the exclusive prefix of K2's
+// lane totals before that lane (column b / C - 1 of window g in `x`, the
+// inclusive prefix; the identity for lane 0), both the identity where b < 0
+// (no digit <= j).  Lane g R2 + r at step c takes position m = r C2 + c
+// of window g's list (m >= M = 2 (B - 1): a pad).  Each word is a 4-byte
+// load at its point's column, as the torch gathers that made the rows
+// read it.  A step's bound is loaded during the step before, after that
+// step's words, so no load waits on it.  Positions and lanes are 32-bit
+// (G R C < 2^31).
+struct reduce_buckets_fetch {
+  const uint32_t* emitted;      // (C, 3W, G R): K2's inclusive prefixes
+  const uint32_t* x;            // (3W, G R): inclusive prefix of each window's lane totals
+  const long long* bounds;      // (G, B): bucket j's last sorted position, -1 if empty
+  int C;                        // K2's steps
+  int R;                        // K2's lanes a window
+  int B;                        // buckets a window
+  int R2;                       // this pass's lanes a window
+  int GR;                       // G R: the row stride of emitted and x
+
+  struct Cursor {
+    int g;                      // the lane's window
+    int first;                  // r C2: its first position in the window's list
+    long long bound;            // the next step's bound (-1: the identity)
+  };
+
+  __device__ __forceinline__ long long bound_of(const Cursor& cur, int c) const {
+    const int m = cur.first + c;
+    if (m >= 2 * (B - 1)) return -1;
+    return __ldg(bounds + (int64_t)cur.g * B + (m < B - 1 ? m : m - (B - 1)));
+  }
+
+  template <int W>
+  __device__ __forceinline__ Cursor start(int64_t lane, int C2) const {
+    Cursor cur{(int)(lane / R2), (int)(lane % R2) * C2, -1};
+    cur.bound = bound_of(cur, 0);
+    return cur;
+  }
+
+  template <int W>
+  __device__ __forceinline__ void fetch(Cursor& cur, uint32_t* pf, int member, int c, int C2,
+                                        int64_t, int64_t,
+                                        const blz::FieldConsts<W>& fc) const {
+    const uint32_t* src = nullptr;
+    if (cur.bound >= 0) {
+      const int b = (int)cur.bound;
+      const int l = b / C;
+      if (cur.first + c >= B - 1) {
+        src = emitted + (int64_t)(b - l * C) * 3 * W * GR + cur.g * R + l;
+      } else if (l > 0) {
+        src = x + cur.g * R + l - 1;
+      }
+    }
+    if (src != nullptr) {
+#pragma unroll
+      for (int w = 0; w < W; ++w) pf[w] = __ldg(src + (int64_t)(member * W + w) * GR);
+    } else {
+#pragma unroll
+      for (int w = 0; w < W; ++w) pf[w] = member == 1 ? fc.one[w] : 0;
+    }
+    if (c + 1 < C2) cur.bound = bound_of(cur, c + 1);
+  }
+};
+
+// One source's points (Fetch) -> tot (3W, B): identity + point 0 + ... +
+// point C-1 of each lane.  Coordinate k of each point is fetched by member
+// k, one step ahead.
+template <int W, class Fetch>
 __global__ void __launch_bounds__(kTeamLanes * kTeam)
-reduce_cols_kernel(const uint32_t* __restrict__ rows, uint32_t* __restrict__ tot,
-                   int C, int64_t B, blz::FieldConsts<W> fc) {
+reduce_cols_kernel(const Fetch src, uint32_t* __restrict__ tot, int C, int64_t B,
+                   blz::FieldConsts<W> fc) {
   namespace tm = blz::team;
   extern __shared__ uint4 team_smem[];
   const int member = threadIdx.x / kTeamLanes;
@@ -256,12 +350,10 @@ reduce_cols_kernel(const uint32_t* __restrict__ rows, uint32_t* __restrict__ tot
 #pragma unroll
   for (int w = 0; w < W; ++w) pf[w] = 0;
 
+  typename Fetch::Cursor cur{};
+  if (member < 3 && live) cur = src.template start<W>(lane, C);
   auto fetch = [&](int c) {
-    if (member < 3 && live && c < C) {
-      const uint32_t* src = rows + ((int64_t)c * 3 * W + member * W) * B + lane;
-#pragma unroll
-      for (int w = 0; w < W; ++w) pf[w] = src[(int64_t)w * B];
-    }
+    if (member < 3 && live && c < C) src.template fetch<W>(cur, pf, member, c, C, lane, B, fc);
   };
   auto put = [&]() {
     if (member < 3) sl.store(tm::X2 + member, pf);
@@ -447,11 +539,11 @@ int add(const uint32_t* consts, const void* p, const void* q, void* o, int64_t B
   return (int)cudaGetLastError();
 }
 
-template <int W>
-int reduce(const uint32_t* consts, const void* rows, void* tot, int C, int64_t B,
+template <int W, class Fetch>
+int reduce(const uint32_t* consts, const Fetch& src, void* tot, int C, int64_t B,
            cudaStream_t s) {
-  reduce_cols_kernel<W><<<team_blocks(B), kTeamLanes * kTeam, team_smem_bytes<W>(), s>>>(
-      (const uint32_t*)rows, (uint32_t*)tot, C, B, blz::load_consts<W>(consts));
+  reduce_cols_kernel<W, Fetch><<<team_blocks(B), kTeamLanes * kTeam, team_smem_bytes<W>(), s>>>(
+      src, (uint32_t*)tot, C, B, blz::load_consts<W>(consts));
   return (int)cudaGetLastError();
 }
 
@@ -538,9 +630,33 @@ extern "C" int blz_reduce_cols(int W, const uint32_t* consts, const void* rows,
                                void* tot, int C, int64_t B, void* stream) {
   if (B <= 0) return 0;
   auto s = (cudaStream_t)stream;
+  const reduce_rows_fetch src{(const uint32_t*)rows};
   switch (W) {
-    case 8: return reduce<8>(consts, rows, tot, C, B, s);
-    case 12: return reduce<12>(consts, rows, tot, C, B, s);
+    case 8: return reduce<8>(consts, src, tot, C, B, s);
+    case 12: return reduce<12>(consts, src, tot, C, B, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// K4 on a chunk's bucket sum read in place: lane g R2 + r (G R2 lanes) sums
+// positions r C2 .. r C2 + C2 - 1 of window g's list [carry 0..B-2, local
+// 0..B-2, identity pads] (reduce_buckets_fetch) of emitted (C, 3W, G R),
+// the inclusive lane prefix x (3W, G R) and bounds (G, B), int64.  Needs B
+// >= 2, R2 C2 >= 2 (B - 1) and G R C < 2^31.
+extern "C" int blz_reduce_buckets(int W, const uint32_t* consts, const void* emitted,
+                                  const void* x, const void* bounds, void* tot, int G, int R,
+                                  int C, int B, int R2, int C2, void* stream) {
+  if (G <= 0 || R <= 0 || C <= 0 || B < 2 || R2 <= 0 || C2 <= 0 ||
+      (int64_t)R2 * C2 < 2 * ((int64_t)B - 1) ||
+      (int64_t)G * R * C >= (int64_t(1) << 31) || (int64_t)G * B >= (int64_t(1) << 31))
+    return (int)cudaErrorInvalidValue;
+  auto s = (cudaStream_t)stream;
+  const reduce_buckets_fetch src{(const uint32_t*)emitted, (const uint32_t*)x,
+                                 (const long long*)bounds, C, R, B, R2, G * R};
+  const int64_t lanes = (int64_t)G * R2;
+  switch (W) {
+    case 8: return reduce<8>(consts, src, tot, C2, lanes, s);
+    case 12: return reduce<12>(consts, src, tot, C2, lanes, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -584,6 +700,7 @@ extern "C" int blz_product_chain(int W, const uint32_t* consts, const void* x, c
 extern "C" int blz_threads_per_lane(const char* kernel) {
   if (!strcmp(kernel, "scan_mixed") || !strcmp(kernel, "scan_gathered") ||
       !strcmp(kernel, "ec_add") || !strcmp(kernel, "reduce_cols") ||
+      !strcmp(kernel, "reduce_buckets") ||
       !strcmp(kernel, "dbl_n") || !strcmp(kernel, "fold_horner"))
     return kTeam;
   return -1;

@@ -12,11 +12,16 @@ the same function on 16-bit int64 limbs with the lazy twin of field.cuh
 (fields/kernel_ops.py) and the shared RCB formulas (curves/ops.py), so the
 CPU tests hold them limb for limb against the JAX kernels in interpret mode.
 Bounds and design: see csrc/ec_kernels.cu; K2, K4, K5 and K6 split each
-group op over a team of threads per lane (csrc/ec_team.cuh).
+group op over a team of threads per lane (csrc/ec_team.cuh).  K2 and K4
+each have a gathered entry for the MSM chunk (`scan_gathered`,
+`reduce_buckets`) that reads its operands in place, and a plain version
+that makes the rows (`gathered_rows`, `bucket_rows`) and runs the rows
+form's.
 """
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -41,6 +46,9 @@ _ARGTYPES = {
                    _c.c_int64, _c.c_void_p],
     "blz_reduce_cols": [_c.c_int, _c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_int,
                         _c.c_int64, _c.c_void_p],
+    "blz_reduce_buckets": [_c.c_int, _c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_void_p,
+                           _c.c_void_p, _c.c_int, _c.c_int, _c.c_int, _c.c_int, _c.c_int,
+                           _c.c_int, _c.c_void_p],
     "blz_dbl_n": [_c.c_int, _c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_int,
                   _c.c_int64, _c.c_void_p],
     "blz_fold_horner": [_c.c_int, _c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_int,
@@ -77,6 +85,7 @@ class ECKernels:
         self.ops = PlainFieldOps(spec.fq, lazy=True)
         self._b3 = b3_mont(spec)
         self._consts = consts_host(spec.fq, self._b3)
+        self._idents: dict = {}
 
     # ------------------------------------------------------------ plumbing
     def _check(self, x: torch.Tensor, rows: int, what: str, ndim: int = 2) -> None:
@@ -268,6 +277,107 @@ class ECKernels:
         if B:
             self._launch("blz_reduce_cols", "reduce_cols", rows.device,
                          rows.data_ptr(), tot.data_ptr(), C, B)
+        return tot
+
+    @staticmethod
+    def bucket_lanes(B: int) -> tuple:
+        """(R2, C2): the lanes a window and the steps a lane of the bucket
+        sum's first pass over B buckets' M = 2 (B - 1) points a window, R2
+        = ceil_pow2(sqrt(M)), R2 C2 >= M (the rest identity pads)."""
+        M = 2 * (B - 1)
+        R2 = 1 << max(0, (int(math.sqrt(max(M, 4))) - 1).bit_length())
+        return R2, -(-M // R2)
+
+    def ident_col(self, device) -> torch.Tensor:
+        """(3W, 1) lanes-major identity (0 : 1 : 0), made once per device (a
+        CUDA graph's capture reads it, and may not make it)."""
+        key = str(device)
+        col = self._idents.get(key)
+        if col is None:
+            col = self._idents[key] = self._lm(torch.stack(self._ident(1, device), dim=-2))
+        return col
+
+    def bucket_points(self, emitted: torch.Tensor, x: torch.Tensor, bounds: torch.Tensor,
+                      C: int, R: int):
+        """(carry, local), each (G, J, 3W): the points of the buckets whose
+        bounds (G, J) are given, b = bounds[g, j] in window g, the identity
+        where b < 0.  local is K2's emitted prefix at step b % C of lane g R
+        + b / C; carry the exclusive prefix of the window's lane totals
+        before that lane: column g R + b / C - 1 of their inclusive prefix
+        x (3W, G R), the identity for lane 0."""
+        G = bounds.shape[0]
+        ident = self.ident_col(x.device).reshape(1, 1, -1)
+        safe = bounds.clamp(min=0)
+        lane_idx = safe // C
+        col_idx = safe % C
+        lane0 = torch.arange(G, device=bounds.device)[:, None] * R
+        local = emitted[col_idx, :, lane0 + lane_idx]                # (G, J, 3W)
+        carry = x.t()[lane0 + (lane_idx - 1).clamp(min=0)]           # (G, J, 3W)
+        valid = bounds >= 0
+        return (torch.where((valid & (lane_idx > 0))[..., None], carry, ident),
+                torch.where(valid[..., None], local, ident))
+
+    def bucket_rows(self, emitted: torch.Tensor, x: torch.Tensor, bounds: torch.Tensor,
+                    C: int, R: int, B: int) -> torch.Tensor:
+        """`reduce_cols`'s rows of a chunk's bucket sum, made: (C2, 3W, G R2),
+        lane g R2 + r of row c the point at position r C2 + c of window g's
+        list [carry 0..B-2, local 0..B-2, identity pads] (`bucket_points`,
+        `bucket_lanes`)."""
+        G = bounds.shape[0]
+        threeW = 3 * self.W
+        carry, local = self.bucket_points(emitted, x, bounds[:, : B - 1], C, R)
+        rest = torch.cat([carry, local], dim=1)                      # (G, M, 3W)
+        R2, C2 = self.bucket_lanes(B)
+        pad = R2 * C2 - rest.shape[1]
+        if pad:
+            ident = self.ident_col(x.device).reshape(1, 1, threeW)
+            rest = torch.cat([rest, ident.expand(G, pad, threeW)], dim=1)
+        # (G, R2, C2, 3W) -> rows (C2, 3W, G R2): lane g R2 + r
+        rows = rest.reshape(G, R2, C2, threeW).permute(2, 3, 0, 1)
+        return rows.reshape(C2, threeW, G * R2).contiguous()
+
+    def reduce_buckets_plain(self, emitted: torch.Tensor, x: torch.Tensor,
+                             bounds: torch.Tensor, C: int, R: int, B: int) -> torch.Tensor:
+        """Plain PyTorch version of `reduce_buckets`: the rows made
+        (`bucket_rows`), then `reduce_cols_plain`."""
+        return self.reduce_cols_plain(self.bucket_rows(emitted, x, bounds, C, R, B))
+
+    def reduce_buckets(self, emitted: torch.Tensor, x: torch.Tensor, bounds: torch.Tensor,
+                       C: int, R: int, B: int) -> torch.Tensor:
+        """The first pass of a chunk's bucket sum, each point read in place
+        through the bounds: no rows are made.
+
+        emitted (C, 3W, G R) and tot's inclusive lane prefix x (3W, G R) of
+        K2 over G windows of R lanes of C steps; bounds (G, B) int64, bucket
+        j's last sorted position (-1: empty).  Lane g R2 + r sums positions
+        r C2 .. r C2 + C2 - 1 of window g's list [carry 0..B-2, local
+        0..B-2, identity pads], from the identity (`bucket_lanes`).
+        Returns `reduce_cols(bucket_rows(...))`'s (3W, G R2)."""
+        threeW = 3 * self.W
+        if bounds.dtype != torch.int64 or bounds.dim() != 2 or bounds.shape[1] != B:
+            raise ValueError(f"bounds: want int64 (G, {B}), "
+                             f"got {tuple(bounds.shape)} {bounds.dtype}")
+        G = bounds.shape[0]
+        for t, shape, what in ((emitted, (C, threeW, G * R), "emitted"),
+                               (x, (threeW, G * R), "x")):
+            if t.dtype != torch.int32 or tuple(t.shape) != shape:
+                raise ValueError(f"{what}: want int32 {shape}, "
+                                 f"got {tuple(t.shape)} {t.dtype}")
+        if G < 1 or R < 1 or C < 1 or B < 2 or G * R * C >= 1 << 31:
+            raise ValueError(f"reduce_buckets: want G, R, C >= 1, B >= 2 and G R C < 2^31, "
+                             f"got G={G}, R={R}, C={C}, B={B}")
+        if emitted.device != x.device or bounds.device != x.device:
+            raise ValueError("emitted, x and bounds: on different devices")
+        if x.device.type == "cpu":
+            return self.reduce_buckets_plain(emitted, x, bounds, C, R, B)
+        if x.device.type != "cuda" or not all(
+                t.is_contiguous() for t in (emitted, x, bounds)):
+            raise ValueError(f"emitted, x and bounds: want contiguous CUDA tensors "
+                             f"(got {x.device})")
+        R2, C2 = self.bucket_lanes(B)
+        tot = torch.empty((threeW, G * R2), dtype=torch.int32, device=x.device)
+        self._launch("blz_reduce_buckets", "reduce_buckets", x.device, emitted.data_ptr(),
+                     x.data_ptr(), bounds.data_ptr(), tot.data_ptr(), G, R, C, B, R2, C2)
         return tot
 
     # ----------------------------------------------------------------- K5

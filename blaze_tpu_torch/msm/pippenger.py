@@ -12,10 +12,11 @@ bucket method (blaze_tpu/msm/pippenger.py `_fused_chunk`), step for step:
      inclusive EC prefix (~N adds per window).  `MSM.plan` sizes the chunk
      (N) and its lanes (R) by the chunk's window count G, so that G*N and
      G*R stay a 16-window chunk's;
-  4. the lane totals' exclusive prefix by Kogge-Stone doubling on K3;
+  4. the lane totals' prefix by Kogge-Stone doubling on K3;
   5. by Abel summation sum_j j*B_j = (B-1)*T[e_{B-1}] - sum_{j<B-1} T[e_j]
-     with T the prefix sum, gathered at the bounds: (B-1)*T on K5, the
-     sum over the bounds on K4, the three group ops between them on K3
+     with T the prefix sum at the bounds: (B-1)*T on K5, the sum over the
+     bounds on K4 (its first pass reading each T[e_j] in place through the
+     bounds, `reduce_buckets`), the three group ops between them on K3
      and their negations and canonicalizations on KF (csrc/field_ew.cu);
   6. the Horner window fold on K6, of one chunk's window sums or of the
      streamed chunks' sums, accumulated per window on K3.
@@ -114,7 +115,6 @@ class MSM:
         self.curve = curve
         self.config = config or MSMConfig()
         self.kern = ECKernels.for_curve(curve.spec)
-        self._ident: dict = {}
         # one CUDA graph per chunk shape (`_chunk`), all in one memory pool
         # that lives as long as this engine; the lock keeps one replay at a
         # time, the event orders a replay after the last one's clone
@@ -190,15 +190,6 @@ class MSM:
         (KF's canon)."""
         return self.curve.fq._cond_sub_p(x)
 
-    def _ident_col(self, device) -> torch.Tensor:
-        """(3W, 1) lanes-major identity column, made once per device (a
-        CUDA graph's capture reads it, and may not make it)."""
-        key = str(device)
-        col = self._ident.get(key)
-        if col is None:
-            col = self._ident[key] = self.curve.identity(device=device).reshape(-1, 1)
-        return col
-
     def _lm_to_pm(self, x: torch.Tensor) -> torch.Tensor:
         """(3W, G) lanes-major -> (G, 3, W) points-major."""
         return x.t().reshape(-1, 3, self.curve.nwords)
@@ -213,23 +204,12 @@ class MSM:
         negated (KF), lanes-major again for K3."""
         return self._pm_to_lm(self.curve.neg(self._canon(self._lm_to_pm(x))))
 
-    def _fused_reduce_rows(self, pts: torch.Tensor) -> torch.Tensor:
-        """EC sum over axis 1 of (G, M, 3W) lazy points -> (3W, G) lazy,
-        lanes-major.
-
-        One big reduce_cols pass to R2 lane totals per window, then further
-        reduce_cols rounds down to one point per window."""
-        G, M, threeW = pts.shape
-        R2 = _ceil_pow2(int(math.sqrt(max(M, 4))))
-        C2 = -(-M // R2)
-        pad = R2 * C2 - M
-        if pad:
-            ident = self._ident_col(pts.device).reshape(1, 1, threeW)
-            pts = torch.cat([pts, ident.expand(G, pad, threeW)], dim=1)
-        # (G, R2, C2, 3W) -> rows (C2, 3W, G*R2): lane g*R2 + r
-        rows = pts.reshape(G, R2, C2, threeW).permute(2, 3, 0, 1)
-        tot = self.kern.reduce_cols(rows.reshape(C2, threeW, G * R2).contiguous())
-        R = R2
+    def _reduce_lanes(self, tot: torch.Tensor, G: int) -> torch.Tensor:
+        """EC sum of each window's lanes: (3W, G*R) lazy lane totals, lane
+        g*R + r, R a power of two -> (3W, G) lazy, lanes-major, by
+        reduce_cols rounds of ~sqrt(R) lanes a window."""
+        threeW = tot.shape[0]
+        R = tot.shape[1] // G
         while R > 1:
             R3 = _ceil_pow2(int(math.sqrt(R))) if R > 4 else 1
             C3 = R // R3
@@ -240,13 +220,14 @@ class MSM:
         return tot
 
     def _ks_lane_prefix(self, tot: torch.Tensor, G: int, R: int) -> torch.Tensor:
-        """Exclusive EC prefix over the R lanes of each window.
+        """Inclusive EC prefix over the R lanes of each window.
 
-        tot: (3W, G*R) lane totals (< 2p), lane g*R + r.  Returns (G, R, 3W)
-        exclusive prefixes (< 2p): Kogge-Stone doubling, log2(R) batched
-        adds on K3."""
+        tot: (3W, G*R) lane totals (< 2p), lane g*R + r.  Returns (3W, G*R)
+        inclusive prefixes (< 2p), lanes-major: Kogge-Stone doubling,
+        log2(R) batched adds on K3.  Lane r's exclusive prefix is lane r -
+        1's column (the identity for r = 0), as the bucket step reads it."""
         threeW = tot.shape[0]
-        ident = self._ident_col(tot.device).reshape(threeW, 1, 1)
+        ident = self.kern.ident_col(tot.device).reshape(threeW, 1, 1)
         x = tot.reshape(threeW, G, R)
         d = 1
         while d < R:
@@ -254,8 +235,7 @@ class MSM:
             x = self.kern.add(x.reshape(threeW, G * R),
                               shifted.reshape(threeW, G * R)).reshape(threeW, G, R)
             d *= 2
-        excl = torch.cat([ident.expand(threeW, G, 1), x[:, :, :-1]], dim=2)
-        return excl.permute(1, 2, 0)
+        return x.reshape(threeW, G * R)
 
     # ------------------------------------------------- one chunk, fused
     def _fused_chunk(self, pts: torch.Tensor, scalars: torch.Tensor, c: int,
@@ -307,18 +287,7 @@ class MSM:
                                           sortkey if signed else None)  # (C, 3W, GR), (3W, GR)
 
         self._clock.mark("msm_bucket", pts)
-        excl = self._ks_lane_prefix(tot, G, R)             # (G, R, 3W)
-
-        safe = bounds.clamp(min=0)
-        lane_idx = safe // C
-        col_idx = safe % C
-        gidx = torch.arange(G, device=dev)[:, None]
-        local = emitted[col_idx, :, gidx * R + lane_idx]   # (G, B, 3W)
-        carry = excl[gidx, lane_idx]                       # (G, B, 3W)
-        valid = (bounds >= 0)[..., None]
-        ident = self._ident_col(dev).reshape(1, 1, -1)
-        local = torch.where(valid, local, ident)
-        carry = torch.where(valid, carry, ident)
+        x = self._ks_lane_prefix(tot, G, R)                # (3W, GR) inclusive
 
         # ---- bucket phase (Abel summation): the three group ops on K3 over
         # the lanes-major window columns, the negations and the
@@ -326,17 +295,20 @@ class MSM:
         # add's words mod p do not depend on the operands' representatives,
         # so only the negated points and the result are canonicalized: the
         # result's words equal the JAX package's Field-level group ops'.
-        total = kern.add(self._pm_to_lm(carry[:, B - 1]),
-                         self._pm_to_lm(local[:, B - 1]))          # (3W, G)
+        # T[e_{B-1}], bucket B-1's carry and local, gathered (G points)
+        carry, local = kern.bucket_points(emitted, x, bounds[:, B - 1:], C, R)
+        total = kern.add(self._pm_to_lm(carry[:, 0]), self._pm_to_lm(local[:, 0]))  # (3W, G)
         # (B-1) * T: unsigned B-1 = 2^c - 1 doubles c times and subtracts
         # T; signed B-1 = 2^(c-1) is a pure doubling chain
         if signed:
             acc = kern.dbl_n(total, c - 1)
         else:
             acc = kern.add(kern.dbl_n(total, c), self._neg_lm(total))
-        if B > 1:
-            rest = torch.cat([carry[:, : B - 1], local[:, : B - 1]], dim=1)
-            acc = kern.add(acc, self._neg_lm(self._fused_reduce_rows(rest)))
+        # sum_{j<B-1} T[e_j]: the first pass reads every bucket's carry and
+        # local in place through the bounds (K4's gathered form), the later
+        # rounds sum its lanes
+        first = kern.reduce_buckets(emitted, x, bounds, C, R, B)       # (3W, G R2)
+        acc = kern.add(acc, self._neg_lm(self._reduce_lanes(first, G)))
         out = self._canon(self._lm_to_pm(acc))
         self._clock.mark("msm_stream", pts)
         return out

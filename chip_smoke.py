@@ -11,7 +11,7 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    reads (the bounds below come from that row), then the kernels built
    from csrc/ with nvcc (seconds, registers, stack, spills) and the
    local-memory loads and stores (LDL, STL) in the EC, NTT and Poseidon
-   kernels' SASS, with the opcode mix of K2 (both forms), K3, K4, K7 (at K
+   kernels' SASS, with the opcode mix of K2 (both forms), K3, K4 (both forms), K7 (at K
    = 512, W = 8 and 12) and K10 (cuobjdump);
 2. kernel parity: K1-K6 against their plain PyTorch versions on the card,
    exact, on BN254, BLS12-377 and BLS12-381 at small shapes (K2 signed and
@@ -24,11 +24,13 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    version's time and its bound: K2 at a 2^19 chunk (C 512, B 16384; its
    rows and its gathered form) and a streamed 2^18 chunk (B 8192), K3 at a lane-prefix round (B 16384) and
    at the window sums' accumulation (B 16), K4's five rounds at a 2^19
-   chunk, K5 at (B 16, k 16) and K6 at (Wn 16, c 16) and (Wn 20, c 13);
+   chunk (its first pass both in its gathered form, reading the bucket
+   sum in place through the bounds, and in its rows form on the rows made
+   from the same operands), K5 at (B 16, k 16) and K6 at (Wn 16, c 16) and (Wn 20, c 13);
    the same for BN254 at the 8x precompute mode's chunk as MSM.plan
    makes it (G = 2 windows: K2 at C 512, B 16384, gathered from N 2^22;
-   K3 at B 16384 and 2; K4's first pass at C 256, B 1024 and its later
-   rounds) and K5 at k 32 over a 2^20 block of precompute_resident;
+   K3 at B 16384 and 2; K4's first pass at C 256, B 1024 in both forms
+   and its later rounds) and K5 at k 32 over a 2^20 block of precompute_resident;
    K3, K5 and K6 beside their chain bound (the products on the team's
    critical path times one product's latency, timed on one thread:
    blz_product_chain); then KF (the Field's add, sub, neg, double and
@@ -42,8 +44,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    -> wait_result -> result(); then the 2^19 chunk on one engine run
    eagerly (`_fused_chunk`) and as a CUDA graph (the capture's warm-up,
    then five replays): the same words, each replay's launches exactly one
-   chunk's (K2, K4 x5, K5, K3 x13, KF x5, no K1), the eager and replayed
-   times and the graph pool's bytes;
+   chunk's (K2, K4's gathered form, K4 x4, K5, K3 x13, KF x5, no K1), the
+   eager and replayed times and the graph pool's bytes;
 4b. the headline shape (bench.py:10): 2^24 points resident, set_data once
    -> start_process -> wait_result -> result(), 32 chunks of 2^19, their
    window sums accumulated on K3 and folded on K6 (the fold's seconds
@@ -161,8 +163,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    Launch counts are zeroed just before each client run of phases 3, 4,
    4b, 6, 7, 9, 10 and 11, each serial batch of 7b and each run of 7c and 7d,
    and read just after; every kernel of the run's path must have launched (K10 nine
-   times per height-9 build; K2 once and K4 five times per 2^19 chunk at
-   2^24; K6 once per MSM).
+   times per height-9 build; K2 once, K4's gathered form once and K4 four
+   times per 2^19 chunk at 2^24; K6 once per MSM).
 11b. the probes of experiments/ (blaze_tpu_torch.experiments, E1-E5) at
    a cut size (2^16 lanes, chains of at most 9 steps): every lane of every
    body (the field product's parts on csrc/probe_chain.cu, the product
@@ -225,6 +227,9 @@ KERNELS = {
     "scan_gathered": ("blaze_tpu_torch/csrc/ec_kernels.cu", "blaze_tpu/curves/kernels.py:248"),
     "ec_add": ("blaze_tpu_torch/csrc/ec_kernels.cu", "blaze_tpu/curves/kernels.py:563"),
     "reduce_cols": ("blaze_tpu_torch/csrc/ec_kernels.cu", "blaze_tpu/curves/kernels.py:343"),
+    # K4's gathered form (the MSM's): the same kernel reading the bucket sum
+    # in place through the bounds
+    "reduce_buckets": ("blaze_tpu_torch/csrc/ec_kernels.cu", "blaze_tpu/curves/kernels.py:343"),
     "dbl_n": ("blaze_tpu_torch/csrc/ec_kernels.cu", "blaze_tpu/curves/kernels.py:508"),
     "fold_horner": ("blaze_tpu_torch/csrc/ec_kernels.cu", "blaze_tpu/curves/kernels.py:444"),
     "ntt_base": ("blaze_tpu_torch/csrc/ntt_kernels.cu", "blaze_tpu/ntt/kernels.py:102"),
@@ -339,14 +344,16 @@ KERNEL_NAME = re.compile(r"([a-z_]+_kernel)ILi(\d+)E(?:Li(\d+)E)?(?:Lb(\d))?")
 
 def kernel_key(mangled: str):
     """'scan_mixed_kernel<12>s' for a mangled kernel name (s: signed; g:
-    K2's gathered form, 'scan_mixed_kernel<12>g'), 'ntt_base_kernel<8,9>'
-    for two int parameters, or None for other functions."""
+    K2's gathered form, 'scan_mixed_kernel<12>g'; b: K4's,
+    'reduce_cols_kernel<12>b'), 'ntt_base_kernel<8,9>' for two int
+    parameters, or None for other functions."""
     m = KERNEL_NAME.search(mangled)
     if not m:
         return None
     args = m.group(2) + ("," + m.group(3) if m.group(3) else "")
     return (f"{m.group(1)}<{args}>" + ("s" if m.group(4) == "1" else "")
-            + ("g" if "scan_gathered_fetch" in mangled else ""))
+            + ("g" if "scan_gathered_fetch" in mangled else "")
+            + ("b" if "reduce_buckets_fetch" in mangled else ""))
 
 
 def ptxas_summary(logs: dict) -> dict:
@@ -369,6 +376,7 @@ def ptxas_summary(logs: dict) -> dict:
 
 def sass_summary(libs, mix_of=("scan_mixed_kernel<12>", "scan_mixed_kernel<12>g",
                               "ec_add_kernel<12>", "reduce_cols_kernel<12>",
+                              "reduce_cols_kernel<12>b",
                               "ntt_base_kernel<8,9>", "ntt_base_kernel<12,9>",
                               "poseidon_perm_kernel<8>")):
     """From cuobjdump -sass of the built libraries: 'kernel<W>[s]' ->
@@ -449,14 +457,17 @@ def kernel_cases(spec, C: int, B: int, seed: int, device, main: bool, G: int = 1
     """(key, kernel, kernel call, plain call, shape) for K1-K6 on one curve's
     inputs: K2 at C rows of B lanes, K3 at B lanes, K4 at (C / 2, B / 2).
     At the main shapes (a chunk of G windows of c = 16, R = B / G lanes
-    each) K4's first pass is instead the bucket sum's (C 256 rows of 512 G
-    lanes: G windows of 2^17 bucket points, whatever R), and the cases add
-    K2 at the streamed chunk's lanes, K2's gathered form at the chunk (N =
-    R C resident points read through G windows' sort of random 16-bit
-    digits), K4's later rounds (keys scan_mixed_streamed, scan_gathered,
-    reduce_cols_r2..r5) and, at G = 2 (the 8x precompute mode's 32-bit
-    slices), K5's 32 doublings over a 2^20 block of precompute_resident
-    (key dbl_n_precompute)."""
+    each) K4's first pass is instead the bucket sum's: its rows form on the
+    rows `bucket_rows` makes (C 256 rows of 512 G lanes: G windows of 2^17
+    bucket points, whatever R) of G windows' bounds of random 16-bit
+    digits, with K2's lazy prefixes as emitted and lane prefix; and the
+    cases add K4's gathered form on the same operands, read in place
+    (reduce_buckets), K2 at the streamed chunk's lanes, K2's gathered form
+    at the chunk (N = R C resident points read through G windows' sort of
+    random 16-bit digits), K4's later rounds (keys reduce_buckets,
+    scan_mixed_streamed, scan_gathered, reduce_cols_r2..r5) and, at G = 2
+    (the 8x precompute mode's 32-bit slices), K5's 32 doublings over a 2^20
+    block of precompute_resident (key dbl_n_precompute)."""
     import torch
 
     from blaze_tpu_torch.curves.kernels import ECKernels
@@ -470,8 +481,20 @@ def kernel_cases(spec, C: int, B: int, seed: int, device, main: bool, G: int = 1
     m = (1 << 19) if main else 512
     a = aff[torch.arange(m, device=device) % aff.shape[0]].reshape(-1, W)[:m].contiguous()
     b = a.flip(0).contiguous()
-    red_rows = emitted[:256, :, : 512 * G] if main else emitted[: C // 2, :, : B // 2]
-    red_rows = red_rows.contiguous()
+    if main:
+        # the bucket sum's first pass at the chunk: G windows of R C points'
+        # random 16-bit digits (2^16 buckets); its rows made for the rows form
+        R, nb = B // G, 1 << 16
+        gb = torch.Generator().manual_seed(seed + 1)
+        bd = torch.randint(0, nb, (G, R * C), generator=gb).to(device)
+        hist = torch.zeros((G, nb), dtype=torch.int64, device=device)
+        hist.scatter_add_(1, bd, torch.ones_like(bd))
+        bounds = torch.cumsum(hist, dim=-1) - 1
+        lane_pre = emitted[-1].contiguous()
+        red_rows = k.bucket_rows(emitted, lane_pre, bounds, C, R, nb)
+        del bd, hist
+    else:
+        red_rows = emitted[: C // 2, :, : B // 2].contiguous()
     ws = emitted[-1, :, :16].contiguous()
     ws20 = emitted[-1, :, 16:36].contiguous()
     pts = p[:, :16].contiguous() if main else p
@@ -493,6 +516,11 @@ def kernel_cases(spec, C: int, B: int, seed: int, device, main: bool, G: int = 1
         cases.append(("scan_mixed", "scan_mixed", lambda: k.scan_mixed(rows_s),
                       lambda: k.scan_mixed_plain(rows_s), {"C": C, "B": B, "signed": 1}))
         return cases
+    # K4's gathered form: the rows form's first pass, read in place
+    cases.append(("reduce_buckets", "reduce_buckets",
+                  lambda: k.reduce_buckets(emitted, lane_pre, bounds, C, R, nb),
+                  lambda: k.reduce_buckets_plain(emitted, lane_pre, bounds, C, R, nb),
+                  {"C": red_rows.shape[0], "B": red_rows.shape[2], "G": G, "buckets": nb}))
     # a streamed 2^18 chunk scans the same C rows over half the lanes; the
     # bucket sum's later reduce_cols rounds at a 2^19 chunk (G windows)
     half = rows[:, :, : B // 2].contiguous()
@@ -615,15 +643,17 @@ def phase_parity(sol, device):
             raise AssertionError(f"{curve}: kernel differs from its plain version")
 
     # the main path's shapes: BLS12-381 at a 2^19 chunk (16 windows of
-    # c = 16, R = 1024 lanes, C = 512 rows; the bucket sum's first
-    # reduce_cols pass is C = 256 rows of G * R2 = 8192 lanes)
+    # c = 16, R = 1024 lanes, C = 512 rows; the bucket sum's first pass,
+    # reduce_buckets and its rows form, is C = 256 rows of G * R2 = 8192
+    # lanes)
     timing = main_shape_parity("bls12_381", 1 << 24, None, 2, sol, errs, device)
     emit({"phase": "parity", "curve": "bls12_381", "shape": "main path", "kernels": timing})
     if any(t["max_abs_err"] for t in timing.values()):
         raise AssertionError("kernel differs from its plain version at the main shapes")
     # the 8x precompute mode's shapes: BN254 at a 2^22 chunk of 32-bit
     # slices (2 windows of c = 16, R = 8192 lanes, C = 512 rows; the bucket
-    # sum's first reduce_cols pass is C = 256 rows of 2 * 512 lanes)
+    # sum's first pass, reduce_buckets and its rows form, is C = 256 rows of
+    # 2 * 512 lanes)
     pre = main_shape_parity("bn254", 1 << 25, 32, 3, sol, errs, device)
     emit({"phase": "parity", "curve": "bn254", "shape": "main path, 8x precompute (G = 2)",
           "kernels": pre})
@@ -852,6 +882,7 @@ def run_resident(n: int, seed: int, device=None, repeats: int = 0):
             "points_per_s": n / (t2 - t1), "fold_s": fold.get("s"),
             "chunks_queued_s": fold["enqueued"] - t1, "chunks_done_s": fold["done"] - t1,
             "launches": dict(_build.LAUNCHES),
+            "graph_pool_bytes": client.engine.graph_pool_bytes,
             "graph_pool_gib": client.engine.graph_pool_bytes / 2**30}
     if repeats:
         client.engine.finalize = engine_finalize
@@ -942,10 +973,12 @@ def profile_single_chunk(seed: int, n: int = 1 << 19) -> dict:
 
 
 # one replayed 2^19 chunk (BLS12-381, c 16, unsigned: R = 1024 lanes): K2
-# once, K4 five rounds, K5 once, K3 for the 10 Kogge-Stone rounds and the
-# three group ops, KF for two negations (canon, neg) and the result's canon,
-# and the chunk's five stage marks (trace.py)
-CHUNK_LAUNCHES = {"scan_gathered": 1, "reduce_cols": 5, "dbl_n": 1, "ec_add": 13,
+# once, K4's first pass in its gathered form and four rounds, K5 once, K3
+# for the 10 Kogge-Stone rounds and the three group ops, KF for two
+# negations (canon, neg) and the result's canon, and the chunk's five stage
+# marks (trace.py)
+CHUNK_LAUNCHES = {"scan_gathered": 1, "reduce_buckets": 1, "reduce_cols": 4, "dbl_n": 1,
+                  "ec_add": 13,
                   "field_ew": 5, "mark_msm_sort": 1, "mark_msm_layout": 1,
                   "mark_msm_scan": 1, "mark_msm_bucket": 1, "mark_msm_stream": 1}
 
@@ -1000,7 +1033,8 @@ def phase_chunk_graph(seed: int, n: int = 1 << 19) -> dict:
     return info
 
 
-MSM_NEEDS = ("field_ew", "scan_gathered", "ec_add", "reduce_cols", "dbl_n", "fold_horner")
+MSM_NEEDS = ("field_ew", "scan_gathered", "ec_add", "reduce_buckets", "reduce_cols", "dbl_n",
+             "fold_horner")
 
 
 def check_msm_launches(phase: str, counts: dict) -> None:
@@ -1013,8 +1047,8 @@ def check_msm_launches(phase: str, counts: dict) -> None:
 def phase_msm_2e24(seed: int, n: int = 1 << 24) -> dict:
     """MSM 2^24 resident through MSMClient against the oracle, then five more
     calls on the resident operands (best, median, spread); returns the
-    first run's launch counts (every chunk runs K2 once and K4 five times,
-    no K1 past set_data's)."""
+    first run's launch counts (every chunk runs K2 once, K4's gathered form
+    once and its rows form four times, no K1 past set_data's)."""
     from blaze_tpu_torch import _build
 
     _build.reset_launches()
@@ -1026,10 +1060,11 @@ def phase_msm_2e24(seed: int, n: int = 1 << 24) -> dict:
     check_msm_launches("msm_2^24", counts)
     chunks = info["chunks"]
     if (counts["scan_gathered"] != chunks or counts["scan_mixed"]
-            or counts["reduce_cols"] != 5 * chunks):
+            or counts["reduce_buckets"] != chunks or counts["reduce_cols"] != 4 * chunks):
         raise AssertionError(f"msm 2^24: {counts['scan_gathered']} gathered K2, "
-                             f"{counts['scan_mixed']} rows-form K2 and "
-                             f"{counts['reduce_cols']} K4 launches for {chunks} chunks")
+                             f"{counts['scan_mixed']} rows-form K2, "
+                             f"{counts['reduce_buckets']} gathered K4 and "
+                             f"{counts['reduce_cols']} rows-form K4 launches for {chunks} chunks")
     return counts
 
 

@@ -13,8 +13,10 @@ card):
   ec        K1 and K2-K6 at the 2^19 chunk's shapes on BLS12-381
             (chip_smoke.kernel_cases, main=True; no plain version runs),
             K2 in both forms: rows (scan_mixed) and read through 16
-            windows' sort of 2^19 points (scan_gathered), so one tree
-            compares them;
+            windows' sort of 2^19 points (scan_gathered), and K4's first
+            pass in both forms: on the bucket rows made (reduce_cols) and
+            reading the same operands in place through the bounds
+            (reduce_buckets), so one tree compares them;
   ntt8      K7 at each level and K9 at each depth of the 2^27 plan on
             bls12_381_fr, K8 at the 2^16 plan's call (chip_smoke
             ntt_main_timing, whose plain versions run on a cut);

@@ -88,6 +88,9 @@ BOUNDS = [
      3.8334648301193757),
     ("K3", "ec_add", {"B": 16384}, 12, 0.00806, 0.00806317722681359),
     ("K4", "reduce_cols", {"C": 256, "B": 8192}, 12, 1.032, 1.0320866850321395),
+    # K4's gathered form: the rows form's products; its bytes lie below them
+    ("K4", "reduce_buckets", {"C": 256, "B": 8192, "G": 16, "buckets": 1 << 16}, 12, 1.032,
+     1.0320866850321395),
     ("K5", "dbl_n", {"B": 16, "k": 16}, 12, 0.000126, 0.00012598714416896234),
     ("K6", "fold_horner", {"Wn": 16, "c": 16}, 12, 0.000125, 0.00012549500688705233),
     ("K7", "ntt_base", {"K": 512, "lanes": 1 << 18}, 8, 7.418, 7.4183111111111115),

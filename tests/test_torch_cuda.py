@@ -4,7 +4,8 @@
 
 K1-K6 against their plain PyTorch versions on the same device inputs,
 exact, on all three curves (K2-K5 also at ragged lane counts, K6 at
-ragged window counts, K2's gathered form against its rows form), and K7-K10 (with the multi-p REDC twin) on the three
+ragged window counts, K2's and K4's gathered forms against their rows
+forms), and K7-K10 (with the multi-p REDC twin) on the three
 scalar fields (K7 through strided and transposed maps and at the 2^27
 plan's levels, K8's element rows at ragged lengths, in place and out of
 place), K7-K9 also at W = 12 on bls12_377_fq (a 2^20 transform against
@@ -176,6 +177,42 @@ def test_scan_gathered_matches_rows_form(dev, name):
             if N == 1000:
                 plain = k.scan_gathered_plain(pts, order, R, C, sk)
                 assert torch.equal(got[0], plain[0]) and torch.equal(got[1], plain[1])
+
+
+@pytest.mark.parametrize("signed", [False, True], ids=["unsigned", "signed"])
+@pytest.mark.parametrize("name,G", [("bls12_381", 16), ("bn254", 2)])
+def test_reduce_buckets_matches_rows_form(dev, name, G, signed):
+    """K4 reading a chunk's bucket sum in place through its bounds
+    (reduce_buckets) equals K4 on the rows made from them (reduce_cols of
+    bucket_rows) and the plain version, word for word: 16 windows on
+    BLS12-381 and 2 on BN254, unsigned (c 8: B 256, 2 pads a window) and
+    signed (c 9: B 257, no pad) digits, window 0's lowest buckets empty
+    and the last window's bucket 0 in lane 0.  Each call launches the
+    gathered form once and the rows form not at all."""
+    from blaze_tpu_torch.oracle.gen import rand_words
+
+    spec = CURVES[name]
+    W = spec.fq.nwords
+    k = ECKernels.for_curve(spec)
+    R, C = 64, 48                                    # N = 3072 points a window
+    c = 9 if signed else 8
+    B = (1 << (c - 1)) + 1 if signed else 1 << c
+    emitted = rand_words(spec.fq, (3 * C, W, G * R), G + c, dev).reshape(C, 3 * W, G * R)
+    x = rand_words(spec.fq, (3, W, G * R), G + c + 1, dev).reshape(3 * W, G * R)
+    g = torch.Generator(device=dev).manual_seed(G + c)
+    digits = torch.randint(0, B, (G, R * C), generator=g, dtype=torch.int64, device=dev)
+    digits[0] = digits[0].clamp(min=3)
+    digits[-1] = digits[-1].clamp(min=1)
+    digits[-1, 0] = 0
+    hist = torch.zeros((G, B), dtype=torch.int64, device=dev)
+    hist.scatter_add_(1, digits, torch.ones_like(digits))
+    bounds = torch.cumsum(hist, dim=-1) - 1
+    before = dict(_build.LAUNCHES)
+    got = k.reduce_buckets(emitted, x, bounds, C, R, B)
+    assert (_build.LAUNCHES["reduce_buckets"] - before["reduce_buckets"],
+            _build.LAUNCHES["reduce_cols"] - before["reduce_cols"]) == (1, 0)
+    assert torch.equal(got, k.reduce_cols(k.bucket_rows(emitted, x, bounds, C, R, B)))
+    assert torch.equal(got, k.reduce_buckets_plain(emitted, x, bounds, C, R, B))
 
 
 @pytest.mark.parametrize("name", sorted(CURVES))
@@ -752,8 +789,8 @@ def test_replayed_chunk_matches_eager_and_oracle(dev, name):
     replays equal `_fused_chunk` run eagerly word for word, and a second
     input of the same shape replays the same graph into an MSM equal to
     the oracle.  A replay adds the launches its capture recorded: one K2
-    (its gathered form; the rows form none), no K1, the K3 rounds and group
-    ops, the KF ops."""
+    (its gathered form; the rows form none), no K1, one K4 in its gathered
+    form and its later rounds, the K3 rounds and group ops, the KF ops."""
     from blaze_tpu_torch.msm import MSM
 
     spec = CURVES[name]
@@ -773,6 +810,9 @@ def test_replayed_chunk_matches_eager_and_oracle(dev, name):
     R = 1 << 6                                          # sqrt(2^12) lanes per window
     assert counts["scan_gathered"] == 1 and "scan_mixed" not in counts
     assert counts["dbl_n"] == 1 and "mont_mul" not in counts
+    # the bucket sum: K4's gathered first pass (M 510 points a window on 32
+    # lanes), then three rows-form rounds down to one lane a window
+    assert counts["reduce_buckets"] == 1 and counts["reduce_cols"] == 3
     assert counts["ec_add"] == R.bit_length() - 1 + 3 and counts["field_ew"] >= 5
     res2, scal2, upoints, scalars = msm_case(spec, n, 32, dev)
     out = msm(res2, scal2, window_bits=c)

@@ -6,6 +6,7 @@ canonical group law against blaze_tpu's Curve; the point codecs' bytes.
 Inputs are oracle points made from a seed, and the lazy prefixes the scan
 emits (so K3-K6 see values in [p, 2p) as well).
 """
+import math
 import random
 
 import numpy as np
@@ -232,3 +233,118 @@ def test_scan_gathered_refuses_bad_operands():
             k.scan_gathered(*args)
     with pytest.raises(ValueError):
         k.scan_gathered(pts, order, 8, 8, key[:, :-1])
+
+
+def bucket_case(name: str, G: int, R: int, C: int, c: int, signed: bool, seed: int):
+    """A chunk's bucket step inputs: K2's emitted (C, 3W, G R) and the
+    inclusive lane prefix x (3W, G R) as words below p, and the (G, B)
+    bounds of random digits as the MSM makes them (signed: B = 2^(c-1) + 1
+    buckets of magnitudes).  Window 0's digits skip the lowest buckets, so
+    its first bounds are -1 (empty); the last window's bucket 0 holds one
+    point, so its bound lies in lane 0."""
+    from blaze_tpu_torch.oracle.gen import rand_words
+
+    W = CURVES[name].fq.nwords
+    N = R * C
+    emitted = rand_words(CURVES[name].fq, (3 * C, W, G * R), seed, "cpu")
+    x = rand_words(CURVES[name].fq, (3, W, G * R), seed + 1, "cpu")
+    B = (1 << (c - 1)) + 1 if signed else 1 << c
+    g = torch.Generator().manual_seed(seed)
+    digits = torch.randint(0, B, (G, N), generator=g, dtype=torch.int64)
+    digits[0] = digits[0].clamp(min=3)
+    digits[-1] = digits[-1].clamp(min=1)
+    digits[-1, 0] = 0
+    hist = torch.zeros((G, B), dtype=torch.int64)
+    hist.scatter_add_(1, digits, torch.ones_like(digits))
+    bounds = torch.cumsum(hist, dim=-1) - 1
+    return emitted.reshape(C, 3 * W, G * R), x.reshape(3 * W, G * R), bounds, B
+
+
+def chunk_rows_before(k, emitted, x, bounds, C, R, B):
+    """The bucket step's rows as the MSM chunk made them with torch before
+    K4 read them in place: the bound gathers, the `where`s, the cat of
+    carries and locals, the identity pad and the permute."""
+    G = bounds.shape[0]
+    threeW = 3 * k.W
+    ident = k.ident_col("cpu")
+    excl = torch.cat([ident.reshape(threeW, 1, 1).expand(threeW, G, 1),
+                      x.reshape(threeW, G, R)[:, :, :-1]], dim=2).permute(1, 2, 0)
+    safe = bounds.clamp(min=0)
+    lane_idx, col_idx = safe // C, safe % C
+    gidx = torch.arange(G)[:, None]
+    local = emitted[col_idx, :, gidx * R + lane_idx]
+    carry = excl[gidx, lane_idx]
+    valid = (bounds >= 0)[..., None]
+    local = torch.where(valid, local, ident.reshape(1, 1, -1))
+    carry = torch.where(valid, carry, ident.reshape(1, 1, -1))
+    pts = torch.cat([carry[:, : B - 1], local[:, : B - 1]], dim=1)
+    M = pts.shape[1]
+    R2 = 1 << max(0, (int(math.sqrt(max(M, 4))) - 1).bit_length())
+    C2 = -(-M // R2)
+    pad = R2 * C2 - M
+    if pad:
+        pts = torch.cat([pts, ident.reshape(1, 1, threeW).expand(G, pad, threeW)], dim=1)
+    rows = pts.reshape(G, R2, C2, threeW).permute(2, 3, 0, 1)
+    return rows.reshape(C2, threeW, G * R2).contiguous()
+
+
+@pytest.mark.parametrize("name,G,R,C,c,signed", [
+    ("bn254", 3, 4, 8, 3, False),          # B 8, M 14 on 4 lanes of 4: 2 pads
+    ("bn254", 2, 8, 4, 4, True),           # B 9, M 16: no pad
+    ("bls12_381", 2, 4, 16, 5, False),     # W = 12, B 32, M 62 on 8 lanes of 8: 2 pads
+    ("bls12_381", 3, 2, 8, 3, True),       # B 5, M 8
+])
+def test_bucket_rows_match_the_chunk_composition(name, G, R, C, c, signed):
+    """bucket_rows (the rows K4's gathered form reads in place) equals the
+    MSM chunk's old torch composition word for word: unsigned and signed
+    digits, empty buckets (bounds -1), bounds in lane 0 (identity
+    carries) and padded lists."""
+    k = ECKernels.for_curve(CURVES[name])
+    emitted, x, bounds, B = bucket_case(name, G, R, C, c, signed, seed=G + c)
+    assert (bounds[0, :3] == -1).all() and ((bounds >= 0) & (bounds < C)).any()
+    got = k.bucket_rows(emitted, x, bounds, C, R, B)
+    R2, C2 = k.bucket_lanes(B)
+    assert got.shape == (C2, 3 * k.W, G * R2) and R2 * C2 >= 2 * (B - 1)
+    assert torch.equal(got, chunk_rows_before(k, emitted, x, bounds, C, R, B))
+
+
+@pytest.mark.parametrize("signed", [False, True])
+def test_reduce_buckets_plain_is_reduce_cols_of_bucket_rows(signed):
+    """reduce_buckets on the CPU (its plain version) equals reduce_cols_plain
+    of bucket_rows, and launches nothing."""
+    from blaze_tpu_torch import _build
+
+    k = ECKernels.for_curve(CURVES["bn254"])
+    C, R = 8, 4
+    emitted, x, bounds, B = bucket_case("bn254", 2, R, C, 3, signed, seed=7 + signed)
+    before = dict(_build.LAUNCHES)
+    got = k.reduce_buckets(emitted, x, bounds, C, R, B)
+    assert _build.LAUNCHES == before
+    R2, _ = k.bucket_lanes(B)
+    assert got.shape == (3 * k.W, 2 * R2)
+    assert torch.equal(got, k.reduce_cols_plain(k.bucket_rows(emitted, x, bounds, C, R, B)))
+
+
+def test_reduce_buckets_refuses_bad_operands():
+    """int32 bounds, bounds of another bucket count, int64 words, emitted or
+    x of other lanes or steps, operands on two devices, one bucket, and
+    G R C >= 2^31 (positions are 32-bit) raise before any sum."""
+    k = ECKernels.for_curve(CURVES["bn254"])
+    C, R = 8, 4
+    emitted, x, bounds, B = bucket_case("bn254", 2, R, C, 3, False, seed=1)
+    for args in [(emitted, x, bounds.to(torch.int32), C, R, B),
+                 (emitted, x, bounds, C, R, B + 1),
+                 (emitted.to(torch.int64), x, bounds, C, R, B),
+                 (emitted, x[:, :-1], bounds, C, R, B),
+                 (emitted[:-1], x, bounds, C, R, B),
+                 (emitted, x, bounds, C, 2 * R, B),
+                 (emitted, x, bounds.to("meta"), C, R, B),
+                 (emitted, x, bounds[:, :1], C, R, 1)]:
+        with pytest.raises(ValueError):
+            k.reduce_buckets(*args)
+    G, R, C = 2, 1 << 15, 1 << 15
+    big = torch.empty((C, 3 * k.W, G * R), dtype=torch.int32, device="meta")
+    xb = torch.empty((3 * k.W, G * R), dtype=torch.int32, device="meta")
+    bb = torch.empty((G, B), dtype=torch.int64, device="meta")
+    with pytest.raises(ValueError, match="2\\^31"):
+        k.reduce_buckets(big, xb, bb, C, R, B)

@@ -46,6 +46,15 @@ def test_check_trace_raises_when_events_are_lost():
     assert launch_key("void mont_mul_kernel<12>(unsigned int const*)") == "mont_mul"
     assert launch_key("void (anonymous namespace)::mul_lm_rows_kernel<8>()") == "mul_lm"
     assert launch_key("ncclDevKernel_AllGather_RING_LL") is None
+    # K2's and K4's gathered forms count apart from their rows forms
+    assert launch_key("void (anonymous namespace)::reduce_cols_kernel<12, (anonymous "
+                      "namespace)::reduce_buckets_fetch>(...)") == "reduce_buckets"
+    assert launch_key("void (anonymous namespace)::reduce_cols_kernel<12, (anonymous "
+                      "namespace)::reduce_rows_fetch>(...)") == "reduce_cols"
+    assert launch_key("void (anonymous namespace)::reduce_cols_kernel<12>(...)") == \
+        "reduce_cols"
+    assert launch_key("void (anonymous namespace)::scan_mixed_kernel<8, false, (anonymous "
+                      "namespace)::scan_gathered_fetch>(...)") == "scan_gathered"
     # the NTT kernels' W = 12 builds count apart; K1 and K10 do not
     assert launch_key("void (anonymous namespace)::ntt_base_kernel<12, 9>(...)") == \
         "ntt_base_w12"
@@ -112,6 +121,7 @@ def test_msm_call_span_holds_its_chunk_spans(monkeypatch):
 
     for name, fake in [("scan_gathered", scan), ("add", lambda x, y: x),
                        ("dbl_n", lambda x, k: x), ("reduce_cols", lambda rows: rows[0]),
+                       ("reduce_buckets", lambda emitted, x, bounds, C, R, B: x),
                        ("fold_horner", lambda x, c: x[:, 0])]:
         monkeypatch.setattr(msm.kern, name, fake)
     with profile(activities=[ProfilerActivity.CPU]) as prof:
@@ -142,6 +152,7 @@ def test_precompute_and_multiple_spans(monkeypatch):
 
     for name, fake in [("scan_gathered", scan), ("add", lambda x, y: x),
                        ("dbl_n", lambda x, k: x), ("reduce_cols", lambda rows: rows[0]),
+                       ("reduce_buckets", lambda emitted, x, bounds, C, R, B: x),
                        ("fold_horner", lambda x, c: x[:, 0])]:
         monkeypatch.setattr(msm.kern, name, fake)
     monkeypatch.setattr(cv, "to_affine", lambda p: p[..., :2, :])
