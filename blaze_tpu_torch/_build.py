@@ -26,8 +26,8 @@ from .utils.errors import DeviceError, LoadFailed
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "build" / "blaze_tpu_torch"
-SOURCES = ("montmul", "field_ew", "ec_kernels", "ntt_kernels", "poseidon_kernels",
-           "probe_chain", "mont_tc", "trace_marks")
+SOURCES = ("montmul", "field_ew", "ec_kernels", "ec_kernels_g2", "ntt_kernels",
+           "poseidon_kernels", "probe_chain", "mont_tc", "trace_marks")
 HOST_SOURCES = ("codec",)
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -43,10 +43,16 @@ GXX_FLAGS = ["-std=c++17", "-O3", "-shared", "-fPIC", "-Wall"]
 # key whose `key_` it holds (trace.launch_key), so scan_gathered, whose
 # kernel is scan_mixed_kernel<W, s, scan_gathered_fetch>, comes before
 # scan_mixed, and reduce_buckets (reduce_cols_kernel<W,
-# reduce_buckets_fetch>) before reduce_cols.
+# reduce_buckets_fetch>) before reduce_cols.  The EC kernels' F_p2
+# instances (BN254 G2) count under the G1 key with g2 after its first word
+# (scan_g2_gathered, ec_g2_add, ...), each its kernel's name
+# (scan_g2_gathered_kernel<8, s>, ...), before the G1 key its operand
+# source's name also holds (scan_gathered_fetch).
 LAUNCHES = dict.fromkeys(
-    ("mont_mul", "field_ew", "scan_gathered", "scan_mixed", "ec_add", "reduce_buckets",
-     "reduce_cols", "dbl_n", "fold_horner", "ntt_base", "mul_lm", "twiddle_mul", "poseidon_perm",
+    ("mont_mul", "field_ew", "scan_g2_gathered", "scan_gathered", "scan_g2_mixed",
+     "scan_mixed", "ec_g2_add", "ec_add", "reduce_g2_buckets", "reduce_buckets",
+     "reduce_g2_cols", "reduce_cols", "dbl_g2_n", "dbl_n", "fold_g2_horner",
+     "fold_horner", "ntt_base", "mul_lm", "twiddle_mul", "poseidon_perm",
      "ntt_base_w12", "mul_lm_w12", "twiddle_mul_w12", "probe_chain", "mont_tc",
      "mark_msm_sort", "mark_msm_layout", "mark_msm_scan", "mark_msm_bucket",
      "mark_msm_stream", "mark_msm_done"), 0

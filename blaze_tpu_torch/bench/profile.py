@@ -247,6 +247,13 @@ def product_imads(W: int) -> int:
     return 4 * W * W + W
 
 
+def fp2_product_imads(W: int) -> int:
+    """32-bit multiply-adds of one F_p2 product over W-word F_p by
+    Karatsuba with lazy reduction: three unreduced products (2W^2 each) and
+    two REDCs (2W^2 + W each)."""
+    return 3 * 2 * W * W + 2 * (2 * W * W + W)
+
+
 def poseidon_imads(shape: dict, W: int, sparse: bool) -> int:
     """32-bit multiply-adds of one Poseidon state: 3 full products per
     S-box (r_f t + r_p of them) and t more with convert_in; a dense mix is
@@ -262,18 +269,20 @@ def poseidon_imads(shape: dict, W: int, sparse: bool) -> int:
     return n + r_p * t * (t * unreduced + redc)
 
 
-def kernel_work(name: str, shape: dict, W: int) -> tuple:
-    """(bytes, IMADs) of one launch of kernel `name` (a launch-counter key)
-    at `shape` on W-word elements: the bytes it must move (inputs read
-    once, outputs written once) and the multiply-adds of the products it
-    must make.  Alg 8 (mixed add) has 13 products, alg 7 (complete add) 14.
+def kernel_work(name: str, shape: dict, W: int, degree: int = 1) -> tuple:
+    """(bytes, IMADs) of one launch of kernel `name` (a launch-counter key;
+    for an EC kernel on F_p2 coordinates, degree 2, the G1 key of its
+    kernel) at `shape` on W-word elements (the EC kernels' coordinates:
+    `degree` of them): the bytes it must move (inputs read once, outputs
+    written once) and the multiply-adds of the products it must make, an
+    F_p2 product fp2_product_imads(W).  Alg 8 (mixed add) has 13 products, alg 7 (complete add) 14.
     A K-point NTT needs (K/2) log2 K - (K - 1) products per lane: a
     butterfly whose twiddle is W^0 needs none (all of stage 0, K/2^(s+1) of
     stage s; K7 skips them).  K9 needs two per element, K8 one per operand
     past the first.  KF (field_ew) makes no product: its carry chains are
     a few instructions per word, so bytes bound it."""
-    per_mul = product_imads(W)
-    pt = 3 * W * 4                                # bytes of one projective point
+    per_mul = product_imads(W) if degree == 1 else fp2_product_imads(W)
+    pt = 3 * degree * W * 4                       # bytes of one projective point
     el = W * 4                                    # bytes of one field element
     if name == "poseidon_perm":
         return (2 * shape["t"] * shape["B"] * el,
@@ -296,13 +305,13 @@ def kernel_work(name: str, shape: dict, W: int) -> tuple:
     elif name == "scan_mixed":
         C, B = shape["C"], shape["B"]
         muls = 13 * C * B
-        nbytes = C * B * (2 * W * 4 + 4 * shape.get("signed", 0)) + C * B * pt + B * pt
+        nbytes = C * B * (2 * pt // 3 + 4 * shape.get("signed", 0)) + C * B * pt + B * pt
     elif name == "scan_gathered":
         # the chunk's N points, and its G windows' order (and sort keys) of
         # int64, read once
         C, B, N, G = shape["C"], shape["B"], shape["N"], shape["G"]
         muls = 13 * C * B
-        nbytes = N * 2 * W * 4 + G * N * 8 * (1 + shape.get("signed", 0)) + C * B * pt + B * pt
+        nbytes = N * 2 * pt // 3 + G * N * 8 * (1 + shape.get("signed", 0)) + C * B * pt + B * pt
     elif name == "ec_add":
         muls, nbytes = 14 * shape["B"], 3 * shape["B"] * pt
     elif name == "reduce_cols":
@@ -334,10 +343,10 @@ def bound_ms(work: tuple, sol: SpeedOfLight) -> tuple:
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def work_bound_ms(name: str, shape: dict, W: int, sol: SpeedOfLight) -> tuple:
+def work_bound_ms(name: str, shape: dict, W: int, sol: SpeedOfLight, degree: int = 1) -> tuple:
     """Least time of kernel `name`'s work at `shape` (kernel_work) on the
     device `sol`: (ms, "bytes" or "operations")."""
-    return bound_ms(kernel_work(name, shape, W), sol)
+    return bound_ms(kernel_work(name, shape, W, degree), sol)
 
 
 CHAIN_PRODUCTS = 3     # dependent products per group op on the team (ec_team.cuh)
@@ -347,12 +356,13 @@ CHAINED = ("ec_add", "dbl_n", "fold_horner")
 def product_latency_us(spec, device, n: int = 4096) -> float:
     """One lazy product's latency (us) on one thread of the card: n
     dependent carry-chain products in one launch (blz_product_chain, CUDA
-    events), its words first held against the plain products at n = 16."""
+    events), its words first held against the plain products at n = 16.
+    On F_p2 coordinates (BN254's G2) one F_p2 product."""
     from ..curves.kernels import ECKernels
     from ..oracle.gen import rand_words
 
     k = ECKernels.for_curve(spec)
-    x, y = rand_words(spec.fq, (2, spec.fq.nwords), 7, device).unbind(0)
+    x, y = rand_words(spec.fq, (2 * spec.degree, spec.fq.nwords), 7, device).reshape(2, -1)
     if not torch.equal(k.product_chain(x, y, 16), k.product_chain_plain(x, y, 16)):
         raise AssertionError("blz_product_chain differs from the plain products")
     return cuda_ms(lambda: k.product_chain(x, y, n), 3) * 1e3 / n

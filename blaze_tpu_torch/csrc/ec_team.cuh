@@ -33,6 +33,17 @@
 //
 // The product is carry.cuh's mont_mul_cc<W, true>, K0's one product (its
 // word products on IMAD.WIDE); adds and subs are PTX carry chains.
+//
+// The coordinate field is a template parameter F: Fp<W> (G1: an element is
+// W words) or Fp2<W> (BN254's G2: an element is 2W words, c0 then c1, over
+// F_p[u] / (u^2 + 1)).  F gives the element's words (kWords), its
+// constants (Consts: one, 3b, and the base field's FieldConsts) and the
+// lazy mul / add / sub / neg; the step tables, the slots and the schedule
+// are the same for both.  An F_p2 product is Karatsuba's three
+// mont_mul_cc<W> and five lazy adds and subs, all on the member that owns
+// the product's task: the team splits a group op's products as it does on
+// F_p, each product three times as long.  Fp<W>'s functions are the ones
+// the G1 kernels called before F existed, so those compile as they did.
 // Without __CUDA_ARCH__ (a host build with g++) every carry instruction is
 // emulated (carry.cuh), so the same schedule can be run role by role on
 // the host against the plain versions.
@@ -83,6 +94,93 @@ BLZ_DEVICE void sub_lazy(uint32_t* r, const uint32_t* a, const uint32_t* b,
 #pragma unroll
   for (int j = 0; j < W; ++j) r[j] = borrow ? e[j] : d[j];
 }
+
+// ------------------------------------------------------ coordinate fields
+// F_p: W words, FieldConsts<W> (one, 3b R and the modulus).
+template <int W>
+struct Fp {
+  static constexpr int kWords = W;
+  using Consts = FieldConsts<W>;
+
+  static BLZ_DEVICE const uint32_t* one(const Consts& c) { return c.one; }
+  static BLZ_DEVICE const uint32_t* b3(const Consts& c) { return c.b3; }
+  static BLZ_DEVICE void mul(uint32_t* r, const uint32_t* a, const uint32_t* b,
+                             const Consts& c) {
+    mont_mul_cc<W, true>(r, a, b, c);
+  }
+  static BLZ_DEVICE void add(uint32_t* r, const uint32_t* a, const uint32_t* b,
+                             const Consts& c) {
+    add_lazy<W>(r, a, b, c);
+  }
+  static BLZ_DEVICE void sub(uint32_t* r, const uint32_t* a, const uint32_t* b,
+                             const Consts& c) {
+    sub_lazy<W>(r, a, b, c);
+  }
+  // -a = 2p - a (lazy domain)
+  static BLZ_DEVICE void neg(uint32_t* r, const uint32_t* a, const Consts& c) {
+    sub_lazy<W>(r, c.p2, a, c);
+  }
+};
+
+// F_p2 = F_p[u] / (u^2 + 1) over W-word F_p: the base field's constants,
+// then one = (R mod p, 0) and 3b R as 2W words each (host layout:
+// fields/fp2.py fp2_consts_host).
+template <int W>
+struct Fp2Consts {
+  FieldConsts<W> f;
+  uint32_t one[2 * W];
+  uint32_t b3[2 * W];
+};
+
+template <int W>
+inline Fp2Consts<W> load_consts2(const uint32_t* h) {
+  Fp2Consts<W> c;
+  c.f = load_consts<W>(h);
+  for (int i = 0; i < 2 * W; ++i) {
+    c.one[i] = h[4 * W + 1 + i];
+    c.b3[i] = h[6 * W + 1 + i];
+  }
+  return c;
+}
+
+template <int W>
+struct Fp2 {
+  static constexpr int kWords = 2 * W;
+  using Consts = Fp2Consts<W>;
+
+  static BLZ_DEVICE const uint32_t* one(const Consts& c) { return c.one; }
+  static BLZ_DEVICE const uint32_t* b3(const Consts& c) { return c.b3; }
+  // (a0 + a1 u)(b0 + b1 u) = (t0 - t1) + (t2 - (t0 + t1)) u, t0 = a0 b0,
+  // t1 = a1 b1, t2 = (a0 + a1)(b0 + b1); every op lazy (inputs below 2p,
+  // so each sum is below 4p < R and each product below 2p).  r may alias a
+  // or b: both are read before r is written.
+  static BLZ_DEVICE void mul(uint32_t* r, const uint32_t* a, const uint32_t* b,
+                             const Consts& c) {
+    uint32_t t0[W], t1[W], sa[W], sb[W];
+    mont_mul_cc<W, true>(t0, a, b, c.f);
+    add_lazy<W>(sa, a, a + W, c.f);
+    add_lazy<W>(sb, b, b + W, c.f);
+    mont_mul_cc<W, true>(t1, a + W, b + W, c.f);
+    mont_mul_cc<W, true>(sa, sa, sb, c.f);
+    sub_lazy<W>(r, t0, t1, c.f);
+    add_lazy<W>(t0, t0, t1, c.f);
+    sub_lazy<W>(r + W, sa, t0, c.f);
+  }
+  static BLZ_DEVICE void add(uint32_t* r, const uint32_t* a, const uint32_t* b,
+                             const Consts& c) {
+    add_lazy<W>(r, a, b, c.f);
+    add_lazy<W>(r + W, a + W, b + W, c.f);
+  }
+  static BLZ_DEVICE void sub(uint32_t* r, const uint32_t* a, const uint32_t* b,
+                             const Consts& c) {
+    sub_lazy<W>(r, a, b, c.f);
+    sub_lazy<W>(r + W, a + W, b + W, c.f);
+  }
+  static BLZ_DEVICE void neg(uint32_t* r, const uint32_t* a, const Consts& c) {
+    sub_lazy<W>(r, c.f.p2, a, c.f);
+    sub_lazy<W>(r + W, c.f.p2, a + W, c.f);
+  }
+};
 
 // ------------------------------------------------------------------ slots
 // Per-lane field elements of a team.  X1..Z1 hold the running point, X2..Z2
@@ -191,37 +289,39 @@ struct Slots {
   }
 };
 
-template <int W, int kStride>
-BLZ_DEVICE void operand(uint32_t* v, const Slots<W, kStride>& sl, uint8_t s0, uint8_t s1,
-                        const FieldConsts<W>& fc) {
+template <class F, int kStride>
+BLZ_DEVICE void operand(uint32_t* v, const Slots<F::kWords, kStride>& sl, uint8_t s0,
+                        uint8_t s1, const typename F::Consts& fc) {
   sl.load(v, s0);
   if (s1 != NONE) {
-    uint32_t u[W];
+    uint32_t u[F::kWords];
     sl.load(u, s1);
-    add_lazy<W>(v, v, u, fc);
+    F::add(v, v, u, fc);
   }
 }
 
 // Team member `member` runs its tasks of step kStep: member, member +
 // kTeam, ...  Every branch depends on (step, member) alone, so it is
 // uniform over a warp whose 32 threads are one member of 32 teams.
-template <int kStep, int W, int kStride>
-BLZ_DEVICE void run_step(int member, const Slots<W, kStride>& sl, const FieldConsts<W>& fc) {
+template <int kStep, class F, int kStride>
+BLZ_DEVICE void run_step(int member, const Slots<F::kWords, kStride>& sl,
+                         const typename F::Consts& fc) {
   constexpr int kN = (kStep == MIXED_2 || kStep == FULL_2 || kStep == OUT_4) ? 3 : kTasks;
+  constexpr int E = F::kWords;
   for (int t = member; t < kN; t += kTeam) {
 #pragma unroll 1
     for (int o = 0; o < kTaskOps; ++o) {
       const Op op = kProgram[kStep][t][o];
       if (op.kind == NOP) break;
-      uint32_t a[W], b[W], r[W];
-      operand<W>(a, sl, op.a0, op.a1, fc);
-      operand<W>(b, sl, op.b0, op.b1, fc);
+      uint32_t a[E], b[E], r[E];
+      operand<F>(a, sl, op.a0, op.a1, fc);
+      operand<F>(b, sl, op.b0, op.b1, fc);
       if (op.kind == MUL) {
-        mont_mul_cc<W, true>(r, a, b, fc);
+        F::mul(r, a, b, fc);
       } else if (op.kind == ADD) {
-        add_lazy<W>(r, a, b, fc);
+        F::add(r, a, b, fc);
       } else {
-        sub_lazy<W>(r, a, b, fc);
+        F::sub(r, a, b, fc);
       }
       sl.store(op.out, r);
     }

@@ -93,13 +93,13 @@ probe_chain_mixed_kernel(const uint32_t* __restrict__ p, const uint32_t* __restr
   __syncthreads();
 #pragma unroll 1
   for (int k = 0; k < M; ++k) {
-    tm::run_step<tm::MIXED_1, W>(member, sl, fc);
+    tm::run_step<tm::MIXED_1, tm::Fp<W>>(member, sl, fc);
     __syncthreads();
-    tm::run_step<tm::MIXED_2, W>(member, sl, fc);
+    tm::run_step<tm::MIXED_2, tm::Fp<W>>(member, sl, fc);
     __syncthreads();
-    tm::run_step<tm::OUT_3, W>(member, sl, fc);
+    tm::run_step<tm::OUT_3, tm::Fp<W>>(member, sl, fc);
     __syncthreads();
-    tm::run_step<tm::OUT_4, W>(member, sl, fc);
+    tm::run_step<tm::OUT_4, tm::Fp<W>>(member, sl, fc);
     __syncthreads();
   }
   if (member < 3 && live) {

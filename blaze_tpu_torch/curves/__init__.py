@@ -1,4 +1,5 @@
-from .spec import CurveSpec, CURVES, CURVE_ALIASES, BN254, BLS12_381, BLS12_377
+from .spec import (CurveSpec, CURVES, CURVE_ALIASES, G1_CURVES, BN254, BLS12_381, BLS12_377,
+                   BN254_G2)
 from .ops import Curve
 from .codec import (
     decode_affine_points,
@@ -14,9 +15,11 @@ __all__ = [
     "Curve",
     "CURVES",
     "CURVE_ALIASES",
+    "G1_CURVES",
     "BN254",
     "BLS12_381",
     "BLS12_377",
+    "BN254_G2",
     "decode_affine_points",
     "encode_affine_points",
     "decode_scalars",

@@ -17,15 +17,24 @@ each have a gathered entry for the MSM chunk (`scan_gathered`,
 `reduce_buckets`) that reads its operands in place, and a plain version
 that makes the rows (`gathered_rows`, `bucket_rows`) and runs the rows
 form's.
+
+On BN254's G2 (`spec.degree` 2) a coordinate is an F_p2 element of W = 16
+words (fields/fp2.py), so the rows are (3 * 16, B) and the same methods
+launch the kernels' F_p2 instances (csrc/ec_kernels_g2.cu), counted under
+their own keys (`counter`: scan_g2_gathered, ec_g2_add, ...); the plain
+versions run the same formulas on `PlainFp2Ops`, the lazy twin of
+ec_team.cuh's Fp2.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
 
 from .. import _build
+from ..fields.fp2 import PlainFp2Ops, fp2_consts_host
 from ..fields.kernel_ops import (
     PlainFieldOps,
     consts_host,
@@ -58,12 +67,18 @@ _ARGTYPES = {
 }
 
 
-def _entry(name: str):
-    fn = getattr(_build.load("ec_kernels"), name)
+def _entry(name: str, lib: str = "ec_kernels"):
+    fn = getattr(_build.load(lib), name)
     if fn.argtypes is None:
         fn.argtypes = _ARGTYPES[name]
         fn.restype = ctypes.c_int
     return fn
+
+
+# per degree of the coordinates (F_p, F_p2): the kernels' library, the
+# plain versions' lazy ops and the kernels' constant block
+_INSTANCES = {1: ("ec_kernels", functools.partial(PlainFieldOps, lazy=True), consts_host),
+              2: ("ec_kernels_g2", PlainFp2Ops, fp2_consts_host)}
 
 
 class ECKernels:
@@ -80,11 +95,14 @@ class ECKernels:
 
     def __init__(self, spec: CurveSpec):
         self.spec = spec
-        self.W = spec.fq.nwords
-        self.L = spec.fq.nlimbs
-        self.ops = PlainFieldOps(spec.fq, lazy=True)
+        self.W = spec.coords.nwords          # words a coordinate: 8, 12, or 16 (F_p2)
+        self.L = spec.coords.nlimbs
         self._b3 = b3_mont(spec)
-        self._consts = consts_host(spec.fq, self._b3)
+        self.lib, plain_ops, consts = _INSTANCES[spec.degree]
+        self.ops = plain_ops(spec.coords)
+        self._consts = consts(spec.coords, self._b3)
+        # -Y = 2p - Y in the lazy domain, 2p in each component
+        self._2p = 2 * spec.fq.p if spec.degree == 1 else (2 * spec.fq.p,) * 2
         self._idents: dict = {}
 
     # ------------------------------------------------------------ plumbing
@@ -98,12 +116,22 @@ class ECKernels:
         if x.device.type not in ("cpu", "cuda"):
             raise ValueError(f"{what}: unsupported device {x.device}")
 
+    def counter(self, key: str) -> str:
+        """The launch-counter key of kernel `key` (a G1 key: scan_gathered,
+        ...) on this curve: the key itself, or on G2 the key with g2 after
+        its first word (scan_g2_gathered: no G1 key followed by `_` is
+        part of it)."""
+        if self.spec.degree == 1:
+            return key
+        first, rest = key.split("_", 1)
+        return f"{first}_g2_{rest}"
+
     def _launch(self, name: str, counter: str, dev: torch.device, *args) -> None:
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
-            rc = _entry(name)(self.W, self._consts.ctypes.data, *args, stream)
+            rc = _entry(name, self.lib)(self.W, self._consts.ctypes.data, *args, stream)
         _build.check(rc, name)
-        _build.LAUNCHES[counter] += 1
+        _build.LAUNCHES[self.counter(counter)] += 1
 
     def _pm(self, x: torch.Tensor) -> torch.Tensor:
         """(k*W, B) int32 words -> (B, k, L) int64 limbs (plain versions)."""
@@ -117,7 +145,7 @@ class ECKernels:
 
     def _ident(self, B: int, device) -> tuple:
         zero = torch.zeros((B, self.L), dtype=torch.int64, device=device)
-        one = self.ops.const(self.spec.fq.r % self.spec.fq.p, device)
+        one = self.ops.const(self.spec.fq.r % self.spec.fq.p, device)   # (R mod p) + 0 u on G2
         return zero, one.expand(B, self.L), zero
 
     # ----------------------------------------------------------------- K2
@@ -132,7 +160,7 @@ class ECKernels:
             xy = self._pm(rows[c, : 2 * W])
             x2, y2 = xy[:, 0], xy[:, 1]
             if nrows == 2 * W + 1:
-                neg = self.ops.sub(self.ops.const(2 * self.spec.fq.p, rows.device), y2)
+                neg = self.ops.sub(self.ops.const(self._2p, rows.device), y2)
                 y2 = torch.where((rows[c, 2 * W] != 0)[:, None], neg, y2)
             acc = rcb_add_mixed(self.ops, self.ops.const(self._b3, rows.device),
                                 *acc, x2, y2)
@@ -443,14 +471,15 @@ class ECKernels:
     def product_chain(self, x: torch.Tensor, y: torch.Tensor, n: int) -> torch.Tensor:
         """x y^n / R^n by n dependent lazy products on one thread of the card
         (x, y: (W,) words below 2p): timed, it gives one product's latency,
-        the unit of K5's and K6's chain bound.  Not a kernel of any path."""
+        the unit of K5's and K6's chain bound (on G2 one F_p2 product, three
+        of F_p).  Not a kernel of any path."""
         for v in (x, y):
             if v.dtype != torch.int32 or v.shape != (self.W,) or v.device.type != "cuda":
                 raise ValueError(f"want ({self.W},) int32 words on the card")
         out = torch.empty_like(x)
         with torch.cuda.device(x.device):
-            rc = _entry("blz_product_chain")(self.W, self._consts.ctypes.data, x.data_ptr(),
-                                             y.data_ptr(), out.data_ptr(), n,
-                                             torch.cuda.current_stream(x.device).cuda_stream)
+            rc = _entry("blz_product_chain", self.lib)(
+                self.W, self._consts.ctypes.data, x.data_ptr(), y.data_ptr(), out.data_ptr(),
+                n, torch.cuda.current_stream(x.device).cuda_stream)
         _build.check(rc, "blz_product_chain")
         return out

@@ -3,7 +3,9 @@
 Complete homogeneous-projective formulas from Renes-Costello-Batina 2016
 (algorithms 7/8/9 for j-invariant 0): a single code path handles doubling,
 inverses and the identity.  Points are `int32[..., 3, W]` (X, Y, Z word
-rows, Montgomery form); identity is (0 : 1 : 0).
+rows, Montgomery form); identity is (0 : 1 : 0).  On BN254's G2 a
+coordinate is an F_p2 element of 2W words (fields/fp2.py), so points are
+`int32[..., 3, 2W]` and every formula here runs unchanged on its field.
 
 The alg 7 and alg 8 formulas are written once (`rcb_add_full`,
 `rcb_add_mixed`) over any field-ops object F with broadcasting mul / add /
@@ -17,13 +19,18 @@ from __future__ import annotations
 
 import torch
 
+from ..fields.fp2 import Fp2Field
 from ..fields.mont import Field
 from .spec import CurveSpec
 
 
-def b3_mont(spec: CurveSpec) -> int:
-    """3b in Montgomery form, the constant of every RCB formula."""
-    return (3 * spec.b % spec.fq.p) * spec.fq.r % spec.fq.p
+def b3_mont(spec: CurveSpec):
+    """3b in Montgomery form, the constant of every RCB formula: an int, or
+    a (c0, c1) pair of the components' Montgomery forms on G2."""
+    p, r = spec.fq.p, spec.fq.r
+    if spec.degree == 1:
+        return (3 * spec.b % p) * r % p
+    return tuple((3 * b % p) * r % p for b in spec.b)
 
 
 def rcb_add_full(F, b3, X1, Y1, Z1, X2, Y2, Z2):
@@ -68,7 +75,7 @@ class Curve:
 
     def __init__(self, spec: CurveSpec):
         self.spec = spec
-        self.fq = Field(spec.fq)
+        self.fq = Field(spec.fq) if spec.degree == 1 else Fp2Field(spec.coords)
         self._b3 = b3_mont(spec)
 
     # ------------------------------------------------------------ structure
@@ -78,7 +85,7 @@ class Curve:
 
     @property
     def nlimbs(self):
-        """16-bit limbs per base-field element (the JAX package's L = 2W)."""
+        """16-bit limbs per coordinate (the JAX package's L = 2W)."""
         return self.fq.spec.nlimbs
 
     @staticmethod

@@ -127,11 +127,18 @@ def _device_put(x: torch.Tensor, ctx: DeviceContext) -> torch.Tensor:
 
 
 def _resolve_curve(curve) -> Curve:
+    """The client's curve: a G1 curve, as blaze's wire formats (F_p
+    coordinates) are; BN254's G2 runs on `MSM` alone."""
     if isinstance(curve, Curve):
-        return curve
-    if curve in CURVE_ALIASES:
-        return Curve(CURVE_ALIASES[curve])
-    return Curve(CURVES[curve])
+        cv = curve
+    elif curve in CURVE_ALIASES:
+        cv = Curve(CURVE_ALIASES[curve])
+    else:
+        cv = Curve(CURVES[curve])
+    if cv.spec.degree != 1:
+        raise ValueError(f"MSMClient serves G1 curves, not {cv.spec.name}: "
+                         f"blaze's wire formats carry F_p coordinates")
+    return cv
 
 
 @dataclasses.dataclass
@@ -171,6 +178,10 @@ class MSMResult:
 
 
 class MSMClient(DriverPrimitive):
+    """blaze's MSM lifecycle over a G1 curve (BLS12-377, BLS12-381, BN254):
+    its wire formats carry F_p coordinates, so BN254's G2 (F_p2) is refused
+    here and runs on `MSM` directly."""
+
     trace_name = "msm"
 
     def __init__(self, init: MSMInit, ctx: Optional[DeviceContext] = None,
@@ -410,7 +421,9 @@ class MSMClient(DriverPrimitive):
             hard_sync(self._inflight[0][1])
 
     def result(self, param=None) -> Optional[MSMResult]:
-        """Pop the oldest completed task (POP_RESULT, msm_api.rs:240-274)."""
+        """Pop the oldest completed task (POP_RESULT, msm_api.rs:240-274):
+        the G1 projective result in blaze's z||y||x F_p wire format (the
+        client stays G1; a G2 MSM's (X, Y, Z) over F_p2 is `MSM`'s alone)."""
         with self._lock:
             if self._stream is not None:
                 self._wait_result()     # close the streaming task (fold + sync)

@@ -14,12 +14,14 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    kernels' SASS, with the opcode mix of K2 (both forms), K3, K4 (both forms), K7 (at K
    = 512, W = 8 and 12) and K10 (cuobjdump);
 2. kernel parity: K1-K6 against their plain PyTorch versions on the card,
-   exact, on BN254, BLS12-377 and BLS12-381 at small shapes (K2 signed and
-   unsigned) and at ragged shapes: K2 and K4 at lane counts B = 1, 33,
+   exact, on BN254, BLS12-377, BLS12-381 and BN254's G2 (K2-K6's F_p2
+   instances, no K1) at small shapes (K2 signed and unsigned) and at
+   ragged shapes: K2 and K4 at lane counts B = 1, 33,
    1000 (C = 1; K4 also over rows that hold identities), K3 at the same
    lane counts (identities as either operand, p = q), K5 at B = 1, 33,
    1000 (k 15), K6 at Wn = 1, 2, 20 (c 13) and, on the 12-word curves, at
-   Wn = 128 (c 2, past 48 KB of shared memory); then at the main path's
+   Wn = 128 (c 2, past 48 KB of shared memory), on G2 at Wn = 40 (c 2);
+   then at the main path's
    shapes for BLS12-381 with each kernel's time (CUDA events), its plain
    version's time and its bound: K2 at a 2^19 chunk (C 512, B 16384; its
    rows and its gathered form) and a streamed 2^18 chunk (B 8192), K3 at a lane-prefix round (B 16384) and
@@ -31,6 +33,10 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    makes it (G = 2 windows: K2 at C 512, B 16384, gathered from N 2^22;
    K3 at B 16384 and 2; K4's first pass at C 256, B 1024 in both forms
    and its later rounds) and K5 at k 32 over a 2^20 block of precompute_resident;
+   the same for BN254's G2 at the G2 cell's chunk (a 2^24 MSM: K2 at C
+   512, B 16384, gathered from N 2^19; K4's first pass at C 256 x 8192),
+   timed and bounded under the F_p2 keys (scan_g2_gathered, ...: an F_p2
+   product three unreduced F_p products and two REDCs);
    K3, K5 and K6 beside their chain bound (the products on the team's
    critical path times one product's latency, timed on one thread:
    blz_product_chain); then KF (the Field's add, sub, neg, double and
@@ -52,7 +58,12 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    printed), then five more start_process -> wait_result on the resident
    operands (best, median and spread; each result's bytes the first's).
    Each chunk is one CUDA graph replay but the first (the capture's
-   warm-up).  Phases 3, 4 and 4b each launch K6 exactly once.  After it,
+   warm-up).  Then the G2 cell's MSM: 2^24 BN254 G2 bases (256 k P2 of
+   zkbench/reference/bn254_g2.py, tiled) resident, one MSM.__call__ to
+   capture, the counters zeroed, one more held to the reference in affine
+   form, its launches printed: only the F_p2 instances of K2-K6, K2 and
+   K4's gathered form once a chunk, K6 once.  Phases 3, 4 and 4b each
+   launch K6 exactly once.  After it,
    in a fresh process, the eager 2^19 chunk (its device operations) and
    one warm 2^19 single-chunk MSM, its chunk a graph replay, run under
    torch.profiler (device operations, busy time, idle share; the trace
@@ -179,6 +190,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
    probe_chain (E2's mont body, W = 12, M = 9) and mont_tc (E1's one
    product, W = 12) at 2^16 timed beside their plain versions and bounds;
 12. the seconds each phase took, then the kernels line (K1, KF, K2-K10,
+   K2-K6's F_p2 instances (scan_g2_mixed ... fold_g2_horner) at the G2
+   cell's shapes,
    K7-K9's W = 12 builds as ntt_base_w12, mul_lm_w12, twiddle_mul_w12,
    their times at the W = 12 2^27 plan's shapes, and the probe kernels
    probe_chain and mont_tc, their launches those of phase 11b): launches
@@ -216,7 +229,8 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 
 # launch-counter name -> (source, the TPU kernel's pallas_call it replaces);
-# in PERF.md's table these are K1, KF, K2-K10, then E2-E5 and E1 in this order
+# in PERF.md's table these are K1, KF, K2-K10, then E2-E5 and E1, then K2-K6
+# on F_p2, in this order
 KERNELS = {
     "mont_mul": ("blaze_tpu_torch/csrc/montmul.cu", "blaze_tpu/fields/mxu.py:250"),
     # KF, the port's own kernel: it stands for XLA's fused elementwise Field
@@ -246,6 +260,19 @@ KERNELS = {
                     "experiments/redc_probe.py:66, experiments/vpu_mul_probe.py:81, "
                     "experiments/mul_kernel_bench.py:83, experiments/kernel_variants.py:46"),
     "mont_tc": ("blaze_tpu_torch/csrc/mont_tc.cu", "experiments/pallas_mul.py:146"),
+    # K2-K6's F_p2 instances (BN254's G2), counted apart; the JAX package has
+    # no G2, so each replaces its G1 kernel's pallas_call over F_p2
+    "scan_g2_mixed": ("blaze_tpu_torch/csrc/ec_kernels_g2.cu", "blaze_tpu/curves/kernels.py:248"),
+    "scan_g2_gathered": ("blaze_tpu_torch/csrc/ec_kernels_g2.cu",
+                         "blaze_tpu/curves/kernels.py:248"),
+    "ec_g2_add": ("blaze_tpu_torch/csrc/ec_kernels_g2.cu", "blaze_tpu/curves/kernels.py:563"),
+    "reduce_g2_cols": ("blaze_tpu_torch/csrc/ec_kernels_g2.cu",
+                       "blaze_tpu/curves/kernels.py:343"),
+    "reduce_g2_buckets": ("blaze_tpu_torch/csrc/ec_kernels_g2.cu",
+                          "blaze_tpu/curves/kernels.py:343"),
+    "dbl_g2_n": ("blaze_tpu_torch/csrc/ec_kernels_g2.cu", "blaze_tpu/curves/kernels.py:508"),
+    "fold_g2_horner": ("blaze_tpu_torch/csrc/ec_kernels_g2.cu",
+                       "blaze_tpu/curves/kernels.py:444"),
 }
 SCALAR_FIELDS = ("bn254_fr", "bls12_377_fr", "bls12_381_fr")
 WIDE_NTT_FIELD = "bls12_377_fq"       # 12 words, 2-adicity 46: BW6-761's scalar field
@@ -339,13 +366,16 @@ def max_abs_err(a, b) -> int:
 
 
 # ------------------------------------------------------------ phase 1
-KERNEL_NAME = re.compile(r"([a-z_]+_kernel)ILi(\d+)E(?:Li(\d+)E)?(?:Lb(\d))?")
+# a kernel's name: lower case and `_`, and on G2 one `g2_` inside it
+# (scan_g2_gathered_kernel); the digits before it are its mangled length
+KERNEL_NAME = re.compile(r"([a-z_]+(?:g2_[a-z_]+)?_kernel)ILi(\d+)E(?:Li(\d+)E)?(?:Lb(\d))?")
 
 
 def kernel_key(mangled: str):
     """'scan_mixed_kernel<12>s' for a mangled kernel name (s: signed; g:
     K2's gathered form, 'scan_mixed_kernel<12>g'; b: K4's,
-    'reduce_cols_kernel<12>b'), 'ntt_base_kernel<8,9>' for two int
+    'reduce_cols_kernel<12>b'; G2's 'scan_g2_gathered_kernel<8>g'),
+    'ntt_base_kernel<8,9>' for two int
     parameters, or None for other functions."""
     m = KERNEL_NAME.search(mangled)
     if not m:
@@ -434,16 +464,21 @@ def phase_device():
 # ------------------------------------------------------------ phase 2
 def curve_inputs(spec, C: int, B: int, seed: int, device):
     """(C, 2W, B) affine Montgomery rows of oracle points (16 distinct,
-    repeated) and a random sign row."""
+    repeated; on G2 the plain reference's k P2) and a random sign row."""
     import torch
 
     from blaze_tpu_torch.curves import Curve
     from blaze_tpu_torch.oracle import ECOracle
 
     cv = Curve(spec)
-    rng = random.Random(seed)
-    oracle = ECOracle(spec)
-    pts = [oracle.random_point(rng) for _ in range(16)]
+    if spec.degree == 2:
+        from zkbench.reference import bn254_g2
+
+        pts = bn254_g2.subgroup_points(16, seed)
+    else:
+        rng = random.Random(seed)
+        oracle = ECOracle(spec)
+        pts = [oracle.random_point(rng) for _ in range(16)]
     aff = torch.stack([cv.fq.from_int([x for x, _ in pts], device=device),
                        cv.fq.from_int([y for _, y in pts], device=device)], dim=1)
     g = torch.Generator().manual_seed(seed)
@@ -467,7 +502,8 @@ def kernel_cases(spec, C: int, B: int, seed: int, device, main: bool, G: int = 1
     random 16-bit digits), K4's later rounds (keys reduce_buckets,
     scan_mixed_streamed, scan_gathered, reduce_cols_r2..r5) and, at G = 2
     (the 8x precompute mode's 32-bit slices), K5's 32 doublings over a 2^20
-    block of precompute_resident (key dbl_n_precompute)."""
+    block of precompute_resident (key dbl_n_precompute).  On G2 (F_p2
+    coordinates) no K1 case: its product is K1 on F_p, BN254's."""
     import torch
 
     from blaze_tpu_torch.curves.kernels import ECKernels
@@ -511,7 +547,7 @@ def kernel_cases(spec, C: int, B: int, seed: int, device, main: bool, G: int = 1
         ("fold_horner", lambda: k.fold_horner(ws, 16), lambda: k.fold_horner_plain(ws, 16),
          {"Wn": 16, "c": 16}),
     ]
-    cases = [(c[0], *c) for c in cases]
+    cases = [(c[0], *c) for c in cases if spec.degree == 1 or c[0] != "mont_mul"]
     if not main:
         cases.append(("scan_mixed", "scan_mixed", lambda: k.scan_mixed(rows_s),
                       lambda: k.scan_mixed_plain(rows_s), {"C": C, "B": B, "signed": 1}))
@@ -566,8 +602,8 @@ def ragged_cases(spec, seed: int, device):
     padding does; K3 at the same lane counts, identities as either operand
     and p = q; K5 at the same lane counts (k 15, identity lanes among
     them); K6 at Wn = 1, 2 and 20 (c 13) with identity windows, and on
-    12-word curves at Wn = 128 (c 2), whose window sums take K6 past 48 KB
-    of shared memory."""
+    12-word curves at Wn = 128 (c 2) and on G2 at Wn = 40 (c 2), whose
+    window sums take K6 past 48 KB of shared memory."""
     from blaze_tpu_torch.curves import Curve
     from blaze_tpu_torch.curves.kernels import ECKernels
 
@@ -603,6 +639,7 @@ def ragged_cases(spec, seed: int, device):
     wins = k.scan_mixed(rows)[0][1]                              # (3W, 128) lazy points
     wins[:, 1::5] = ident
     shapes = [(1, 13), (2, 13), (20, 13)] + ([(128, 2)] if spec.fq.nwords == 12 else [])
+    shapes += [(40, 2)] if spec.degree == 2 else []
     for Wn, c in shapes:
         ws = wins[:, :Wn].contiguous()
         cases.append(("fold_horner", "fold_horner", lambda ws=ws, c=c: k.fold_horner(ws, c),
@@ -618,29 +655,38 @@ def output_err(got, want) -> int:
     return max(max_abs_err(g, w) for g, w in zip(as_tuple(got), as_tuple(want)))
 
 
-def phase_parity(sol, device):
+def small_parity(curve: str, errs: dict, device) -> None:
+    """kernel_cases at (C 8, B 1024) and ragged_cases on `curve`, each
+    kernel against its plain version (its error raised into `errs` under
+    its launch-counter key); raises on any difference."""
     import torch
 
     from blaze_tpu_torch.curves import CURVES
+    from blaze_tpu_torch.curves.kernels import ECKernels
 
+    spec = CURVES[curve]
+    counter = ECKernels.for_curve(spec).counter
+    checked, ragged = {}, []
+    small = kernel_cases(spec, 8, 1024, 1, device, main=False)
+    for i, (key, name, kern, plain, shape) in enumerate(small + ragged_cases(spec, 1, device)):
+        e = output_err(kern(), plain())
+        name = counter(name)
+        errs[name] = max(errs[name], e)
+        if i < len(small):
+            checked[key + ("_signed" if shape.get("signed") else "")] = e
+        else:
+            ragged.append({"kernel": name, **shape, "max_abs_err": e})
+    torch.cuda.synchronize()
+    emit({"phase": "parity", "curve": curve, "shape": "small (C=8, B=1024)",
+          "max_abs_err": checked, "ragged": ragged})
+    if any(checked.values()) or any(c["max_abs_err"] for c in ragged):
+        raise AssertionError(f"{curve}: kernel differs from its plain version")
+
+
+def phase_parity(sol, device):
     errs = {name: 0 for name in KERNELS}
-    for curve in ("bn254", "bls12_377", "bls12_381"):
-        spec = CURVES[curve]
-        checked, ragged = {}, []
-        small = kernel_cases(spec, 8, 1024, 1, device, main=False)
-        for i, (key, name, kern, plain, shape) in enumerate(
-                small + ragged_cases(spec, 1, device)):
-            e = output_err(kern(), plain())
-            errs[name] = max(errs[name], e)
-            if i < len(small):
-                checked[key + ("_signed" if shape.get("signed") else "")] = e
-            else:
-                ragged.append({"kernel": name, **shape, "max_abs_err": e})
-        torch.cuda.synchronize()
-        emit({"phase": "parity", "curve": curve, "shape": "small (C=8, B=1024)",
-              "max_abs_err": checked, "ragged": ragged})
-        if any(checked.values()) or any(c["max_abs_err"] for c in ragged):
-            raise AssertionError(f"{curve}: kernel differs from its plain version")
+    for curve in ("bn254", "bls12_377", "bls12_381", "bn254_g2"):
+        small_parity(curve, errs, device)
 
     # the main path's shapes: BLS12-381 at a 2^19 chunk (16 windows of
     # c = 16, R = 1024 lanes, C = 512 rows; the bucket sum's first pass,
@@ -659,6 +705,14 @@ def phase_parity(sol, device):
           "kernels": pre})
     if any(t["max_abs_err"] for t in pre.values()):
         raise AssertionError("kernel differs from its plain version at the 8x mode's shapes")
+    # the G2 cell's shapes: BN254's G2 at a 2^19 chunk of a 2^24 MSM (16
+    # windows, C 512, B 16384; the bucket sum's first pass C 256 x 8192),
+    # the F_p2 instances timed under their own keys
+    g2 = main_shape_parity("bn254_g2", 1 << 24, None, 4, sol, errs, device)
+    emit({"phase": "parity", "curve": "bn254_g2", "shape": "main path (G2)", "kernels": g2})
+    if any(t["max_abs_err"] for t in g2.values()):
+        raise AssertionError("F_p2 kernel differs from its plain version at the G2 cell's shapes")
+    timing.update(g2)
     return errs, timing
 
 
@@ -667,19 +721,22 @@ def main_shape_parity(curve: str, n: int, bits, seed: int, sol, errs: dict, devi
     `bits`-bit scalars (None: the field's) at c = 16 on `curve` (G windows,
     N points, C = N / R rows of G R lanes): each kernel against its plain
     version (its error raised into `errs`), with its time (CUDA events),
-    its plain version's time and its bounds, by key."""
+    its plain version's time and its bounds, by key (on G2 the F_p2
+    instance's launch-counter key: scan_g2_gathered, ...)."""
     import torch
 
     from blaze_tpu_torch.bench.profile import (CHAINED, chain_bound_ms, cuda_ms,
                                                product_latency_us, work_bound_ms)
     from blaze_tpu_torch.curves import CURVES, Curve
+    from blaze_tpu_torch.curves.kernels import ECKernels
     from blaze_tpu_torch.msm import MSM
 
     spec = CURVES[curve]
     W = spec.fq.nwords
+    counter = ECKernels.for_curve(spec).counter
     G, N, R = MSM(Curve(spec)).plan(n, 16, bits)
     latency_us = product_latency_us(spec, device)
-    emit({"phase": "product_latency", "curve": curve, "W": W, "us": latency_us})
+    emit({"phase": "product_latency", "curve": curve, "W": W * spec.degree, "us": latency_us})
     timing = {}
     for key, name, kern, plain, shape in kernel_cases(spec, -(-N // R), G * R, seed, device,
                                                       main=True, G=G):
@@ -687,13 +744,13 @@ def main_shape_parity(curve: str, n: int, bits, seed: int, sol, errs: dict, devi
         ms = cuda_ms(kern, 3 if big else 20)
         want, plain_ms = once_ms(plain)
         e = output_err(kern(), want)
-        errs[name] = max(errs[name], e)
-        bound, bound_by = work_bound_ms(name, shape, W, sol)
-        timing[key] = {"shape": shape, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-                       "bound_by": bound_by, "max_abs_err": e,
-                       "threads_per_lane": threads_per_lane(name)}
+        bound, bound_by = work_bound_ms(name, shape, W, sol, spec.degree)
+        errs[counter(name)] = max(errs[counter(name)], e)
+        timing[counter(key)] = t = {"shape": shape, "ms": ms, "plain_ms": plain_ms,
+                                    "bound_ms": bound, "bound_by": bound_by, "max_abs_err": e,
+                                    "threads_per_lane": threads_per_lane(counter(name))}
         if name in CHAINED:
-            timing[key]["chain_bound_ms"] = chain_bound_ms(name, shape, latency_us)
+            t["chain_bound_ms"] = chain_bound_ms(name, shape, latency_us)
         del want
         torch.cuda.empty_cache()
     return timing
@@ -1065,6 +1122,69 @@ def phase_msm_2e24(seed: int, n: int = 1 << 24) -> dict:
                              f"{counts['scan_mixed']} rows-form K2, "
                              f"{counts['reduce_buckets']} gathered K4 and "
                              f"{counts['reduce_cols']} rows-form K4 launches for {chunks} chunks")
+    return counts
+
+
+G2_MSM_NEEDS = ("scan_g2_gathered", "ec_g2_add", "reduce_g2_buckets", "reduce_g2_cols",
+                "dbl_g2_n", "fold_g2_horner")
+
+
+def phase_g2_msm_2e24(seed: int, n: int = 1 << 24, U: int = 256) -> dict:
+    """The G2 cell's MSM: n BN254 G2 bases (the plain reference's U points k
+    P2, tiled) resident, n full-width scalars made on the card, MSM.__call__
+    once to capture the chunk's graph, then the launch counters zeroed and
+    one MSM, its result held to the reference's MSM of the class sums in
+    affine form (each of the six F_p words below p, Z nonzero).  Every chunk
+    runs the F_p2 K2 and K4 once each (K4's rows form four times) and no G1
+    EC kernel; K6 once.  Returns the MSM's launch counts."""
+    import numpy as np
+    import torch
+
+    from blaze_tpu_torch import _build
+    from blaze_tpu_torch.curves import CURVES, Curve
+    from blaze_tpu_torch.fields import words_to_int
+    from blaze_tpu_torch.msm import MSM, points_to_resident
+    from zkbench.reference import bn254_g2
+
+    spec = CURVES["bn254_g2"]
+    cv, dev = Curve(spec), torch.device("cuda")
+    pts = bn254_g2.subgroup_points(U, seed + 5)
+    aff = cv.fq.from_int([c for pt in pts for c in pt], mont=False, device=dev)
+    resident = points_to_resident(cv, aff.reshape(U, 2, -1)).repeat(1, n // U).contiguous()
+    g = torch.Generator(device=dev).manual_seed(seed + 6)
+    low = torch.randint(0, 1 << 16, (15, n), generator=g, dtype=torch.int32, device=dev)
+    top = torch.randint(0, spec.fr.p >> 240, (1, n), generator=g, dtype=torch.int32,
+                        device=dev)
+    scal = torch.cat([low, top]).contiguous()
+    msm = MSM(cv)
+    msm(resident, scal)                                   # the captures
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    out = msm(resident, scal)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    counts = dict(_build.LAUNCHES)
+    cols = scal.reshape(16, n // U, U).to(torch.int64).sum(dim=1).cpu()
+    sums = [sum(int(v) << (16 * l) for l, v in enumerate(cols[:, u].tolist())) % spec.fr.p
+            for u in range(U)]
+    words = out.reshape(3, 2, spec.fq.nwords).cpu().numpy().view(np.uint32)
+    X, Y, Z = (tuple(words_to_int(c) for c in coord) for coord in words)
+    ok = max(*X, *Y, *Z) < spec.fq.p and Z != (0, 0)
+    if ok:
+        zi = bn254_g2.inv(Z)
+        ok = (bn254_g2.mul(X, zi), bn254_g2.mul(Y, zi)) == bn254_g2.tiled_msm(pts, sums)
+    chunks = n // msm.plan(n, 16, None)[1]
+    emit({"phase": "msm_g2_2^24_resident", "reference": "match" if ok else "MISMATCH",
+          "n": n, "chunks": chunks, "ms": ms, "launches": counts})
+    if not ok:
+        raise AssertionError("G2 msm 2^24: result differs from the reference")
+    check_launches("msm_g2_2^24", counts, G2_MSM_NEEDS)
+    g1 = {k: counts[k] for k in ("scan_gathered", "scan_mixed", "ec_add", "reduce_buckets",
+                                 "reduce_cols", "dbl_n", "fold_horner") if counts[k]}
+    if (g1 or counts["fold_g2_horner"] != 1 or counts["scan_g2_gathered"] != chunks
+            or counts["reduce_g2_buckets"] != chunks or counts["reduce_g2_cols"] != 4 * chunks):
+        raise AssertionError(f"G2 msm 2^24: launches {counts} for {chunks} chunks")
     return counts
 
 
@@ -2720,6 +2840,8 @@ def main() -> int:
     launches = timed_phase("msm_clients", phase_main_path, args.seed)
     timed_phase("msm_2^19_chunk_graph", phase_chunk_graph, args.seed)
     for k, v in timed_phase("msm_2^24", phase_msm_2e24, args.seed).items():
+        launches[k] += v
+    for k, v in timed_phase("msm_g2_2^24", phase_g2_msm_2e24, args.seed).items():
         launches[k] += v
     timed_phase("msm_2^19_profile", fresh, "profile_single_chunk", args.seed)
     ntt_errs, ntt_timing = timed_phase("ntt_parity", phase_ntt_parity, sol, args.seed, dev)

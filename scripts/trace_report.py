@@ -111,7 +111,8 @@ def report(name: str, seed: int, seconds: float, device: str = "cuda", cell=None
     out["marks_device_us_per_job"] = sum(mark_ops) / jobs
     if mark_ops:
         stages = {s: 1e3 * marks.stage_s(tr, s) / jobs for s in MSM_STAGES}
-        k2 = sum(d for n, _, d in inside if "scan_mixed_kernel" in n) / 1e3 / jobs
+        k2 = sum(d for n, _, d in inside
+                 if "scan_mixed_kernel" in n or "scan_g2_" in n) / 1e3 / jobs
         out["stage_device_ms_per_msm"] = stages
         out["k2_ms_per_msm"] = k2
         out["stage_split_ms_per_msm"], out["stage_top_ops"] = stage_split(tr, inside, jobs)

@@ -29,8 +29,11 @@ the chunks of one MSM, and a capture that fails raising; a traced
 replay split by its stage marks (trace.py), in a fresh process; the
 precompute mode on resident operands: the 8x MSM of 2^20 BN254 bases
 against the class sums and the plain MSM, and precompute_resident over
-2^22 distinct bases against precompute_points.  chip_smoke.py runs the
-same checks at the main path's sizes.
+2^22 distinct bases against precompute_points; BN254's G2: K2-K6's F_p2
+instances (rows and gathered forms) against their plain versions at
+ragged lane counts, each counted under its own key, and a 2^20 G2 MSM
+through the chunk graph against the plain reference in Python ints.
+chip_smoke.py runs the G1 checks at the main path's sizes.
 """
 import random
 from pathlib import Path
@@ -42,6 +45,7 @@ import torch
 
 from blaze_tpu_torch.curves import (
     CURVES,
+    G1_CURVES,
     Curve,
     decode_projective_result,
     encode_affine_points,
@@ -90,7 +94,7 @@ def dev():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("name", sorted(CURVES))
+@pytest.mark.parametrize("name", sorted(G1_CURVES))
 def test_kernels_match_plain_versions(dev, name):
     spec = CURVES[name]
     cv, k = Curve(spec), ECKernels.for_curve(spec)
@@ -119,7 +123,7 @@ def test_kernels_match_plain_versions(dev, name):
 
 
 @pytest.mark.parametrize("B", [1, 33, 1000])
-@pytest.mark.parametrize("name", sorted(CURVES))
+@pytest.mark.parametrize("name", sorted(G1_CURVES))
 def test_team_kernels_match_plain_at_ragged_shapes(dev, name, B):
     """K2 (unsigned and signed, C = 1 and 4) and K4 (C = 1, and 4 rows that
     hold identities) at ragged lane counts, exact."""
@@ -148,7 +152,7 @@ def test_team_kernels_match_plain_at_ragged_shapes(dev, name, B):
         assert torch.equal(k.reduce_cols(x), k.reduce_cols_plain(x)), C
 
 
-@pytest.mark.parametrize("name", sorted(CURVES))
+@pytest.mark.parametrize("name", sorted(G1_CURVES))
 def test_scan_gathered_matches_rows_form(dev, name):
     """K2 reading its points through the sort (scan_gathered) equals K2 on
     the rows made from them (scan_mixed of gathered_rows), word for word,
@@ -215,7 +219,7 @@ def test_reduce_buckets_matches_rows_form(dev, name, G, signed):
     assert torch.equal(got, k.reduce_buckets_plain(emitted, x, bounds, C, R, B))
 
 
-@pytest.mark.parametrize("name", sorted(CURVES))
+@pytest.mark.parametrize("name", sorted(G1_CURVES))
 def test_fold_and_doublings_match_plain_at_ragged_shapes(dev, name):
     """K5 at B = 1, 33, 1000 (k 15 and 16) and K6 at Wn = 1, 2, 16, 20 (and
     128 on the 12-word curves, past 48 KB of shared memory), identity
@@ -328,7 +332,7 @@ def test_ntt_base_at_the_2e27_levels(dev, depth):
 
 
 @pytest.mark.parametrize("B", [1, 33, 1000])
-@pytest.mark.parametrize("name", sorted(CURVES))
+@pytest.mark.parametrize("name", sorted(G1_CURVES))
 def test_ec_add_matches_plain_at_ragged_shapes(dev, name, B):
     """K3 at ragged lane counts, exact: distinct lazy points, p = q, and
     identities as either operand."""
@@ -783,7 +787,7 @@ def affine_ints(spec, out):
     return (X * zi % spec.fq.p, Y * zi % spec.fq.p)
 
 
-@pytest.mark.parametrize("name", sorted(CURVES))
+@pytest.mark.parametrize("name", sorted(G1_CURVES))
 def test_replayed_chunk_matches_eager_and_oracle(dev, name):
     """A chunk shape's first chunk (the capture's eager warm-up) and its
     replays equal `_fused_chunk` run eagerly word for word, and a second
@@ -1096,3 +1100,143 @@ def test_product_forms_equal_k0_on_the_card(dev, field):
         want = probe_chain(spec, "mont", x, b, M)
         for body in PRODUCT_BODIES:
             assert torch.equal(probe_chain(spec, body, x, b, M), want), (body, M)
+
+
+# ------------------------------------------------------------ BN254's G2
+def g2_rows(cv, B: int, C: int, seed: int, dev):
+    """(C, 2W, B) Montgomery affine rows of 16 G2 points k P2 (the plain
+    reference's), W = 16, and a (C, 1, B) 0/1 sign row."""
+    from zkbench.reference import bn254_g2
+
+    pts = bn254_g2.subgroup_points(16, seed)
+    aff = cv.fq.from_int([c for pt in pts for c in pt], device=dev).reshape(16, 2, -1)
+    idx = torch.from_numpy(np.random.default_rng(seed).integers(0, 16, size=C * B)).to(dev)
+    rows = aff[idx].reshape(C, B, -1).permute(0, 2, 1).contiguous()
+    sgn = torch.randint(0, 2, (C, 1, B), dtype=torch.int32,
+                        generator=torch.Generator().manual_seed(seed)).to(dev)
+    return rows, torch.cat([rows, sgn], dim=1).contiguous()
+
+
+def launched(before: dict) -> dict:
+    return {k: v - before[k] for k, v in _build.LAUNCHES.items() if v != before[k]}
+
+
+@pytest.mark.parametrize("B", [1, 33, 256])
+def test_g2_kernels_match_plain_versions(dev, B):
+    """K2 (rows; unsigned and signed, C = 1 and 4), K3 (p = q and
+    identities among its operands), K4 (rows, identities among them), K5 and
+    K6 (Wn 1, 6, 16 and 40, past 48 KB of shared memory) on F_p2
+    coordinates against their plain versions, word for word, at ragged lane
+    counts; each launch counted under its `_fp2` key and none under G1's;
+    the one-thread F_p2 product chain too."""
+    spec = CURVES["bn254_g2"]
+    cv, k = Curve(spec), ECKernels.for_curve(spec)
+    rows, rows_s = g2_rows(cv, B, 4, B + 3, dev)
+    for r in (rows, rows_s):
+        for C in (1, 4):
+            x = r[:C].contiguous()
+            before = dict(_build.LAUNCHES)
+            got = k.scan_mixed(x)
+            assert launched(before) == {"scan_g2_mixed": 1}
+            want = k.scan_mixed_plain(x)
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), (C, r.shape)
+    em = got[0]
+    ident = cv.identity(device=dev).reshape(-1, 1)
+    p, q = em[1].clone(), em[3].clone()
+    p[:, ::3] = ident
+    q[:, 1::3] = p[:, 1::3]
+    before = dict(_build.LAUNCHES)
+    assert torch.equal(k.add(p, q), k.add_plain(p, q))
+    rc = em.clone()
+    rc[1, :, ::3] = ident
+    assert torch.equal(k.reduce_cols(rc), k.reduce_cols_plain(rc))
+    assert torch.equal(k.dbl_n(p, 5), k.dbl_n_plain(p, 5))
+    assert launched(before) == {"ec_g2_add": 1, "reduce_g2_cols": 1, "dbl_g2_n": 1}
+    if B == 256:
+        lazy = torch.cat([em[c] for c in range(4)], dim=1)           # (48, 1024)
+        lazy[:, 5::7] = ident
+        for Wn, c in ((1, 13), (6, 5), (16, 16), (40, 2)):
+            ws = lazy[:, 100:100 + Wn].contiguous()
+            assert torch.equal(k.fold_horner(ws, c), k.fold_horner_plain(ws, c)), (Wn, c)
+        x, y = em[0, :, 0].contiguous()[:16], em[1, :, 1].contiguous()[16:32]
+        assert torch.equal(k.product_chain(x, y, 7).cpu(),
+                           k.product_chain_plain(x.cpu(), y.cpu(), 7))
+
+
+def test_g2_gathered_forms_match_rows_forms(dev):
+    """K2 through the sort (scan_gathered) and K4 through the bounds
+    (reduce_buckets) on F_p2 against their rows forms and plain versions,
+    word for word, unsigned and signed; counted under scan_g2_gathered and
+    reduce_g2_buckets."""
+    from blaze_tpu_torch.oracle.gen import rand_words
+
+    spec = CURVES["bn254_g2"]
+    k = ECKernels.for_curve(spec)
+    N, R, G = 1000, 32, 3
+    C = -(-N // R)
+    pts = rand_words(spec.fq, (4, 8, N), 5, dev).reshape(32, N)
+    g = torch.Generator(device=dev).manual_seed(N)
+    key = torch.randint(0, 1 << 9, (G, N), generator=g, dtype=torch.int64, device=dev)
+    order = torch.argsort(key, dim=-1, stable=True)
+    for sk in (None, key):
+        before = dict(_build.LAUNCHES)
+        got = k.scan_gathered(pts, order, R, C, sk)
+        assert launched(before) == {"scan_g2_gathered": 1}
+        want = k.scan_mixed(k.gathered_rows(pts, order, R, C, sk))
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), sk is None
+        plain = k.scan_gathered_plain(pts, order, R, C, sk)
+        assert torch.equal(got[0], plain[0]) and torch.equal(got[1], plain[1])
+    G, R, C = 2, 16, 24
+    for c in (6, 7):
+        B = 1 << c if c == 6 else (1 << (c - 1)) + 1
+        emitted = rand_words(spec.fq, (6 * C, 8, G * R), c, dev).reshape(C, 48, G * R)
+        x = rand_words(spec.fq, (6, 8, G * R), c + 1, dev).reshape(48, G * R)
+        g = torch.Generator(device=dev).manual_seed(c)
+        digits = torch.randint(0, B, (G, R * C), generator=g, dtype=torch.int64, device=dev)
+        digits[0] = digits[0].clamp(min=3)
+        hist = torch.zeros((G, B), dtype=torch.int64, device=dev)
+        hist.scatter_add_(1, digits, torch.ones_like(digits))
+        bounds = torch.cumsum(hist, dim=-1) - 1
+        before = dict(_build.LAUNCHES)
+        got = k.reduce_buckets(emitted, x, bounds, C, R, B)
+        assert launched(before) == {"reduce_g2_buckets": 1}
+        assert torch.equal(got, k.reduce_cols(k.bucket_rows(emitted, x, bounds, C, R, B)))
+        assert torch.equal(got, k.reduce_buckets_plain(emitted, x, bounds, C, R, B))
+
+
+def test_g2_msm_2e20_matches_reference(dev):
+    """A 2^20-point G2 MSM (16 bases k P2 tiled, full-width scalars made on
+    the card) through MSM.__call__ on resident bases: two chunks, each a
+    replay of the chunk's CUDA graph, equal in affine form to the plain
+    reference's MSM of the class sums, each of the six F_p words of the
+    result canonical and Z nonzero; the chunks launch the F_p2 kernels
+    alone."""
+    from blaze_tpu_torch.msm import MSM
+    from zkbench.reference import bn254_g2
+
+    spec = CURVES["bn254_g2"]
+    cv = Curve(spec)
+    n, U = 1 << 20, 16
+    pts = bn254_g2.subgroup_points(U, 41)
+    aff = cv.fq.from_int([c for pt in pts for c in pt], mont=False, device=dev)
+    resident = points_to_resident(cv, aff.reshape(U, 2, -1)).repeat(1, n // U).contiguous()
+    g = torch.Generator(device=dev).manual_seed(43)
+    low = torch.randint(0, 1 << 16, (15, n), generator=g, dtype=torch.int32, device=dev)
+    top = torch.randint(0, spec.fr.p >> 240, (1, n), generator=g, dtype=torch.int32,
+                        device=dev)
+    scal = torch.cat([low, top]).contiguous()
+    msm = MSM(cv)
+    msm(resident, scal)                                   # the capture
+    before = dict(_build.LAUNCHES)
+    out = msm(resident, scal)
+    counts = launched(before)
+    assert counts["scan_g2_gathered"] == 2 and counts["fold_g2_horner"] == 1
+    assert not {"scan_gathered", "reduce_buckets", "ec_add", "fold_horner"} & set(counts)
+    cols = scal.reshape(16, n // U, U).to(torch.int64).sum(dim=1).cpu()
+    sums = [sum(int(v) << (16 * l) for l, v in enumerate(cols[:, u].tolist())) % spec.fr.p
+            for u in range(U)]
+    words = out.reshape(3, 2, 8).cpu().numpy().view(np.uint32)
+    X, Y, Z = (tuple(words_to_int(c) for c in coord) for coord in words)
+    assert max(*X, *Y, *Z) < spec.fq.p and Z != (0, 0)
+    zi = bn254_g2.inv(Z)
+    assert (bn254_g2.mul(X, zi), bn254_g2.mul(Y, zi)) == bn254_g2.tiled_msm(pts, sums)

@@ -19,6 +19,7 @@ from blaze_tpu.curves import CURVES as REF_CURVES, Curve as RefCurve
 from blaze_tpu.curves.kernels import ECKernels as RefECKernels
 from blaze_tpu_torch.curves import (
     CURVES,
+    G1_CURVES,
     Curve,
     decode_affine_points,
     decode_projective_result,
@@ -160,7 +161,7 @@ def test_curve_group_law_matches_reference(name):
     assert tuple(cv.fq.to_int(aff)) == oracle.add(a, b)
 
 
-@pytest.mark.parametrize("name", sorted(CURVES))
+@pytest.mark.parametrize("name", sorted(G1_CURVES))
 def test_point_codecs_round_trip(name):
     spec = CURVES[name]
     oracle = ECOracle(spec)

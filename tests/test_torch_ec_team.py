@@ -6,9 +6,11 @@ last to first (a task that read another member's output of the same step, a
 race on the card, gives a different result in one of the two).  Its outputs
 must equal the plain versions of K2-K6 (held limb for limb
 against blaze_tpu's Pallas kernels in tests/test_torch_curves.py) and its
-product, add and sub the plain lazy field ops, on the three curves.  K6's
-driver stages the next window's coordinates in the same step as OUT_4, as
-the kernel does.  Skipped without g++.
+product, add and sub the plain lazy field ops, on the three curves' G1
+(F_p coordinates, Fp<W>) and on BN254's G2 (F_p2, Fp2<8>: its points from
+zkbench/reference/bn254_g2.py).  K6's host loop stages the next window's
+coordinates in the same step as OUT_4, as the kernel does.  Skipped
+without g++.
 """
 import ctypes
 import random
@@ -24,6 +26,7 @@ from blaze_tpu_torch.curves import CURVES, Curve
 from blaze_tpu_torch.curves.kernels import ECKernels
 from blaze_tpu_torch.fields.kernel_ops import words_to_limbs16
 from blaze_tpu_torch.oracle import ECOracle
+from zkbench.reference import bn254_g2
 
 torch.set_num_threads(1)
 
@@ -36,29 +39,41 @@ HOST_DRIVER = r"""
 
 namespace tm = blz::team;
 
+// The constants of coordinate field F from the host block.
+template <class F>
+struct Load;
+template <int W>
+struct Load<tm::Fp<W>> {
+  static blz::FieldConsts<W> from(const uint32_t* h) { return blz::load_consts<W>(h); }
+};
+template <int W>
+struct Load<tm::Fp2<W>> {
+  static tm::Fp2Consts<W> from(const uint32_t* h) { return tm::load_consts2<W>(h); }
+};
+
 // One step of one lane: every member's tasks, role by role, the members
 // in order or in reverse.
-template <int S, int W>
-void step(const tm::Slots<W, 1>& sl, const blz::FieldConsts<W>& fc, int rev) {
-  for (int i = 0; i < tm::kTeam; ++i) tm::run_step<S, W>(rev ? tm::kTeam - 1 - i : i, sl, fc);
+template <int S, class F>
+void step(const tm::Slots<F::kWords, 1>& sl, const typename F::Consts& fc, int rev) {
+  for (int i = 0; i < tm::kTeam; ++i) tm::run_step<S, F>(rev ? tm::kTeam - 1 - i : i, sl, fc);
 }
 
 // One group op: the steps in order (the kernels' barriers).
-template <int S1, int S2, int W>
-void group_op(const tm::Slots<W, 1>& sl, const blz::FieldConsts<W>& fc, int rev) {
-  step<S1, W>(sl, fc, rev);
-  step<S2, W>(sl, fc, rev);
-  step<tm::OUT_3, W>(sl, fc, rev);
-  step<tm::OUT_4, W>(sl, fc, rev);
+template <int S1, int S2, class F>
+void group_op(const tm::Slots<F::kWords, 1>& sl, const typename F::Consts& fc, int rev) {
+  step<S1, F>(sl, fc, rev);
+  step<S2, F>(sl, fc, rev);
+  step<tm::OUT_3, F>(sl, fc, rev);
+  step<tm::OUT_4, F>(sl, fc, rev);
 }
 
-template <int W>
-void init(const tm::Slots<W, 1>& sl, const blz::FieldConsts<W>& fc) {
-  uint32_t zero[W] = {};
+template <class F>
+void init(const tm::Slots<F::kWords, 1>& sl, const typename F::Consts& fc) {
+  uint32_t zero[F::kWords] = {};
   sl.store(tm::X1, zero);
-  sl.store(tm::Y1, fc.one);
+  sl.store(tm::Y1, F::one(fc));
   sl.store(tm::Z1, zero);
-  sl.store(tm::B3, fc.b3);
+  sl.store(tm::B3, F::b3(fc));
 }
 
 template <int W>
@@ -70,15 +85,16 @@ void put(uint32_t* dst, const tm::Slots<W, 1>& sl, int64_t B) {
   }
 }
 
-template <int W>
+template <class F>
 void scan(const uint32_t* consts, int is_signed, const uint32_t* rows, uint32_t* emitted,
           uint32_t* tot, int C, int64_t B, int rev) {
-  const auto fc = blz::load_consts<W>(consts);
+  constexpr int W = F::kWords;
+  const auto fc = Load<F>::from(consts);
   const int nrows = 2 * W + is_signed;
   uint4 mem[tm::kSlots * W / 4];
   const tm::Slots<W, 1> sl{mem};
   for (int64_t b = 0; b < B; ++b) {
-    init<W>(sl, fc);
+    init<F>(sl, fc);
     for (int c = 0; c < C; ++c) {
       const uint32_t* row = rows + (int64_t)c * nrows * B + b;
       uint32_t x[W], y[W];
@@ -86,31 +102,32 @@ void scan(const uint32_t* consts, int is_signed, const uint32_t* rows, uint32_t*
         x[w] = row[w * B];
         y[w] = row[(W + w) * B];
       }
-      if (is_signed && row[2 * W * B] != 0) tm::sub_lazy<W>(y, fc.p2, y, fc);
+      if (is_signed && row[2 * W * B] != 0) F::neg(y, y, fc);
       sl.store(tm::X2, x);
       sl.store(tm::Y2, y);
-      group_op<tm::MIXED_1, tm::MIXED_2, W>(sl, fc, rev);
+      group_op<tm::MIXED_1, tm::MIXED_2, F>(sl, fc, rev);
       put<W>(emitted + (int64_t)c * 3 * W * B + b, sl, B);
     }
     put<W>(tot + b, sl, B);
   }
 }
 
-template <int W>
+template <class F>
 void reduce(const uint32_t* consts, const uint32_t* rows, uint32_t* tot, int C, int64_t B,
             int rev) {
-  const auto fc = blz::load_consts<W>(consts);
+  constexpr int W = F::kWords;
+  const auto fc = Load<F>::from(consts);
   uint4 mem[tm::kSlots * W / 4];
   const tm::Slots<W, 1> sl{mem};
   for (int64_t b = 0; b < B; ++b) {
-    init<W>(sl, fc);
+    init<F>(sl, fc);
     for (int c = 0; c < C; ++c) {
       for (int k = 0; k < 3; ++k) {
         uint32_t v[W];
         for (int w = 0; w < W; ++w) v[w] = rows[((int64_t)c * 3 * W + k * W + w) * B + b];
         sl.store(tm::X2 + k, v);
       }
-      group_op<tm::FULL_1, tm::FULL_2, W>(sl, fc, rev);
+      group_op<tm::FULL_1, tm::FULL_2, F>(sl, fc, rev);
     }
     put<W>(tot + b, sl, B);
   }
@@ -118,10 +135,11 @@ void reduce(const uint32_t* consts, const uint32_t* rows, uint32_t* tot, int C, 
 
 // K3's schedule: p + q for each of B lanes (3W, B), p in slot 1 and q in
 // slot 2, one FULL_1 group op.
-template <int W>
+template <class F>
 void add(const uint32_t* consts, const uint32_t* p, const uint32_t* q, uint32_t* o,
          int64_t B, int rev) {
-  const auto fc = blz::load_consts<W>(consts);
+  constexpr int W = F::kWords;
+  const auto fc = Load<F>::from(consts);
   uint4 mem[tm::kSlots * W / 4];
   const tm::Slots<W, 1> sl{mem};
   for (int64_t b = 0; b < B; ++b) {
@@ -134,16 +152,17 @@ void add(const uint32_t* consts, const uint32_t* p, const uint32_t* q, uint32_t*
       sl.store(tm::X1 + c, u);
       sl.store(tm::X2 + c, v);
     }
-    sl.store(tm::B3, fc.b3);
-    group_op<tm::FULL_1, tm::FULL_2, W>(sl, fc, rev);
+    sl.store(tm::B3, F::b3(fc));
+    group_op<tm::FULL_1, tm::FULL_2, F>(sl, fc, rev);
     put<W>(o + b, sl, B);
   }
 }
 
 // k doublings of each of B lanes (3W, B), DBL_1 each.
-template <int W>
+template <class F>
 void dbl(const uint32_t* consts, const uint32_t* p, uint32_t* o, int k, int64_t B, int rev) {
-  const auto fc = blz::load_consts<W>(consts);
+  constexpr int W = F::kWords;
+  const auto fc = Load<F>::from(consts);
   uint4 mem[tm::kSlots * W / 4];
   const tm::Slots<W, 1> sl{mem};
   for (int64_t b = 0; b < B; ++b) {
@@ -152,8 +171,8 @@ void dbl(const uint32_t* consts, const uint32_t* p, uint32_t* o, int k, int64_t 
       for (int w = 0; w < W; ++w) v[w] = p[(c * W + w) * B + b];
       sl.store(tm::X1 + c, v);
     }
-    sl.store(tm::B3, fc.b3);
-    for (int s = 0; s < k; ++s) group_op<tm::DBL_1, tm::FULL_2, W>(sl, fc, rev);
+    sl.store(tm::B3, F::b3(fc));
+    for (int s = 0; s < k; ++s) group_op<tm::DBL_1, tm::FULL_2, F>(sl, fc, rev);
     put<W>(o + b, sl, B);
   }
 }
@@ -162,9 +181,10 @@ void dbl(const uint32_t* consts, const uint32_t* p, uint32_t* o, int k, int64_t 
 // Wn - 2 - s / (c + 1) when s % (c + 1) == c and doubles otherwise; member
 // k < 3 stages coordinate k of the next step's window right after its
 // tasks of OUT_4.
-template <int W>
+template <class F>
 void fold(const uint32_t* consts, const uint32_t* ws, uint32_t* o, int c, int Wn, int rev) {
-  const auto fc = blz::load_consts<W>(consts);
+  constexpr int W = F::kWords;
+  const auto fc = Load<F>::from(consts);
   uint4 mem[tm::kSlots * W / 4];
   const tm::Slots<W, 1> sl{mem};
   auto put_window = [&](int slot, int m, int w) {
@@ -174,16 +194,16 @@ void fold(const uint32_t* consts, const uint32_t* ws, uint32_t* o, int c, int Wn
   };
   const int steps = (Wn - 1) * (c + 1) > 1 ? (Wn - 1) * (c + 1) : 1;
   for (int m = 0; m < 3; ++m) put_window(tm::X1, m, Wn - 1);
-  sl.store(tm::B3, fc.b3);
+  sl.store(tm::B3, F::b3(fc));
   for (int s = 0; s < steps; ++s) {
-    if (s % (c + 1) == c) step<tm::FULL_1, W>(sl, fc, rev);
-    else step<tm::DBL_1, W>(sl, fc, rev);
-    step<tm::FULL_2, W>(sl, fc, rev);
-    step<tm::OUT_3, W>(sl, fc, rev);
+    if (s % (c + 1) == c) step<tm::FULL_1, F>(sl, fc, rev);
+    else step<tm::DBL_1, F>(sl, fc, rev);
+    step<tm::FULL_2, F>(sl, fc, rev);
+    step<tm::OUT_3, F>(sl, fc, rev);
     const int n = s + 1;
     for (int i = 0; i < tm::kTeam; ++i) {
       const int m = rev ? tm::kTeam - 1 - i : i;
-      tm::run_step<tm::OUT_4, W>(m, sl, fc);
+      tm::run_step<tm::OUT_4, F>(m, sl, fc);
       if (m < 3 && n < steps && n % (c + 1) == c) put_window(tm::X2, m, Wn - 2 - n / (c + 1));
     }
   }
@@ -192,51 +212,52 @@ void fold(const uint32_t* consts, const uint32_t* ws, uint32_t* o, int c, int Wn
 
 // r = a op b for n elements (op 0 product, 1 add, 2 sub), the team's own
 // field functions.
-template <int W>
+template <class F>
 void field(const uint32_t* consts, int op, const uint32_t* a, const uint32_t* b,
            uint32_t* r, int64_t n) {
-  const auto fc = blz::load_consts<W>(consts);
+  constexpr int W = F::kWords;
+  const auto fc = Load<F>::from(consts);
   for (int64_t i = 0; i < n; ++i) {
-    if (op == 0) blz::mont_mul_cc<W, true>(r + i * W, a + i * W, b + i * W, fc);
-    else if (op == 1) tm::add_lazy<W>(r + i * W, a + i * W, b + i * W, fc);
-    else tm::sub_lazy<W>(r + i * W, a + i * W, b + i * W, fc);
+    if (op == 0) F::mul(r + i * W, a + i * W, b + i * W, fc);
+    else if (op == 1) F::add(r + i * W, a + i * W, b + i * W, fc);
+    else F::sub(r + i * W, a + i * W, b + i * W, fc);
   }
 }
 
+// W, a coordinate's words: 8 and 12 are F_p, 16 is F_p2 over 8 words.
+#define BY_W(call)                                                    \
+  if (W == 8) { using F = tm::Fp<8>; call; }                          \
+  else if (W == 12) { using F = tm::Fp<12>; call; }                   \
+  else { using F = tm::Fp2<8>; call; }
+
 extern "C" void team_scan(int W, const uint32_t* k, int s, const uint32_t* rows,
                           uint32_t* e, uint32_t* t, int C, int64_t B, int rev) {
-  if (W == 8) scan<8>(k, s, rows, e, t, C, B, rev);
-  else scan<12>(k, s, rows, e, t, C, B, rev);
+  BY_W(scan<F>(k, s, rows, e, t, C, B, rev))
 }
 
 extern "C" void team_reduce(int W, const uint32_t* k, const uint32_t* rows, uint32_t* t,
                             int C, int64_t B, int rev) {
-  if (W == 8) reduce<8>(k, rows, t, C, B, rev);
-  else reduce<12>(k, rows, t, C, B, rev);
+  BY_W(reduce<F>(k, rows, t, C, B, rev))
 }
 
 extern "C" void team_add(int W, const uint32_t* k, const uint32_t* p, const uint32_t* q,
                          uint32_t* o, int64_t B, int rev) {
-  if (W == 8) add<8>(k, p, q, o, B, rev);
-  else add<12>(k, p, q, o, B, rev);
+  BY_W(add<F>(k, p, q, o, B, rev))
 }
 
 extern "C" void team_dbl(int W, const uint32_t* k, const uint32_t* p, uint32_t* o, int n,
                          int64_t B, int rev) {
-  if (W == 8) dbl<8>(k, p, o, n, B, rev);
-  else dbl<12>(k, p, o, n, B, rev);
+  BY_W(dbl<F>(k, p, o, n, B, rev))
 }
 
 extern "C" void team_fold(int W, const uint32_t* k, const uint32_t* ws, uint32_t* o, int c,
                           int Wn, int rev) {
-  if (W == 8) fold<8>(k, ws, o, c, Wn, rev);
-  else fold<12>(k, ws, o, c, Wn, rev);
+  BY_W(fold<F>(k, ws, o, c, Wn, rev))
 }
 
 extern "C" void team_field(int W, const uint32_t* k, int op, const uint32_t* a,
                            const uint32_t* b, uint32_t* r, int64_t n) {
-  if (W == 8) field<8>(k, op, a, b, r, n);
-  else field<12>(k, op, a, b, r, n);
+  BY_W(field<F>(k, op, a, b, r, n))
 }
 """
 
@@ -266,14 +287,22 @@ def ptr(x) -> int:
     return x.ctypes.data if isinstance(x, np.ndarray) else x.data_ptr()
 
 
+def curve_points(name: str, n: int, seed: int) -> list:
+    """n affine points of the curve as ints (pairs of F_p2 pairs on G2):
+    the oracle's on G1, the reference's k P2 on G2."""
+    if CURVES[name].degree == 2:
+        return bn254_g2.subgroup_points(n, seed)
+    rng = random.Random(seed)
+    oracle = ECOracle(CURVES[name])
+    return [oracle.random_point(rng) for _ in range(n)]
+
+
 def affine_rows(name: str, C: int, B: int, seed: int):
     """(C, 2W, B) Montgomery affine rows of 16 oracle points and a (C, 1, B)
     0/1 sign row."""
     spec = CURVES[name]
     cv = Curve(spec)
-    rng = random.Random(seed)
-    oracle = ECOracle(spec)
-    pts = [oracle.random_point(rng) for _ in range(16)]
+    pts = curve_points(name, 16, seed)
     aff = torch.stack([cv.fq.from_int([x for x, _ in pts]),
                        cv.fq.from_int([y for _, y in pts])], dim=1)      # (16, 2, W)
     idx = torch.from_numpy(np.random.default_rng(seed).integers(0, 16, size=C * B))
@@ -382,12 +411,16 @@ def test_team_field_ops_match_plain(lib, name):
     p = fq.p
     edge = [0, 1, p - 1, p, 2 * p - 1]
     vals = edge + [rng.randrange(2 * p) for _ in range(59)]
+    if CURVES[name].degree == 2:        # F_p2: c1 from the edges and at random too
+        vals = [(v, w) for v, w in zip(vals, vals[5:] + edge)][:40]
     a_int = [v for v in vals for _ in vals]
     b_int = [v for _ in vals for v in vals]
 
     def words(ints):
-        return np.stack([np.frombuffer(v.to_bytes(4 * k.W, "little"), dtype="<u4")
-                         for v in ints]).astype(np.uint32)
+        return np.stack([np.frombuffer(b"".join(c.to_bytes(4 * fq.nwords, "little")
+                                                for c in np.atleast_1d(
+                                                    np.array(v, dtype=object))),
+                                       dtype="<u4") for v in ints]).astype(np.uint32)
 
     a, b = words(a_int), words(b_int)
     for op, plain in enumerate((k.ops.mul, k.ops.add, k.ops.sub)):

@@ -32,7 +32,7 @@ from blaze_tpu.msm import MSMConfig as RefMSMConfig
 from blaze_tpu.native import codec as ref_codec
 import blaze_tpu_torch.native as native
 from blaze_tpu_torch import _build
-from blaze_tpu_torch.curves import CURVES, Curve
+from blaze_tpu_torch.curves import CURVES, G1_CURVES, Curve
 from blaze_tpu_torch.dist import init_distributed, make_mesh, replicated, shard_leading
 from blaze_tpu_torch.fields import FIELDS, Field
 from blaze_tpu_torch.fields import codec as field_codec
@@ -132,7 +132,7 @@ def ref_affine_ints(ref: RefCurve, p) -> list:
             for X, Y, Z in ref.fq.to_int(p)]
 
 
-@pytest.mark.parametrize("name", sorted(CURVES))
+@pytest.mark.parametrize("name", sorted(G1_CURVES))
 def test_on_curve_matches_jax(name):
     """on_curve: true for subgroup points and the identity, false for a
     point with one bit of Y flipped; equal to blaze_tpu's Curve.on_curve."""
@@ -147,7 +147,7 @@ def test_on_curve_matches_jax(name):
     assert np.asarray(want).tolist() == got.tolist()
 
 
-@pytest.mark.parametrize("name", sorted(CURVES))
+@pytest.mark.parametrize("name", sorted(G1_CURVES))
 def test_add_mixed_matches_add_and_the_oracle(name):
     """add_mixed(Q, A) equals add(Q, from_affine(A)) and the oracle's 2B + A,
     in affine ints, on bn254 also blaze_tpu's add_mixed (jitted: one
@@ -165,7 +165,7 @@ def test_add_mixed_matches_add_and_the_oracle(name):
     assert affine_ints(cv, cv.add_mixed(cv.identity((4,)), aff)) == pts
 
 
-@pytest.mark.parametrize("name", sorted(CURVES))
+@pytest.mark.parametrize("name", sorted(G1_CURVES))
 def test_is_identity_and_select(name):
     cv, _, _, _, aff = curve_case(name)
     P = cv.from_affine(aff)
@@ -175,7 +175,7 @@ def test_is_identity_and_select(name):
     assert torch.equal(pick[0], P[0]) and torch.equal(pick[1], cv.neg(P)[1])
 
 
-@pytest.mark.parametrize("name", sorted(CURVES))
+@pytest.mark.parametrize("name", sorted(G1_CURVES))
 def test_scalar_mul_matches_oracle(name):
     """scalar_mul by 0, 5 and r - 1 over 4 points equals ECOracle.mul."""
     cv, _, oracle, pts, aff = curve_case(name)
@@ -286,7 +286,7 @@ def words_int(row) -> int:
 def test_curve_nlimbs_and_msm_windows_match_jax():
     """Curve.nlimbs (16-bit limbs, 2 W) and MSMConfig.windows against
     blaze_tpu's on every curve and at several window widths."""
-    for name in sorted(CURVES):
+    for name in sorted(G1_CURVES):
         cv = Curve(CURVES[name])
         assert cv.nlimbs == RefCurve(REF_CURVES[name]).nlimbs == 2 * cv.nwords
     for c in (1, 4, 13, 16):

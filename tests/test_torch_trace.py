@@ -86,6 +86,37 @@ def test_marks_are_program_kernels_by_name():
         assert [o for o in keys if o != k and k + "_" in o + "_kernel"] == []
 
 
+def test_g2_kernels_count_under_their_own_keys():
+    """The EC kernels' F_p2 instances (BN254 G2) map to their own keys, in
+    the port's launch_key and the benchmark's (zkbench/tracing.py), though
+    their names also hold a G1 key's operand source; G1's names stay
+    G1's."""
+    from zkbench import tracing
+
+    names = {
+        "scan_g2_gathered": "void (anonymous namespace)::scan_g2_gathered_kernel<8, true>("
+                            "(anonymous namespace)::scan_gathered_fetch, unsigned int*)",
+        "scan_g2_mixed": "void (anonymous namespace)::scan_g2_mixed_kernel<8, false>("
+                         "(anonymous namespace)::scan_rows_fetch, unsigned int*)",
+        "reduce_g2_buckets": "void (anonymous namespace)::reduce_g2_buckets_kernel<8>("
+                             "(anonymous namespace)::reduce_buckets_fetch, unsigned int*)",
+        "reduce_g2_cols": "void (anonymous namespace)::reduce_g2_cols_kernel<8>("
+                          "(anonymous namespace)::reduce_rows_fetch, unsigned int*)",
+        "ec_g2_add": "void (anonymous namespace)::ec_g2_add_kernel<8>(unsigned int const*)",
+        "dbl_g2_n": "void (anonymous namespace)::dbl_g2_n_kernel<8>(unsigned int const*)",
+        "fold_g2_horner": "void (anonymous namespace)::fold_g2_horner_kernel<8>(unsigned int*)",
+        "scan_gathered": "void (anonymous namespace)::scan_mixed_kernel<8, true, "
+                         "(anonymous namespace)::scan_gathered_fetch>(...)",
+        "reduce_buckets": "void (anonymous namespace)::reduce_cols_kernel<8, "
+                          "(anonymous namespace)::reduce_buckets_fetch>(...)",
+    }
+    for key, name in names.items():
+        assert launch_key(name) == key
+        assert tracing.launch_key(name, tuple(_build.LAUNCHES)) == key
+    traced = traced_launches([(n, 2) for n in names.values()])
+    check_trace(traced, {k: 2 for k in names}, "G1 and G2")
+
+
 def test_no_profiler_no_span_and_no_mark_on_the_cpu():
     assert not torch.autograd._profiler_enabled()
     assert trace.span("blaze.msm.call") is trace.span("blaze.tree.root", 3)
